@@ -1,0 +1,262 @@
+"""AmoebaNet-D, plain form (twin of ``mpi4dl_tpu/models/amoebanet.py``).
+
+Same genotype tables, cell DAG and ``(concat, skip)`` tuple state as the
+JAX model (reference ``src/models/amoebanet.py``), with the same two
+deliberate deviations from the reference: ``max_pool_3x3`` is a real max
+pool, and ``FactorizedReduce`` feeds both 1x1 convs the same input.
+Submodule names follow the Flax modules (``reduce1.conv.conv.kernel``,
+``op3.bn0.scale`` ...). No spatial form and no D2 form yet.
+
+Widths are passed explicitly (Flax infers them at first call): every cell
+state carries ``channels`` channels; a cell's inputs carry
+``channels_prev`` (s1) and ``channels_prev_prev`` (s2).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from mpi4dl_tpu_torch.ops.layers import (
+    Conv2d,
+    Identity,
+    Pool,
+    TrainBatchNorm,
+    linear,
+    reset_linear,
+)
+
+
+class ReluConvBn(nn.Module):
+    """relu → conv → BN (ref ``relu_conv_bn``, ``amoebanet.py:365-398``)."""
+
+    def __init__(self, in_features, features, kernel_size=1, strides=1,
+                 padding=0, dtype=None):
+        super().__init__()
+        self.conv = Conv2d(in_features, features, kernel_size, strides, padding,
+                           use_bias=False, dtype=dtype)
+        self.bn = TrainBatchNorm(features)
+
+    def forward(self, x):
+        return self.bn(self.conv(F.relu(x)))
+
+
+class FactorizedReduce(nn.Module):
+    """relu → concat(1×1 s2 conv, 1×1 s2 conv) → BN (ref ``amoebanet.py:56-78``)."""
+
+    def __init__(self, in_features, features, dtype=None):
+        super().__init__()
+        common = dict(kernel_size=1, strides=2, padding=0, use_bias=False, dtype=dtype)
+        self.conv1 = Conv2d(in_features, features // 2, **common)
+        self.conv2 = Conv2d(in_features, features - features // 2, **common)
+        self.bn = TrainBatchNorm(features)
+
+    def forward(self, x):
+        x = F.relu(x)
+        return self.bn(torch.cat([self.conv1(x), self.conv2(x)], dim=1))
+
+
+class ConvBranch(nn.Module):
+    """Optional c→c/4 bottleneck around a list of (kernel, stride, padding)
+    convs, each relu → conv → BN (refs ``conv_1x7_7x1``, ``conv_1x1``,
+    ``conv_3x3``, ``amoebanet.py:240-291``)."""
+
+    def __init__(self, channels, convs, bottleneck=False, dtype=None):
+        super().__init__()
+        inner = channels // 4 if bottleneck else channels
+        specs = []  # (in, out, kernel, stride, padding)
+        if bottleneck:
+            specs.append((channels, inner, 1, 1, 0))
+        specs += [(inner, inner, k, s, p) for k, s, p in convs]
+        if bottleneck:
+            specs.append((inner, channels, 1, 1, 0))
+        self.n = len(specs)
+        for idx, (cin, cout, k, s, p) in enumerate(specs):
+            self.add_module(
+                f"conv{idx}",
+                Conv2d(cin, cout, k, s, p, use_bias=False, dtype=dtype),
+            )
+            self.add_module(f"bn{idx}", TrainBatchNorm(cout))
+
+    def forward(self, x):
+        for idx in range(self.n):
+            x = F.relu(x)
+            x = getattr(self, f"conv{idx}")(x)
+            x = getattr(self, f"bn{idx}")(x)
+        return x
+
+
+# -- operation factories (ref amoebanet.py:81-291) ---------------------------
+
+
+def op_none(channels, stride, dtype):
+    if stride == 1:
+        return Identity()
+    return FactorizedReduce(channels, channels, dtype=dtype)
+
+
+def op_avg_pool_3x3(channels, stride, dtype):
+    return Pool("avg", 3, stride, 1)
+
+
+def op_max_pool_3x3(channels, stride, dtype):
+    return Pool("max", 3, stride, 1)
+
+
+def op_max_pool_2x2(channels, stride, dtype):
+    return Pool("max", 2, stride, 0)
+
+
+def op_conv_1x7_7x1(channels, stride, dtype):
+    return ConvBranch(
+        channels,
+        [((1, 7), (1, stride), (0, 3)), ((7, 1), (stride, 1), (3, 0))],
+        bottleneck=True, dtype=dtype,
+    )
+
+
+def op_conv_1x1(channels, stride, dtype):
+    return ConvBranch(channels, [(1, stride, 0)], bottleneck=False, dtype=dtype)
+
+
+def op_conv_3x3(channels, stride, dtype):
+    return ConvBranch(channels, [(3, stride, 1)], bottleneck=True, dtype=dtype)
+
+
+# AmoebaNet-D genotype (ref amoebanet.py:295-351; NORMAL_CONCAT follows the
+# TF implementation).
+NORMAL_OPERATIONS = [
+    (1, op_conv_1x1),
+    (1, op_max_pool_3x3),
+    (1, op_none),
+    (0, op_conv_1x7_7x1),
+    (0, op_conv_1x1),
+    (0, op_conv_1x7_7x1),
+    (2, op_max_pool_3x3),
+    (2, op_none),
+    (1, op_avg_pool_3x3),
+    (5, op_conv_1x1),
+]
+NORMAL_CONCAT = [0, 3, 4, 6]
+
+REDUCTION_OPERATIONS = [
+    (0, op_max_pool_2x2),
+    (0, op_max_pool_3x3),
+    (2, op_none),
+    (1, op_conv_3x3),
+    (2, op_conv_1x7_7x1),
+    (2, op_max_pool_3x3),
+    (3, op_none),
+    (1, op_max_pool_2x2),
+    (2, op_avg_pool_3x3),
+    (3, op_conv_1x1),
+]
+REDUCTION_CONCAT = [4, 5, 6]
+
+
+class Stem(nn.Module):
+    """relu → 3×3 stride-2 conv → BN (ref ``Stem``, ``amoebanet.py:417-446``)."""
+
+    def __init__(self, in_features, channels, dtype=None):
+        super().__init__()
+        self.conv = Conv2d(in_features, channels, 3, 2, 1, use_bias=False, dtype=dtype)
+        self.bn = TrainBatchNorm(channels)
+
+    def forward(self, x):
+        return self.bn(self.conv(F.relu(x)))
+
+
+class Classify(nn.Module):
+    """Global avg pool → linear ``fc`` on the concat state (ref
+    ``Classify``, ``amoebanet.py:401-414``)."""
+
+    def __init__(self, in_features, num_classes, dtype=None):
+        super().__init__()
+        self.dtype = dtype
+        self.fc = nn.Linear(in_features, num_classes)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None):
+        reset_linear(self.fc, generator)
+
+    def forward(self, states):
+        x, _ = states
+        return linear(self.fc, x.mean(dim=(2, 3)), self.dtype)
+
+
+class AmoebaCell(nn.Module):
+    """Two-state NAS cell (ref ``Cell``, ``amoebanet.py:449-532``). Input: a
+    tensor (after the stem) or an ``(s, skip)`` tuple; output ``(concat,
+    skip)``."""
+
+    def __init__(self, channels_prev_prev, channels_prev, channels, reduction,
+                 reduction_prev, dtype=None):
+        super().__init__()
+        self.reduce1 = ReluConvBn(channels_prev, channels, dtype=dtype)
+        if reduction_prev:
+            self.reduce2 = FactorizedReduce(channels_prev_prev, channels, dtype=dtype)
+        elif channels_prev_prev != channels:
+            self.reduce2 = ReluConvBn(channels_prev_prev, channels, dtype=dtype)
+        else:
+            self.reduce2 = None
+        table = REDUCTION_OPERATIONS if reduction else NORMAL_OPERATIONS
+        self.concat = REDUCTION_CONCAT if reduction else NORMAL_CONCAT
+        self.sources = [src for src, _ in table]
+        for i, (src, factory) in enumerate(table):
+            stride = 2 if (reduction and src < 2) else 1
+            self.add_module(f"op{i}", factory(channels, stride, dtype))
+
+    def forward(self, input_or_states):
+        if isinstance(input_or_states, (tuple, list)):
+            s1, s2 = input_or_states
+        else:
+            s1 = s2 = input_or_states
+        skip = s1
+        s1 = self.reduce1(s1)
+        if self.reduce2 is not None:
+            s2 = self.reduce2(s2)
+        states = [s1, s2]
+        for i in range(0, len(self.sources), 2):
+            h1 = getattr(self, f"op{i}")(states[self.sources[i]])
+            h2 = getattr(self, f"op{i + 1}")(states[self.sources[i + 1]])
+            states.append(h1 + h2)
+        return torch.cat([states[i] for i in self.concat], dim=1), skip
+
+
+def amoebanetd(num_classes: int = 10, num_layers: int = 4, num_filters: int = 512,
+               dtype=torch.float32, in_channels: int = 3) -> nn.Sequential:
+    """AmoebaNet-D as a flat cell sequence (ref ``amoebanetd``,
+    ``amoebanet.py:535-615``): stem, 2 reduction stems, then r normal /
+    reduction / r normal / reduction / r normal (r = num_layers // 3),
+    classifier. Channels start at num_filters / 4 and double at each
+    reduction. ``dtype`` is the compute dtype; parameters stay f32."""
+    if num_layers % 3:
+        raise ValueError("num_layers must be a multiple of 3")
+    r = num_layers // 3
+    channels = num_filters // 4
+    cells: list[nn.Module] = [Stem(in_channels, channels, dtype=dtype)]
+    state = dict(prev_prev=channels, prev=channels, reduction_prev=False,
+                 channels=channels)
+
+    def add_cell(reduction: bool):
+        if reduction:
+            state["channels"] *= 2
+        cells.append(AmoebaCell(
+            state["prev_prev"], state["prev"], state["channels"], reduction,
+            state["reduction_prev"], dtype=dtype,
+        ))
+        concat = REDUCTION_CONCAT if reduction else NORMAL_CONCAT
+        state["prev_prev"] = state["prev"]
+        state["prev"] = state["channels"] * len(concat)
+        state["reduction_prev"] = reduction
+
+    add_cell(True)
+    add_cell(True)
+    for group in range(3):
+        if group:
+            add_cell(True)
+        for _ in range(r):
+            add_cell(False)
+    cells.append(Classify(state["prev"], num_classes, dtype=dtype))
+    return nn.Sequential(*cells)

@@ -1,0 +1,101 @@
+"""Build ``ops/csrc/*.cu`` with nvcc on first use and load them with ctypes.
+
+Each source has a plain C interface (no PyTorch headers), so one nvcc call
+takes seconds. The shared library lands in ``ops/build/`` under a name that
+carries a hash of its source, so an edited source is never served a stale
+build. ``build_all()`` starts one nvcc per source at once and waits for all.
+
+Every C entry returns ``cudaGetLastError()`` after its launches; callers
+pass the result to :func:`check` which raises on anything but 0. Kernels
+run asynchronously on PyTorch's current stream; a tensor the wrapper
+drops after the launch is handed out again by the caching allocator only
+to later work on that same stream, so no buffer is reused while a kernel
+still reads it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_HERE = Path(__file__).resolve().parent
+CSRC = _HERE / "csrc"
+BUILD_DIR = _HERE / "build"
+SOURCES = ("pool_bwd", "dot1x1_bwd")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_LOCK = threading.Lock()
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    for cand in (
+        os.environ.get("CUDA_HOME") and os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _lib_path(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _start_build(name: str):
+    """Popen of nvcc for one source (None when the library is current)."""
+    out = _lib_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+    )
+    return proc, tmp, out, cmd
+
+
+def _finish_build(job) -> None:
+    """Wait for one nvcc (nothing to do when nothing was started)."""
+    if job is None:
+        return
+    proc, tmp, out, cmd = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+    os.replace(tmp, out)
+
+
+def build_all(names=SOURCES) -> None:
+    """Compile every named source in parallel (one nvcc each)."""
+    with _LOCK:
+        jobs = [_start_build(n) for n in names]
+        for job in jobs:
+            _finish_build(job)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            _finish_build(_start_build(name))
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            _LIBS[name] = lib
+        return lib
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")

@@ -1,0 +1,162 @@
+"""Core layer library, plain forms (twin of ``mpi4dl_tpu/ops/layers.py``).
+
+Tensors are NCHW-logical (``channels_last`` in memory on the card). Each
+module's constructor takes its input width, which Flax infers at first
+call; submodule and parameter names follow the Flax modules so that
+:func:`mpi4dl_tpu_torch.weights.from_jax_params` maps weights by name.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from mpi4dl_tpu_torch.ops.fastconv import FastConv, lecun_normal_
+from mpi4dl_tpu_torch.ops.pool_kernel import MaxPool
+
+
+def _pair(v) -> tuple[int, int]:
+    if isinstance(v, (tuple, list)):
+        return (int(v[0]), int(v[1]))
+    return (int(v), int(v))
+
+
+class Conv2d(nn.Module):
+    """Plain 2-D conv: symmetric zero padding ``padding`` (default
+    ``(k-1)//2``, torch style), stride ``strides``. Holds the ``conv``
+    submodule (Flax ``FastConv``)."""
+
+    def __init__(self, in_features, features, kernel_size=3, strides=1,
+                 padding=None, use_bias=True, dtype=None):
+        super().__init__()
+        kh, kw = _pair(kernel_size)
+        if padding is None:
+            ph, pw = (kh - 1) // 2, (kw - 1) // 2
+        else:
+            ph, pw = _pair(padding)
+        self.conv = FastConv(
+            in_features, features, (kh, kw), _pair(strides), (ph, pw), use_bias, dtype,
+        )
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class _BnMoments(torch.autograd.Function):
+    """Per-channel f32 ``(E[x], E[x²])`` over N, H, W with the square taken
+    AFTER the upcast (``layers._bn_moments_plain``). Its backward is stock
+    AD's formula, ``dx = ct_mean/n + 2·x·ct_sq/n`` in f32; saving only ``x``
+    in its own dtype keeps a full-resolution f32 copy out of the saved
+    activations."""
+
+    @staticmethod
+    def forward(ctx, x):
+        n = x.numel() // x.shape[1]
+        ctx.save_for_backward(x)
+        mean = torch.sum(x, (0, 2, 3), dtype=torch.float32) / n
+        mean_sq = torch.sum(x.float().square(), (0, 2, 3)) / n
+        return mean, mean_sq
+
+    @staticmethod
+    def backward(ctx, ct_mean, ct_sq):
+        (x,) = ctx.saved_tensors  # (autograd passes zeros for an unused output)
+        n = x.numel() // x.shape[1]
+        dx = x.float() * (2.0 * ct_sq / n).view(1, -1, 1, 1) + (ct_mean / n).view(1, -1, 1, 1)
+        return dx.to(x.dtype)
+
+
+class TrainBatchNorm(nn.Module):
+    """Batch normalization with current-batch statistics (``"batch"``
+    mode): f32 ``E[x]`` and ``E[x²]``, ``var = E[x²] − E[x]²``, and the
+    normalize step ``x·w + b`` in the input dtype (``layers.py:358-367``).
+    ``F.batch_norm`` rounds differently and is not used."""
+
+    def __init__(self, features, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def reset_parameters(self, generator=None):
+        nn.init.ones_(self.scale)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        mean, mean_sq = _BnMoments.apply(x)
+        var = mean_sq - mean.square()
+        r = torch.rsqrt(var + self.eps)
+        w = (r * self.scale).to(x.dtype).view(1, -1, 1, 1)
+        b = (self.bias - mean * r * self.scale).to(x.dtype).view(1, -1, 1, 1)
+        return x * w + b
+
+
+class Pool(nn.Module):
+    """Max/avg pooling. Max pads with −inf and runs its backward through
+    the K1 kernel (every max pool, stride 1 or not); avg divides by the
+    count of in-bounds taps (``count_include_pad=False``, as AmoebaNet
+    uses)."""
+
+    def __init__(self, kind, kernel_size=2, strides=None, padding=0):
+        super().__init__()
+        if kind not in ("max", "avg"):
+            raise ValueError(f"unknown pool kind {kind!r}")
+        self.kind = kind
+        self.kernel = _pair(kernel_size)
+        self.strides = _pair(strides if strides is not None else kernel_size)
+        self.padding = _pair(padding)
+
+    def forward(self, x):
+        (kh, kw), (sh, sw), (ph, pw) = self.kernel, self.strides, self.padding
+        if self.kind == "max":
+            return MaxPool.apply(x, kh, kw, sh, sw, ph, pw)
+        # Window sum (a depthwise conv with a ones kernel) over the divisor,
+        # as Flax's avg_pool computes it. F.avg_pool2d is not used: its CUDA
+        # backward on channels_last input returned wrong input gradients
+        # (torch 2.11.0+cu128 on an H100).
+        c = x.shape[1]
+        fmt = (torch.channels_last if x.is_contiguous(memory_format=torch.channels_last)
+               else torch.contiguous_format)
+        ones_k = torch.ones((c, 1, kh, kw), dtype=x.dtype, device=x.device)
+        total = F.conv2d(x, ones_k.contiguous(memory_format=fmt), None, (sh, sw), (ph, pw), 1, c)
+        ones = torch.ones((1, 1) + x.shape[2:], dtype=x.dtype, device=x.device)
+        count = F.avg_pool2d(ones, (kh, kw), (sh, sw), (ph, pw), divisor_override=1)
+        return total / count
+
+
+class Identity(nn.Module):
+    """Pass-through (the ``none`` genotype op at stride 1)."""
+
+    def forward(self, x):
+        return x
+
+
+class Dense(nn.Module):
+    """Flatten (in NHWC order, as the JAX package flattens) → linear
+    ``fc``. ``dtype``: compute dtype (None → promotion of x and weight)."""
+
+    def __init__(self, in_features, features, dtype=None):
+        super().__init__()
+        self.dtype = dtype
+        self.fc = nn.Linear(in_features, features)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None):
+        reset_linear(self.fc, generator)
+
+    def forward(self, x):
+        if x.dim() == 4:
+            x = x.permute(0, 2, 3, 1)
+        return linear(self.fc, x.reshape(x.shape[0], -1), self.dtype)
+
+
+def reset_linear(fc: nn.Linear, generator=None) -> None:
+    """Flax ``nn.Dense`` init: lecun-normal kernel, zero bias."""
+    lecun_normal_(fc.weight, fc.in_features, generator)
+    nn.init.zeros_(fc.bias)
+
+
+def linear(fc: nn.Linear, x, dtype=None):
+    """``fc(x)`` with Flax ``promote_dtype`` semantics."""
+    dtype = dtype or torch.promote_types(x.dtype, fc.weight.dtype)
+    return F.linear(x.to(dtype), fc.weight.to(dtype), fc.bias.to(dtype))

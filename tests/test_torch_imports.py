@@ -1,0 +1,62 @@
+"""The port stands alone: importing every module of ``mpi4dl_tpu_torch`` and
+``chip_smoke`` loads no ``jax`` and nothing of ``mpi4dl_tpu``, and entry
+points never fall back to the CPU quietly."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _module_name(path: Path) -> str:
+    parts = path.relative_to(REPO).with_suffix("").parts
+    return ".".join(parts[:-1] if parts[-1] == "__init__" else parts)
+
+
+PORT_MODULES = sorted(
+    _module_name(p) for p in (REPO / "mpi4dl_tpu_torch").rglob("*.py")
+)
+
+
+def test_port_modules_listed():
+    assert "mpi4dl_tpu_torch.ops.pool_kernel" in PORT_MODULES
+    assert "mpi4dl_tpu_torch.ops.dot1x1_kernel" in PORT_MODULES
+    assert "mpi4dl_tpu_torch.train" in PORT_MODULES
+
+
+def test_no_jax_and_no_jax_package_loaded():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {PORT_MODULES!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'mpi4dl_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "ok"
+
+
+def test_trainer_without_device_raises_without_cuda(monkeypatch):
+    from mpi4dl_tpu_torch.config import ParallelConfig
+    from mpi4dl_tpu_torch.ops.layers import Dense
+    from mpi4dl_tpu_torch.train import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = torch.nn.Sequential(Dense(12, 3))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(model, ParallelConfig(batch_size=2, image_size=2))
+    # Asked for explicitly, the CPU is fine.
+    Trainer(model, ParallelConfig(batch_size=2, image_size=2), device="cpu")
