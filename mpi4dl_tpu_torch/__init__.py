@@ -1,10 +1,11 @@
 """mpi4dl_tpu_torch — the PyTorch/CUDA port of :mod:`mpi4dl_tpu`.
 
 Module names mirror the JAX package (``config``, ``ops.layers``,
-``models.amoebanet``, ``train`` ...). Inside, it is PyTorch idiom:
-``nn.Module``s, an explicit ``device``, explicit ``torch.Generator``s, and a
-``torch.autograd.Function`` around each hand-written CUDA kernel
-(``ops/csrc/*.cu``, built with nvcc for ``sm_90a`` on first use).
+``models.amoebanet``, ``models.resnet``, ``train`` ...). Inside, it is
+PyTorch idiom: ``nn.Module``s, an explicit ``device``, explicit
+``torch.Generator``s, and a ``torch.autograd.Function`` around each
+hand-written CUDA kernel (``ops/csrc/*.cu``, built with nvcc for
+``sm_90a`` on first use).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a GPU and without that argument they raise. On CPU tensors each

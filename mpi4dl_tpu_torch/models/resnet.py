@@ -1,0 +1,207 @@
+"""ResNet v1/v2, plain form (twin of ``mpi4dl_tpu/models/resnet.py``).
+
+Same cells, widths and stride rules as the JAX model (reference
+``src/models/resnet.py``), with the same deliberate deviation: the head
+returns logits and the loss applies softmax once. Submodule names follow
+the Flax modules (``r1.conv.conv.kernel``, ``r1.bn.scale``, ``fc.fc.kernel``
+...). The builders return an ``nn.Sequential`` of cells: stem, residual
+cells, head.
+
+Widths are passed explicitly (Flax infers them at first call). The head's
+``Dense`` takes the last stage's width: at the reference's pairing
+(``pool_kernel = size // 4``) the head pools the last stage to 1x1.
+
+Not ported yet: ``spatial_cells > 0`` (the spatial slice), the TPU packed
+layout (``layout="packed"``, a 128-lane trick the card does not need), and
+the D2 builder ``get_resnet_v2_d2``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from mpi4dl_tpu_torch.ops.layers import Conv2d, Dense, Pool, TrainBatchNorm
+
+
+class ResNetLayer(nn.Module):
+    """conv/BN/ReLU unit (ref ``resnet_layer``, ``resnet.py:24-78``):
+    conv → BN → ReLU, or BN → ReLU → conv when ``conv_first`` is False.
+    The conv has a bias and ``(k-1)//2`` padding."""
+
+    def __init__(self, in_features, features, kernel_size=3, strides=1,
+                 activation="relu", batch_normalization=True, conv_first=True,
+                 dtype=None):
+        super().__init__()
+        if activation not in ("relu", None):
+            raise ValueError(f"unknown activation {activation!r}")
+        self.activation = activation
+        self.conv_first = conv_first
+        self.conv = Conv2d(in_features, features, kernel_size, strides, dtype=dtype)
+        bn_features = features if conv_first else in_features
+        self.bn = TrainBatchNorm(bn_features) if batch_normalization else None
+
+    def _bn_relu(self, x):
+        if self.bn is not None:
+            x = self.bn(x)
+        return F.relu(x) if self.activation else x
+
+    def forward(self, x):
+        if self.conv_first:
+            return self._bn_relu(self.conv(x))
+        return self.conv(self._bn_relu(x))
+
+
+class CellV1(nn.Module):
+    """Basic residual cell (ref ``make_cell_v1``, ``resnet.py:81-114``):
+    two 3x3 layers, a 1x1 shortcut conv on each later stack's first block,
+    ``relu(x + y)``."""
+
+    def __init__(self, in_features, stack, res_block, strides, features, dtype=None):
+        super().__init__()
+        self.r1 = ResNetLayer(in_features, features, strides=strides, dtype=dtype)
+        self.r2 = ResNetLayer(features, features, activation=None, dtype=dtype)
+        self.r3 = None
+        if res_block == 0 and stack > 0:
+            self.r3 = ResNetLayer(in_features, features, kernel_size=1, strides=strides,
+                                  activation=None, batch_normalization=False, dtype=dtype)
+
+    def forward(self, x):
+        y = self.r2(self.r1(x))
+        if self.r3 is not None:
+            x = self.r3(x)
+        return F.relu(x + y)
+
+
+class CellV2(nn.Module):
+    """Pre-activation bottleneck cell (ref ``make_cell_v2``,
+    ``resnet.py:181-231``): 3x3, 3x3, 1x1, and a 1x1 shortcut conv on each
+    stack's first block; ``x + y``."""
+
+    def __init__(self, in_features, res_block, strides, features1, features2,
+                 activation="relu", batch_normalization=True, dtype=None):
+        super().__init__()
+        self.r1 = ResNetLayer(in_features, features1, strides=strides, activation=activation,
+                              batch_normalization=batch_normalization, conv_first=False,
+                              dtype=dtype)
+        self.r2 = ResNetLayer(features1, features1, conv_first=False, dtype=dtype)
+        self.r3 = ResNetLayer(features1, features2, kernel_size=1, conv_first=False,
+                              dtype=dtype)
+        self.r4 = None
+        if res_block == 0:
+            self.r4 = ResNetLayer(in_features, features2, kernel_size=1, strides=strides,
+                                  activation=None, batch_normalization=False, dtype=dtype)
+
+    def forward(self, x):
+        y = self.r3(self.r2(self.r1(x)))
+        if self.r4 is not None:
+            x = self.r4(x)
+        return x + y
+
+
+def _v2_specs(depth: int) -> list[dict]:
+    """Per-cell specs of the v2 bottleneck stack: the strides, widths and
+    activation rules of ref ``get_resnet_v2`` (``resnet.py:270-323``)."""
+    if (depth - 2) % 9 != 0:
+        raise ValueError("depth should be 9n+2 (eg 56 or 110)")
+    n_blocks = (depth - 2) // 9
+    specs = []
+    features_in = 16  # bottleneck width, constant within a stage
+    for stage in range(3):
+        for res_block in range(n_blocks):
+            strides = 1
+            activation = "relu"
+            batch_normalization = True
+            if stage == 0:
+                features_out = features_in * 4
+                if res_block == 0:
+                    activation = None
+                    batch_normalization = False
+            else:
+                features_out = features_in * 2
+                if res_block == 0:
+                    strides = 2
+            specs.append(dict(
+                res_block=res_block, strides=strides, features1=features_in,
+                features2=features_out, activation=activation,
+                batch_normalization=batch_normalization,
+            ))
+        features_in = features_out
+    return specs
+
+
+class HeadV1(nn.Module):
+    """AvgPool + Linear head (ref ``end_part_v1``, ``resnet.py:117-142``;
+    logits instead of softmax)."""
+
+    def __init__(self, in_features, num_classes, pool_kernel=8, dtype=None):
+        super().__init__()
+        self.pool = Pool("avg", kernel_size=pool_kernel)
+        self.fc = Dense(in_features, num_classes, dtype=dtype)
+
+    def forward(self, x):
+        return self.fc(self.pool(x))
+
+
+class HeadV2(nn.Module):
+    """BN + ReLU + AvgPool + Linear head (ref ``end_part_v2``,
+    ``resnet.py:234-267``; logits instead of softmax)."""
+
+    def __init__(self, in_features, num_classes, pool_kernel=8, dtype=None):
+        super().__init__()
+        self.bn = TrainBatchNorm(in_features)
+        self.pool = Pool("avg", kernel_size=pool_kernel)
+        self.fc = Dense(in_features, num_classes, dtype=dtype)
+
+    def forward(self, x):
+        return self.fc(self.pool(F.relu(self.bn(x))))
+
+
+def _check_unported(spatial_cells: int, layout: str = "nhwc") -> None:
+    if spatial_cells:
+        raise NotImplementedError("spatial ResNet cells come with the spatial slice")
+    if layout == "packed":
+        raise NotImplementedError("the packed layout is a TPU lane trick; use 'nhwc'")
+    if layout != "nhwc":
+        raise ValueError(f"layout must be nhwc|packed, got {layout!r}")
+
+
+def get_resnet_v1(depth: int, num_classes: int = 10, spatial_cells: int = 0,
+                  pool_kernel: int = 8, dtype=torch.float32,
+                  in_channels: int = 3) -> nn.Sequential:
+    """ResNet v1 (ref ``get_resnet_v1``, ``resnet.py:145-178``): depth
+    6n+2, 3 stacks of n basic cells, stride-2 at each later stack's start,
+    avg-pool + linear head. ``dtype`` is the compute dtype; parameters stay
+    f32."""
+    _check_unported(spatial_cells)
+    if (depth - 2) % 6 != 0:
+        raise ValueError("depth should be 6n+2 (eg 20, 32, 44)")
+    n_blocks = (depth - 2) // 6
+    cells: list[nn.Module] = [ResNetLayer(in_channels, 16, dtype=dtype)]
+    features_in = features = 16
+    for stack in range(3):
+        for res_block in range(n_blocks):
+            strides = 2 if (stack > 0 and res_block == 0) else 1
+            cells.append(CellV1(features_in, stack, res_block, strides, features, dtype=dtype))
+            features_in = features
+        features *= 2
+    cells.append(HeadV1(features_in, num_classes, pool_kernel, dtype=dtype))
+    return nn.Sequential(*cells)
+
+
+def get_resnet_v2(depth: int, num_classes: int = 10, spatial_cells: int = 0,
+                  pool_kernel: int = 8, layout: str = "nhwc", dtype=torch.float32,
+                  in_channels: int = 3) -> nn.Sequential:
+    """ResNet v2 (ref ``get_resnet_v2``, ``resnet.py:270-323``): depth 9n+2,
+    a conv-first stem, 3 stages of n pre-activation bottleneck cells,
+    BN + ReLU + avg-pool + linear head. ``dtype`` is the compute dtype;
+    parameters stay f32."""
+    _check_unported(spatial_cells, layout)
+    cells: list[nn.Module] = [ResNetLayer(in_channels, 16, conv_first=True, dtype=dtype)]
+    features_in = 16
+    for spec in _v2_specs(depth):
+        cells.append(CellV2(features_in, dtype=dtype, **spec))
+        features_in = spec["features2"]
+    cells.append(HeadV2(features_in, num_classes, pool_kernel, dtype=dtype))
+    return nn.Sequential(*cells)

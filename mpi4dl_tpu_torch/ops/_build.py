@@ -2,8 +2,9 @@
 
 Each source has a plain C interface (no PyTorch headers), so one nvcc call
 takes seconds. The shared library lands in ``ops/build/`` under a name that
-carries a hash of its source, so an edited source is never served a stale
-build. ``build_all()`` starts one nvcc per source at once and waits for all.
+carries a hash of its source and of the shared ``csrc/*.cuh`` headers, so
+an edited source is never served a stale build. ``build_all()`` starts one
+nvcc per source at once and waits for all.
 
 Every C entry returns ``cudaGetLastError()`` after its launches; callers
 pass the result to :func:`check` which raises on anything but 0. Kernels
@@ -26,7 +27,7 @@ from pathlib import Path
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"
-SOURCES = ("pool_bwd", "dot1x1_bwd")
+SOURCES = ("pool_bwd", "dot1x1_bwd", "wgrad")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -48,8 +49,10 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # shared by the sources
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start_build(name: str):

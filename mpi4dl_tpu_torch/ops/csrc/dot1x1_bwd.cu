@@ -38,50 +38,16 @@
 // and read back; w2 and tile re-reads come from L2. A one-pass read of dy
 // (both products from one dy tile) is later work.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <mma.h>
-#include <stdint.h>
 #include <type_traits>
 
+#include "gemm_common.cuh"
+
 using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
 
 namespace {
 
 constexpr int BM = 128, BN = 128, BK = 32, NT = 256, PAD = 8;
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) { return __float2bfloat16(v); }
-
-// Copy a ROWS x COLS tile whose COLS axis is contiguous in global memory
-// (row stride ldg) into shared memory (row stride LDS), zero-filling
-// everything at or past (rmax, cmax). vec: 16-byte moves; valid only when
-// cmax, ldg and c0 are multiples of 8 and the base is 16-byte aligned.
-template <int ROWS, int COLS, int LDS>
-__device__ __forceinline__ void load_tile(bf16* sm, const bf16* __restrict__ g, long long ldg,
-                                          long long r0, long long rmax, long long c0,
-                                          long long cmax, bool vec) {
-  if (vec) {
-    constexpr int CV = COLS / 8;
-    for (int i = threadIdx.x; i < ROWS * CV; i += NT) {
-      const int r = i / CV, c = (i % CV) * 8;
-      const long long gr = r0 + r, gc = c0 + c;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (gr < rmax && gc < cmax) v = *reinterpret_cast<const uint4*>(g + gr * ldg + gc);
-      *reinterpret_cast<uint4*>(sm + r * LDS + c) = v;
-    }
-  } else {
-    for (int i = threadIdx.x; i < ROWS * COLS; i += NT) {
-      const int r = i / COLS, c = i % COLS;
-      const long long gr = r0 + r, gc = c0 + c;
-      bf16 v = __float2bfloat16(0.f);
-      if (gr < rmax && gc < cmax) v = g[gr * ldg + gc];
-      sm[r * LDS + c] = v;
-    }
-  }
-}
 
 // out[z][m][n] = sum_{k in slice z} A(m,k) B(k,n), M on grid x, N on grid y,
 // pixel slices on grid z. A_KMAJOR: A(m,k) = a[m*lda + k], else a[k*lda + m].
@@ -115,13 +81,13 @@ gemm_bf16(const bf16* __restrict__ a, long long lda, const bf16* __restrict__ b,
 
   for (long long k0 = kbeg; k0 < kend; k0 += BK) {
     if constexpr (A_KMAJOR)
-      load_tile<BM, BK, A_LD>(As, a, lda, m0, M, k0, kend, vec_a);
+      load_tile<BM, BK, A_LD, NT>(As, a, lda, m0, M, k0, kend, vec_a);
     else
-      load_tile<BK, BM, A_LD>(As, a, lda, k0, kend, m0, M, vec_a);
+      load_tile<BK, BM, A_LD, NT>(As, a, lda, k0, kend, m0, M, vec_a);
     if constexpr (B_NMAJOR)
-      load_tile<BK, BN, B_LD>(Bs, b, ldb, k0, kend, n0, N, vec_b);
+      load_tile<BK, BN, B_LD, NT>(Bs, b, ldb, k0, kend, n0, N, vec_b);
     else
-      load_tile<BN, BK, B_LD>(Bs, b, ldb, n0, N, k0, kend, vec_b);
+      load_tile<BN, BK, B_LD, NT>(Bs, b, ldb, n0, N, k0, kend, vec_b);
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
@@ -211,23 +177,6 @@ gemm_f32(const float* __restrict__ a, long long lda, const float* __restrict__ b
     }
 }
 
-// dw[i] = sum_{z < S} partial[z][i], in slice order (deterministic).
-__global__ void sum_splits(const float* __restrict__ partial, float* __restrict__ dw,
-                           long long n, int S) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int z = 0; z < S; ++z) s += partial[z * n + i];
-    dw[i] = s;
-  }
-}
-
-bool vec_ok(const void* p, long long extent) {
-  return extent % 8 == 0 && (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-unsigned cdiv(long long a, long long b) { return (unsigned)((a + b - 1) / b); }
-
 }  // namespace
 
 // x [M, C], dy [M, O], w2 [C, O], dx [M, C] (all contiguous, dtype 0 = f32,
@@ -266,10 +215,7 @@ extern "C" int dot1x1_bwd(const void* x, const void* dy, const void* w2, void* d
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if (S > 1) {
-    const long long n = (long long)C * O;
-    unsigned blocks = cdiv(n, 256);
-    if (blocks > 132u * 16u) blocks = 132u * 16u;
-    sum_splits<<<blocks, 256, 0, st>>>(partial, dw, n, S);
+    launch_sum_splits(partial, dw, (long long)C * O, S, st);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   return 0;

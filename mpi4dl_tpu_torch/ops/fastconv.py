@@ -1,14 +1,23 @@
 """2-D convolution for the port (twin of ``mpi4dl_tpu/ops/fastconv.py``).
 
 Tensors are NCHW-logical and, on the card, ``channels_last`` in memory
-(NHWC bytes, the JAX package's layout). A stride-1, unpadded 1x1 conv runs
-its forward as one matrix product over pixels and its backward through the
-fused 1x1 kernel (K3, :mod:`mpi4dl_tpu_torch.ops.dot1x1_kernel`) — the
-function ``fastconv._conv2d_s1_bwd`` routes to ``dot1x1_pallas`` (and
-``MPI4DL_TPU_DOT1X1=auto`` in the JAX package). Every other conv (strided,
-1x7/7x1, the 3x3 s2 stem) is ``F.conv2d``: the JAX package leaves those to
-XLA, outside any Pallas kernel. The MXU packing (``pack_factors``) is a TPU
-lane trick and has no counterpart here.
+(NHWC bytes, the JAX package's layout). Routing by conv:
+
+- stride 1, unpadded 1x1: the forward is one matrix product over pixels
+  and the backward is the fused 1x1 kernel (K3,
+  :mod:`mpi4dl_tpu_torch.ops.dot1x1_kernel`), as ``fastconv._conv2d_s1_bwd``
+  routes to ``dot1x1_pallas``;
+- stride 1, any other kernel (ResNet's 3x3, AmoebaNet's 1x7/7x1): the
+  forward is ``F.conv2d``, dw is the stride-1 weight-gradient kernel (K2,
+  :mod:`mpi4dl_tpu_torch.ops.wgrad_kernel`), as ``fastconv.py:306-308``
+  routes to ``wgrad_pallas``; dx is cuDNN's data gradient (the JAX
+  package leaves dx to XLA, outside any Pallas kernel). The Pallas gate's
+  other conditions are TPU tiling and have no counterpart here;
+- everything else (strided convs): ``F.conv2d``, as the JAX package leaves
+  those to XLA.
+
+The MXU packing (``pack_factors``) is a TPU lane trick and has no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mpi4dl_tpu_torch.ops.dot1x1_kernel import bwd_1x1
+from mpi4dl_tpu_torch.ops.wgrad_kernel import wgrad
 
 
 class Conv1x1(torch.autograd.Function):
@@ -46,10 +56,41 @@ class Conv1x1(torch.autograd.Function):
         return dx.permute(0, 3, 1, 2), dw.to(w2.dtype)
 
 
+class ConvS1(torch.autograd.Function):
+    """Stride-1 conv with a kernel other than 1x1; x [B,C,H,W], w OIHW,
+    symmetric zero padding (ph, pw). Backward: dx from cuDNN's data
+    gradient, dw from K2 cast to w's dtype (the weight's compute dtype, as
+    ``fastconv.py:311`` does)."""
+
+    @staticmethod
+    def forward(ctx, x, w, padding):
+        ctx.save_for_backward(x, w)
+        ctx.padding = padding
+        return F.conv2d(x, w, None, 1, padding)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        ph, pw = ctx.padding
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.ops.aten.convolution_backward(
+                dy, x, w, None, (1, 1), (ph, pw), (1, 1), False, (0, 0), 1,
+                (True, False, False),
+            )[0]
+        # NHWC views of channels_last memory; other layouts are copied here.
+        xh = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+        dyh = dy.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+        dw = wgrad(xh, dyh, w.shape[2], w.shape[3], ph, pw)  # [kh, kw, C, O]
+        return dx, dw.permute(3, 2, 0, 1).to(w.dtype), None
+
+
 def conv2d(x, w, strides=(1, 1), padding=(0, 0)):
     """2-D conv (NCHW x OIHW -> NCHW), symmetric zero padding (ph, pw)."""
     strides, padding = tuple(strides), tuple(padding)
     o, c, kh, kw = w.shape
+    if strides == (1, 1) and (kh, kw) != (1, 1):
+        return ConvS1.apply(x, w, padding)
     if (kh, kw) == (1, 1) and strides == (1, 1) and padding == (0, 0):
         return Conv1x1.apply(x, w.reshape(o, c).t())
     return F.conv2d(x, w, None, strides, padding)

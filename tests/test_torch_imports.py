@@ -28,6 +28,8 @@ PORT_MODULES = sorted(
 def test_port_modules_listed():
     assert "mpi4dl_tpu_torch.ops.pool_kernel" in PORT_MODULES
     assert "mpi4dl_tpu_torch.ops.dot1x1_kernel" in PORT_MODULES
+    assert "mpi4dl_tpu_torch.ops.wgrad_kernel" in PORT_MODULES
+    assert "mpi4dl_tpu_torch.models.resnet" in PORT_MODULES
     assert "mpi4dl_tpu_torch.train" in PORT_MODULES
 
 

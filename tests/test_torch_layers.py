@@ -91,6 +91,11 @@ CASES = {
         lambda: tl.Pool("avg", 3, 2, 1),
         (2, 8, 8, 8),
     ),
+    "avg_pool_4x4_s4_tiling": (  # ResNet's head form; 9 px crops to 8
+        lambda: jl.Pool(kind="avg", kernel_size=4),
+        lambda: tl.Pool("avg", 4),
+        (2, 9, 9, 8),
+    ),
     "dense": (
         lambda: jl.Dense(features=5),
         lambda: tl.Dense(3 * 3 * 4, 5),
