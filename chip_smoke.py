@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``mpi4dl_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py            # the full run, a few minutes on one H100
-    python3 chip_smoke.py --profile  # + a torch.profiler breakdown of one step of each path
+    python3 chip_smoke.py                 # the full run, a few minutes on one H100
+    python3 chip_smoke.py --profile       # + a torch.profiler breakdown of one step of each path
+    python3 chip_smoke.py --spatial-only  # only the build and phase s (for a 4-card host)
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -19,12 +20,35 @@ Phases (any failure exits non-zero; nothing is caught):
      kernels are called with; then every kernel's launch count is set to
      0, the timed steps run, and the counts are read (each kernel of the
      path must be > 0);
+  s. the spatial slice in 4 rank processes (``parallel.multihost.spawn``)
+     on a 2x2 tile grid. With 4 or more cards, one rank per card and
+     NCCL; with fewer, the ranks share card 0 over a gloo group, and K4's
+     CUDA IPC transport stores into another process's buffer on the same
+     card:
+     s1. a small spatial reference: ResNet-v2 depth 20 @32 bs2 f32 (TF32
+         off), 2x2 tiles, against the single-device step on the CPU with
+         the same weights and batch (loss and per-leaf gradients, 1e-3);
+     s2. the spatial main path: ResNet-110 v2 @1024 bs2, every cell but the
+         head on the tiles, bf16 compute / f32 params, SGD momentum 0.9,
+         random weights from the seed of phase c, remat=False, 2 warm-up
+         and 5 timed steps. The first warm-up records the K2, K3 and K4
+         call shapes; the step time of each timed step is its slowest
+         rank's; K4, K2 and K3 must each launch in every rank's steps;
+     s3. K4 against its plain version (``swap_reference`` of all ranks'
+         strips, made from the seed on every rank) at every recorded
+         strip, bf16 and f32, and a whole ``halo_exchange`` against a pad
+         and slice of the full image (fill 0 and −inf): exact;
+     s4. K4's time at the largest recorded strip pair beside its plain
+         distributed version (CPU tensors over gloo), NCCL's
+         ``batch_isend_irecv`` (one rank per card only) and the bound;
+     s5. K4's time-bounded wait: a swap that only rank 0 makes must end
+         after its wait limit with the error word set;
   d. K1 (max-pool backward) against its plain PyTorch version at every
      recorded main-path shape, on tie-heavy integer data: exact equality;
   e. K2 (stride-1 weight gradient) against its plain version at every
-     recorded shape of both paths, bf16 and f32 (tolerance below);
+     recorded shape of the three paths, bf16 and f32 (tolerance below);
   f. K3 (fused 1x1-conv backward) against its plain version at every
-     recorded shape of both paths (tolerances below);
+     recorded shape of the three paths (tolerances below);
   g. per-kernel times (kernel, plain version, one library call) at the
      largest main-path shape of each, beside the bound the card's peaks give;
   h. the card's name and power limit from nvidia-smi.
@@ -38,6 +62,8 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -48,6 +74,7 @@ BF16_TENSOR_FLOPS = 989e12
 # f32 instructions per second outside the tensor cores: the data sheet's
 # 67 TFLOP/s counts an FMA as two flops; a compare is one instruction.
 F32_SIMT_OPS = 33.5e12
+NVLINK_BYTES_PER_S = 450e9  # each way, to the other cards of the host
 
 # K2 and K3, as max|err| / max|ref|: the kernel and the plain version sum
 # the same products in f32 in different orders. In bf16, K3's dx is then
@@ -68,14 +95,20 @@ WARMUP, STEPS = 2, 5
 # @1024 bs2 without recomputation.
 LAYERS, FILTERS = 18, 416
 RESNET_DEPTH = 110  # utils.get_depth(2, 12)
-# The kernels each path must launch.
+# The spatial path: ResNet-110 v2 on a 2x2 grid of tiles, one per rank.
+SP_GRID, SP_RANKS = (2, 2), 4
+K4_TIMING_ITERS = 20
+K4_TIMEOUT_S = 0.5  # phase s5's wait limit
+# The kernels each path must launch (resnet_sp: per rank).
 PATH_KERNELS = {
     "amoebanet": ("pool_bwd", "wgrad", "dot1x1_bwd"),
     "resnet": ("wgrad", "dot1x1_bwd"),
+    "resnet_sp": ("halo_swap", "wgrad", "dot1x1_bwd"),
 }
 # The path whose slice ported each kernel: a kernels row's ``launches`` is
 # that path's count per step (``launches_per_step`` gives every path's).
-HOME_PATH = {"pool_bwd": "amoebanet", "dot1x1_bwd": "amoebanet", "wgrad": "resnet"}
+HOME_PATH = {"pool_bwd": "amoebanet", "dot1x1_bwd": "amoebanet", "wgrad": "resnet",
+             "halo_swap": "resnet_sp"}
 # The shapes each kernel is timed at: the largest of the main paths.
 K1_TIMED = ((2, 512, 512, 208), 3, 3, 2, 2, 1, 1)
 K2_TIMED = ((2, 1024, 1024, 64), 16, 3, 3, 1, 1)
@@ -127,30 +160,43 @@ def small_models():
     ]
 
 
-def phase_small_reference(name, build, size):
-    """One f32 training step of a small model on the card vs the CPU."""
+def small_batch(size):
+    """The small references' batch, from the seed with numpy."""
     import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    return (rng.standard_normal((2, size, size, 3)).astype(np.float32),
+            rng.integers(0, 10, size=(2,)))
+
+
+def small_step(build, size, device, **trainer_kwargs):
+    """(loss, per-cell gradients) of one f32 step of a small model with
+    weights from the seed (``build`` may take a grid: see phase s1)."""
     import torch
 
     from mpi4dl_tpu_torch.config import ParallelConfig
     from mpi4dl_tpu_torch.train import Trainer
     from mpi4dl_tpu_torch.weights import flax_arrays, init
 
-    rng = np.random.default_rng(SEED)
-    x = rng.standard_normal((2, size, size, 3)).astype(np.float32)
-    y = rng.integers(0, 10, size=(2,))
+    x, y = small_batch(size)
     model = init(build(), torch.Generator().manual_seed(SEED))
-    cfg = ParallelConfig(batch_size=2, image_size=size)
-    runs = {}
-    for dev in (DEVICE, "cpu"):
-        trainer = Trainer(copy.deepcopy(model), cfg, learning_rate=0.1, device=dev)
-        out = trainer.train_step(x, y)
-        runs[dev] = (float(out["loss"]), [flax_arrays(c, grads=True) for c in trainer.model])
-    (l_gpu, g_gpu), (l_cpu, g_cpu) = runs[DEVICE], runs["cpu"]
-    if not abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu):
-        raise AssertionError(f"{name} loss: card {l_gpu} vs CPU {l_cpu}")
+    cfg = ParallelConfig(batch_size=2, image_size=size, **trainer_kwargs.pop("config", {}))
+    trainer = Trainer(model, cfg, learning_rate=0.1, device=device, **trainer_kwargs)
+    out = trainer.train_step(x, y)
+    return float(out["loss"]), [flax_arrays(c, grads=True) for c in trainer.model]
+
+
+def check_small(name, got, want):
+    """Hold a small model's (loss, gradients) to the CPU run's: loss within
+    1e-4, gradients per-leaf normalised within SMALL_GRAD_TOL. Returns the
+    worst normalised error."""
+    import numpy as np
+
+    (l_got, g_got), (l_want, g_want) = got, want
+    if not abs(l_got - l_want) <= 1e-4 * abs(l_want):
+        raise AssertionError(f"{name} loss: card {l_got} vs CPU {l_want}")
     worst = 0.0
-    for gg, gc in zip(g_gpu, g_cpu):
+    for gg, gc in zip(g_got, g_want):
         cell = max(float(np.abs(v).max()) for v in gc.values())
         for k in gc:
             scale = float(np.abs(gc[k]).max())
@@ -163,7 +209,14 @@ def phase_small_reference(name, build, size):
             worst = max(worst, float(np.abs(gg[k] - gc[k]).max()) / scale)
     if worst > SMALL_GRAD_TOL:
         raise AssertionError(f"{name} gradients: normalised max |err| {worst:.3g}")
-    log(f"[b] small reference {name} f32: loss card {l_gpu:.6f} CPU {l_cpu:.6f}; "
+    return worst
+
+
+def phase_small_reference(name, build, size):
+    """One f32 training step of a small model on the card vs the CPU."""
+    got, want = small_step(build, size, DEVICE), small_step(build, size, "cpu")
+    worst = check_small(name, got, want)
+    log(f"[b] small reference {name} f32: loss card {got[0]:.6f} CPU {want[0]:.6f}; "
         f"gradients normalised max|err| {worst:.2e} (tolerance {SMALL_GRAD_TOL:g})")
 
 
@@ -181,9 +234,38 @@ def _recording(module, name, key, sink):
 
 
 def _counters():
-    from mpi4dl_tpu_torch.ops import dot1x1_kernel, pool_kernel, wgrad_kernel
+    from mpi4dl_tpu_torch.ops import dot1x1_kernel, halo_kernel, pool_kernel, wgrad_kernel
 
-    return {"pool_bwd": pool_kernel, "wgrad": wgrad_kernel, "dot1x1_bwd": dot1x1_kernel}
+    return {"pool_bwd": pool_kernel, "wgrad": wgrad_kernel, "dot1x1_bwd": dot1x1_kernel,
+            "halo_swap": halo_kernel}
+
+
+def _record_shapes(shapes):
+    """Record the call shapes of K1, K2, K3 and K4 into ``shapes``; returns
+    the functions that restore the originals."""
+    from mpi4dl_tpu_torch.ops import fastconv, halo_kernel, pool_kernel
+
+    return [
+        _recording(pool_kernel, "pool_bwd",
+                   lambda x, dy, *geom: (tuple(x.shape),) + geom, shapes["pool_bwd"]),
+        _recording(fastconv, "wgrad",
+                   lambda x, dy, *geom: (tuple(x.shape), dy.shape[3]) + geom, shapes["wgrad"]),
+        _recording(fastconv, "bwd_1x1",
+                   lambda x, dy, w2: (tuple(x.shape), w2.shape[1]), shapes["dot1x1_bwd"]),
+        _recording(halo_kernel, "halo_swap",
+                   lambda a, b, grid, axis: (axis, tuple(a.shape), a.stride(), b.stride()),
+                   shapes["halo_swap"]),
+    ]
+
+
+def main_batch(device):
+    """The main paths' batch, the same on every path and rank."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    x = torch.randn((BATCH, SIZE, SIZE, 3), generator=gen, device=device).to(torch.bfloat16)
+    y = torch.randint(0, 10, (BATCH,), generator=gen, device=device)
+    return x, y
 
 
 def main_models():
@@ -202,15 +284,12 @@ def main_models():
     ]
 
 
-def phase_main(gen, path, desc, build, shapes, profile=False):
-    """Train one main path; returns its launches in the timed steps and
-    adds the kernels' call shapes to ``shapes``."""
-    import math
-
+def phase_main(path, desc, build, shapes, profile=False):
+    """Train one main path; returns its launches in the timed steps and its
+    first step's loss, and adds the kernels' call shapes to ``shapes``."""
     import torch
 
     from mpi4dl_tpu_torch.config import ParallelConfig
-    from mpi4dl_tpu_torch.ops import fastconv, pool_kernel
     from mpi4dl_tpu_torch.train import Trainer
     from mpi4dl_tpu_torch.weights import init
 
@@ -219,26 +298,17 @@ def phase_main(gen, path, desc, build, shapes, profile=False):
     n_params = sum(p.numel() for p in model.parameters())
     cfg = ParallelConfig(batch_size=BATCH, image_size=SIZE)
     trainer = Trainer(model, cfg, learning_rate=0.001, momentum=0.9, device=DEVICE)
-    x = torch.randn((BATCH, SIZE, SIZE, 3), generator=gen, device=DEVICE).to(torch.bfloat16)
-    y = torch.randint(0, 10, (BATCH,), generator=gen, device=DEVICE)
+    x, y = main_batch(DEVICE)
     log(f"[c] {desc} bf16 compute, f32 params ({n_params} params), remat=False; "
         f"set-up {time.time() - t0:.1f} s")
+    first_loss = None
     for i in range(WARMUP):
-        restore = []
-        if i == 0:
-            restore = [
-                _recording(pool_kernel, "pool_bwd",
-                           lambda x, dy, *geom: (tuple(x.shape),) + geom, shapes["pool_bwd"]),
-                _recording(fastconv, "wgrad",
-                           lambda x, dy, *geom: (tuple(x.shape), dy.shape[3]) + geom,
-                           shapes["wgrad"]),
-                _recording(fastconv, "bwd_1x1",
-                           lambda x, dy, w2: (tuple(x.shape), w2.shape[1]), shapes["dot1x1_bwd"]),
-            ]
+        restore = _record_shapes(shapes) if i == 0 else []
         t = time.time()
         loss = float(trainer.train_step(x, y)["loss"])
         for undo in restore:
             undo()
+        first_loss = loss if first_loss is None else first_loss
         log(f"[c] warm-up step {i}: loss {loss:.4f} ({time.time() - t:.2f} s)")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -268,13 +338,14 @@ def phase_main(gen, path, desc, build, shapes, profile=False):
         f"{name} {launches[name] // STEPS}" for name in counters))
     del trainer, model, x, y
     torch.cuda.empty_cache()
-    return launches
+    return launches, first_loss
 
 
-def profile_step(trainer, x, y, top=15):
+def profile_step(trainer, x, y, top=15, tag="c", emit=log):
     """One more step under torch.profiler: device time by kernel, the
-    K1/K2/K3 shares, the head's avg pool (the step's only ``mean``, forward
-    and backward), and the device's idle share of the step's wall time."""
+    K1-K4 shares, the head's avg pool (the step's only ``mean``, forward
+    and backward), and the device's idle share of the step's wall time
+    (this process's kernels only), written through ``emit``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -284,8 +355,11 @@ def profile_step(trainer, x, y, top=15):
         float(trainer.train_step(x, y)["loss"])
         wall_ms = (time.perf_counter() - t) * 1e3
     events = prof.key_averages()
+    # NCCL's "nccl:*" ranges on the device timeline span the NCCL kernels
+    # inside them: counting both would count that time twice.
     kernels = [e for e in events if getattr(e, "device_time_total", 0) > 0
-               and e.device_type == torch.autograd.DeviceType.CUDA]
+               and e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("nccl:")]
     head_pool = sum(e.device_time_total for e in events if e.key == "aten::mean"
                     or e.key.startswith("autograd::engine::evaluate_function: MeanBackward")) / 1e3
     kernels.sort(key=lambda e: e.device_time_total, reverse=True)
@@ -296,14 +370,347 @@ def profile_step(trainer, x, y, top=15):
     # The port's kernels sit in an anonymous namespace; the "::" keeps
     # cuDNN's "..._implicit_gemm_bf16..." names out of K3's sum.
     busy = total("")
-    log(f"[c] profiled step: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
-        f"(idle {100 * (1 - busy / wall_ms):.1f}%), K1 {total('::pool_bwd_kernel<'):.1f} ms, "
-        f"K2 {total('::wgrad_bf16<', '::wgrad_f32('):.1f} ms, "
-        f"K3 {total('::gemm_bf16<', '::gemm_f32<'):.1f} ms, "
-        f"slice sums {total('::sum_splits('):.1f} ms, head pool {head_pool:.3f} ms, "
-        f"{sum(e.count for e in kernels)} kernel launches")
+    emit(f"[{tag}] profiled step: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
+         f"(idle {100 * (1 - busy / wall_ms):.1f}%), K1 {total('::pool_bwd_kernel<'):.1f} ms, "
+         f"K2 {total('::wgrad_bf16<', '::wgrad_f32('):.1f} ms, "
+         f"K3 {total('::gemm_bf16<', '::gemm_f32<'):.1f} ms, "
+         f"K4 push {total('::halo_push<'):.1f} ms + wait {total('::halo_wait<'):.1f} ms, "
+         f"NCCL {total('ncclDevKernel'):.1f} ms, slice sums {total('::sum_splits('):.1f} ms, head pool {head_pool:.3f} ms, "
+         f"{sum(e.count for e in kernels)} kernel launches")
     for e in kernels[:top]:
-        log(f"[c]   {e.device_time_total / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:110]}")
+        emit(f"[{tag}]   {e.device_time_total / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:110]}")
+
+
+def sp_layout():
+    """(backend, description) of the 4 rank processes on this host: one
+    rank per card with 4 or more cards, else all on card 0."""
+    import torch
+
+    if torch.cuda.device_count() >= SP_RANKS:
+        return "nccl", f"{SP_RANKS} ranks, one per card (NCCL)"
+    # A rank takes card ``rank % device_count``: show the ranks one card.
+    os.environ["CUDA_VISIBLE_DEVICES"] = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    return "gloo", f"{SP_RANKS} ranks sharing card 0 (gloo group)"
+
+
+def _sp_small(grid, device):
+    """Phase s1 in one rank: the small spatial step's (loss, gradients)."""
+    from mpi4dl_tpu_torch.models.resnet import get_resnet_v2
+
+    depth, cells = 20, 7  # stem + 6 cells on the tiles, the head after the join
+    return small_step(
+        lambda: get_resnet_v2(depth, 10, spatial_cells=cells, pool_kernel=8, grid=grid), 32,
+        device, config=dict(spatial_size=1, num_spatial_parts=SP_RANKS),
+        num_spatial_cells=cells, grid=grid)
+
+
+def _count_calls(cls, name, box):
+    """Count calls of the static method ``cls.name`` in ``box[0]``; returns
+    the function that restores it."""
+    orig = cls.__dict__[name]
+
+    def wrapper(*args):
+        box[0] += 1
+        return orig.__func__(*args)
+
+    setattr(cls, name, staticmethod(wrapper))
+    return lambda: setattr(cls, name, orig)
+
+
+def _sp_main(rank, grid, device, profile):
+    """Phase s2 in one rank: the spatial ResNet-110 v2 main path."""
+    import torch
+    import torch.distributed as dist
+
+    from mpi4dl_tpu_torch.config import ParallelConfig
+    from mpi4dl_tpu_torch.models.resnet import get_resnet_v2
+    from mpi4dl_tpu_torch.ops import layers
+    from mpi4dl_tpu_torch.train import Trainer
+    from mpi4dl_tpu_torch.weights import init
+
+    t0 = time.time()
+    model = get_resnet_v2(RESNET_DEPTH, 10, spatial_cells=10**6, pool_kernel=SIZE // 4,
+                          dtype=torch.bfloat16, grid=grid)
+    init(model, torch.Generator().manual_seed(SEED))
+    cfg = ParallelConfig(batch_size=BATCH, image_size=SIZE, spatial_size=1,
+                         num_spatial_parts=SP_RANKS)
+    trainer = Trainer(model, cfg, learning_rate=0.001, momentum=0.9, device=device,
+                      num_spatial_cells=len(model) - 1, grid=grid)
+    x, y = main_batch(device)
+    out = {"setup_s": time.time() - t0, "warm": [], "losses": [], "times": []}
+    shapes = {name: set() for name in ("pool_bwd", "wgrad", "dot1x1_bwd", "halo_swap")}
+    bn_reduces = [0]
+    for i in range(WARMUP):
+        restore = []
+        if i == 0:
+            restore = _record_shapes(shapes) + [
+                _count_calls(layers._GridMean, "forward", bn_reduces),
+                _count_calls(layers._GridMean, "backward", bn_reduces)]
+        t = time.time()
+        loss = float(trainer.train_step(x, y)["loss"])
+        for undo in restore:
+            undo()
+        out["warm"].append((loss, time.time() - t))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = _counters()
+    for mod in counters.values():
+        mod.launch_count = 0
+    for _ in range(STEPS):
+        t = time.perf_counter()
+        out["losses"].append(float(trainer.train_step(x, y)["loss"]))
+        out["times"].append(time.perf_counter() - t)
+    out["launches"] = {name: mod.launch_count for name, mod in counters.items()}
+    out["peak"] = torch.cuda.max_memory_allocated()
+    if profile:
+        # Every rank profiles, so no rank's swaps wait out the others'
+        # profiler set-up and read-out; rank 0 prints.
+        profile_step(trainer, x, y, tag="s2", emit=log if rank == 0 else lambda *a: None)
+        dist.barrier()
+    out["shapes"] = {name: sorted(v) for name, v in shapes.items()}
+    out["bn_allreduces"] = bn_reduces[0]
+    del trainer, model, x, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sp_k4_check(rank, grid, device, strips):
+    """Phase s3 in one rank: K4 against ``swap_reference`` at every
+    recorded strip (bf16, f32) and a whole exchange against pad-and-slice."""
+    import torch
+    import torch.nn.functional as F
+
+    from mpi4dl_tpu_torch.ops import halo_kernel
+    from mpi4dl_tpu_torch.parallel.halo import halo_exchange
+
+    lines, worst = [], 0.0
+    for idx, (axis, shape, sa, sb) in enumerate(strips):
+        ring = grid.ring(axis)
+        k = ring.index(rank)
+        for dtype in (torch.bfloat16, torch.float32):
+            gen = torch.Generator(device=device).manual_seed(SEED + idx)
+            a_all = [torch.randn(shape, generator=gen, device=device).to(dtype)
+                     for _ in range(SP_RANKS)]
+            b_all = [torch.randn(shape, generator=gen, device=device).to(dtype)
+                     for _ in range(SP_RANKS)]
+            a = torch.empty_strided(shape, sa, dtype=dtype, device=device).copy_(a_all[rank])
+            b = torch.empty_strided(shape, sb, dtype=dtype, device=device).copy_(b_all[rank])
+            ra, rb = halo_kernel.halo_swap(a, b, grid, axis)
+            torch.cuda.synchronize()
+            grid.rings.check()  # a wait that ran out raises here, not as a mismatch
+            want_a, want_b = halo_kernel.swap_reference([a_all[r] for r in ring],
+                                                        [b_all[r] for r in ring])
+            worst = max(worst, float((ra.float() - want_a[k].float()).abs().max()),
+                        float((rb.float() - want_b[k].float()).abs().max()))
+            if not (torch.equal(ra, want_a[k]) and torch.equal(rb, want_b[k])):
+                raise AssertionError(f"K4 {axis} {list(shape)} {dtype}: rank {rank} differs "
+                                     "from the plain version")
+        lines.append(f"[s3] K4 {axis} strip {list(shape)} strides {sa}/{sb}: bf16 and f32 "
+                     "equal to the plain version on every rank")
+    i, j = grid.coords
+    for dtype in (torch.bfloat16, torch.float32):
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        image = torch.randn((2, 16, 64, 64), generator=gen, device=device).to(dtype)
+        image = image.contiguous(memory_format=torch.channels_last)
+        tile = image[:, :, i * 32:(i + 1) * 32, j * 32:(j + 1) * 32]
+        tile = tile.contiguous(memory_format=torch.channels_last)
+        for hh, hw, fill in ((1, 1, 0.0), (2, 2, float("-inf"))):
+            got = halo_exchange(tile, hh, hw, grid, fill)
+            want = F.pad(image, (hw, hw, hh, hh), value=fill)[
+                :, :, i * 32:i * 32 + 32 + 2 * hh, j * 32:j * 32 + 32 + 2 * hw]
+            if not torch.equal(got, want):
+                raise AssertionError(f"halo_exchange h({hh},{hw}) fill {fill} {dtype}: rank "
+                                     f"{rank} differs from pad-and-slice")
+            if not got.is_contiguous(memory_format=torch.channels_last):
+                raise AssertionError("halo_exchange lost the channels_last layout")
+    lines.append("[s3] halo_exchange of a 2x2 grid, x[2,16,64,64] h(1,1) fill 0 and h(2,2) "
+                 "fill -inf, bf16 and f32: equal to pad-and-slice of the full image")
+    return lines, worst
+
+
+def _sp_k4_time(grid, device, strips, backend, plain_group):
+    """Phase s4 in one rank: one swap of the largest recorded strip pair."""
+    import torch
+    import torch.distributed as dist
+
+    from mpi4dl_tpu_torch.ops import halo_kernel
+
+    axis, shape, sa, sb = max(strips, key=lambda s: math.prod(s[1]))
+    a = torch.empty_strided(shape, sa, dtype=torch.bfloat16, device=device).normal_()
+    b = torch.empty_strided(shape, sb, dtype=torch.bfloat16, device=device).normal_()
+    out = {"axis": axis, "shape": list(shape), "nbytes": 2 * a.numel() * a.element_size()}
+    out["ms"] = cuda_ms(lambda: halo_kernel.halo_swap(a, b, grid, axis), iters=K4_TIMING_ITERS)
+    ac, bc = a.cpu(), b.cpu()
+    for _ in range(2):
+        halo_kernel.swap_dist_reference(ac, bc, grid, axis, plain_group)
+    dist.barrier(plain_group)
+    t = time.perf_counter()
+    for _ in range(K4_TIMING_ITERS):
+        halo_kernel.swap_dist_reference(ac, bc, grid, axis, plain_group)
+    out["plain_ms"] = (time.perf_counter() - t) * 1e3 / K4_TIMING_ITERS
+    out["library_ms"] = None
+    if backend == "nccl":
+        a2, b2 = a.contiguous(), b.contiguous()
+        ra, rb = torch.empty_like(a2), torch.empty_like(b2)
+        prev, nxt = grid.prev(axis), grid.next(axis)
+
+        def nccl_swap():
+            for req in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, a2, prev), dist.P2POp(dist.isend, b2, nxt),
+                dist.P2POp(dist.irecv, ra, nxt), dist.P2POp(dist.irecv, rb, prev),
+            ]):
+                req.wait()
+
+        out["library_ms"] = cuda_ms(nccl_swap, iters=K4_TIMING_ITERS)
+    return out
+
+
+def _sp_k4_timeout(rank, device):
+    """Phase s5 in one rank: on rings of their own with a short wait, only
+    rank 0 makes a swap. Its wait must run out, set the error word the
+    step's sync reads, and end; the card then goes on with phases d-g."""
+    import torch
+
+    from mpi4dl_tpu_torch.ops import halo_kernel
+    from mpi4dl_tpu_torch.parallel.multihost import TileGrid
+
+    grid = TileGrid(SP_GRID, rank)
+    rings = halo_kernel.open_rings(grid, device, timeout_s=K4_TIMEOUT_S)
+    out = None
+    if rank == 0:  # the neighbours never make the matching swap
+        a = torch.zeros((1, 1, 8, 8), device=device)
+        t = time.perf_counter()
+        halo_kernel.halo_swap(a, a.clone(), grid, "tile_h")
+        torch.cuda.synchronize()
+        out = {"s": time.perf_counter() - t, "error": rings.error()}
+    halo_kernel.close_rings(grid)
+    return out
+
+
+def _sp_worker(rank, world, backend, profile):
+    """Every spatial phase in one rank of the 4-rank world."""
+    import torch
+    import torch.distributed as dist
+
+    from mpi4dl_tpu_torch.ops import halo_kernel
+    from mpi4dl_tpu_torch.parallel.multihost import TileGrid
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", torch.cuda.current_device())
+    grid = TileGrid(SP_GRID, rank)
+    plain_group = dist.group.WORLD if backend == "gloo" else dist.new_group(backend="gloo")
+    halo_kernel.open_rings(grid, device)
+    out = {"small": _sp_small(grid, device)}
+    out["main"] = _sp_main(rank, grid, device, profile)
+    # Each phase starts on every rank together: a rank that is late on the
+    # host by more than K4's wait limit fails its neighbours' swaps.
+    dist.barrier()
+    out["k4_lines"], out["k4_err"] = _sp_k4_check(rank, grid, device,
+                                                  out["main"]["shapes"]["halo_swap"])
+    dist.barrier()
+    out["k4_time"] = _sp_k4_time(grid, device, out["main"]["shapes"]["halo_swap"], backend,
+                                 plain_group)
+    halo_kernel.close_rings(grid)
+    out["k4_timeout"] = _sp_k4_timeout(rank, device)
+    return out
+
+
+def phase_spatial(shapes, profile, single_first_loss=None):
+    """Phase s: spawn the 4 ranks, run every spatial phase, report. Adds
+    the spatial path's K2/K3 shapes to ``shapes``; returns the path's
+    launches (rank 0's, per kernel) and K4's timing (slowest rank)."""
+    import torch
+
+    from mpi4dl_tpu_torch.models.resnet import get_resnet_v2
+    from mpi4dl_tpu_torch.parallel import multihost
+
+    backend, desc = sp_layout()
+    log(f"[s] rank layout: {desc}, 2x2 tile grid")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    ranks = multihost.spawn(_sp_worker, SP_RANKS, args=(backend, profile), backend=backend,
+                            timeout=900)
+    log(f"[s] 4 ranks ran phases s1-s5 in {time.time() - t0:.1f} s")
+
+    want = small_step(lambda: get_resnet_v2(20, 10, pool_kernel=8), 32, "cpu")
+    worst = max(check_small(f"spatial rank {r}", out["small"], want)
+                for r, out in enumerate(ranks))
+    log(f"[s1] small spatial reference ResNet-v2 depth 20 @32 bs2 f32, 2x2 tiles: loss "
+        f"{ranks[0]['small'][0]:.6f}, single-device CPU {want[0]:.6f}; gradients normalised "
+        f"max|err| {worst:.2e} over the ranks (tolerance {SMALL_GRAD_TOL:g})")
+
+    mains = [out["main"] for out in ranks]
+    for r, m in enumerate(mains):
+        if not all(math.isfinite(v) for v in m["losses"] + [w[0] for w in m["warm"]]):
+            raise AssertionError(f"spatial rank {r}: non-finite loss {m['losses']}")
+        for name in PATH_KERNELS["resnet_sp"]:
+            n = m["launches"][name]
+            if n == 0 or n % STEPS:
+                raise AssertionError(f"spatial rank {r}: {name} launched {n} times in {STEPS} steps")
+    slowest = [max(m["times"][i] for m in mains) for i in range(STEPS)]
+    ms = sorted(slowest)[STEPS // 2] * 1e3
+    m0 = mains[0]
+    log(f"[s2] ResNet-{RESNET_DEPTH} v2 @{SIZE} bs{BATCH}, 2x2 tiles of {SIZE // 2}x{SIZE // 2}, "
+        f"bf16 compute, f32 params, remat=False; set-up {m0['setup_s']:.1f} s; warm-up "
+        f"steps {[f'{loss:.4f} ({t:.2f} s)' for loss, t in m0['warm']]}")
+    first = f"{single_first_loss:.4f}" if single_first_loss is not None else "not run"
+    log(f"[s2] first step loss: spatial {m0['warm'][0][0]:.4f}, single-device ResNet-"
+        f"{RESNET_DEPTH} (phase c, same weights and batch) {first}")
+    log(f"[s2] losses {['%.4f' % v for v in m0['losses']]}")
+    log(f"[s2] step time median {ms:.1f} ms (slowest rank per step: "
+        f"{[round(t * 1e3, 1) for t in slowest]}), {BATCH / (ms / 1e3):.3f} img/s, peak memory "
+        f"allocated per rank {[round(m['peak'] / 2**30, 2) for m in mains]} GiB")
+    log(f"[s2] launches per rank per step: " + "; ".join(
+        ", ".join(f"{k} {v // STEPS}" for k, v in m["launches"].items()) for m in mains)
+        + f"; BN all-reduces per step {m0['bn_allreduces']}")
+    for name in ("wgrad", "dot1x1_bwd"):
+        for m in mains:
+            shapes[name].update(m["shapes"][name])
+    for line in ranks[0]["k4_lines"]:
+        log(line)
+    timeout = ranks[0]["k4_timeout"]
+    if timeout["error"] is None or not timeout["s"] < K4_TIMEOUT_S + 5:
+        raise AssertionError(f"K4's unmatched wait: {timeout}")
+    log(f"[s5] an unmatched swap on rank 0 (wait limit {K4_TIMEOUT_S:g} s) ended after "
+        f"{timeout['s']:.2f} s with its error word set: {timeout['error']!r}")
+    timing = dict(ranks[0]["k4_time"])
+    timing["max_abs_err"] = max(out["k4_err"] for out in ranks)
+    for key in ("ms", "plain_ms"):
+        timing[key] = max(out["k4_time"][key] for out in ranks)
+    if timing["library_ms"] is not None:
+        timing["library_ms"] = max(out["k4_time"]["library_ms"] for out in ranks)
+    timing["layout"] = desc
+    timing["backend"] = backend
+    launches = {name: m0["launches"][name] for name in PATH_KERNELS["resnet_sp"]}
+    return launches, timing
+
+
+def halo_row(timing, launches):
+    """The kernels line's K4 row (``timing`` from phase s4)."""
+    nbytes = timing["nbytes"]
+    if timing["backend"] == "nccl":
+        # The strips leave the card over NVLink (each way 450 GB/s).
+        bound = {"bound_ms": nbytes / NVLINK_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    else:
+        bound = _bound(2 * nbytes, 0, 1.0)  # read and written once on one card
+    lib = timing["library_ms"]
+    row = {
+        "name": "halo_swap", "route": "cuda",
+        "source": "mpi4dl_tpu_torch/ops/csrc/halo_swap.cu",
+        "replaces": "mpi4dl_tpu/ops/halo_pallas.py:174",
+        **_launch_fields("halo_swap", launches),
+        "max_abs_err": timing["max_abs_err"],
+        "ms": timing["ms"], "plain_ms": timing["plain_ms"], **bound, "library_ms": lib,
+        "shape": f"a, b [{','.join(map(str, timing['shape']))}] bf16 along {timing['axis']}",
+        "layout": timing["layout"],
+    }
+    log(f"[s4] halo_swap {row['shape']}, {nbytes} bytes a rank: kernel {row['ms']:.3f} ms, "
+        f"plain (CPU, gloo) {row['plain_ms']:.3f} ms, library (NCCL batch_isend_irecv) "
+        f"{'%.3f ms' % lib if lib is not None else 'n/a (ranks share a card)'}, bound "
+        f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}): latency-bound; launches per step "
+        f"{row['launches_per_step']}")
+    return row
 
 
 def phase_k1(gen, shapes):
@@ -493,7 +900,10 @@ def phase_kernel_times(gen, launches, errs):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="profile one extra step of each main path (torch.profiler)")
+                    help="profile one extra step of each main path (torch.profiler; the "
+                         "spatial path's on rank 0)")
+    ap.add_argument("--spatial-only", action="store_true",
+                    help="run only the build and the spatial phase s (for a 4-card host)")
     args = ap.parse_args(argv)
 
     import torch
@@ -509,22 +919,28 @@ def main(argv=None) -> int:
     t_start = time.time()
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     phase_build()
-    for name, build, size in small_models():
-        phase_small_reference(name, build, size)
-    shapes = {name: set() for name in ("pool_bwd", "wgrad", "dot1x1_bwd")}
-    launches = {}
-    for path, desc, build in main_models():
-        launches[path] = phase_main(gen, path, desc, build, shapes, args.profile)
-    shapes = {name: sorted(s) for name, s in shapes.items()}
-    for name, timed in (("pool_bwd", K1_TIMED), ("wgrad", K2_TIMED), ("dot1x1_bwd", K3_TIMED)):
-        if timed not in shapes[name]:
-            raise AssertionError(f"the timed {name} shape {timed} is not a main-path shape")
-    errs = {
-        "pool_bwd": phase_k1(gen, shapes["pool_bwd"]),
-        "wgrad": phase_k2(gen, shapes["wgrad"]),
-        "dot1x1_bwd": phase_k3(gen, shapes["dot1x1_bwd"]),
-    }
-    rows = phase_kernel_times(gen, launches, errs)
+    shapes = {name: set() for name in ("pool_bwd", "wgrad", "dot1x1_bwd", "halo_swap")}
+    launches, rows, first_loss = {}, [], {}
+    if not args.spatial_only:
+        for name, build, size in small_models():
+            phase_small_reference(name, build, size)
+        for path, desc, build in main_models():
+            launches[path], first_loss[path] = phase_main(path, desc, build, shapes, args.profile)
+    launches["resnet_sp"], k4_timing = phase_spatial(shapes, args.profile,
+                                                     first_loss.get("resnet"))
+    if not args.spatial_only:
+        shapes = {name: sorted(s) for name, s in shapes.items()}
+        for name, timed in (("pool_bwd", K1_TIMED), ("wgrad", K2_TIMED),
+                            ("dot1x1_bwd", K3_TIMED)):
+            if timed not in shapes[name]:
+                raise AssertionError(f"the timed {name} shape {timed} is not a main-path shape")
+        errs = {
+            "pool_bwd": phase_k1(gen, shapes["pool_bwd"]),
+            "wgrad": phase_k2(gen, shapes["wgrad"]),
+            "dot1x1_bwd": phase_k3(gen, shapes["dot1x1_bwd"]),
+        }
+        rows = phase_kernel_times(gen, launches, errs)
+    rows.append(halo_row(k4_timing, launches))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

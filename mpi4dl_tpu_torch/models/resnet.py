@@ -11,9 +11,12 @@ Widths are passed explicitly (Flax infers them at first call). The head's
 ``Dense`` takes the last stage's width: at the reference's pairing
 (``pool_kernel = size // 4``) the head pools the last stage to 1x1.
 
-Not ported yet: ``spatial_cells > 0`` (the spatial slice), the TPU packed
-layout (``layout="packed"``, a 128-lane trick the card does not need), and
-the D2 builder ``get_resnet_v2_d2``.
+``spatial_cells``: the first cells run on this rank's tile of ``grid``
+(spatial convs and cross-tile BN); the head never does (it runs after the tile gather). The parameters and their
+names are those of the plain model, so one set of weights serves both.
+
+Not ported yet: the TPU packed layout (``layout="packed"``, a 128-lane
+trick the card does not need) and the D2 model ``get_resnet_v2_d2``.
 """
 
 from __future__ import annotations
@@ -28,19 +31,21 @@ from mpi4dl_tpu_torch.ops.layers import Conv2d, Dense, Pool, TrainBatchNorm
 class ResNetLayer(nn.Module):
     """conv/BN/ReLU unit (ref ``resnet_layer``, ``resnet.py:24-78``):
     conv → BN → ReLU, or BN → ReLU → conv when ``conv_first`` is False.
-    The conv has a bias and ``(k-1)//2`` padding."""
+    The conv has a bias and ``(k-1)//2`` padding. ``grid``: the conv is
+    spatial on this rank's tile of it and BN averages its moments over it."""
 
     def __init__(self, in_features, features, kernel_size=3, strides=1,
                  activation="relu", batch_normalization=True, conv_first=True,
-                 dtype=None):
+                 dtype=None, grid=None):
         super().__init__()
         if activation not in ("relu", None):
             raise ValueError(f"unknown activation {activation!r}")
         self.activation = activation
         self.conv_first = conv_first
-        self.conv = Conv2d(in_features, features, kernel_size, strides, dtype=dtype)
+        self.conv = Conv2d(in_features, features, kernel_size, strides, dtype=dtype,
+                           spatial=grid is not None, grid=grid)
         bn_features = features if conv_first else in_features
-        self.bn = TrainBatchNorm(bn_features) if batch_normalization else None
+        self.bn = TrainBatchNorm(bn_features, grid=grid) if batch_normalization else None
 
     def _bn_relu(self, x):
         if self.bn is not None:
@@ -56,16 +61,18 @@ class ResNetLayer(nn.Module):
 class CellV1(nn.Module):
     """Basic residual cell (ref ``make_cell_v1``, ``resnet.py:81-114``):
     two 3x3 layers, a 1x1 shortcut conv on each later stack's first block,
-    ``relu(x + y)``."""
+    ``relu(x + y)``. ``grid``: see :class:`ResNetLayer`."""
 
-    def __init__(self, in_features, stack, res_block, strides, features, dtype=None):
+    def __init__(self, in_features, stack, res_block, strides, features, dtype=None,
+                 grid=None):
         super().__init__()
-        self.r1 = ResNetLayer(in_features, features, strides=strides, dtype=dtype)
-        self.r2 = ResNetLayer(features, features, activation=None, dtype=dtype)
+        common = dict(dtype=dtype, grid=grid)
+        self.r1 = ResNetLayer(in_features, features, strides=strides, **common)
+        self.r2 = ResNetLayer(features, features, activation=None, **common)
         self.r3 = None
         if res_block == 0 and stack > 0:
             self.r3 = ResNetLayer(in_features, features, kernel_size=1, strides=strides,
-                                  activation=None, batch_normalization=False, dtype=dtype)
+                                  activation=None, batch_normalization=False, **common)
 
     def forward(self, x):
         y = self.r2(self.r1(x))
@@ -77,21 +84,22 @@ class CellV1(nn.Module):
 class CellV2(nn.Module):
     """Pre-activation bottleneck cell (ref ``make_cell_v2``,
     ``resnet.py:181-231``): 3x3, 3x3, 1x1, and a 1x1 shortcut conv on each
-    stack's first block; ``x + y``."""
+    stack's first block; ``x + y``. ``grid``: see :class:`ResNetLayer`."""
 
     def __init__(self, in_features, res_block, strides, features1, features2,
-                 activation="relu", batch_normalization=True, dtype=None):
+                 activation="relu", batch_normalization=True, dtype=None,
+                 grid=None):
         super().__init__()
+        common = dict(dtype=dtype, grid=grid)
         self.r1 = ResNetLayer(in_features, features1, strides=strides, activation=activation,
                               batch_normalization=batch_normalization, conv_first=False,
-                              dtype=dtype)
-        self.r2 = ResNetLayer(features1, features1, conv_first=False, dtype=dtype)
-        self.r3 = ResNetLayer(features1, features2, kernel_size=1, conv_first=False,
-                              dtype=dtype)
+                              **common)
+        self.r2 = ResNetLayer(features1, features1, conv_first=False, **common)
+        self.r3 = ResNetLayer(features1, features2, kernel_size=1, conv_first=False, **common)
         self.r4 = None
         if res_block == 0:
             self.r4 = ResNetLayer(in_features, features2, kernel_size=1, strides=strides,
-                                  activation=None, batch_normalization=False, dtype=dtype)
+                                  activation=None, batch_normalization=False, **common)
 
     def forward(self, x):
         y = self.r3(self.r2(self.r1(x)))
@@ -158,32 +166,41 @@ class HeadV2(nn.Module):
         return self.fc(self.pool(F.relu(self.bn(x))))
 
 
-def _check_unported(spatial_cells: int, layout: str = "nhwc") -> None:
-    if spatial_cells:
-        raise NotImplementedError("spatial ResNet cells come with the spatial slice")
+def _check_unported(spatial_cells: int, grid, layout: str = "nhwc") -> None:
     if layout == "packed":
         raise NotImplementedError("the packed layout is a TPU lane trick; use 'nhwc'")
     if layout != "nhwc":
         raise ValueError(f"layout must be nhwc|packed, got {layout!r}")
+    if spatial_cells and grid is None:
+        raise ValueError("spatial cells need the rank's TileGrid (grid=...)")
+
+
+def _grid(cells: list, spatial_cells: int, grid):
+    """The next cell's grid: spatial while fewer than ``spatial_cells``
+    cells precede it (``resnet.py:390-391``)."""
+    return grid if len(cells) < spatial_cells else None
 
 
 def get_resnet_v1(depth: int, num_classes: int = 10, spatial_cells: int = 0,
                   pool_kernel: int = 8, dtype=torch.float32,
-                  in_channels: int = 3) -> nn.Sequential:
+                  in_channels: int = 3, grid=None) -> nn.Sequential:
     """ResNet v1 (ref ``get_resnet_v1``, ``resnet.py:145-178``): depth
     6n+2, 3 stacks of n basic cells, stride-2 at each later stack's start,
     avg-pool + linear head. ``dtype`` is the compute dtype; parameters stay
-    f32."""
-    _check_unported(spatial_cells)
+    f32. ``spatial_cells``/``grid``: see the module docstring."""
+    _check_unported(spatial_cells, grid)
     if (depth - 2) % 6 != 0:
         raise ValueError("depth should be 6n+2 (eg 20, 32, 44)")
     n_blocks = (depth - 2) // 6
-    cells: list[nn.Module] = [ResNetLayer(in_channels, 16, dtype=dtype)]
+    cells: list[nn.Module] = []
+    cells.append(ResNetLayer(in_channels, 16, dtype=dtype,
+                             grid=_grid(cells, spatial_cells, grid)))
     features_in = features = 16
     for stack in range(3):
         for res_block in range(n_blocks):
             strides = 2 if (stack > 0 and res_block == 0) else 1
-            cells.append(CellV1(features_in, stack, res_block, strides, features, dtype=dtype))
+            cells.append(CellV1(features_in, stack, res_block, strides, features, dtype=dtype,
+                                grid=_grid(cells, spatial_cells, grid)))
             features_in = features
         features *= 2
     cells.append(HeadV1(features_in, num_classes, pool_kernel, dtype=dtype))
@@ -191,17 +208,21 @@ def get_resnet_v1(depth: int, num_classes: int = 10, spatial_cells: int = 0,
 
 
 def get_resnet_v2(depth: int, num_classes: int = 10, spatial_cells: int = 0,
-                  pool_kernel: int = 8, layout: str = "nhwc", dtype=torch.float32,
-                  in_channels: int = 3) -> nn.Sequential:
+                  pool_kernel: int = 8, layout: str = "nhwc",
+                  dtype=torch.float32, in_channels: int = 3, grid=None) -> nn.Sequential:
     """ResNet v2 (ref ``get_resnet_v2``, ``resnet.py:270-323``): depth 9n+2,
     a conv-first stem, 3 stages of n pre-activation bottleneck cells,
     BN + ReLU + avg-pool + linear head. ``dtype`` is the compute dtype;
-    parameters stay f32."""
-    _check_unported(spatial_cells, layout)
-    cells: list[nn.Module] = [ResNetLayer(in_channels, 16, conv_first=True, dtype=dtype)]
+    parameters stay f32. ``spatial_cells``/``grid``: see the module
+    docstring."""
+    _check_unported(spatial_cells, grid, layout)
+    cells: list[nn.Module] = []
+    cells.append(ResNetLayer(in_channels, 16, conv_first=True, dtype=dtype,
+                             grid=_grid(cells, spatial_cells, grid)))
     features_in = 16
     for spec in _v2_specs(depth):
-        cells.append(CellV2(features_in, dtype=dtype, **spec))
+        cells.append(CellV2(features_in, dtype=dtype,
+                            grid=_grid(cells, spatial_cells, grid), **spec))
         features_in = spec["features2"]
     cells.append(HeadV2(features_in, num_classes, pool_kernel, dtype=dtype))
     return nn.Sequential(*cells)

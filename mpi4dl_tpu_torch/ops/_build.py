@@ -27,7 +27,7 @@ from pathlib import Path
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"
-SOURCES = ("pool_bwd", "dot1x1_bwd", "wgrad")
+SOURCES = ("pool_bwd", "dot1x1_bwd", "wgrad", "halo_swap")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -1,0 +1,279 @@
+"""Halo ring swap, a hand-written CUDA kernel (K4).
+
+Port of ``mpi4dl_tpu/ops/halo_pallas.py`` (``_swap_call``, the custom-VJP
+``strip_swap``): along one tile axis of a :class:`TileGrid`, every rank
+sends strip ``a`` to its ring-previous rank and ``b`` to its ring-next
+rank, and receives ``ra`` = the ``a`` of its next rank and ``rb`` = the
+``b`` of its previous rank (wraparound; the caller masks global edges).
+Strips are NHWC ``[B, Hs, Ws, C]``, possibly strided views (the W-phase
+strip of a channels_last tile is not contiguous); ``ra``/``rb`` come back
+contiguous. Every rank must make the same swaps in the same order (the
+JAX kernel's uniform-SPMD rule), since sequence numbers pair the calls.
+
+- CUDA tensors: ``csrc/halo_swap.cu`` over CUDA IPC (peer stores into the
+  neighbours' receive arenas, flags with release/acquire at system scope,
+  a time-bounded wait). The transport is opened once per grid and card
+  with :func:`open_rings` (collective) and closed with :func:`close_rings`.
+- CPU tensors: :func:`swap_dist_reference`, ``batch_isend_irecv`` to the
+  ring neighbours over the process group (gloo).
+- The whole ring in one process: :func:`swap_reference`, the function the
+  tests hold against the JAX kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.distributed as dist
+
+from mpi4dl_tpu_torch.ops import _build
+from mpi4dl_tpu_torch.parallel.multihost import TILE_AXES, TileGrid
+
+# Swaps launched since the last reset (the main path's proof of use).
+launch_count = 0
+
+SLOT_BYTES = 1 << 20  # receive capacity per direction and slot
+TIMEOUT_S = 10.0  # a wait longer than this fails the step instead of hanging the card
+_IPC_HANDLE_BYTES = 64
+
+
+def _lib():
+    lib = _build.load("halo_swap")
+    if lib.halo_swap.argtypes is None:
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.halo_arena_alloc.argtypes = [i, ll, ctypes.POINTER(vp), ctypes.c_char_p]
+        lib.halo_arena_open.argtypes = [i, ctypes.c_char_p, ctypes.POINTER(vp)]
+        lib.halo_arena_close.argtypes = [i, vp]
+        lib.halo_arena_free.argtypes = [i, vp]
+        lib.halo_status_alloc.argtypes = [i, ctypes.POINTER(vp), ctypes.POINTER(vp)]
+        lib.halo_status_free.argtypes = [vp]
+        # device, a, b, ra, rb; B, Hs, Ws, C, esize; strides of a, b; arenas;
+        # slot_bytes; seq; axis; status; timeout_ns; stream
+        lib.halo_swap.argtypes = (
+            [i] + [vp] * 4 + [i] * 5 + [ll] * 6 + [vp] * 3
+            + [ll, ctypes.c_ulonglong, i, vp, ll, vp]
+        )
+        for fn in (lib.halo_arena_alloc, lib.halo_arena_open, lib.halo_arena_close,
+                   lib.halo_arena_free, lib.halo_status_alloc, lib.halo_status_free,
+                   lib.halo_swap, lib.halo_ipc_handle_size):
+            fn.restype = ctypes.c_int
+        if lib.halo_ipc_handle_size() != _IPC_HANDLE_BYTES:
+            raise RuntimeError("halo_swap: unexpected cudaIpcMemHandle_t size")
+    return lib
+
+
+def swap_reference(a_tiles, b_tiles):
+    """The swap of a whole ring in one process: ``a_tiles``/``b_tiles``
+    are the ring's strips in index order; returns ``(ra, rb)`` lists with
+    ``ra[i] = a[(i+1) % n]`` and ``rb[i] = b[(i-1) % n]``."""
+    n = len(a_tiles)
+    if n != len(b_tiles) or n < 1:
+        raise ValueError("swap_reference: a and b need one strip per ring position")
+    return ([a_tiles[(i + 1) % n] for i in range(n)],
+            [b_tiles[(i - 1) % n] for i in range(n)])
+
+
+def swap_dist_reference(a, b, grid: TileGrid, axis: str, group=None):
+    """Plain distributed version for CPU tensors: ``batch_isend_irecv`` to
+    the ring neighbours over ``group`` (default: the world, which must then
+    take CPU tensors, as gloo does). Tag 0 carries ``a``-strips, tag 1
+    ``b``-strips, so a ring of two, where prev is next, pairs them right."""
+    a, b = a.contiguous(), b.contiguous()
+    ra, rb = torch.empty_like(a), torch.empty_like(b)
+    prev, nxt = grid.prev(axis), grid.next(axis)
+    ops = [
+        dist.P2POp(dist.isend, a, prev, group, tag=0),
+        dist.P2POp(dist.isend, b, nxt, group, tag=1),
+        dist.P2POp(dist.irecv, ra, nxt, group, tag=0),
+        dist.P2POp(dist.irecv, rb, prev, group, tag=1),
+    ]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return ra, rb
+
+
+class _Ring:
+    def __init__(self, arena: int, prev: int, nxt: int):
+        self.arena, self.prev, self.next = arena, prev, nxt
+        self.seq = 0  # swaps made on this axis
+
+
+class HaloRings:
+    """K4's transport for one :class:`TileGrid` on this rank's card: for
+    each axis longer than 1, this rank's receive arena, its neighbours'
+    arenas mapped through CUDA IPC, and the axis's sequence counter; one
+    host-mapped status word for the time-bounded waits. Memory comes from
+    ``cudaMalloc``/``cudaHostAlloc`` on the C side, not from PyTorch's
+    caching allocator. Build it with :func:`open_rings`."""
+
+    def __init__(self, grid: TileGrid, device, timeout_s: float = TIMEOUT_S):
+        self.device = torch.device(device)
+        if self.device.type != "cuda" or self.device.index is None:
+            raise ValueError(f"halo rings need an indexed CUDA device, got {device}")
+        self.slot_bytes = SLOT_BYTES
+        self.timeout_ns = int(timeout_s * 1e9)
+        self._lib = lib = _lib()
+        dev = self.device.index
+        host, devp = ctypes.c_void_p(), ctypes.c_void_p()
+        _build.check(lib.halo_status_alloc(dev, ctypes.byref(host), ctypes.byref(devp)),
+                     "halo_status_alloc")
+        self._status_host, self._status_dev = host.value, devp.value
+        self._status = (ctypes.c_int * 4).from_address(self._status_host)
+        self._arenas: dict[str, int] = {}
+        handles: dict[str, bytes] = {}
+        for axis in TILE_AXES:
+            if grid.axis_size(axis) > 1:
+                arena = ctypes.c_void_p()
+                handle = ctypes.create_string_buffer(_IPC_HANDLE_BYTES)
+                _build.check(lib.halo_arena_alloc(dev, SLOT_BYTES, ctypes.byref(arena), handle),
+                             "halo_arena_alloc")
+                self._arenas[axis] = arena.value
+                handles[axis] = handle.raw
+        everyone: list = [None] * grid.world_size
+        dist.all_gather_object(everyone, handles)
+        self._peers: dict[tuple[str, int], int] = {}
+        self._rings: dict[str, _Ring] = {}
+        for axis, arena in self._arenas.items():
+            ptrs = []
+            for rank in (grid.prev(axis), grid.next(axis)):
+                if (axis, rank) not in self._peers:
+                    peer = ctypes.c_void_p()
+                    _build.check(lib.halo_arena_open(dev, everyone[rank][axis], ctypes.byref(peer)),
+                                 "halo_arena_open")
+                    self._peers[(axis, rank)] = peer.value
+                ptrs.append(self._peers[(axis, rank)])
+            self._rings[axis] = _Ring(arena, *ptrs)
+
+    def error(self) -> str | None:
+        """What the first wait that ran out reports, or None (reads
+        host-mapped memory: no sync; read it after a sync to see the waits
+        launched before)."""
+        code, seq, direction, axis = tuple(self._status)
+        if not code:
+            return None
+        return (f"halo_swap: the wait for swap {seq} on {TILE_AXES[axis]} (from the ring-"
+                f"{'next' if direction == 0 else 'previous'} rank) ran out after "
+                f"{self.timeout_ns / 1e9:g} s: a neighbour did not make the same swaps")
+
+    def check(self) -> None:
+        """Raise if a wait ran out (see :meth:`error`)."""
+        msg = self.error()
+        if msg:
+            raise RuntimeError(msg)
+
+    def swap(self, a, b, axis: str):
+        ring = self._rings.get(axis)
+        if ring is None:
+            raise RuntimeError(f"halo_swap: no ring open on axis {axis!r}")
+        if a.device != self.device:
+            raise ValueError(f"halo_swap: strips on {a.device}, rings on {self.device}")
+        nbytes = a.numel() * a.element_size()
+        if nbytes > self.slot_bytes:
+            raise ValueError(f"halo_swap: a {nbytes}-byte strip exceeds the "
+                             f"{self.slot_bytes}-byte receive slot")
+        self.check()
+        ra = torch.empty(a.shape, dtype=a.dtype, device=a.device)
+        rb = torch.empty_like(ra)
+        ring.seq += 1
+        err = self._lib.halo_swap(
+            self.device.index, a.data_ptr(), b.data_ptr(), ra.data_ptr(), rb.data_ptr(),
+            *a.shape, a.element_size(), *a.stride()[:3], *b.stride()[:3],
+            ring.arena, ring.prev, ring.next, self.slot_bytes, ring.seq,
+            TILE_AXES.index(axis), self._status_dev, self.timeout_ns,
+            torch.cuda.current_stream(self.device).cuda_stream,
+        )
+        _build.check(err, "halo_swap")
+        return ra, rb
+
+    def close(self) -> None:
+        """Collective: wait for every rank's swaps to end, unmap the
+        neighbours' arenas, then free this rank's."""
+        torch.cuda.synchronize(self.device)
+        dist.barrier()
+        dev = self.device.index
+        for ptr in self._peers.values():
+            _build.check(self._lib.halo_arena_close(dev, ptr), "halo_arena_close")
+        self._peers.clear()
+        dist.barrier()
+        for arena in self._arenas.values():
+            _build.check(self._lib.halo_arena_free(dev, arena), "halo_arena_free")
+        self._arenas.clear()
+        self._rings.clear()
+        _build.check(self._lib.halo_status_free(self._status_host), "halo_status_free")
+        self._status = None
+
+
+def open_rings(grid: TileGrid, device, timeout_s: float = TIMEOUT_S) -> HaloRings:
+    """Collective: open K4's transport for ``grid`` on ``device`` (this
+    rank's card), with waits that give up after ``timeout_s``, and keep it
+    as ``grid.rings``."""
+    if grid.rings is not None:
+        raise RuntimeError("this grid's rings are already open")
+    grid.rings = HaloRings(grid, device, timeout_s)
+    return grid.rings
+
+
+def close_rings(grid: TileGrid) -> None:
+    """Collective: close ``grid.rings`` (a no-op when none is open)."""
+    if grid.rings is not None:
+        grid.rings.close()
+        grid.rings = None
+
+
+def _check(a, b, grid: TileGrid, axis: str):
+    if a.device != b.device:
+        raise ValueError(f"halo_swap: a on {a.device}, b on {b.device}")
+    if a.dtype != b.dtype:
+        raise TypeError(f"halo_swap: a is {a.dtype}, b is {b.dtype}")
+    if a.shape != b.shape or a.dim() != 4 or a.numel() == 0:
+        raise ValueError(f"halo_swap: a {tuple(a.shape)} and b {tuple(b.shape)} must be one "
+                         "non-empty NHWC shape")
+    if grid.axis_size(axis) < 2:
+        raise ValueError(f"halo_swap: the ring along {axis} has one rank")
+    if a.is_cuda and (a.stride(3) != 1 or b.stride(3) != 1):
+        raise ValueError("halo_swap: the channels of a CUDA strip must be contiguous (NHWC)")
+
+
+def halo_swap(a, b, grid: TileGrid, axis: str):
+    """(ra, rb) of one swap of NHWC strips ``a``, ``b`` along ``axis`` of
+    ``grid``. CPU tensors run :func:`swap_dist_reference`. CUDA tensors
+    launch the kernel on the current stream through ``grid.rings``, and
+    anything it does not take raises — no fallback."""
+    _check(a, b, grid, axis)
+    if a.device.type == "cpu":
+        return swap_dist_reference(a, b, grid, axis)
+    if not a.is_cuda:
+        raise ValueError(f"halo_swap: no kernel for device {a.device}")
+    if grid.rings is None:
+        raise RuntimeError("halo_swap: the grid's rings are not open (open_rings)")
+    out = grid.rings.swap(a, b, axis)
+    global launch_count
+    launch_count += 1
+    return out
+
+
+def _channels_inner(g):
+    return g if g.device.type == "cpu" or g.stride(3) == 1 else g.contiguous()
+
+
+class StripSwap(torch.autograd.Function):
+    """:func:`halo_swap` with the JAX kernel's VJP (``halo_pallas.py:214-219``):
+    the swap is a permutation, so its transpose is the same swap with the
+    cotangents exchanged, ``(gb, ga) = swap(grb, gra)``."""
+
+    @staticmethod
+    def forward(ctx, a, b, grid, axis):
+        ctx.grid, ctx.axis = grid, axis
+        return halo_swap(a, b, grid, axis)
+
+    @staticmethod
+    def backward(ctx, gra, grb):
+        gb, ga = halo_swap(_channels_inner(grb), _channels_inner(gra), ctx.grid, ctx.axis)
+        return ga, gb, None, None
+
+
+def strip_swap(a, b, grid: TileGrid, axis: str):
+    """Differentiable ring swap: ``(ra, rb)`` with ``ra`` the ``a`` of the
+    ring-next rank and ``rb`` the ``b`` of the ring-previous rank."""
+    return StripSwap.apply(a, b, grid, axis)

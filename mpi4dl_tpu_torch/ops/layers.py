@@ -1,19 +1,25 @@
-"""Core layer library, plain forms (twin of ``mpi4dl_tpu/ops/layers.py``).
+"""Core layer library (twin of ``mpi4dl_tpu/ops/layers.py``).
 
 Tensors are NCHW-logical (``channels_last`` in memory on the card). Each
 module's constructor takes its input width, which Flax infers at first
 call; submodule and parameter names follow the Flax modules so that
 :func:`mpi4dl_tpu_torch.weights.from_jax_params` maps weights by name.
+
+Spatial forms take the rank's :class:`TileGrid` at construction: the
+spatial ``Conv2d`` (halo exchange, VALID conv, trim) and the cross-tile
+``TrainBatchNorm`` (moments averaged over the grid).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
 from mpi4dl_tpu_torch.ops.fastconv import FastConv, lecun_normal_
 from mpi4dl_tpu_torch.ops.pool_kernel import MaxPool
+from mpi4dl_tpu_torch.parallel import halo  # a module: parallel.halo imports ops
 
 
 def _pair(v) -> tuple[int, int]:
@@ -22,25 +28,57 @@ def _pair(v) -> tuple[int, int]:
     return (int(v), int(v))
 
 
+def _check_window_coverage(kh, kw, sh, sw, ph, pw):
+    """A spatial windowed op is exact only when the halo (= padding) covers
+    the window overlap beyond the stride (``layers.py:194-206``)."""
+    if kh - sh > 2 * ph or kw - sw > 2 * pw:
+        raise ValueError(
+            f"spatial window op needs padding >= (kernel - stride)/2 per dim "
+            f"to cover tile-boundary windows; got kernel=({kh},{kw}) "
+            f"strides=({sh},{sw}) padding=({ph},{pw})"
+        )
+
+
 class Conv2d(nn.Module):
-    """Plain 2-D conv: symmetric zero padding ``padding`` (default
-    ``(k-1)//2``, torch style), stride ``strides``. Holds the ``conv``
-    submodule (Flax ``FastConv``)."""
+    """2-D conv: symmetric zero padding ``padding`` (default ``(k-1)//2``,
+    torch style), stride ``strides``. Holds the ``conv`` submodule (Flax
+    ``FastConv``).
+
+    ``spatial=True`` (``layers.py:474-497``): ``x`` is this rank's tile of
+    ``grid``; the conv exchanges ``padding`` rows/cols of halo with the
+    neighbours, runs VALID on the extended tile and keeps this tile's
+    ``H/stride x W/stride`` outputs (exact for tiles that divide by the
+    stride, which the config's power-of-two rules give)."""
 
     def __init__(self, in_features, features, kernel_size=3, strides=1,
-                 padding=None, use_bias=True, dtype=None):
+                 padding=None, use_bias=True, dtype=None, spatial=False, grid=None):
         super().__init__()
         kh, kw = _pair(kernel_size)
+        sh, sw = _pair(strides)
         if padding is None:
             ph, pw = (kh - 1) // 2, (kw - 1) // 2
         else:
             ph, pw = _pair(padding)
+        self.spatial = spatial
+        if spatial:
+            if grid is None:
+                raise ValueError("a spatial Conv2d needs the rank's TileGrid")
+            _check_window_coverage(kh, kw, sh, sw, ph, pw)
+        self.grid = grid
+        self.halo = (ph, pw)
+        self.strides = (sh, sw)
         self.conv = FastConv(
-            in_features, features, (kh, kw), _pair(strides), (ph, pw), use_bias, dtype,
+            in_features, features, (kh, kw), (sh, sw), (0, 0) if spatial else (ph, pw),
+            use_bias, dtype,
         )
 
     def forward(self, x):
-        return self.conv(x)
+        if not self.spatial:
+            return self.conv(x)
+        h, w = x.shape[2], x.shape[3]
+        (sh, sw), (ph, pw) = self.strides, self.halo
+        xe = halo.halo_exchange(x, ph, pw, self.grid)
+        return self.conv(xe)[:, :, :h // sh, :w // sw]
 
 
 class _BnMoments(torch.autograd.Function):
@@ -66,15 +104,40 @@ class _BnMoments(torch.autograd.Function):
         return dx.to(x.dtype)
 
 
+class _GridMean(torch.autograd.Function):
+    """Mean of a tensor over the ranks of ``grid`` (one all-reduce); its
+    backward is the same mean of the cotangent, as pmean's transpose is
+    pmean."""
+
+    @staticmethod
+    def forward(ctx, t, grid):
+        ctx.grid = grid
+        t = t.clone()
+        dist.all_reduce(t)
+        return t / grid.world_size
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g)
+        return g / ctx.grid.world_size, None
+
+
 class TrainBatchNorm(nn.Module):
     """Batch normalization with current-batch statistics (``"batch"``
     mode): f32 ``E[x]`` and ``E[x²]``, ``var = E[x²] − E[x]²``, and the
     normalize step ``x·w + b`` in the input dtype (``layers.py:358-367``).
-    ``F.batch_norm`` rounds differently and is not used."""
+    ``F.batch_norm`` rounds differently and is not used.
 
-    def __init__(self, features, eps: float = 1e-5):
+    ``grid``: cross-tile statistics (``reduce_axes`` over the tile axes,
+    ``layers.py:359-361``): the tile's moments are averaged over the grid
+    in one ``[2C]`` all-reduce. Tiles are equal, so that is the moment of
+    the whole image."""
+
+    def __init__(self, features, eps: float = 1e-5, grid=None):
         super().__init__()
         self.eps = eps
+        self.grid = grid
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
@@ -84,6 +147,9 @@ class TrainBatchNorm(nn.Module):
 
     def forward(self, x):
         mean, mean_sq = _BnMoments.apply(x)
+        if self.grid is not None:
+            moments = _GridMean.apply(torch.cat([mean, mean_sq]), self.grid)
+            mean, mean_sq = moments[:x.shape[1]], moments[x.shape[1]:]
         var = mean_sq - mean.square()
         r = torch.rsqrt(var + self.eps)
         w = (r * self.scale).to(x.dtype).view(1, -1, 1, 1)

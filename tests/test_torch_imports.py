@@ -31,6 +31,9 @@ def test_port_modules_listed():
     assert "mpi4dl_tpu_torch.ops.wgrad_kernel" in PORT_MODULES
     assert "mpi4dl_tpu_torch.models.resnet" in PORT_MODULES
     assert "mpi4dl_tpu_torch.train" in PORT_MODULES
+    assert "mpi4dl_tpu_torch.parallel.multihost" in PORT_MODULES
+    assert "mpi4dl_tpu_torch.parallel.halo" in PORT_MODULES
+    assert "mpi4dl_tpu_torch.ops.halo_kernel" in PORT_MODULES
 
 
 def test_no_jax_and_no_jax_package_loaded():

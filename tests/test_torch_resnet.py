@@ -182,8 +182,8 @@ def test_cell_remat_matches_plain_step():
 @pytest.mark.parametrize(
     "builder,kwargs,err",
     [
-        ("get_resnet_v2", dict(spatial_cells=2), NotImplementedError),
-        ("get_resnet_v1", dict(spatial_cells=2), NotImplementedError),
+        ("get_resnet_v2", dict(spatial_cells=2, layout="packed"), NotImplementedError),
+        ("get_resnet_v1", dict(spatial_cells=2), ValueError),  # spatial cells need a grid
         ("get_resnet_v2", dict(layout="packed"), NotImplementedError),
         ("get_resnet_v2", dict(layout="nchw"), ValueError),
     ],
