@@ -8,7 +8,8 @@
 Phases (any failure exits non-zero; nothing is caught):
 
   a. build every kernel of the main paths from ``mpi4dl_tpu_torch/ops/csrc``
-     (one nvcc per source, all started together);
+     (one nvcc per source, all started together) and print each kernel's
+     registers, shared memory and spills as ptxas reports them;
   b. small-input references, one f32 training step each on the card (TF32
      off) against the same step on the CPU (plain versions): loss and
      per-leaf-normalised gradients. AmoebaNet-D 3L/32F @64 bs2 and
@@ -51,6 +52,9 @@ Phases (any failure exits non-zero; nothing is caught):
      recorded shape of the three paths (tolerances below);
   g. per-kernel times (kernel, plain version, one library call) at the
      largest main-path shape of each, beside the bound the card's peaks give;
+     then K2 and K3 at every recorded call shape of the three paths (kernel,
+     library call, bound, launches per step of each path there) and each
+     path's launch-weighted sum per step;
   h. the card's name and power limit from nvidia-smi.
 
 The last lines are the ``{"kernels": [...]}`` line and then
@@ -60,6 +64,7 @@ The last lines are the ``{"kernels": [...]}`` line and then
 from __future__ import annotations
 
 import argparse
+import collections
 import copy
 import json
 import math
@@ -99,6 +104,7 @@ RESNET_DEPTH = 110  # utils.get_depth(2, 12)
 SP_GRID, SP_RANKS = (2, 2), 4
 K4_TIMING_ITERS = 20
 K4_TIMEOUT_S = 0.5  # phase s5's wait limit
+KERNELS = ("pool_bwd", "wgrad", "dot1x1_bwd", "halo_swap")
 # The kernels each path must launch (resnet_sp: per rank).
 PATH_KERNELS = {
     "amoebanet": ("pool_bwd", "wgrad", "dot1x1_bwd"),
@@ -145,8 +151,13 @@ def phase_build():
     from mpi4dl_tpu_torch.ops import _build
 
     t0 = time.time()
-    _build.build_all()
+    reports = _build.build_all()
     log(f"[a] built {', '.join(_build.SOURCES)} for sm_90a in {time.time() - t0:.1f} s")
+    for name in _build.SOURCES:
+        if name not in reports:
+            log(f"[a]   {name}: current build reused, no ptxas report")
+        for fn, info in reports.get(name, {}).items():
+            log(f"[a]   {name} {fn}: {info}")
 
 
 def small_models():
@@ -221,12 +232,12 @@ def phase_small_reference(name, build, size):
 
 
 def _recording(module, name, key, sink):
-    """Wrap ``module.name`` so each call adds ``key(*args)`` to ``sink``;
-    returns the function that restores the original."""
+    """Wrap ``module.name`` so each call counts ``key(*args)`` in the
+    Counter ``sink``; returns the function that restores the original."""
     orig = getattr(module, name)
 
     def wrapper(*args):
-        sink.add(key(*args))
+        sink[key(*args)] += 1
         return orig(*args)
 
     setattr(module, name, wrapper)
@@ -240,9 +251,14 @@ def _counters():
             "halo_swap": halo_kernel}
 
 
+def _new_calls():
+    """Per kernel, a Counter of call shape -> calls (one recorded step)."""
+    return {name: collections.Counter() for name in KERNELS}
+
+
 def _record_shapes(shapes):
-    """Record the call shapes of K1, K2, K3 and K4 into ``shapes``; returns
-    the functions that restore the originals."""
+    """Count the call shapes of K1, K2, K3 and K4 into ``shapes`` (from
+    :func:`_new_calls`); returns the functions that restore the originals."""
     from mpi4dl_tpu_torch.ops import fastconv, halo_kernel, pool_kernel
 
     return [
@@ -286,7 +302,8 @@ def main_models():
 
 def phase_main(path, desc, build, shapes, profile=False):
     """Train one main path; returns its launches in the timed steps and its
-    first step's loss, and adds the kernels' call shapes to ``shapes``."""
+    first step's loss, and counts the kernels' call shapes of its first
+    step into ``shapes`` (from :func:`_new_calls`)."""
     import torch
 
     from mpi4dl_tpu_torch.config import ParallelConfig
@@ -368,12 +385,12 @@ def profile_step(trainer, x, y, top=15, tag="c", emit=log):
         return sum(e.device_time_total for e in kernels if any(n in e.key for n in names)) / 1e3
 
     # The port's kernels sit in an anonymous namespace; the "::" keeps
-    # cuDNN's "..._implicit_gemm_bf16..." names out of K3's sum.
+    # library kernels of similar names out of the sums.
     busy = total("")
     emit(f"[{tag}] profiled step: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
          f"(idle {100 * (1 - busy / wall_ms):.1f}%), K1 {total('::pool_bwd_kernel<'):.1f} ms, "
-         f"K2 {total('::wgrad_bf16<', '::wgrad_f32('):.1f} ms, "
-         f"K3 {total('::gemm_bf16<', '::gemm_f32<'):.1f} ms, "
+         f"K2 {total('::wgrad_halo_bf16<', '::wgrad_f32('):.1f} ms, "
+         f"K3 {total('::dot1x1_onepass<', '::gemm_wgmma<', '::gemm_f32<'):.1f} ms, "
          f"K4 push {total('::halo_push<'):.1f} ms + wait {total('::halo_wait<'):.1f} ms, "
          f"NCCL {total('ncclDevKernel'):.1f} ms, slice sums {total('::sum_splits('):.1f} ms, head pool {head_pool:.3f} ms, "
          f"{sum(e.count for e in kernels)} kernel launches")
@@ -438,7 +455,7 @@ def _sp_main(rank, grid, device, profile):
                       num_spatial_cells=len(model) - 1, grid=grid)
     x, y = main_batch(device)
     out = {"setup_s": time.time() - t0, "warm": [], "losses": [], "times": []}
-    shapes = {name: set() for name in ("pool_bwd", "wgrad", "dot1x1_bwd", "halo_swap")}
+    shapes = _new_calls()
     bn_reduces = [0]
     for i in range(WARMUP):
         restore = []
@@ -467,7 +484,7 @@ def _sp_main(rank, grid, device, profile):
         # profiler set-up and read-out; rank 0 prints.
         profile_step(trainer, x, y, tag="s2", emit=log if rank == 0 else lambda *a: None)
         dist.barrier()
-    out["shapes"] = {name: sorted(v) for name, v in shapes.items()}
+    out["shapes"] = {name: sorted(v.items()) for name, v in shapes.items()}
     out["bn_allreduces"] = bn_reduces[0]
     del trainer, model, x, y
     torch.cuda.empty_cache()
@@ -606,20 +623,20 @@ def _sp_worker(rank, world, backend, profile):
     # Each phase starts on every rank together: a rank that is late on the
     # host by more than K4's wait limit fails its neighbours' swaps.
     dist.barrier()
-    out["k4_lines"], out["k4_err"] = _sp_k4_check(rank, grid, device,
-                                                  out["main"]["shapes"]["halo_swap"])
+    strips = [key for key, _ in out["main"]["shapes"]["halo_swap"]]
+    out["k4_lines"], out["k4_err"] = _sp_k4_check(rank, grid, device, strips)
     dist.barrier()
-    out["k4_time"] = _sp_k4_time(grid, device, out["main"]["shapes"]["halo_swap"], backend,
-                                 plain_group)
+    out["k4_time"] = _sp_k4_time(grid, device, strips, backend, plain_group)
     halo_kernel.close_rings(grid)
     out["k4_timeout"] = _sp_k4_timeout(rank, device)
     return out
 
 
 def phase_spatial(shapes, profile, single_first_loss=None):
-    """Phase s: spawn the 4 ranks, run every spatial phase, report. Adds
-    the spatial path's K2/K3 shapes to ``shapes``; returns the path's
-    launches (rank 0's, per kernel) and K4's timing (slowest rank)."""
+    """Phase s: spawn the 4 ranks, run every spatial phase, report. Counts
+    the spatial path's call shapes (rank 0's first step) into ``shapes``;
+    returns the path's launches (rank 0's, per kernel) and K4's timing
+    (slowest rank)."""
     import torch
 
     from mpi4dl_tpu_torch.models.resnet import get_resnet_v2
@@ -664,9 +681,11 @@ def phase_spatial(shapes, profile, single_first_loss=None):
     log(f"[s2] launches per rank per step: " + "; ".join(
         ", ".join(f"{k} {v // STEPS}" for k, v in m["launches"].items()) for m in mains)
         + f"; BN all-reduces per step {m0['bn_allreduces']}")
-    for name in ("wgrad", "dot1x1_bwd"):
-        for m in mains:
-            shapes[name].update(m["shapes"][name])
+    for name in KERNELS:
+        shapes[name].update(dict(m0["shapes"][name]))
+        for m in mains[1:]:  # every rank's shapes are checked; counts are rank 0's
+            for key, _ in m["shapes"][name]:
+                shapes[name].setdefault(key, 0)
     for line in ranks[0]["k4_lines"]:
         log(line)
     timeout = ranks[0]["k4_timeout"]
@@ -817,11 +836,101 @@ def _bound(nbytes, ops, rate):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def _k2_case(gen, shape):
+    """K2 at one call shape in bf16: the kernel, its plain version and the
+    library call (cuDNN's dw-only ``convolution_backward``) as thunks on
+    one set of random inputs, the bound, and a description."""
+    import torch
+
+    from mpi4dl_tpu_torch.ops import wgrad_kernel
+
+    (b, h, w, c), o, kh, kw, ph, pw = shape
+    ho, wo = wgrad_kernel.out_size(h, kh, ph), wgrad_kernel.out_size(w, kw, pw)
+    x = torch.randn((b, h, w, c), generator=gen, device=DEVICE).to(torch.bfloat16)
+    dy = torch.randn((b, ho, wo, o), generator=gen, device=DEVICE).to(torch.bfloat16)
+    xc, dyc = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)  # channels_last views
+    wc = torch.empty((o, c, kh, kw), dtype=torch.bfloat16, device=DEVICE)
+    wc = wc.contiguous(memory_format=torch.channels_last)
+    flops = 2 * b * ho * wo * kh * kw * c * o
+    return {
+        "kernel": lambda: wgrad_kernel.wgrad(x, dy, kh, kw, ph, pw),
+        "plain": lambda: wgrad_kernel.wgrad_reference(x, dy, kh, kw, ph, pw),
+        "library": lambda: torch.ops.aten.convolution_backward(
+            dyc, xc, wc, None, (1, 1), (ph, pw), (1, 1), False, (0, 0), 1,
+            (False, True, False)),
+        "bound": _bound((x.numel() + dy.numel()) * 2 + kh * kw * c * o * 4, flops,
+                        BF16_TENSOR_FLOPS),
+        "desc": f"x[{b},{h},{w},{c}]->{o} bf16 {kh}x{kw} p({ph},{pw})",
+    }
+
+
+def _k3_case(gen, shape):
+    """K3 at one call shape in bf16, as :func:`_k2_case` (the library call
+    is two ``torch.matmul``)."""
+    import torch
+
+    from mpi4dl_tpu_torch.ops import dot1x1_kernel
+
+    (b, h, w, c), o = shape
+    m = b * h * w
+    x = torch.randn((b, h, w, c), generator=gen, device=DEVICE).to(torch.bfloat16)
+    dy = torch.randn((b, h, w, o), generator=gen, device=DEVICE).to(torch.bfloat16)
+    w2 = (torch.randn((c, o), generator=gen, device=DEVICE) / c**0.5).to(torch.bfloat16)
+    x2, dy2 = x.view(m, c), dy.view(m, o)
+    return {
+        "kernel": lambda: dot1x1_kernel.bwd_1x1(x, dy, w2),
+        "plain": lambda: dot1x1_kernel.bwd_1x1_reference(x, dy, w2),
+        "library": lambda: (torch.matmul(dy2, w2.t()), torch.matmul(x2.t(), dy2)),
+        "bound": _bound((2 * m * c + m * o + c * o) * 2 + c * o * 4, 4 * m * c * o,
+                        BF16_TENSOR_FLOPS),
+        "desc": f"x[{b},{h},{w},{c}]->{o} bf16",
+    }
+
+
+def phase_shape_times(gen, calls):
+    """Phase g's per-shape part: K2 and K3 timed at every recorded call
+    shape of the three paths (kernel, library call, bound, launches per
+    step of each path at that shape), and each path's launch-weighted sum
+    per step. Returns, per kernel, the fields its kernels row gains."""
+    import torch
+
+    out = {}
+    for name, make in (("wgrad", _k2_case), ("dot1x1_bwd", _k3_case)):
+        shapes = sorted(set().union(*(c[name] for c in calls.values())))
+        rows = []
+        sums = {path: {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "launches": 0}
+                for path in calls if name in PATH_KERNELS[path]}
+        for shape in shapes:
+            case = make(gen, shape)
+            per_step = {path: calls[path][name].get(shape, 0) for path in sums}
+            row = {"shape": case["desc"], "ms": cuda_ms(case["kernel"]),
+                   "library_ms": cuda_ms(case["library"]), **case["bound"],
+                   "launches_per_step": per_step}
+            rows.append(row)
+            for path, n in per_step.items():
+                for key in ("ms", "library_ms", "bound_ms"):
+                    sums[path][key] += n * row[key]
+                sums[path]["launches"] += n
+            log(f"[g] {name} {row['shape']}: kernel {row['ms']:.4f} ms, library "
+                f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+                f"launches per step {per_step}")
+            del case
+            torch.cuda.empty_cache()
+        for path, t in sums.items():
+            log(f"[g] {name} on {path}, launch-weighted per step: {t['launches']} launches, "
+                f"kernel {t['ms']:.3f} ms, library {t['library_ms']:.3f} ms, "
+                f"bound {t['bound_ms']:.3f} ms")
+        out[name] = {"shapes": rows, "per_step": sums}
+    return out
+
+
 def phase_kernel_times(gen, launches, errs):
+    """Phase g's timed-shape part: each kernel at the largest main-path
+    shape, beside its plain version, one library call and the bound."""
     import torch
     import torch.nn.functional as F
 
-    from mpi4dl_tpu_torch.ops import dot1x1_kernel, pool_kernel, wgrad_kernel
+    from mpi4dl_tpu_torch.ops import pool_kernel
 
     rows = []
     shape, kh, kw, sh, sw, ph, pw = K1_TIMED
@@ -848,48 +957,35 @@ def phase_kernel_times(gen, launches, errs):
     })
     del x, dy, xc, yc, dyc
 
-    (b, h, w, c), o, kh, kw, ph, pw = K2_TIMED
-    ho, wo = wgrad_kernel.out_size(h, kh, ph), wgrad_kernel.out_size(w, kw, pw)
-    x = torch.randn((b, h, w, c), generator=gen, device=DEVICE).to(torch.bfloat16)
-    dy = torch.randn((b, ho, wo, o), generator=gen, device=DEVICE).to(torch.bfloat16)
-    xc, dyc = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)  # channels_last views
-    wc = torch.empty((o, c, kh, kw), dtype=torch.bfloat16, device=DEVICE)
-    wc = wc.contiguous(memory_format=torch.channels_last)
-    flops = 2 * b * ho * wo * kh * kw * c * o
+    case = _k2_case(gen, K2_TIMED)
     rows.append({
         "name": "wgrad", "route": "cuda",
         "source": "mpi4dl_tpu_torch/ops/csrc/wgrad.cu",
         "replaces": "mpi4dl_tpu/ops/wgrad_pallas.py:166",
         **_launch_fields("wgrad", launches),
         "max_abs_err": errs["wgrad"],
-        "ms": cuda_ms(lambda: wgrad_kernel.wgrad(x, dy, kh, kw, ph, pw)),
-        "plain_ms": cuda_ms(lambda: wgrad_kernel.wgrad_reference(x, dy, kh, kw, ph, pw), iters=3),
-        **_bound((x.numel() + dy.numel()) * 2 + kh * kw * c * o * 4, flops, BF16_TENSOR_FLOPS),
-        "library_ms": cuda_ms(lambda: torch.ops.aten.convolution_backward(
-            dyc, xc, wc, None, (1, 1), (ph, pw), (1, 1), False, (0, 0), 1,
-            (False, True, False))),
-        "shape": f"x[{b},{h},{w},{c}]->{o} bf16 {kh}x{kw} p({ph},{pw})",
+        "ms": cuda_ms(case["kernel"]),
+        "plain_ms": cuda_ms(case["plain"], iters=3),
+        **case["bound"],
+        "library_ms": cuda_ms(case["library"]),
+        "shape": case["desc"],
     })
-    del x, dy, xc, dyc, wc
+    del case
 
-    (b, h, w, c), o = K3_TIMED
-    m = b * h * w
-    x = torch.randn((b, h, w, c), generator=gen, device=DEVICE).to(torch.bfloat16)
-    dy = torch.randn((b, h, w, o), generator=gen, device=DEVICE).to(torch.bfloat16)
-    w2 = (torch.randn((c, o), generator=gen, device=DEVICE) / c**0.5).to(torch.bfloat16)
-    x2, dy2 = x.view(m, c), dy.view(m, o)
+    case = _k3_case(gen, K3_TIMED)
     rows.append({
         "name": "dot1x1_bwd", "route": "cuda",
         "source": "mpi4dl_tpu_torch/ops/csrc/dot1x1_bwd.cu",
         "replaces": "mpi4dl_tpu/ops/dot1x1_pallas.py:156",
         **_launch_fields("dot1x1_bwd", launches),
         "max_abs_err": errs["dot1x1_bwd"],
-        "ms": cuda_ms(lambda: dot1x1_kernel.bwd_1x1(x, dy, w2)),
-        "plain_ms": cuda_ms(lambda: dot1x1_kernel.bwd_1x1_reference(x, dy, w2)),
-        **_bound((2 * m * c + m * o + c * o) * 2 + c * o * 4, 4 * m * c * o, BF16_TENSOR_FLOPS),
-        "library_ms": cuda_ms(lambda: (torch.matmul(dy2, w2.t()), torch.matmul(x2.t(), dy2))),
-        "shape": f"x[{b},{h},{w},{c}]->{o} bf16",
+        "ms": cuda_ms(case["kernel"]),
+        "plain_ms": cuda_ms(case["plain"]),
+        **case["bound"],
+        "library_ms": cuda_ms(case["library"]),
+        "shape": case["desc"],
     })
+    del case
     for r in rows:
         log(f"[g] {r['name']} {r['shape']}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
             f"library {r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}); "
@@ -919,17 +1015,21 @@ def main(argv=None) -> int:
     t_start = time.time()
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     phase_build()
-    shapes = {name: set() for name in ("pool_bwd", "wgrad", "dot1x1_bwd", "halo_swap")}
+    calls = {}  # path -> kernel -> Counter of call shape -> calls in one step
     launches, rows, first_loss = {}, [], {}
     if not args.spatial_only:
         for name, build, size in small_models():
             phase_small_reference(name, build, size)
         for path, desc, build in main_models():
-            launches[path], first_loss[path] = phase_main(path, desc, build, shapes, args.profile)
-    launches["resnet_sp"], k4_timing = phase_spatial(shapes, args.profile,
+            calls[path] = _new_calls()
+            launches[path], first_loss[path] = phase_main(path, desc, build, calls[path],
+                                                          args.profile)
+    calls["resnet_sp"] = _new_calls()
+    launches["resnet_sp"], k4_timing = phase_spatial(calls["resnet_sp"], args.profile,
                                                      first_loss.get("resnet"))
     if not args.spatial_only:
-        shapes = {name: sorted(s) for name, s in shapes.items()}
+        shapes = {name: sorted(set().union(*(c[name] for c in calls.values())))
+                  for name in KERNELS}
         for name, timed in (("pool_bwd", K1_TIMED), ("wgrad", K2_TIMED),
                             ("dot1x1_bwd", K3_TIMED)):
             if timed not in shapes[name]:
@@ -940,6 +1040,9 @@ def main(argv=None) -> int:
             "dot1x1_bwd": phase_k3(gen, shapes["dot1x1_bwd"]),
         }
         rows = phase_kernel_times(gen, launches, errs)
+        per_shape = phase_shape_times(gen, calls)
+        for row in rows:
+            row.update(per_shape.get(row["name"], {}))
     rows.append(halo_row(k4_timing, launches))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -30,7 +31,7 @@ BUILD_DIR = _HERE / "build"
 SOURCES = ("pool_bwd", "dot1x1_bwd", "wgrad", "halo_swap")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LOCK = threading.Lock()
@@ -69,23 +70,57 @@ def _start_build(name: str):
     return proc, tmp, out, cmd
 
 
-def _finish_build(job) -> None:
-    """Wait for one nvcc (nothing to do when nothing was started)."""
+def _finish_build(job) -> str | None:
+    """Wait for one nvcc; returns its output (None when nothing was
+    started)."""
     if job is None:
-        return
+        return None
     proc, tmp, out, cmd = job
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
     os.replace(tmp, out)
+    return log
 
 
-def build_all(names=SOURCES) -> None:
-    """Compile every named source in parallel (one nvcc each)."""
+def ptxas_report(log: str) -> dict[str, str]:
+    """Per kernel (mangled name), ptxas's registers, shared memory and
+    spills from an ``-Xptxas -v`` log."""
+    out: dict[str, str] = {}
+    fn = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            fn = m.group(1)
+        elif fn and "spill stores" in line:
+            out[fn] = line.strip() + ("; " + out[fn] if fn in out else "")
+        elif fn and line.lstrip().startswith("ptxas info") and "Used" in line:
+            used = line.split("Used", 1)[1].strip()
+            out[fn] = (out[fn] + "; " if fn in out else "") + "used " + used
+    return out
+
+
+def _demangle(names: list[str]) -> list[str]:
+    """C++ names of mangled kernel names (unchanged without a demangler)."""
+    tool = shutil.which("c++filt") or shutil.which("cu++filt", path=os.path.dirname(nvcc_path()))
+    if not tool or not names:
+        return names
+    out = subprocess.run([tool, *names], capture_output=True, text=True).stdout.splitlines()
+    return out if len(out) == len(names) else names
+
+
+def build_all(names=SOURCES) -> dict[str, dict[str, str]]:
+    """Compile every named source in parallel (one nvcc each); returns, per
+    source built now, :func:`ptxas_report` under demangled kernel names."""
     with _LOCK:
-        jobs = [_start_build(n) for n in names]
-        for job in jobs:
-            _finish_build(job)
+        jobs = {n: _start_build(n) for n in names}
+        logs = {n: _finish_build(job) for n, job in jobs.items()}
+    reports = {}
+    for n, log in logs.items():
+        if log is not None:
+            rep = ptxas_report(log)
+            reports[n] = dict(zip(_demangle(list(rep)), rep.values()))
+    return reports
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -11,15 +11,20 @@ the UNPADDED input ``x [B,H,W,C]`` and the output cotangent
 in f32. The TPU path pads x first (``fastconv.py:289-295``); the kernel
 reads the zeros in place, so no padded copy is made.
 
-- CUDA tensors: ``csrc/wgrad.cu`` (an implicit-im2col tensor-core GEMM;
-  the pixels split into fixed-length slices whose f32 partials are summed
-  in fixed order, no atomics).
+- CUDA tensors: ``csrc/wgrad.cu``. In bf16 a block stages one x halo tile
+  per output-pixel tile and runs every tap from it on the tensor cores;
+  :func:`plan` chooses the tiles, the channel chunks and the pixel slices
+  whose f32 partials are summed in fixed order (no atomics). f32 inputs
+  take a plain implicit-im2col kernel over fixed 2048-pixel slices
+  (:func:`plan_splits`).
 - CPU tensors: :func:`wgrad_reference`, one f32 product per tap.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -30,28 +35,115 @@ from mpi4dl_tpu_torch.ops import _build
 launch_count = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# Pixels per dw slice (a multiple of the kernel's 32-pixel step). Fixed, so
-# each tensor-core accumulation chain is at most 128 products of 16 long.
+# f32 kernel: pixels per dw slice (a multiple of its 16-pixel step), at most
+# 65535 slices (the grid's z extent), which also keeps every output pixel
+# index below 2^31 as its 32-bit index math needs.
 _SLICE = 2048
-# At most 65535 slices (the grid's z extent), which also keeps every output
-# pixel index below 2^31, as the kernel's 32-bit index math needs.
 _MAX_PIXELS = 65535 * _SLICE
+
+# bf16 kernel geometry (csrc/wgrad.cu).
+TILE_W = 16  # output columns of a pixel tile: one MMA k-step per tile row
+MAX_TAPS = 9  # taps per block; more taps run in further block groups
+STAGES = 3  # copy ring depth
+SMS = 132  # H100 SXM streaming multiprocessors
+RING_BUDGET = 113 * 1024  # ring bytes that leave room for two blocks an SM
+MAX_CHAIN = 4096  # pixels per tensor-core accumulation chain (holds 1e-5)
+PARTIAL_SHARE = 0.1  # f32 partials written and read, against the input bytes
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How the bf16 kernel covers one problem. The output pixels of each
+    image form tiles of ``th`` rows x ``TILE_W`` columns (ragged at the
+    bottom and right edges); tiles are numbered image by image, row by row,
+    and slice z takes tiles ``[z * tiles_per_slice, (z + 1) *
+    tiles_per_slice)``. A block owns ``bc`` channels and ``bo`` outputs of
+    one slice; its ``wk`` warp groups split each tile's rows."""
+
+    th: int
+    bc: int
+    bo: int
+    wk: int
+    tiles_h: int
+    tiles_w: int
+    tiles: int
+    slices: int
+    tiles_per_slice: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _even(n: int) -> int:
+    """Channels the bf16 kernel sees: its copies move 4-byte units, so an
+    odd count gets one zero channel."""
+    return n + n % 2
+
+
+def ring_bytes(th: int, kh: int, kw: int, bc: int, bo: int) -> int:
+    """Shared memory of the bf16 kernel's copy ring: per stage the x halo
+    tile and the dy tile, rows padded by 8 values."""
+    halo = (th + kh - 1) * (TILE_W + kw - 1) * (bc + 8)
+    return STAGES * 2 * (halo + th * TILE_W * (bo + 8))
+
+
+@functools.lru_cache(maxsize=None)
+def plan(b: int, h: int, w: int, c: int, o: int, kh: int, kw: int, ph: int, pw: int) -> Plan:
+    """The bf16 kernel's plan for x [b,h,w,c] -> o, kernel (kh, kw),
+    padding (ph, pw).
+
+    Slices: enough for two blocks an SM, but no more than keep their f32
+    partials (written and read) within ``PARTIAL_SHARE`` of the input
+    bytes, and at least as many as keep a warp's accumulation chain within
+    ``MAX_CHAIN`` pixels. Chunks: 64, 32 or 16 channels and 32 or 16
+    outputs, the widest with which those slices give one block an SM; if
+    none does, the widest, with the partial limit lifted as far as one
+    block an SM needs. Tile rows: the most (up to 16, and no more than the
+    image needs) whose ring leaves room for two blocks an SM."""
+    ho, wo = out_size(h, kh, ph), out_size(w, kw, pw)
+    c, o = _even(c), _even(o)
+    groups = _cdiv(kh * kw, MAX_TAPS)
+    in_bytes = 2 * (b * h * w * c + b * ho * wo * o)
+    s_cap = int(PARTIAL_SHARE * in_bytes) // (2 * 4 * kh * kw * c * o)
+    wc0 = 1 if c <= 16 else 2 if c <= 32 else 4
+    wo0 = 1 if o <= 16 else 2
+    cands = [(wc, wo0) for wc in (4, 2, 1) if wc <= wc0] + [(1, 1)] * (wo0 > 1)
+    plans = []
+    for wc, wo_ in cands:
+        bc, bo, wk = 16 * wc, 16 * wo_, 8 // (wc * wo_)
+        th = min(16, 1 << max(0, (ho - 1).bit_length()))
+        while th > 1 and ring_bytes(th, kh, kw, bc, bo) > RING_BUDGET:
+            th //= 2
+        tiles_h, tiles_w = _cdiv(ho, th), _cdiv(wo, TILE_W)
+        tiles = b * tiles_h * tiles_w
+        chunks = _cdiv(c, bc) * _cdiv(o, bo) * groups
+        s_chain = _cdiv(tiles * th * TILE_W, wk * MAX_CHAIN)
+        s_fill = _cdiv(2 * SMS, chunks)
+        plans.append((max(min(s_fill, s_cap), s_chain),
+                      max(min(s_fill, max(s_cap, _cdiv(SMS, chunks))), s_chain),
+                      chunks, (th, bc, bo, wk, tiles_h, tiles_w, tiles)))
+    fits = [p for p in plans if p[2] * p[0] >= SMS]
+    s, geom = (fits[0][0], fits[0][3]) if fits else (plans[0][1], plans[0][3])
+    tiles = geom[-1]
+    tps = _cdiv(tiles, max(1, min(s, tiles)))
+    return Plan(*geom, _cdiv(tiles, tps), tps)
 
 
 def _kernel():
     fn = _build.load("wgrad").wgrad
     if fn.argtypes is None:
-        # x, dy, dw, partial; dtype, B, H, W, C, O, kh, kw, ph, pw, S; Ks; stream
+        # x, dy, dw, partial; dtype, B, H, W, C, O, kh, kw, ph, pw, S; Ks;
+        # th, bc, bo; stream
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [
-            ctypes.c_longlong, ctypes.c_void_p,
-        ]
+            ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def plan_splits(p: int) -> tuple[int, int]:
-    """(S, Ks): the p output pixels run in S slices of Ks pixels;
-    S * Ks >= p > (S - 1) * Ks."""
+    """f32 kernel: (S, Ks), the p output pixels run in S slices of Ks
+    pixels; S * Ks >= p > (S - 1) * Ks."""
     return -(-p // _SLICE), _SLICE
 
 
@@ -93,6 +185,14 @@ def _check(x, dy, kh, kw, ph, pw):
         raise ValueError("wgrad: x and dy must be contiguous NHWC")
 
 
+def _for_kernel(t):
+    """t with an even channel count and a 16-byte-aligned start (the bf16
+    kernel's copies), zero-padded or copied only where needed."""
+    if t.shape[-1] % 2:
+        return F.pad(t, (0, 1))
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def wgrad(x, dy, kh: int, kw: int, ph: int, pw: int):
     """dw [kh,kw,C,O] f32 of a stride-1 conv; x [B,H,W,C] unpadded,
     dy [B,Ho,Wo,O], both contiguous NHWC of one dtype (bf16 or f32).
@@ -106,20 +206,26 @@ def wgrad(x, dy, kh: int, kw: int, ph: int, pw: int):
         raise ValueError(f"wgrad: no kernel for device {x.device}")
     b, h, w, c = x.shape
     o = dy.shape[3]
-    pixels = dy.numel() // o
-    if pixels > _MAX_PIXELS:
-        raise ValueError(f"wgrad: {pixels} output pixels exceed the kernel's {_MAX_PIXELS}")
-    s, ks = plan_splits(pixels)
+    if x.dtype == torch.bfloat16:
+        p = plan(b, h, w, c, o, kh, kw, ph, pw)
+        x, dy = _for_kernel(x), _for_kernel(dy)
+        s, per_slice, geom = p.slices, p.tiles_per_slice, (p.th, p.bc, p.bo)
+    else:
+        pixels = dy.numel() // o
+        if pixels > _MAX_PIXELS:
+            raise ValueError(f"wgrad: {pixels} output pixels exceed the kernel's {_MAX_PIXELS}")
+        (s, per_slice), geom = plan_splits(pixels), (0, 0, 0)
+    ck, ok = x.shape[3], dy.shape[3]
     global launch_count
-    dw = torch.empty((kh, kw, c, o), dtype=torch.float32, device=x.device)
-    partial = (torch.empty((s, kh, kw, c, o), dtype=torch.float32, device=x.device)
+    dw = torch.empty((kh, kw, ck, ok), dtype=torch.float32, device=x.device)
+    partial = (torch.empty((s, kh, kw, ck, ok), dtype=torch.float32, device=x.device)
                if s > 1 else dw)
     with torch.cuda.device(x.device):
         err = _kernel()(
             x.data_ptr(), dy.data_ptr(), dw.data_ptr(), partial.data_ptr(),
-            _DTYPE_CODES[x.dtype], b, h, w, c, o, kh, kw, ph, pw, s, ks,
+            _DTYPE_CODES[x.dtype], b, h, w, ck, ok, kh, kw, ph, pw, s, per_slice, *geom,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(err, "wgrad")
     launch_count += 1
-    return dw
+    return dw if (ck, ok) == (c, o) else dw[:, :, :c, :o].contiguous()
