@@ -45,16 +45,18 @@ Phases (any failure exits non-zero; nothing is caught):
      s5. K4's time-bounded wait: a swap that only rank 0 makes must end
          after its wait limit with the error word set;
   d. K1 (max-pool backward) against its plain PyTorch version at every
-     recorded main-path shape, on tie-heavy integer data: exact equality;
+     recorded main-path shape, then at a few edge shapes (``K1_EDGE``), on
+     tie-heavy integer data: exact equality;
   e. K2 (stride-1 weight gradient) against its plain version at every
      recorded shape of the three paths, bf16 and f32 (tolerance below);
   f. K3 (fused 1x1-conv backward) against its plain version at every
      recorded shape of the three paths (tolerances below);
   g. per-kernel times (kernel, plain version, one library call) at the
      largest main-path shape of each, beside the bound the card's peaks give;
-     then K2 and K3 at every recorded call shape of the three paths (kernel,
+     then K1, K2 and K3 at every recorded call shape of the three paths (kernel,
      library call, bound, launches per step of each path there) and each
-     path's launch-weighted sum per step;
+     path's launch-weighted sum per step, and the layout copies that
+     ``MaxPool.backward`` makes in front of K1 on the main path;
   h. the card's name and power limit from nvidia-smi.
 
 The last lines are the ``{"kernels": [...]}`` line and then
@@ -117,6 +119,16 @@ HOME_PATH = {"pool_bwd": "amoebanet", "dot1x1_bwd": "amoebanet", "wgrad": "resne
              "halo_swap": "resnet_sp"}
 # The shapes each kernel is timed at: the largest of the main paths.
 K1_TIMED = ((2, 512, 512, 208), 3, 3, 2, 2, 1, 1)
+# K1's other forms, checked after the main-path shapes, with x aligned and
+# one element off a 16-byte boundary (one element a thread): tiles that do
+# not divide the image, C not a multiple of 8, pixels no window covers, and
+# geometries the kernel takes only at run time.
+K1_EDGE = [
+    ((2, 37, 45, 208), 3, 3, 1, 1, 1, 1), ((1, 67, 41, 52), 3, 3, 1, 1, 1, 1),
+    ((2, 34, 30, 24), 3, 3, 2, 2, 1, 1), ((2, 33, 35, 64), 3, 3, 2, 2, 1, 1),
+    ((1, 21, 23, 40), 2, 2, 2, 2, 0, 0), ((1, 19, 20, 24), 3, 3, 3, 3, 0, 0),
+    ((1, 20, 18, 20), 3, 3, 3, 3, 1, 1), ((1, 17, 19, 16), 3, 2, 1, 2, 1, 0),
+]
 K2_TIMED = ((2, 1024, 1024, 64), 16, 3, 3, 1, 1)
 K3_TIMED = ((2, 512, 512, 104), 208)
 
@@ -274,6 +286,33 @@ def _record_shapes(shapes):
     ]
 
 
+def _record_k1_layout(counts, copies):
+    """Count into the Counter ``counts``, per K1 call through ``MaxPool``,
+    whether its x and dy already lie channels_last (the kernel reads them in
+    place) or are copied first, and the bytes copied; count each copied
+    tensor's (name, dtype, shape, strides, storage offset) into
+    ``copies``. Returns the function that restores the original backward."""
+    import torch
+
+    from mpi4dl_tpu_torch.ops import pool_kernel
+
+    cls = pool_kernel.MaxPool
+    orig = cls.__dict__["backward"]
+
+    def backward(ctx, dy):
+        for name, t in (("x", ctx.saved_tensors[0]), ("dy", dy)):
+            if t.is_contiguous(memory_format=torch.channels_last):
+                counts[f"{name} in place"] += 1
+            else:
+                counts[f"{name} copied"] += 1
+                counts[f"{name} bytes copied"] += t.numel() * t.element_size()
+                copies[(name, str(t.dtype), tuple(t.shape), t.stride(), t.storage_offset())] += 1
+        return orig.__func__(ctx, dy)
+
+    cls.backward = staticmethod(backward)
+    return lambda: setattr(cls, "backward", orig)
+
+
 def main_batch(device):
     """The main paths' batch, the same on every path and rank."""
     import torch
@@ -301,9 +340,10 @@ def main_models():
 
 
 def phase_main(path, desc, build, shapes, profile=False):
-    """Train one main path; returns its launches in the timed steps and its
-    first step's loss, and counts the kernels' call shapes of its first
-    step into ``shapes`` (from :func:`_new_calls`)."""
+    """Train one main path; returns its launches in the timed steps, its
+    first step's loss and the layout copies in front of K1 in its first step
+    (see :func:`_record_k1_layout`), and counts the kernels' call shapes of
+    its first step into ``shapes`` (from :func:`_new_calls`)."""
     import torch
 
     from mpi4dl_tpu_torch.config import ParallelConfig
@@ -319,14 +359,20 @@ def phase_main(path, desc, build, shapes, profile=False):
     log(f"[c] {desc} bf16 compute, f32 params ({n_params} params), remat=False; "
         f"set-up {time.time() - t0:.1f} s")
     first_loss = None
+    k1_layout, k1_copies = collections.Counter(), collections.Counter()
     for i in range(WARMUP):
-        restore = _record_shapes(shapes) if i == 0 else []
+        restore = []
+        if i == 0:
+            restore = _record_shapes(shapes) + [_record_k1_layout(k1_layout, k1_copies)]
         t = time.time()
         loss = float(trainer.train_step(x, y)["loss"])
         for undo in restore:
             undo()
         first_loss = loss if first_loss is None else first_loss
         log(f"[c] warm-up step {i}: loss {loss:.4f} ({time.time() - t:.2f} s)")
+    if k1_layout:
+        log(f"[c] K1 inputs in warm-up step 0 (channels_last in place, or copied first): "
+            f"{dict(sorted(k1_layout.items()))}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     counters = _counters()
@@ -355,7 +401,7 @@ def phase_main(path, desc, build, shapes, profile=False):
         f"{name} {launches[name] // STEPS}" for name in counters))
     del trainer, model, x, y
     torch.cuda.empty_cache()
-    return launches, first_loss
+    return launches, first_loss, k1_copies
 
 
 def profile_step(trainer, x, y, top=15, tag="c", emit=log):
@@ -388,7 +434,7 @@ def profile_step(trainer, x, y, top=15, tag="c", emit=log):
     # library kernels of similar names out of the sums.
     busy = total("")
     emit(f"[{tag}] profiled step: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
-         f"(idle {100 * (1 - busy / wall_ms):.1f}%), K1 {total('::pool_bwd_kernel<'):.1f} ms, "
+         f"(idle {100 * (1 - busy / wall_ms):.1f}%), K1 {total('::pool_bwd_'):.1f} ms, "
          f"K2 {total('::wgrad_halo_bf16<', '::wgrad_f32('):.1f} ms, "
          f"K3 {total('::dot1x1_onepass<', '::gemm_wgmma<', '::gemm_f32<'):.1f} ms, "
          f"K4 push {total('::halo_push<'):.1f} ms + wait {total('::halo_wait<'):.1f} ms, "
@@ -733,26 +779,34 @@ def halo_row(timing, launches):
 
 
 def phase_k1(gen, shapes):
-    """K1 vs its plain version at every main-path shape, bf16 and f32."""
+    """K1 vs its plain version at every main-path shape, then at the edge
+    shapes, bf16 and f32; returns the main-path shapes' worst error."""
     import torch
 
     from mpi4dl_tpu_torch.ops import pool_kernel
 
     worst = 0.0
-    for shape, kh, kw, sh, sw, ph, pw in shapes:
+    for i, (shape, kh, kw, sh, sw, ph, pw) in enumerate(list(shapes) + K1_EDGE):
+        edge = i >= len(shapes)
         b, h, w, c = shape
         ho, wo = pool_kernel.out_size(h, kh, sh, ph), pool_kernel.out_size(w, kw, sw, pw)
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype, offset in [(d, o) for d in (torch.bfloat16, torch.float32)
+                              for o in ((0, 1) if edge else (0,))]:
             x = torch.randint(0, 3, shape, generator=gen, device=DEVICE).to(dtype)
+            if offset:  # one element past a 16-byte boundary: the one-element path
+                x = torch.cat([x.new_zeros(offset), x.flatten()])[offset:].view(shape)
             dy = torch.randint(-64, 64, (b, ho, wo, c), generator=gen, device=DEVICE).to(dtype)
             got = pool_kernel.pool_bwd(x, dy, kh, kw, sh, sw, ph, pw)
             want = pool_kernel.pool_bwd_reference(x, dy, kh, kw, sh, sw, ph, pw)
             err = float((got.float() - want.float()).abs().max())
             if not torch.equal(got, want):
-                raise AssertionError(f"K1 x{list(shape)} k{kh} s{sh} p{ph} {dtype}: max |err| {err}")
-            worst = max(worst, err)
-        log(f"[d] K1 x{list(shape)} {kh}x{kw} s{sh} p{ph}: bf16 and f32 equal to the plain "
-            f"version (tie-heavy ints)")
+                raise AssertionError(f"K1 x{list(shape)} {kh}x{kw} s({sh},{sw}) p({ph},{pw}) "
+                                     f"{dtype} offset {offset}: max |err| {err}")
+            if not edge:
+                worst = max(worst, err)
+        log(f"[d] K1 {'edge ' if edge else ''}x{list(shape)} {kh}x{kw} s({sh},{sw}) p({ph},{pw}): "
+            f"bf16 and f32{', aligned and not,' if edge else ''} equal to the plain version "
+            f"(tie-heavy ints)")
     return worst
 
 
@@ -836,6 +890,32 @@ def _bound(nbytes, ops, rate):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def _k1_case(gen, shape):
+    """K1 at one call shape in bf16, as :func:`_k2_case` (the library call
+    is ``F.max_pool2d``'s backward through autograd, on channels_last
+    views of the same tensors; its forward is not timed)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mpi4dl_tpu_torch.ops import pool_kernel
+
+    (b, h, w, c), kh, kw, sh, sw, ph, pw = shape
+    ho, wo = pool_kernel.out_size(h, kh, sh, ph), pool_kernel.out_size(w, kw, sw, pw)
+    x = torch.randn((b, h, w, c), generator=gen, device=DEVICE).to(torch.bfloat16)
+    dy = torch.randn((b, ho, wo, c), generator=gen, device=DEVICE).to(torch.bfloat16)
+    xc = x.permute(0, 3, 1, 2).detach().requires_grad_(True)
+    yc = F.max_pool2d(xc, (kh, kw), (sh, sw), (ph, pw))
+    dyc = dy.permute(0, 3, 1, 2)
+    ops = b * ho * wo * c * kh * kw  # one f32 compare per tap per window
+    return {
+        "kernel": lambda: pool_kernel.pool_bwd(x, dy, kh, kw, sh, sw, ph, pw),
+        "plain": lambda: pool_kernel.pool_bwd_reference(x, dy, kh, kw, sh, sw, ph, pw),
+        "library": lambda: torch.autograd.grad(yc, xc, dyc, retain_graph=True),
+        "bound": _bound((2 * x.numel() + dy.numel()) * 2, ops, F32_SIMT_OPS),
+        "desc": f"x[{b},{h},{w},{c}] bf16 {kh}x{kw} s{sh} p{ph}",
+    }
+
+
 def _k2_case(gen, shape):
     """K2 at one call shape in bf16: the kernel, its plain version and the
     library call (cuDNN's dw-only ``convolution_backward``) as thunks on
@@ -888,14 +968,14 @@ def _k3_case(gen, shape):
 
 
 def phase_shape_times(gen, calls):
-    """Phase g's per-shape part: K2 and K3 timed at every recorded call
+    """Phase g's per-shape part: K1, K2 and K3 timed at every recorded call
     shape of the three paths (kernel, library call, bound, launches per
     step of each path at that shape), and each path's launch-weighted sum
     per step. Returns, per kernel, the fields its kernels row gains."""
     import torch
 
     out = {}
-    for name, make in (("wgrad", _k2_case), ("dot1x1_bwd", _k3_case)):
+    for name, make in (("pool_bwd", _k1_case), ("wgrad", _k2_case), ("dot1x1_bwd", _k3_case)):
         shapes = sorted(set().union(*(c[name] for c in calls.values())))
         rows = []
         sums = {path: {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "launches": 0}
@@ -924,38 +1004,54 @@ def phase_shape_times(gen, calls):
     return out
 
 
+def phase_k1_copies(gen, copies):
+    """Phase g's layout copies in front of K1: each x or dy that a main path
+    hands ``MaxPool.backward`` in another layout than channels_last (per
+    path, from :func:`_record_k1_layout`), timed as the copy the backward
+    makes on a tensor of the same shape, strides and offset, beside its
+    bound (read once, written once). Returns the fields K1's kernels row
+    gains."""
+    import torch
+
+    rows, sums = [], {}
+    for path, counter in copies.items():
+        for (name, dtype, shape, stride, offset), n in sorted(counter.items()):
+            extent = offset + sum((sz - 1) * st for sz, st in zip(shape, stride)) + 1
+            base = torch.randn(extent, generator=gen, device=DEVICE).to(getattr(torch, dtype[6:]))
+            t = base.as_strided(shape, stride, offset)
+            row = {"tensor": name, "shape": list(shape), "stride": list(stride), "dtype": dtype,
+                   "ms": cuda_ms(lambda: t.contiguous(memory_format=torch.channels_last)),
+                   **_bound(2 * t.numel() * t.element_size(), 0, 1.0), "path": path,
+                   "per_step": n}
+            rows.append(row)
+            sums[path] = sums.get(path, 0.0) + n * row["ms"]
+            log(f"[g] K1's {name} copied to channels_last on {path}, {dtype[6:]} "
+                f"{list(shape)} strides {list(stride)}: {row['ms']:.4f} ms, bound "
+                f"{row['bound_ms']:.4f} ms; {n} a step")
+            del base, t
+    for path, ms in sums.items():
+        log(f"[g] K1's layout copies on {path}, per step: {ms:.3f} ms")
+    return {"layout_copies": rows, "layout_copy_ms_per_step": sums}
+
+
 def phase_kernel_times(gen, launches, errs):
     """Phase g's timed-shape part: each kernel at the largest main-path
     shape, beside its plain version, one library call and the bound."""
-    import torch
-    import torch.nn.functional as F
-
-    from mpi4dl_tpu_torch.ops import pool_kernel
-
     rows = []
-    shape, kh, kw, sh, sw, ph, pw = K1_TIMED
-    b, h, w, c = shape
-    ho, wo = pool_kernel.out_size(h, kh, sh, ph), pool_kernel.out_size(w, kw, sw, pw)
-    x = torch.randn(shape, generator=gen, device=DEVICE).to(torch.bfloat16)
-    dy = torch.randn((b, ho, wo, c), generator=gen, device=DEVICE).to(torch.bfloat16)
-    xc = x.permute(0, 3, 1, 2).detach().requires_grad_(True)
-    yc = F.max_pool2d(xc, (kh, kw), (sh, sw), (ph, pw))
-    dyc = dy.permute(0, 3, 1, 2)
-    ops = b * ho * wo * c * kh * kw  # one f32 compare per tap per window
+    case = _k1_case(gen, K1_TIMED)
     rows.append({
         "name": "pool_bwd", "route": "cuda",
         "source": "mpi4dl_tpu_torch/ops/csrc/pool_bwd.cu",
         "replaces": "mpi4dl_tpu/ops/pool_pallas.py:406",
         **_launch_fields("pool_bwd", launches),
         "max_abs_err": errs["pool_bwd"],
-        "ms": cuda_ms(lambda: pool_kernel.pool_bwd(x, dy, kh, kw, sh, sw, ph, pw)),
-        "plain_ms": cuda_ms(lambda: pool_kernel.pool_bwd_reference(x, dy, kh, kw, sh, sw, ph, pw),
-                            iters=3),
-        **_bound((2 * x.numel() + dy.numel()) * 2, ops, F32_SIMT_OPS),
-        "library_ms": cuda_ms(lambda: torch.autograd.grad(yc, xc, dyc, retain_graph=True)),
-        "shape": f"x[{b},{h},{w},{c}] bf16 {kh}x{kw} s{sh} p{ph}",
+        "ms": cuda_ms(case["kernel"]),
+        "plain_ms": cuda_ms(case["plain"], iters=3),
+        **case["bound"],
+        "library_ms": cuda_ms(case["library"]),
+        "shape": case["desc"],
     })
-    del x, dy, xc, yc, dyc
+    del case
 
     case = _k2_case(gen, K2_TIMED)
     rows.append({
@@ -1016,14 +1112,14 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     phase_build()
     calls = {}  # path -> kernel -> Counter of call shape -> calls in one step
-    launches, rows, first_loss = {}, [], {}
+    launches, rows, first_loss, k1_copies = {}, [], {}, {}
     if not args.spatial_only:
         for name, build, size in small_models():
             phase_small_reference(name, build, size)
         for path, desc, build in main_models():
             calls[path] = _new_calls()
-            launches[path], first_loss[path] = phase_main(path, desc, build, calls[path],
-                                                          args.profile)
+            launches[path], first_loss[path], k1_copies[path] = phase_main(
+                path, desc, build, calls[path], args.profile)
     calls["resnet_sp"] = _new_calls()
     launches["resnet_sp"], k4_timing = phase_spatial(calls["resnet_sp"], args.profile,
                                                      first_loss.get("resnet"))
@@ -1041,6 +1137,7 @@ def main(argv=None) -> int:
         }
         rows = phase_kernel_times(gen, launches, errs)
         per_shape = phase_shape_times(gen, calls)
+        per_shape["pool_bwd"].update(phase_k1_copies(gen, k1_copies))
         for row in rows:
             row.update(per_shape.get(row["name"], {}))
     rows.append(halo_row(k4_timing, launches))

@@ -1,4 +1,4 @@
-// Helpers shared by the weight-gradient kernels (dot1x1_bwd.cu, wgrad.cu):
+// Helpers shared by the kernels (dot1x1_bwd.cu, wgrad.cu, pool_bwd.cu):
 // asynchronous global->shared copies, ldmatrix and mma.sync wrappers, and
 // the fixed-order sum of per-slice f32 partials that replaces the TPU
 // kernels' accumulation across a sequential grid.
