@@ -32,18 +32,30 @@ Phases (any failure exits non-zero; nothing is caught):
      s2. the spatial main path: ResNet-110 v2 @1024 bs2, every cell but the
          head on the tiles, bf16 compute / f32 params, SGD momentum 0.9,
          random weights from the seed of phase c, remat=False, 2 warm-up
-         and 5 timed steps. The first warm-up records the K2, K3 and K4
-         call shapes; the step time of each timed step is its slowest
+         and 5 timed steps. The first warm-up records the K2 and K3 call
+         shapes and the halo exchanges (K4 runs their axis phases, one
+         launch each); the step time of each timed step is its slowest
          rank's; K4, K2 and K3 must each launch in every rank's steps;
-     s3. K4 against its plain version (``swap_reference`` of all ranks'
-         strips, made from the seed on every rank) at every recorded
-         strip, bf16 and f32, and a whole ``halo_exchange`` against a pad
-         and slice of the full image (fill 0 and −inf): exact;
-     s4. K4's time at the largest recorded strip pair beside its plain
-         distributed version (CPU tensors over gloo), NCCL's
-         ``batch_isend_irecv`` (one rank per card only) and the bound;
+     s3. K4 against its plain version: at every recorded exchange shape a
+         whole exchange (output and input gradient) against the whole-grid
+         ``halo_exchange_reference`` of all ranks' tiles, made from the
+         seed on every rank, bf16 and f32, fills 0 and −inf; the plain swap
+         (``halo_swap``) at every strip those exchanges send against
+         ``swap_reference``; exchanges against a pad and slice of the full
+         image (one with a tile extent of twice the halo): all exact;
+     s4. a one-word flag round trip between two ranks' arenas; one whole
+         exchange (forward, and backward where the step differentiates it)
+         at every recorded shape beside NCCL's ``batch_isend_irecv`` of the
+         same strips (one rank per card only) and the bound (bytes over the
+         card's and NVLink's rates plus half a round trip a phase), and their
+         launch-weighted sum per step; the timed exchange's plain
+         distributed version (CPU tensors over gloo); one swap of the
+         largest strip pair beside NCCL;
      s5. K4's time-bounded wait: a swap that only rank 0 makes must end
          after its wait limit with the error word set;
+     s6. three exchanges, forward and backward, captured in one CUDA graph
+         on every rank and replayed 3 times on new inputs, each replay
+         exactly equal to the plain version;
   d. K1 (max-pool backward) against its plain PyTorch version at every
      recorded main-path shape, then at a few edge shapes (``K1_EDGE``), on
      tie-heavy integer data: exact equality;
@@ -106,6 +118,11 @@ RESNET_DEPTH = 110  # utils.get_depth(2, 12)
 SP_GRID, SP_RANKS = (2, 2), 4
 K4_TIMING_ITERS = 20
 K4_TIMEOUT_S = 0.5  # phase s5's wait limit
+K4_ROUND_TRIPS = {"nccl": 1000, "gloo": 20}  # flag round trips timed in one launch
+# K4's timed exchange: the tile of the 128 px stage, whose W-phase strips
+# are the a, b [2,130,1,256] of the swap timed before the exchange was one
+# kernel.
+K4_TIMED = (2, 256, 128, 128)
 KERNELS = ("pool_bwd", "wgrad", "dot1x1_bwd", "halo_swap")
 # The kernels each path must launch (resnet_sp: per rank).
 PATH_KERNELS = {
@@ -269,9 +286,11 @@ def _new_calls():
 
 
 def _record_shapes(shapes):
-    """Count the call shapes of K1, K2, K3 and K4 into ``shapes`` (from
+    """Count the call shapes of K1, K2, K3 and K4 (for K4, the halo
+    exchanges, whose axis phases it runs) into ``shapes`` (from
     :func:`_new_calls`); returns the functions that restore the originals."""
-    from mpi4dl_tpu_torch.ops import fastconv, halo_kernel, pool_kernel
+    from mpi4dl_tpu_torch.ops import fastconv, pool_kernel
+    from mpi4dl_tpu_torch.parallel import halo
 
     return [
         _recording(pool_kernel, "pool_bwd",
@@ -280,9 +299,7 @@ def _record_shapes(shapes):
                    lambda x, dy, *geom: (tuple(x.shape), dy.shape[3]) + geom, shapes["wgrad"]),
         _recording(fastconv, "bwd_1x1",
                    lambda x, dy, w2: (tuple(x.shape), w2.shape[1]), shapes["dot1x1_bwd"]),
-        _recording(halo_kernel, "halo_swap",
-                   lambda a, b, grid, axis: (axis, tuple(a.shape), a.stride(), b.stride()),
-                   shapes["halo_swap"]),
+        _recording(halo, "halo_exchange", _exchange_key, shapes["halo_swap"]),
     ]
 
 
@@ -437,7 +454,7 @@ def profile_step(trainer, x, y, top=15, tag="c", emit=log):
          f"(idle {100 * (1 - busy / wall_ms):.1f}%), K1 {total('::pool_bwd_'):.1f} ms, "
          f"K2 {total('::wgrad_halo_bf16<', '::wgrad_f32('):.1f} ms, "
          f"K3 {total('::dot1x1_onepass<', '::gemm_wgmma<', '::gemm_f32<'):.1f} ms, "
-         f"K4 push {total('::halo_push<'):.1f} ms + wait {total('::halo_wait<'):.1f} ms, "
+         f"K4 {total('::halo_phase_kernel<'):.1f} ms, "
          f"NCCL {total('ncclDevKernel'):.1f} ms, slice sums {total('::sum_splits('):.1f} ms, head pool {head_pool:.3f} ms, "
          f"{sum(e.count for e in kernels)} kernel launches")
     for e in kernels[:top]:
@@ -478,6 +495,153 @@ def _count_calls(cls, name, box):
 
     setattr(cls, name, staticmethod(wrapper))
     return lambda: setattr(cls, name, orig)
+
+
+def _exchange_key(x, halo_h, halo_w, grid, fill_value=0.0):
+    """A ``halo_exchange`` call's shape: (tile shape, strides, halos,
+    whether the step differentiates it)."""
+    return (tuple(x.shape), x.stride(), halo_h, halo_w, x.requires_grad)
+
+
+def _exchange_desc(key):
+    shape, _, hh, hw, grad = key
+    return (f"x[{','.join(map(str, shape))}] h({hh},{hw}) "
+            f"{'forward+backward' if grad else 'forward'}")
+
+
+def _exchange_strips(key):
+    """The NHWC (axis, shape, strides) of the strips an exchange at ``key``
+    sends: the tile's rows in the H phase, the H-extended tile's columns
+    (channels_last) in the W phase."""
+    (b, c, h, w), stride, hh, hw, _ = key
+    out = []
+    if hh:
+        out.append(("tile_h", (b, hh, w, c), (stride[0], stride[2], stride[3], stride[1])))
+    if hw:
+        hx, wx = h + 2 * hh, w + 2 * hw
+        out.append(("tile_w", (b, hx, hw, c), (hx * wx * c, wx * c, c, 1)))
+    return out
+
+
+def _exchange_traffic(key, backend):
+    """(device-memory bytes, NVLink bytes, axis phases) of one bf16
+    exchange at ``key``: the tile read and the extended tile written once
+    (the gradient the same way back); each phase's two strips leave over
+    NVLink with one rank a card, or are stored and read again on a card
+    the ranks share."""
+    (b, c, h, w), _, hh, hw, grad = key
+    passes = 2 if grad else 1
+    tile = b * c * h * w * 2
+    ext = b * c * (h + 2 * hh) * (w + 2 * hw) * 2
+    strips = 2 * b * c * 2 * (hh * w + (h + 2 * hh) * hw)
+    phases = passes * ((hh > 0) + (hw > 0))
+    if backend == "nccl":
+        return passes * (tile + ext), passes * strips, phases
+    return passes * (tile + ext + 2 * strips), 0, phases
+
+
+def _exchange_inputs(key, dtype, device, seed):
+    """Every rank's tile and output cotangent of an exchange at ``key``,
+    the same on every rank (from ``seed``); tiles with the key's strides."""
+    import torch
+
+    (b, c, h, w), stride, hh, hw, _ = key
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tiles, cts = [], []
+    for _ in range(SP_RANKS):
+        t = torch.empty_strided((b, c, h, w), stride, dtype=dtype, device=device)
+        tiles.append(t.copy_(torch.randn((b, c, h, w), generator=gen, device=device)))
+        g = torch.randn((b, c, h + 2 * hh, w + 2 * hw), generator=gen, device=device)
+        cts.append(g.to(dtype).contiguous(memory_format=torch.channels_last))
+    return tiles, cts
+
+
+def _exchange_reference(tiles, cts, key, fill):
+    """(outputs, input gradients) of every rank's exchange through the
+    whole-grid plain version, ``halo_exchange_reference``."""
+    import torch
+
+    from mpi4dl_tpu_torch.parallel.halo import halo_exchange_reference
+
+    _, _, hh, hw, _ = key
+    xs = [t.detach().clone().requires_grad_(True) for t in tiles]
+    th, tw = SP_GRID
+    ext = halo_exchange_reference([xs[i * tw:(i + 1) * tw] for i in range(th)], hh, hw, fill)
+    outs = [e for row in ext for e in row]
+    return [e.detach() for e in outs], torch.autograd.grad(outs, xs, cts)
+
+
+def _exchange_case(rank, grid, key, tiles, cts, fill):
+    """This rank's (output, input gradient) of the exchange (K4)."""
+    import torch
+
+    from mpi4dl_tpu_torch.parallel.halo import halo_exchange
+
+    _, _, hh, hw, _ = key
+    x = tiles[rank].detach().clone().requires_grad_(True)
+    e = halo_exchange(x, hh, hw, grid, fill)
+    (dx,) = torch.autograd.grad(e, x, cts[rank])
+    return e.detach(), dx
+
+
+def _sp_exchange_times(grid, device, exchanges, backend, round_trip_ms=None):
+    """Phase s4 per shape in one rank: one whole bf16 ``halo_exchange``
+    (forward, and backward where the step differentiates it) at every
+    recorded exchange shape, beside NCCL's ``batch_isend_irecv`` of the
+    same strips (one rank per card only) and the bound: bytes over the
+    card's and NVLink's rates, plus one one-way flag hop (half the
+    measured round trip) a phase."""
+    import torch
+    import torch.distributed as dist
+
+    from mpi4dl_tpu_torch.parallel.halo import halo_exchange
+
+    rows = []
+    for key, per_step in exchanges:
+        shape, stride, hh, hw, grad = key
+        b, c, h, w = shape
+        x = torch.empty_strided(shape, stride, dtype=torch.bfloat16, device=device).normal_()
+        x.requires_grad_(grad)
+        g = torch.randn((b, c, h + 2 * hh, w + 2 * hw), device=device).to(torch.bfloat16)
+        g = g.contiguous(memory_format=torch.channels_last)
+
+        def exchange():
+            e = halo_exchange(x, hh, hw, grid)
+            if grad:
+                torch.autograd.grad(e, x, g)
+
+        dist.barrier()
+        row = {"shape": _exchange_desc(key), "ms": cuda_ms(exchange, iters=K4_TIMING_ITERS),
+               "launches_per_step": per_step, "library_ms": None}
+        if backend == "nccl":
+            strips = [torch.randn((b, hh, w, c), device=device).to(torch.bfloat16)] * (hh > 0)
+            strips += [torch.randn((b, h + 2 * hh, hw, c), device=device).to(torch.bfloat16)] * (hw > 0)
+            axes = ["tile_h"] * (hh > 0) + ["tile_w"] * (hw > 0)
+            recv = [(torch.empty_like(s), torch.empty_like(s)) for s in strips]
+
+            def nccl_exchange():
+                for _ in range(2 if grad else 1):
+                    for s, (ra, rb), axis in zip(strips, recv, axes):
+                        prev, nxt = grid.prev(axis), grid.next(axis)
+                        for req in dist.batch_isend_irecv([
+                            dist.P2POp(dist.isend, s, prev), dist.P2POp(dist.isend, s, nxt),
+                            dist.P2POp(dist.irecv, ra, nxt), dist.P2POp(dist.irecv, rb, prev),
+                        ]):
+                            req.wait()
+
+            dist.barrier()
+            row["library_ms"] = cuda_ms(nccl_exchange, iters=K4_TIMING_ITERS)
+        hbm, nvlink, phases = _exchange_traffic(key, backend)
+        row["bound_ms"] = (hbm / HBM_BYTES_PER_S + nvlink / NVLINK_BYTES_PER_S) * 1e3
+        row["bound_by"] = "bytes"
+        if round_trip_ms is not None:
+            # The phases are serial (the W phase sends the H phase's halo
+            # rows), and each needs at least one flag to travel one way.
+            row["bound_ms"] += phases * round_trip_ms / 2
+            row["bound_by"] = "bytes + one-way flag hops"
+        rows.append(row)
+        del x, g
+    return rows
 
 
 def _sp_main(rank, grid, device, profile):
@@ -526,28 +690,51 @@ def _sp_main(rank, grid, device, profile):
     out["launches"] = {name: mod.launch_count for name, mod in counters.items()}
     out["peak"] = torch.cuda.max_memory_allocated()
     if profile:
-        # Every rank profiles, so no rank's swaps wait out the others'
+        # Every rank profiles, so no rank's exchanges wait out the others'
         # profiler set-up and read-out; rank 0 prints.
         profile_step(trainer, x, y, tag="s2", emit=log if rank == 0 else lambda *a: None)
         dist.barrier()
     out["shapes"] = {name: sorted(v.items()) for name, v in shapes.items()}
+    # The exchanges that move data (a 1x1 conv's has no halo).
+    out["exchanges"] = [(k, n) for k, n in out["shapes"]["halo_swap"] if k[2] or k[3]]
     out["bn_allreduces"] = bn_reduces[0]
     del trainer, model, x, y
     torch.cuda.empty_cache()
     return out
 
 
-def _sp_k4_check(rank, grid, device, strips):
-    """Phase s3 in one rank: K4 against ``swap_reference`` at every
-    recorded strip (bf16, f32) and a whole exchange against pad-and-slice."""
+def _sp_k4_check(rank, grid, device, exchanges):
+    """Phase s3 in one rank: the exchange (K4) against the whole-grid plain
+    version at every recorded exchange shape, output and input gradient,
+    bf16 and f32, fills 0 and −inf; the plain swap (``halo_swap``) against
+    ``swap_reference`` at every strip those exchanges send; a whole
+    exchange against a pad and slice of the full image. All exact."""
     import torch
+    import torch.distributed as dist
     import torch.nn.functional as F
 
     from mpi4dl_tpu_torch.ops import halo_kernel
     from mpi4dl_tpu_torch.parallel.halo import halo_exchange
 
     lines, worst = [], 0.0
-    for idx, (axis, shape, sa, sb) in enumerate(strips):
+    for idx, (key, _) in enumerate(exchanges):
+        for dtype in (torch.bfloat16, torch.float32):
+            for fill in (0.0, float("-inf")):
+                tiles, cts = _exchange_inputs(key, dtype, device, SEED + idx)
+                want_e, want_g = _exchange_reference(tiles, cts, key, fill)
+                dist.barrier()
+                e, dx = _exchange_case(rank, grid, key, tiles, cts, fill)
+                torch.cuda.synchronize()
+                grid.rings.check()  # a wait that ran out raises here, not as a mismatch
+                worst = max(worst, float((dx.float() - want_g[rank].float()).abs().max()))
+                if not (torch.equal(e, want_e[rank]) and torch.equal(dx, want_g[rank])):
+                    raise AssertionError(f"K4 exchange {_exchange_desc(key)} {dtype} fill {fill}: "
+                                         f"rank {rank} differs from the plain version")
+                del tiles, cts, want_e, want_g, e, dx
+        lines.append(f"[s3] K4 exchange {_exchange_desc(key)}: output and input gradient, bf16 "
+                     "and f32, fills 0 and -inf, equal to the plain version on every rank")
+    strips = sorted({s for key, _ in exchanges for s in _exchange_strips(key)})
+    for idx, (axis, shape, stride) in enumerate(strips):
         ring = grid.ring(axis)
         k = ring.index(rank)
         for dtype in (torch.bfloat16, torch.float32):
@@ -556,62 +743,84 @@ def _sp_k4_check(rank, grid, device, strips):
                      for _ in range(SP_RANKS)]
             b_all = [torch.randn(shape, generator=gen, device=device).to(dtype)
                      for _ in range(SP_RANKS)]
-            a = torch.empty_strided(shape, sa, dtype=dtype, device=device).copy_(a_all[rank])
-            b = torch.empty_strided(shape, sb, dtype=dtype, device=device).copy_(b_all[rank])
+            a = torch.empty_strided(shape, stride, dtype=dtype, device=device).copy_(a_all[rank])
+            b = torch.empty_strided(shape, stride, dtype=dtype, device=device).copy_(b_all[rank])
             ra, rb = halo_kernel.halo_swap(a, b, grid, axis)
             torch.cuda.synchronize()
-            grid.rings.check()  # a wait that ran out raises here, not as a mismatch
+            grid.rings.check()
             want_a, want_b = halo_kernel.swap_reference([a_all[r] for r in ring],
                                                         [b_all[r] for r in ring])
-            worst = max(worst, float((ra.float() - want_a[k].float()).abs().max()),
-                        float((rb.float() - want_b[k].float()).abs().max()))
             if not (torch.equal(ra, want_a[k]) and torch.equal(rb, want_b[k])):
-                raise AssertionError(f"K4 {axis} {list(shape)} {dtype}: rank {rank} differs "
+                raise AssertionError(f"K4 swap {axis} {list(shape)} {dtype}: rank {rank} differs "
                                      "from the plain version")
-        lines.append(f"[s3] K4 {axis} strip {list(shape)} strides {sa}/{sb}: bf16 and f32 "
+        lines.append(f"[s3] K4 swap {axis} strip {list(shape)} strides {stride}: bf16 and f32 "
                      "equal to the plain version on every rank")
     i, j = grid.coords
     for dtype in (torch.bfloat16, torch.float32):
         gen = torch.Generator(device=device).manual_seed(SEED)
         image = torch.randn((2, 16, 64, 64), generator=gen, device=device).to(dtype)
         image = image.contiguous(memory_format=torch.channels_last)
-        tile = image[:, :, i * 32:(i + 1) * 32, j * 32:(j + 1) * 32]
-        tile = tile.contiguous(memory_format=torch.channels_last)
-        for hh, hw, fill in ((1, 1, 0.0), (2, 2, float("-inf"))):
+        for size, hh, hw, fill in ((64, 1, 1, 0.0), (64, 2, 2, float("-inf")), (8, 2, 2, 0.0)):
+            t = size // 2  # the 4 px tiles of the 8 px image: extent exactly twice the halo
+            tile = image[:, :, i * t:(i + 1) * t, j * t:(j + 1) * t]
+            tile = tile.contiguous(memory_format=torch.channels_last)
             got = halo_exchange(tile, hh, hw, grid, fill)
-            want = F.pad(image, (hw, hw, hh, hh), value=fill)[
-                :, :, i * 32:i * 32 + 32 + 2 * hh, j * 32:j * 32 + 32 + 2 * hw]
+            want = F.pad(image[:, :, :size, :size], (hw, hw, hh, hh), value=fill)[
+                :, :, i * t:i * t + t + 2 * hh, j * t:j * t + t + 2 * hw]
             if not torch.equal(got, want):
-                raise AssertionError(f"halo_exchange h({hh},{hw}) fill {fill} {dtype}: rank "
-                                     f"{rank} differs from pad-and-slice")
+                raise AssertionError(f"halo_exchange x[2,16,{size},{size}] h({hh},{hw}) fill "
+                                     f"{fill} {dtype}: rank {rank} differs from pad-and-slice")
             if not got.is_contiguous(memory_format=torch.channels_last):
                 raise AssertionError("halo_exchange lost the channels_last layout")
-    lines.append("[s3] halo_exchange of a 2x2 grid, x[2,16,64,64] h(1,1) fill 0 and h(2,2) "
-                 "fill -inf, bf16 and f32: equal to pad-and-slice of the full image")
+    lines.append("[s3] halo_exchange of a 2x2 grid, x[2,16,64,64] h(1,1) fill 0 and h(2,2) fill "
+                 "-inf, x[2,16,8,8] h(2,2) fill 0, bf16 and f32: equal to pad-and-slice of the "
+                 "full image")
     return lines, worst
 
 
-def _sp_k4_time(grid, device, strips, backend, plain_group):
-    """Phase s4 in one rank: one swap of the largest recorded strip pair."""
+def _sp_k4_time(rank, grid, device, exchanges, backend, plain_group):
+    """Phase s4 in one rank: the flag round trip; every exchange shape
+    (:func:`_sp_exchange_times`); the timed exchange's plain distributed
+    version (CPU tensors over gloo); one plain swap of the largest strip
+    pair beside NCCL's ``batch_isend_irecv`` (one rank per card only)."""
     import torch
     import torch.distributed as dist
 
     from mpi4dl_tpu_torch.ops import halo_kernel
+    from mpi4dl_tpu_torch.parallel.halo import exchange_plain, exchange_plain_bwd
 
-    axis, shape, sa, sb = max(strips, key=lambda s: math.prod(s[1]))
-    a = torch.empty_strided(shape, sa, dtype=torch.bfloat16, device=device).normal_()
-    b = torch.empty_strided(shape, sb, dtype=torch.bfloat16, device=device).normal_()
-    out = {"axis": axis, "shape": list(shape), "nbytes": 2 * a.numel() * a.element_size()}
-    out["ms"] = cuda_ms(lambda: halo_kernel.halo_swap(a, b, grid, axis), iters=K4_TIMING_ITERS)
-    ac, bc = a.cpu(), b.cpu()
-    for _ in range(2):
-        halo_kernel.swap_dist_reference(ac, bc, grid, axis, plain_group)
+    dist.barrier()
+    # On a card the ranks share, each hop waits for a context switch.
+    rt = [grid.rings.round_trip_ms("tile_w", K4_ROUND_TRIPS[backend])]
+    dist.broadcast_object_list(rt, src=0)
+    out = {"round_trip_ms": rt[0], "backend": backend,
+           "exchanges": _sp_exchange_times(grid, device, exchanges, backend, rt[0])}
+
+    key = next(k for k, _ in exchanges if k[0] == K4_TIMED and k[4])
+    tiles, cts = _exchange_inputs(key, torch.bfloat16, device, SEED)
+    x, g = tiles[rank].cpu(), cts[rank].cpu()
+    _, _, hh, hw, _ = key
+
+    def plain():
+        exchange_plain(x, hh, hw, grid, 0.0, plain_group)
+        exchange_plain_bwd(g, hh, hw, grid, plain_group)
+
+    plain()
     dist.barrier(plain_group)
     t = time.perf_counter()
-    for _ in range(K4_TIMING_ITERS):
-        halo_kernel.swap_dist_reference(ac, bc, grid, axis, plain_group)
-    out["plain_ms"] = (time.perf_counter() - t) * 1e3 / K4_TIMING_ITERS
-    out["library_ms"] = None
+    for _ in range(3):
+        plain()
+    out["plain_ms"] = (time.perf_counter() - t) * 1e3 / 3
+    out["key"] = key
+
+    axis, shape, stride = max((s for k, _ in exchanges for s in _exchange_strips(k)),
+                              key=lambda s: math.prod(s[1]))
+    a = torch.empty_strided(shape, stride, dtype=torch.bfloat16, device=device).normal_()
+    b = torch.empty_strided(shape, stride, dtype=torch.bfloat16, device=device).normal_()
+    swap = {"axis": axis, "shape": list(shape), "nbytes": 2 * a.numel() * a.element_size()}
+    dist.barrier()
+    swap["ms"] = cuda_ms(lambda: halo_kernel.halo_swap(a, b, grid, axis), iters=K4_TIMING_ITERS)
+    swap["library_ms"] = None
     if backend == "nccl":
         a2, b2 = a.contiguous(), b.contiguous()
         ra, rb = torch.empty_like(a2), torch.empty_like(b2)
@@ -624,8 +833,64 @@ def _sp_k4_time(grid, device, strips, backend, plain_group):
             ]):
                 req.wait()
 
-        out["library_ms"] = cuda_ms(nccl_swap, iters=K4_TIMING_ITERS)
+        swap["library_ms"] = cuda_ms(nccl_swap, iters=K4_TIMING_ITERS)
+    out["swap"] = swap
     return out
+
+
+def _sp_graph(rank, grid, device, exchanges):
+    """Phase s6 in one rank: three exchanges, forward and backward, captured
+    in one CUDA graph; each of 3 replays on new inputs (copied into the
+    captured tensors) held exactly against the plain version."""
+    import torch
+    import torch.distributed as dist
+
+    from mpi4dl_tpu_torch.parallel.halo import halo_exchange
+
+    keys = sorted((k for k, _ in exchanges), key=lambda k: math.prod(k[0]))[:3]
+    fills = (0.0, float("-inf"), 0.0)
+    dtype = torch.bfloat16
+    inputs = [_exchange_inputs(k, dtype, device, SEED) for k in keys]
+    xs = [tiles[rank].requires_grad_(True) for tiles, _ in inputs]
+    gs = [cts[rank] for _, cts in inputs]
+    del inputs
+
+    def step():
+        outs = []
+        for k, x, g, fill in zip(keys, xs, gs, fills):
+            e = halo_exchange(x, k[2], k[3], grid, fill)
+            outs.append((e, torch.autograd.grad(e, x, g)[0]))
+        return outs
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capturing stream, as torch.cuda.graph asks
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = step()
+    for replay in range(3):
+        wants = []
+        for k, x, g, fill in zip(keys, xs, gs, fills):
+            tiles, cts = _exchange_inputs(k, dtype, device, SEED + 100 + replay)
+            with torch.no_grad():
+                x.copy_(tiles[rank])
+                g.copy_(cts[rank])
+            want_e, want_g = _exchange_reference(tiles, cts, k, fill)
+            wants.append((want_e[rank], want_g[rank]))
+        torch.cuda.synchronize()
+        dist.barrier()
+        graph.replay()
+        torch.cuda.synchronize()
+        grid.rings.check()
+        for k, (e, dx), (want_e, want_g) in zip(keys, outs, wants):
+            if not (torch.equal(e, want_e) and torch.equal(dx, want_g)):
+                raise AssertionError(f"graph replay {replay}, exchange {_exchange_desc(k)}: rank "
+                                     f"{rank} differs from the plain version")
+    del graph
+    return [_exchange_desc(k) for k in keys]
 
 
 def _sp_k4_timeout(rank, device):
@@ -666,13 +931,15 @@ def _sp_worker(rank, world, backend, profile):
     halo_kernel.open_rings(grid, device)
     out = {"small": _sp_small(grid, device)}
     out["main"] = _sp_main(rank, grid, device, profile)
+    exchanges = out["main"]["exchanges"]
     # Each phase starts on every rank together: a rank that is late on the
-    # host by more than K4's wait limit fails its neighbours' swaps.
+    # host by more than K4's wait limit fails its neighbours' exchanges.
     dist.barrier()
-    strips = [key for key, _ in out["main"]["shapes"]["halo_swap"]]
-    out["k4_lines"], out["k4_err"] = _sp_k4_check(rank, grid, device, strips)
+    out["k4_lines"], out["k4_err"] = _sp_k4_check(rank, grid, device, exchanges)
     dist.barrier()
-    out["k4_time"] = _sp_k4_time(grid, device, strips, backend, plain_group)
+    out["k4_time"] = _sp_k4_time(rank, grid, device, exchanges, backend, plain_group)
+    dist.barrier()
+    out["graph"] = _sp_graph(rank, grid, device, exchanges)
     halo_kernel.close_rings(grid)
     out["k4_timeout"] = _sp_k4_timeout(rank, device)
     return out
@@ -694,7 +961,7 @@ def phase_spatial(shapes, profile, single_first_loss=None):
     t0 = time.time()
     ranks = multihost.spawn(_sp_worker, SP_RANKS, args=(backend, profile), backend=backend,
                             timeout=900)
-    log(f"[s] 4 ranks ran phases s1-s5 in {time.time() - t0:.1f} s")
+    log(f"[s] 4 ranks ran phases s1-s6 in {time.time() - t0:.1f} s")
 
     want = small_step(lambda: get_resnet_v2(20, 10, pool_kernel=8), 32, "cpu")
     worst = max(check_small(f"spatial rank {r}", out["small"], want)
@@ -726,7 +993,8 @@ def phase_spatial(shapes, profile, single_first_loss=None):
         f"allocated per rank {[round(m['peak'] / 2**30, 2) for m in mains]} GiB")
     log(f"[s2] launches per rank per step: " + "; ".join(
         ", ".join(f"{k} {v // STEPS}" for k, v in m["launches"].items()) for m in mains)
-        + f"; BN all-reduces per step {m0['bn_allreduces']}")
+        + f"; BN all-reduces per step {m0['bn_allreduces']}; exchanges per step "
+        f"{sum(n for _, n in m0['exchanges'])} (K4 launches are their axis phases)")
     for name in KERNELS:
         shapes[name].update(dict(m0["shapes"][name]))
         for m in mains[1:]:  # every rank's shapes are checked; counts are rank 0's
@@ -734,47 +1002,89 @@ def phase_spatial(shapes, profile, single_first_loss=None):
                 shapes[name].setdefault(key, 0)
     for line in ranks[0]["k4_lines"]:
         log(line)
+    timing = exchange_rows(ranks)
+    log(f"[s6] {len(ranks[0]['graph'])} exchanges ({'; '.join(ranks[0]['graph'])}), forward "
+        "and backward, captured in one CUDA graph on every rank: 3 replays on new inputs, "
+        "each equal to the plain version")
     timeout = ranks[0]["k4_timeout"]
     if timeout["error"] is None or not timeout["s"] < K4_TIMEOUT_S + 5:
         raise AssertionError(f"K4's unmatched wait: {timeout}")
     log(f"[s5] an unmatched swap on rank 0 (wait limit {K4_TIMEOUT_S:g} s) ended after "
         f"{timeout['s']:.2f} s with its error word set: {timeout['error']!r}")
-    timing = dict(ranks[0]["k4_time"])
     timing["max_abs_err"] = max(out["k4_err"] for out in ranks)
-    for key in ("ms", "plain_ms"):
-        timing[key] = max(out["k4_time"][key] for out in ranks)
-    if timing["library_ms"] is not None:
-        timing["library_ms"] = max(out["k4_time"]["library_ms"] for out in ranks)
+    timing["plain_ms"] = max(out["k4_time"]["plain_ms"] for out in ranks)
+    timing["round_trip_ms"] = ranks[0]["k4_time"]["round_trip_ms"]
+    timing["key"] = ranks[0]["k4_time"]["key"]
+    swap = dict(ranks[0]["k4_time"]["swap"])
+    for key in ("ms", "library_ms"):
+        if swap[key] is not None:
+            swap[key] = max(out["k4_time"]["swap"][key] for out in ranks)
+    timing["swap"] = swap
     timing["layout"] = desc
     timing["backend"] = backend
     launches = {name: m0["launches"][name] for name in PATH_KERNELS["resnet_sp"]}
     return launches, timing
 
 
+def exchange_rows(ranks):
+    """Phase s4's per-shape exchange times (slowest rank at each shape)
+    and their launch-weighted sums per step, logged."""
+    rows = []
+    sums = {"ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "exchanges": 0}
+    rt = ranks[0]["k4_time"]["round_trip_ms"]
+    log(f"[s4] one-word flag round trip between two ranks' arenas (tile_w ring, mean of "
+        f"{K4_ROUND_TRIPS[ranks[0]['k4_time']['backend']]} in one launch): {rt * 1e3:.2f} us")
+    for i, row in enumerate(ranks[0]["k4_time"]["exchanges"]):
+        row = dict(row)
+        for key in ("ms", "library_ms"):
+            if row[key] is not None:
+                row[key] = max(out["k4_time"]["exchanges"][i][key] for out in ranks)
+        n = row["launches_per_step"]
+        sums["exchanges"] += n
+        for key in ("ms", "bound_ms", "library_ms"):
+            sums[key] += n * (row[key] or 0.0)
+        lib = row["library_ms"]
+        log(f"[s4] halo_exchange {row['shape']} bf16: {row['ms']:.4f} ms, NCCL strips "
+            f"{'%.4f ms' % lib if lib is not None else 'n/a (ranks share a card)'}, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}); {n} a rank and step")
+        rows.append(row)
+    if sums["library_ms"] == 0.0:
+        sums["library_ms"] = None
+    log(f"[s4] halo_exchange per rank and step, launch-weighted: {sums['exchanges']} exchanges, "
+        f"{sums['ms']:.3f} ms, NCCL strips "
+        f"{'%.3f ms' % sums['library_ms'] if sums['library_ms'] is not None else 'n/a'}, "
+        f"bound {sums['bound_ms']:.3f} ms")
+    return {"exchanges": rows, "exchange_per_step": sums}
+
+
 def halo_row(timing, launches):
-    """The kernels line's K4 row (``timing`` from phase s4)."""
-    nbytes = timing["nbytes"]
-    if timing["backend"] == "nccl":
-        # The strips leave the card over NVLink (each way 450 GB/s).
-        bound = {"bound_ms": nbytes / NVLINK_BYTES_PER_S * 1e3, "bound_by": "bytes"}
-    else:
-        bound = _bound(2 * nbytes, 0, 1.0)  # read and written once on one card
-    lib = timing["library_ms"]
+    """The kernels line's K4 row: one exchange, forward and backward, at
+    the timed shape (``timing`` from phases s3-s4)."""
+    timed = next(r for r in timing["exchanges"] if r["shape"] == _exchange_desc(timing["key"]))
+    swap = timing["swap"]
     row = {
         "name": "halo_swap", "route": "cuda",
         "source": "mpi4dl_tpu_torch/ops/csrc/halo_swap.cu",
         "replaces": "mpi4dl_tpu/ops/halo_pallas.py:174",
         **_launch_fields("halo_swap", launches),
         "max_abs_err": timing["max_abs_err"],
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"], **bound, "library_ms": lib,
-        "shape": f"a, b [{','.join(map(str, timing['shape']))}] bf16 along {timing['axis']}",
-        "layout": timing["layout"],
+        "ms": timed["ms"], "plain_ms": timing["plain_ms"], "bound_ms": timed["bound_ms"],
+        "bound_by": timed["bound_by"], "library_ms": timed["library_ms"],
+        "shape": f"{timed['shape']} bf16 (one exchange: 4 phase launches)",
+        "layout": timing["layout"], "round_trip_ms": timing["round_trip_ms"],
+        "exchanges": timing["exchanges"], "exchange_per_step": timing["exchange_per_step"],
+        "swap": swap,
     }
-    log(f"[s4] halo_swap {row['shape']}, {nbytes} bytes a rank: kernel {row['ms']:.3f} ms, "
-        f"plain (CPU, gloo) {row['plain_ms']:.3f} ms, library (NCCL batch_isend_irecv) "
+    lib = row["library_ms"]
+    log(f"[s4] K4 at its timed exchange, {row['shape']}: kernel {row['ms']:.3f} ms, plain (CPU, "
+        f"gloo) {row['plain_ms']:.3f} ms, library (NCCL batch_isend_irecv of the strips) "
         f"{'%.3f ms' % lib if lib is not None else 'n/a (ranks share a card)'}, bound "
-        f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}): latency-bound; launches per step "
+        f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}); launches per step "
         f"{row['launches_per_step']}")
+    slib = swap["library_ms"]
+    log(f"[s4] halo_swap a, b [{','.join(map(str, swap['shape']))}] bf16 along {swap['axis']}, "
+        f"{swap['nbytes']} bytes a rank: kernel {swap['ms']:.3f} ms, library (NCCL "
+        f"batch_isend_irecv) {'%.3f ms' % slib if slib is not None else 'n/a (ranks share a card)'}")
     return row
 
 

@@ -97,7 +97,7 @@ def op_none(channels, stride, dtype):
 
 
 def op_avg_pool_3x3(channels, stride, dtype):
-    return Pool("avg", 3, stride, 1)
+    return Pool("avg", 3, stride, 1, count_include_pad=False)
 
 
 def op_max_pool_3x3(channels, stride, dtype):

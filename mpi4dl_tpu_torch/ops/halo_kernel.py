@@ -1,21 +1,25 @@
-"""Halo ring swap, a hand-written CUDA kernel (K4).
+"""Halo exchange phase and ring swap, a hand-written CUDA kernel (K4).
 
 Port of ``mpi4dl_tpu/ops/halo_pallas.py`` (``_swap_call``, the custom-VJP
-``strip_swap``): along one tile axis of a :class:`TileGrid`, every rank
+``strip_swap``, and the slicing, fill and concatenation around it in
+``_axis_exchange``): along one tile axis of a :class:`TileGrid`, every rank
 sends strip ``a`` to its ring-previous rank and ``b`` to its ring-next
 rank, and receives ``ra`` = the ``a`` of its next rank and ``rb`` = the
-``b`` of its previous rank (wraparound; the caller masks global edges).
-Strips are NHWC ``[B, Hs, Ws, C]``, possibly strided views (the W-phase
-strip of a channels_last tile is not contiguous); ``ra``/``rb`` come back
-contiguous. Every rank must make the same swaps in the same order (the
-JAX kernel's uniform-SPMD rule), since sequence numbers pair the calls.
+``b`` of its previous rank (wraparound). Every rank must make the same
+phases in the same order on each ring (the JAX kernel's uniform-SPMD rule),
+since the rings' sequence numbers pair them.
 
-- CUDA tensors: ``csrc/halo_swap.cu`` over CUDA IPC (peer stores into the
-  neighbours' receive arenas, flags with release/acquire at system scope,
-  a time-bounded wait). The transport is opened once per grid and card
-  with :func:`open_rings` (collective) and closed with :func:`close_rings`.
-- CPU tensors: :func:`swap_dist_reference`, ``batch_isend_irecv`` to the
-  ring neighbours over the process group (gloo).
+- :meth:`HaloRings.phase` launches one axis phase of a halo exchange
+  (``csrc/halo_swap.cu``): the strips pushed over CUDA IPC into the
+  neighbours' receive arenas, the tile's interior copied, the received
+  strips placed (forward) or added (backward) in the output's edge rows.
+  :mod:`mpi4dl_tpu_torch.parallel.halo` builds the exchange from it. The
+  transport is opened once per grid and card with :func:`open_rings`
+  (collective) and closed with :func:`close_rings`.
+- :func:`halo_swap` / :func:`strip_swap`: the plain swap of two NHWC strips,
+  on CUDA tensors the same kernel with no interior; on CPU tensors
+  :func:`swap_dist_reference`, ``batch_isend_irecv`` over the process
+  group (gloo).
 - The whole ring in one process: :func:`swap_reference`, the function the
   tests hold against the JAX kernel.
 """
@@ -23,6 +27,7 @@ JAX kernel's uniform-SPMD rule), since sequence numbers pair the calls.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.distributed as dist
@@ -30,17 +35,42 @@ import torch.distributed as dist
 from mpi4dl_tpu_torch.ops import _build
 from mpi4dl_tpu_torch.parallel.multihost import TILE_AXES, TileGrid
 
-# Swaps launched since the last reset (the main path's proof of use).
+# Kernel launches (exchange phases and swaps) since the last reset (the
+# main path's proof of use).
 launch_count = 0
 
 SLOT_BYTES = 1 << 20  # receive capacity per direction and slot
 TIMEOUT_S = 10.0  # a wait longer than this fails the step instead of hanging the card
 _IPC_HANDLE_BYTES = 64
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # csrc's Dtype
+_MAX_BYTES = 1 << 31  # the kernel indexes a view's units in 32 bits
+
+
+class _View(ctypes.Structure):
+    """An NHWC view of rows: ``base + b*sb + h*sh + w*sw`` bytes, the
+    channels contiguous (csrc's ``View``)."""
+
+    _fields_ = [("base", ctypes.c_void_p), ("sb", ctypes.c_longlong),
+                ("sh", ctypes.c_longlong), ("sw", ctypes.c_longlong),
+                ("B", ctypes.c_int), ("H", ctypes.c_int), ("W", ctypes.c_int),
+                ("pad_", ctypes.c_int)]
+
+
+class _Phase(ctypes.Structure):
+    """One launch's arguments (csrc's ``Phase``)."""
+
+    _fields_ = [(name, _View) for name in ("a", "b", "ra", "rb", "add_a", "add_b", "src", "dst")] + [
+        ("self", ctypes.c_void_p), ("prev", ctypes.c_void_p), ("next", ctypes.c_void_p),
+        ("status", ctypes.c_void_p), ("row_bytes", ctypes.c_longlong),
+        ("slot_bytes", ctypes.c_longlong), ("timeout_ns", ctypes.c_longlong),
+        ("fill", ctypes.c_ulonglong * 2), ("mask_a", ctypes.c_int), ("mask_b", ctypes.c_int),
+        ("backward", ctypes.c_int), ("dtype", ctypes.c_int), ("axis", ctypes.c_int),
+        ("pad_", ctypes.c_int)]
 
 
 def _lib():
     lib = _build.load("halo_swap")
-    if lib.halo_swap.argtypes is None:
+    if lib.halo_phase.argtypes is None:
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.halo_arena_alloc.argtypes = [i, ll, ctypes.POINTER(vp), ctypes.c_char_p]
         lib.halo_arena_open.argtypes = [i, ctypes.c_char_p, ctypes.POINTER(vp)]
@@ -48,18 +78,17 @@ def _lib():
         lib.halo_arena_free.argtypes = [i, vp]
         lib.halo_status_alloc.argtypes = [i, ctypes.POINTER(vp), ctypes.POINTER(vp)]
         lib.halo_status_free.argtypes = [vp]
-        # device, a, b, ra, rb; B, Hs, Ws, C, esize; strides of a, b; arenas;
-        # slot_bytes; seq; axis; status; timeout_ns; stream
-        lib.halo_swap.argtypes = (
-            [i] + [vp] * 4 + [i] * 5 + [ll] * 6 + [vp] * 3
-            + [ll, ctypes.c_ulonglong, i, vp, ll, vp]
-        )
+        lib.halo_phase.argtypes = [i, ctypes.POINTER(_Phase), vp]
+        # device, self, peer, leader, iters, status, timeout_ns, stream
+        lib.halo_ping.argtypes = [i, vp, vp, i, i, vp, ll, vp]
         for fn in (lib.halo_arena_alloc, lib.halo_arena_open, lib.halo_arena_close,
                    lib.halo_arena_free, lib.halo_status_alloc, lib.halo_status_free,
-                   lib.halo_swap, lib.halo_ipc_handle_size):
+                   lib.halo_phase, lib.halo_ping, lib.halo_ipc_handle_size, lib.halo_phase_size):
             fn.restype = ctypes.c_int
         if lib.halo_ipc_handle_size() != _IPC_HANDLE_BYTES:
             raise RuntimeError("halo_swap: unexpected cudaIpcMemHandle_t size")
+        if lib.halo_phase_size() != ctypes.sizeof(_Phase):
+            raise RuntimeError("halo_swap: the Phase struct differs between C and Python")
     return lib
 
 
@@ -93,24 +122,47 @@ def swap_dist_reference(a, b, grid: TileGrid, axis: str, group=None):
     return ra, rb
 
 
+def _view(t) -> _View:
+    """The :class:`_View` of an NHWC tensor (channels contiguous)."""
+    if t is None:
+        return _View()
+    if t.stride(3) != 1 and t.shape[3] > 1:
+        raise ValueError("halo_swap: the channels of a CUDA view must be contiguous (NHWC)")
+    if t.numel() * t.element_size() >= _MAX_BYTES:
+        raise ValueError(f"halo_swap: a {t.numel() * t.element_size()}-byte view exceeds the "
+                         "kernel's 2 GiB")
+    e = t.element_size()
+    b, h, w, _ = t.shape
+    return _View(t.data_ptr(), t.stride(0) * e, t.stride(1) * e, t.stride(2) * e, b, h, w, 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _fill_bits(value, dtype) -> tuple[int, int]:
+    """16 bytes of the element ``value`` in ``dtype``, repeated, as two u64
+    (cached: building them costs more host time than the launch)."""
+    n = 16 // torch.empty((), dtype=dtype).element_size()
+    raw = torch.full((n,), value, dtype=dtype).view(torch.uint8).numpy().tobytes()
+    return int.from_bytes(raw[:8], "little"), int.from_bytes(raw[8:], "little")
+
+
 class _Ring:
     def __init__(self, arena: int, prev: int, nxt: int):
         self.arena, self.prev, self.next = arena, prev, nxt
-        self.seq = 0  # swaps made on this axis
 
 
 class HaloRings:
     """K4's transport for one :class:`TileGrid` on this rank's card: for
-    each axis longer than 1, this rank's receive arena, its neighbours'
-    arenas mapped through CUDA IPC, and the axis's sequence counter; one
-    host-mapped status word for the time-bounded waits. Memory comes from
-    ``cudaMalloc``/``cudaHostAlloc`` on the C side, not from PyTorch's
-    caching allocator. Build it with :func:`open_rings`."""
+    each axis longer than 1, this rank's receive arena (which also keeps
+    the ring's sequence number) and its neighbours' arenas mapped through
+    CUDA IPC; one host-mapped status word for the time-bounded waits.
+    Memory comes from ``cudaMalloc``/``cudaHostAlloc`` on the C side, not
+    from PyTorch's caching allocator. Build it with :func:`open_rings`."""
 
     def __init__(self, grid: TileGrid, device, timeout_s: float = TIMEOUT_S):
         self.device = torch.device(device)
         if self.device.type != "cuda" or self.device.index is None:
             raise ValueError(f"halo rings need an indexed CUDA device, got {device}")
+        self.grid = grid
         self.slot_bytes = SLOT_BYTES
         self.timeout_ns = int(timeout_s * 1e9)
         self._lib = lib = _lib()
@@ -152,9 +204,12 @@ class HaloRings:
         code, seq, direction, axis = tuple(self._status)
         if not code:
             return None
-        return (f"halo_swap: the wait for swap {seq} on {TILE_AXES[axis]} (from the ring-"
+        if code == 2:
+            return (f"halo_swap: a flag round trip ran out after {self.timeout_ns / 1e9:g} s: "
+                    "the peer did not run the probe")
+        return (f"halo_swap: the wait for phase {seq} on {TILE_AXES[axis]} (from the ring-"
                 f"{'next' if direction == 0 else 'previous'} rank) ran out after "
-                f"{self.timeout_ns / 1e9:g} s: a neighbour did not make the same swaps")
+                f"{self.timeout_ns / 1e9:g} s: a neighbour did not make the same exchanges")
 
     def check(self) -> None:
         """Raise if a wait ran out (see :meth:`error`)."""
@@ -162,32 +217,70 @@ class HaloRings:
         if msg:
             raise RuntimeError(msg)
 
-    def swap(self, a, b, axis: str):
-        ring = self._rings.get(axis)
-        if ring is None:
-            raise RuntimeError(f"halo_swap: no ring open on axis {axis!r}")
+    def phase(self, axis: str, a, b, ra, rb, src=None, dst=None, add_a=None, add_b=None,
+              fill_value: float = 0.0, mask_a: bool = False, mask_b: bool = False) -> None:
+        """Launch one phase on ``axis`` on the current stream. Every tensor
+        is an NHWC view on this card with contiguous channels: strips ``a``
+        (to the ring-previous rank) and ``b`` (to the ring-next); ``ra``,
+        ``rb``, where the strips from the next and previous rank land;
+        ``src`` -> ``dst``, the interior copy (None: none). Forward (no
+        addends): a masked side gets ``fill_value``. Backward (``add_a``,
+        ``add_b`` given): ``ra = add_a + received`` (``+ 0`` where masked).
+        On an axis of one rank nothing is sent and both sides are masked."""
         if a.device != self.device:
-            raise ValueError(f"halo_swap: strips on {a.device}, rings on {self.device}")
+            raise ValueError(f"halo_swap: tensors on {a.device}, rings on {self.device}")
+        if a.dtype not in _DTYPES:
+            raise TypeError(f"halo_swap: no kernel for {a.dtype}")
+        views = [a, b, ra, rb, add_a, add_b, src, dst]  # the order of _Phase._fields_
+        if any(t is not None and (t.device != a.device or t.dtype != a.dtype) for t in views):
+            raise ValueError("halo_swap: every view of a phase must share one device and dtype")
         nbytes = a.numel() * a.element_size()
         if nbytes > self.slot_bytes:
             raise ValueError(f"halo_swap: a {nbytes}-byte strip exceeds the "
                              f"{self.slot_bytes}-byte receive slot")
+        ring = self._rings.get(axis)
+        if ring is None and self.grid.axis_size(axis) > 1:
+            raise RuntimeError(f"halo_swap: no ring open on axis {axis!r}")
         self.check()
-        ra = torch.empty(a.shape, dtype=a.dtype, device=a.device)
-        rb = torch.empty_like(ra)
-        ring.seq += 1
-        err = self._lib.halo_swap(
-            self.device.index, a.data_ptr(), b.data_ptr(), ra.data_ptr(), rb.data_ptr(),
-            *a.shape, a.element_size(), *a.stride()[:3], *b.stride()[:3],
-            ring.arena, ring.prev, ring.next, self.slot_bytes, ring.seq,
-            TILE_AXES.index(axis), self._status_dev, self.timeout_ns,
-            torch.cuda.current_stream(self.device).cuda_stream,
-        )
-        _build.check(err, "halo_swap")
-        return ra, rb
+        backward = add_a is not None
+        p = _Phase(*(_view(t) for t in views))
+        if ring is not None:
+            p.self, p.prev, p.next = ring.arena, ring.prev, ring.next
+        p.status = self._status_dev
+        p.row_bytes = a.shape[3] * a.element_size()
+        p.slot_bytes = self.slot_bytes
+        p.timeout_ns = self.timeout_ns
+        p.fill[:] = _fill_bits(0.0 if backward else fill_value, a.dtype)
+        p.mask_a, p.mask_b = int(mask_a), int(mask_b)
+        p.backward, p.dtype, p.axis = int(backward), _DTYPES[a.dtype], TILE_AXES.index(axis)
+        err = self._lib.halo_phase(self.device.index, ctypes.byref(p),
+                                   torch.cuda.current_stream(self.device).cuda_stream)
+        _build.check(err, "halo_phase")
+        global launch_count
+        launch_count += 1
+
+    def round_trip_ms(self, axis: str, iters: int = 200) -> float | None:
+        """Collective over ``axis``'s ring, which must have two ranks: the
+        mean time of one flag round trip between the two ranks' arenas
+        (``iters`` in one launch, CUDA events); None on the rank that
+        answers."""
+        ring = self._rings[axis]
+        if self.grid.axis_size(axis) != 2:
+            raise ValueError("halo_swap: the round-trip probe needs a ring of two")
+        leader = self.grid.axis_index(axis) == 0
+        stream = torch.cuda.current_stream(self.device)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        _build.check(self._lib.halo_ping(self.device.index, ring.arena, ring.next, int(leader),
+                                         iters, self._status_dev, self.timeout_ns,
+                                         stream.cuda_stream), "halo_ping")
+        end.record(stream)
+        torch.cuda.synchronize(self.device)
+        self.check()
+        return start.elapsed_time(end) / iters if leader else None
 
     def close(self) -> None:
-        """Collective: wait for every rank's swaps to end, unmap the
+        """Collective: wait for every rank's phases to end, unmap the
         neighbours' arenas, then free this rank's."""
         torch.cuda.synchronize(self.device)
         dist.barrier()
@@ -238,8 +331,9 @@ def _check(a, b, grid: TileGrid, axis: str):
 def halo_swap(a, b, grid: TileGrid, axis: str):
     """(ra, rb) of one swap of NHWC strips ``a``, ``b`` along ``axis`` of
     ``grid``. CPU tensors run :func:`swap_dist_reference`. CUDA tensors
-    launch the kernel on the current stream through ``grid.rings``, and
-    anything it does not take raises — no fallback."""
+    launch the kernel (a phase with no interior) on the current stream
+    through ``grid.rings``, and anything it does not take raises — no
+    fallback."""
     _check(a, b, grid, axis)
     if a.device.type == "cpu":
         return swap_dist_reference(a, b, grid, axis)
@@ -247,10 +341,10 @@ def halo_swap(a, b, grid: TileGrid, axis: str):
         raise ValueError(f"halo_swap: no kernel for device {a.device}")
     if grid.rings is None:
         raise RuntimeError("halo_swap: the grid's rings are not open (open_rings)")
-    out = grid.rings.swap(a, b, axis)
-    global launch_count
-    launch_count += 1
-    return out
+    ra = torch.empty(a.shape, dtype=a.dtype, device=a.device)
+    rb = torch.empty_like(ra)
+    grid.rings.phase(axis, a, b, ra, rb)
+    return ra, rb
 
 
 def _channels_inner(g):

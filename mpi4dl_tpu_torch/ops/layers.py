@@ -159,12 +159,12 @@ class TrainBatchNorm(nn.Module):
 
 class Pool(nn.Module):
     """Max/avg pooling. Max pads with −inf and runs its backward through
-    the K1 kernel (every max pool, stride 1 or not); avg divides by the
-    count of in-bounds taps (``count_include_pad=False``, as AmoebaNet
-    uses; without padding that count is kh·kw, the JAX default
-    ``count_include_pad=True`` that ResNet's head uses)."""
+    the K1 kernel (every max pool, stride 1 or not). Avg divides the window
+    sum by kh·kw (``count_include_pad=True``, the JAX ``Pool`` default,
+    ``layers.py:656``) or by the count of in-bounds taps
+    (``count_include_pad=False``, as AmoebaNet uses)."""
 
-    def __init__(self, kind, kernel_size=2, strides=None, padding=0):
+    def __init__(self, kind, kernel_size=2, strides=None, padding=0, count_include_pad=True):
         super().__init__()
         if kind not in ("max", "avg"):
             raise ValueError(f"unknown pool kind {kind!r}")
@@ -172,6 +172,7 @@ class Pool(nn.Module):
         self.kernel = _pair(kernel_size)
         self.strides = _pair(strides if strides is not None else kernel_size)
         self.padding = _pair(padding)
+        self.count_include_pad = count_include_pad
 
     def forward(self, x):
         (kh, kw), (sh, sw), (ph, pw) = self.kernel, self.strides, self.padding
@@ -194,6 +195,8 @@ class Pool(nn.Module):
                else torch.contiguous_format)
         ones_k = torch.ones((c, 1, kh, kw), dtype=x.dtype, device=x.device)
         total = F.conv2d(x, ones_k.contiguous(memory_format=fmt), None, (sh, sw), (ph, pw), 1, c)
+        if self.count_include_pad:
+            return total / (kh * kw)
         ones = torch.ones((1, 1) + x.shape[2:], dtype=x.dtype, device=x.device)
         count = F.avg_pool2d(ones, (kh, kw), (sh, sw), (ph, pw), divisor_override=1)
         return total / count

@@ -4,11 +4,22 @@
 
 Tensors here are NCHW-logical (``channels_last`` in memory on the card),
 one tile per rank. The exchange runs an H phase, then a W phase on the
-H-extended tile, so the corner halos arrive by composition. Each phase is
-one ring swap (K4, :func:`mpi4dl_tpu_torch.ops.halo_kernel.strip_swap`):
-every rank sends both strips, wraparound included, and the tiles at the
-global edge overwrite the wrapped strips with ``fill_value`` (0 for convs,
-−inf for max pools). On an axis of size 1 the phase is only the fill.
+H-extended tile, so the corner halos arrive by composition. Every rank
+sends both strips, wraparound included, and the tiles at the global edge
+put ``fill_value`` (0 for convs, −inf for max pools) in place of the
+wrapped strips. On an axis of size 1 the phase is only the fill. The whole
+exchange is one autograd function (:class:`HaloExchange`); its backward is
+the transpose, W phase first: each halo strip's gradient goes back to the
+rank it came from and is added to that rank's edge rows.
+
+- CUDA tensors: one K4 launch per phase
+  (:meth:`mpi4dl_tpu_torch.ops.halo_kernel.HaloRings.phase`), forward
+  straight into the halo-extended tile (the W phase in place), backward
+  straight into dx.
+- CPU tensors: the plain composition, :func:`exchange_plain` (strips
+  through ``swap_dist_reference`` over gloo, fill and concatenation), and
+  its backward :func:`exchange_plain_bwd` written out in the kernel's
+  order.
 """
 
 from __future__ import annotations
@@ -16,7 +27,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from mpi4dl_tpu_torch.ops.halo_kernel import strip_swap, swap_reference
+from mpi4dl_tpu_torch.ops.halo_kernel import SLOT_BYTES, swap_dist_reference, swap_reference
 from mpi4dl_tpu_torch.parallel.multihost import AXIS_TILE_H, AXIS_TILE_W, TileGrid
 
 _DIM = {AXIS_TILE_H: 2, AXIS_TILE_W: 3}  # NCHW dim of each tile axis
@@ -56,27 +67,167 @@ def _nchw(t):
     return t.permute(0, 3, 1, 2)
 
 
-def _axis_exchange(x, halo: int, axis: str, grid: TileGrid, fill_value):
+def _axis_exchange(x, halo: int, axis: str, grid: TileGrid, fill_value, group=None):
+    """One plain forward phase on CPU tensors (``swap_dist_reference``
+    over ``group``)."""
     dim = _DIM[axis]
     lo, hi = _strips(x, halo, dim)
     n, idx = grid.axis_size(axis), grid.axis_index(axis)
     from_below = from_above = None
     if n > 1:
         # Leading strip to prev (its trailing halo), trailing to next.
-        ra, rb = strip_swap(_nhwc(lo), _nhwc(hi), grid, axis)
+        ra, rb = swap_dist_reference(_nhwc(lo), _nhwc(hi), grid, axis, group)
         from_below, from_above = _nchw(ra), _nchw(rb)
     return _extend(x, lo, hi, from_below, from_above, idx, n, fill_value, dim)
+
+
+def _axis_exchange_bwd(g, halo: int, axis: str, grid: TileGrid, group=None):
+    """The transpose of :func:`_axis_exchange` on CPU tensors, in the
+    kernel's order: the halo strips' gradients go back to the ranks they
+    came from, the interior is copied, and each received strip is added to
+    its edge rows (0 on the global-edge side, whose halo was the fill)."""
+    dim = _DIM[axis]
+    size = g.shape[dim] - 2 * halo
+    n, idx = grid.axis_size(axis), grid.axis_index(axis)
+    lead, trail = g.narrow(dim, 0, halo), g.narrow(dim, size + halo, halo)
+    from_next = from_prev = torch.zeros_like(lead)
+    if n > 1:
+        ra, rb = swap_dist_reference(_nhwc(lead), _nhwc(trail), grid, axis, group)
+        if idx < n - 1:
+            from_next = _nchw(ra)
+        if idx > 0:
+            from_prev = _nchw(rb)
+    dx = g.narrow(dim, halo, size).clone(memory_format=_format(g))
+    dx.narrow(dim, 0, halo).add_(from_prev)
+    dx.narrow(dim, size - halo, halo).add_(from_next)
+    return dx
+
+
+def exchange_plain(x, halo_h: int, halo_w: int, grid: TileGrid, fill_value=0.0, group=None):
+    """The plain distributed exchange of a CPU tile (``group``: a process
+    group that takes CPU tensors; default the world)."""
+    if halo_h > 0:
+        x = _axis_exchange(x, halo_h, AXIS_TILE_H, grid, fill_value, group)
+    if halo_w > 0:
+        x = _axis_exchange(x, halo_w, AXIS_TILE_W, grid, fill_value, group)
+    return x
+
+
+def exchange_plain_bwd(g, halo_h: int, halo_w: int, grid: TileGrid, group=None):
+    """The transpose of :func:`exchange_plain`, W phase first."""
+    if halo_w > 0:
+        g = _axis_exchange_bwd(g, halo_w, AXIS_TILE_W, grid, group)
+    if halo_h > 0:
+        g = _axis_exchange_bwd(g, halo_h, AXIS_TILE_H, grid, group)
+    return g
+
+
+def check_kernel_exchange(x, halo_h: int, halo_w: int, slot_bytes: int = SLOT_BYTES) -> None:
+    """Raise on a tile the CUDA exchange does not take: not 4-D, an extent
+    under twice its halo (the backward's edge sums would overlap), or a
+    strip larger than the receive slot."""
+    if x.dim() != 4:
+        raise ValueError(f"halo_exchange: the tile must be [B, C, H, W], got {tuple(x.shape)}")
+    b, c, h, w = x.shape
+    for name, halo, extent in (("H", halo_h, h), ("W", halo_w, w)):
+        if halo and extent < 2 * halo:
+            raise ValueError(f"halo_exchange: a tile extent {extent} along {name} under twice "
+                             f"its halo {halo}")
+    esize = x.element_size()
+    for halo, strip in ((halo_h, b * c * halo_h * w), (halo_w, b * c * (h + 2 * halo_h) * halo_w)):
+        if halo and strip * esize > slot_bytes:
+            raise ValueError(f"halo_exchange: a {strip * esize}-byte strip exceeds the "
+                             f"{slot_bytes}-byte receive slot")
+
+
+def _cl(t):
+    return t if t.stride(1) == 1 else t.contiguous(memory_format=torch.channels_last)
+
+
+def _kernel_forward(x, hh: int, hw: int, grid: TileGrid, fill_value):
+    b, c, h, w = x.shape
+    rings = grid.rings
+    out = torch.empty((b, c, h + 2 * hh, w + 2 * hw), dtype=x.dtype, device=x.device,
+                      memory_format=torch.channels_last)
+    src = _cl(x)
+    if hh:
+        n, idx = grid.axis_size(AXIS_TILE_H), grid.axis_index(AXIS_TILE_H)
+        cols = out[:, :, :, hw:hw + w]
+        rings.phase(AXIS_TILE_H, _nhwc(src[:, :, :hh]), _nhwc(src[:, :, h - hh:]),
+                    _nhwc(cols[:, :, h + hh:]), _nhwc(cols[:, :, :hh]),
+                    _nhwc(src), _nhwc(cols[:, :, hh:hh + h]), fill_value=fill_value,
+                    mask_a=idx == n - 1, mask_b=idx == 0)
+        src = None  # the W phase works in place on the H-extended columns
+    if hw:
+        n, idx = grid.axis_size(AXIS_TILE_W), grid.axis_index(AXIS_TILE_W)
+        strips = out[:, :, :, hw:2 * hw], out[:, :, :, w:w + hw]
+        if src is not None:
+            strips = src[:, :, :, :hw], src[:, :, :, w - hw:]
+        rings.phase(AXIS_TILE_W, _nhwc(strips[0]), _nhwc(strips[1]),
+                    _nhwc(out[:, :, :, w + hw:]), _nhwc(out[:, :, :, :hw]),
+                    None if src is None else _nhwc(src),
+                    None if src is None else _nhwc(out[:, :, :, hw:hw + w]),
+                    fill_value=fill_value, mask_a=idx == n - 1, mask_b=idx == 0)
+    return out
+
+
+def _kernel_backward(g, hh: int, hw: int, grid: TileGrid):
+    """W phase, then H phase; each: the halo strips' gradients to the ranks
+    they came from, the interior copied, the received strips added to the
+    edge rows of a new buffer."""
+    g = _cl(g)
+    for axis, halo in ((AXIS_TILE_W, hw), (AXIS_TILE_H, hh)):
+        if not halo:
+            continue
+        dim = _DIM[axis]
+        size = g.shape[dim] - 2 * halo
+        shape = list(g.shape)
+        shape[dim] = size
+        dx = torch.empty(shape, dtype=g.dtype, device=g.device, memory_format=torch.channels_last)
+        n, idx = grid.axis_size(axis), grid.axis_index(axis)
+        inner = size - 2 * halo
+        grid.rings.phase(
+            axis, _nhwc(g.narrow(dim, 0, halo)), _nhwc(g.narrow(dim, size + halo, halo)),
+            _nhwc(dx.narrow(dim, size - halo, halo)), _nhwc(dx.narrow(dim, 0, halo)),
+            _nhwc(g.narrow(dim, 2 * halo, inner)) if inner else None,
+            _nhwc(dx.narrow(dim, halo, inner)) if inner else None,
+            add_a=_nhwc(g.narrow(dim, size, halo)), add_b=_nhwc(g.narrow(dim, halo, halo)),
+            mask_a=idx == n - 1, mask_b=idx == 0)
+        g = dx
+    return g
+
+
+class HaloExchange(torch.autograd.Function):
+    """The whole exchange of one tile: forward H then W phase, backward
+    their transposes, W then H (``halo_pallas.py:214-219``, ``:248-259``)."""
+
+    @staticmethod
+    def forward(ctx, x, halo_h: int, halo_w: int, grid: TileGrid, fill_value):
+        ctx.geom = (halo_h, halo_w, grid)
+        if x.device.type == "cpu":
+            return exchange_plain(x, halo_h, halo_w, grid, fill_value)
+        if not x.is_cuda:
+            raise ValueError(f"halo_exchange: no kernel for device {x.device}")
+        check_kernel_exchange(x, halo_h, halo_w)
+        if grid.rings is None:
+            raise RuntimeError("halo_exchange: the grid's rings are not open (open_rings)")
+        return _kernel_forward(x, halo_h, halo_w, grid, fill_value)
+
+    @staticmethod
+    def backward(ctx, g):
+        halo_h, halo_w, grid = ctx.geom
+        if g.device.type == "cpu":
+            return exchange_plain_bwd(g, halo_h, halo_w, grid), None, None, None, None
+        return _kernel_backward(g, halo_h, halo_w, grid), None, None, None, None
 
 
 def halo_exchange(x, halo_h: int, halo_w: int, grid: TileGrid, fill_value: float = 0.0):
     """This rank's tile ``x [B, C, H, W]`` extended by ``halo_h`` rows and
     ``halo_w`` cols of its neighbours' data on each side (``fill_value``
     beyond the global image): ``[B, C, H + 2*halo_h, W + 2*halo_w]``."""
-    if halo_h > 0:
-        x = _axis_exchange(x, halo_h, AXIS_TILE_H, grid, fill_value)
-    if halo_w > 0:
-        x = _axis_exchange(x, halo_w, AXIS_TILE_W, grid, fill_value)
-    return x
+    if halo_h <= 0 and halo_w <= 0:
+        return x
+    return HaloExchange.apply(x, max(halo_h, 0), max(halo_w, 0), grid, fill_value)
 
 
 def halo_exchange_reference(tiles, halo_h: int, halo_w: int, fill_value: float = 0.0):

@@ -11,11 +11,13 @@
   and ``impl="xla"`` at the cases of ``tests/test_halo_pallas.py``, output
   and input gradients: exact (the gradient sums at most four integer
   weights per element, exact in f32).
-- The K4 wrapper refuses what it does not take.
+- The K4 wrapper refuses what it does not take, and the CUDA exchange's
+  checks (``parallel.halo.check_kernel_exchange``) refuse a tile extent
+  under twice its halo and a strip larger than the receive slot.
 
-The distributed forms (gloo) are held against these plain versions in
-``tests/test_torch_spatial.py``; the CUDA kernel against them on the card
-by ``chip_smoke.py``.
+The distributed forms (gloo) are held against these plain versions and the
+JAX exchange in ``tests/test_torch_spatial.py``; the CUDA kernel against
+them on the card by ``chip_smoke.py``.
 """
 
 import jax
@@ -29,7 +31,8 @@ from mpi4dl_tpu.compat import shard_map
 from mpi4dl_tpu.ops import halo_pallas
 from mpi4dl_tpu.parallel.halo import halo_exchange as jax_halo_exchange
 from mpi4dl_tpu_torch.ops import halo_kernel
-from mpi4dl_tpu_torch.parallel.halo import halo_exchange_reference
+from mpi4dl_tpu_torch.parallel.halo import (
+    check_kernel_exchange, halo_exchange, halo_exchange_reference)
 from mpi4dl_tpu_torch.parallel.multihost import TileGrid
 
 torch.set_num_threads(1)
@@ -145,3 +148,31 @@ def test_halo_exchange_matches_jax(th, tw, halo_h, halo_w, fill, impl):
 def test_wrapper_refuses(a, b, grid, err):
     with pytest.raises(err):
         halo_kernel.halo_swap(a, b, TileGrid(grid, 0), "tile_h")
+
+
+@pytest.mark.parametrize(
+    "shape,halo_h,halo_w,slot,ok",
+    [
+        ((2, 3, 8, 8), 4, 4, 1 << 20, True),  # extent exactly twice the halo
+        ((2, 3, 4, 16), 0, 8, 1 << 20, True),
+        ((2, 3, 7, 8), 4, 1, 1 << 20, False),  # H extent under twice the halo
+        ((2, 3, 8, 3), 1, 2, 1 << 20, False),  # W extent under twice the halo
+        ((2, 3, 8, 8), 1, 1, 239, False),  # a 240-byte f32 W strip over a 239-byte slot
+        ((2, 3, 8, 8), 1, 1, 240, True),
+        ((3, 8, 8), 1, 1, 1 << 20, False),  # not [B, C, H, W]
+    ],
+    ids=["extent_2h", "w_only_extent_2h", "h_under_2h", "w_under_2h", "strip_over_slot",
+         "strip_fits_slot", "not_4d"],
+)
+def test_kernel_exchange_checks(shape, halo_h, halo_w, slot, ok):
+    x = torch.zeros(shape)
+    if ok:
+        check_kernel_exchange(x, halo_h, halo_w, slot)
+    else:
+        with pytest.raises(ValueError):
+            check_kernel_exchange(x, halo_h, halo_w, slot)
+
+
+def test_exchange_refuses_a_device_without_kernel():
+    with pytest.raises(ValueError, match="no kernel"):
+        halo_exchange(torch.zeros((2, 3, 8, 8), device="meta"), 1, 1, TileGrid((2, 2), 0))

@@ -82,13 +82,13 @@ CASES = {
     "avg_pool_3x3_no_pad_count": (
         lambda: jl.Pool(kind="avg", kernel_size=3, strides=1, padding=1,
                         count_include_pad=False),
-        lambda: tl.Pool("avg", 3, 1, 1),
+        lambda: tl.Pool("avg", 3, 1, 1, count_include_pad=False),
         (2, 7, 7, 8),
     ),
     "avg_pool_3x3_s2_no_pad_count": (
         lambda: jl.Pool(kind="avg", kernel_size=3, strides=2, padding=1,
                         count_include_pad=False),
-        lambda: tl.Pool("avg", 3, 2, 1),
+        lambda: tl.Pool("avg", 3, 2, 1, count_include_pad=False),
         (2, 8, 8, 8),
     ),
     "avg_pool_4x4_s4_tiling": (  # ResNet's head form; 9 px crops to 8
@@ -151,3 +151,22 @@ def _flat(tree, prefix=""):
         else:
             out[f"{prefix}{k}"] = v
     return out
+
+
+@pytest.mark.parametrize("k,s,p", [(3, 1, 1), (3, 2, 1)], ids=["3x3_s1_p1", "3x3_s2_p1"])
+def test_avg_pool_default_counts_padding_as_jax(k, s, p):
+    """The avg ``Pool``'s default is JAX's ``count_include_pad=True``: the
+    window sum over kh·kw, forward and input gradient, within 1e-6 (f32
+    sums of nine taps in another order)."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 8, 8, 4)).astype(np.float32)
+    jmod = jl.Pool(kind="avg", kernel_size=k, strides=s, padding=p)
+    y_j, vjp = jax.vjp(lambda xx: jmod.apply({}, xx), jnp.asarray(x))
+    ct = rng.standard_normal(y_j.shape).astype(np.float32)
+    (g_j,) = vjp(jnp.asarray(ct))
+
+    xt = _nchw(x).requires_grad_(True)
+    yt = tl.Pool("avg", k, s, p)(xt)
+    yt.backward(_nchw(ct))
+    np.testing.assert_allclose(_nhwc(yt), np.asarray(y_j), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(_nhwc(xt.grad), np.asarray(g_j), rtol=0, atol=1e-6)

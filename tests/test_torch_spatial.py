@@ -9,6 +9,12 @@ parent holds each result against its oracle:
   ``halo_exchange_reference``, output and input gradients, and
   ``strip_swap`` over gloo against ``swap_reference``, forward and
   backward: exact (data movement only);
+- the distributed ``halo_exchange`` on non-integer data with explicit
+  output cotangents (``EXCHANGE_CASES``: bf16 and f32, fills 0 and −inf,
+  tiles whose extent is exactly twice the halo) against
+  ``halo_exchange_reference`` and the JAX exchange (``impl="pallas"`` in
+  interpret mode and ``impl="xla"``): exact, which in bf16 pins the
+  backward's one rounding of interior + received strip;
 - the spatial ResNet-v1 depth 8 @32 bs4 with ``spatial_cells=3`` (the case
   of ``tests/test_train.py:39-72``) and ResNet-v2 depth 11 @32 bs2 with
   ``spatial_cells=3``, two SGD-momentum steps each (lr 0.1), against the
@@ -62,6 +68,22 @@ MODELS = {"v1_depth8": ("get_resnet_v1", 8, 4, 3), "v2_depth11": ("get_resnet_v2
 HALO_CASES = [(2, 2, 1, 1, 0.0), (2, 2, 2, 2, -np.inf), (1, 4, 0, 2, 0.0), (4, 1, 3, 0, 0.0)]
 SWAP_CASES = [((2, 2), "tile_h"), ((2, 2), "tile_w"), ((1, 4), "tile_w")]
 STRIP = (2, 1, 8, 3)
+# The distributed exchange on non-integer data from a numpy seed, with an
+# explicit output cotangent: (tile grid, halos, fill, dtype). bf16 pins the
+# backward's one rounding of interior + received strip; the 8-px tiles
+# with halo 4 and the 1x4 tiles of width 4 with halo 2 have an extent of
+# exactly twice the halo.
+EXCHANGE_CASES = [
+    ((2, 2), 1, 1, 0.0, "bfloat16"),
+    ((2, 2), 2, 2, -np.inf, "bfloat16"),
+    ((2, 2), 4, 4, 0.0, "bfloat16"),
+    ((1, 4), 0, 2, 0.0, "bfloat16"),
+    ((2, 2), 1, 1, 0.0, "float32"),
+    ((2, 2), 4, 4, -np.inf, "float32"),
+]
+EXCHANGE_IDS = ["2x2_h1_bf16", "2x2_h2_neg_inf_bf16", "2x2_h4_extent_2h_bf16",
+                "1x4_w2_extent_2h_bf16", "2x2_h1_f32", "2x2_h4_neg_inf_f32"]
+TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 # -- config ------------------------------------------------------------------
@@ -158,6 +180,27 @@ def _halo_loss(e):
     return (torch.where(torch.isfinite(e), e, 0.0) * _weights(e)).sum()
 
 
+def _exchange_data(case):
+    """(image NHWC, per-tile output cotangents NHWC) of an exchange case,
+    standard normal from the case's seed, in f32 (rounded to the case's
+    dtype by the callers)."""
+    (th, tw), hh, hw, _, _ = EXCHANGE_CASES[case]
+    rng = np.random.default_rng(200 + case)
+    image = rng.standard_normal((2, 16, 16, 3)).astype(np.float32)
+    ct = rng.standard_normal((th, tw, 2, 16 // th + 2 * hh, 16 // tw + 2 * hw, 3))
+    return image, ct.astype(np.float32)
+
+
+def _to_torch(a, dtype):
+    """An NHWC numpy array as an NCHW tensor of ``dtype``."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(TORCH_DTYPES[dtype]).permute(0, 3, 1, 2)
+
+
+def _to_numpy(t):
+    """An NCHW tensor as an NHWC f32 numpy array (bf16 converts exactly)."""
+    return t.detach().float().permute(0, 2, 3, 1).numpy()
+
+
 def _spatial_run(rank, model_name, params, batches, remat=False):
     fn, depth, batch, cells = MODELS[model_name]
     grid = TileGrid((2, 2), rank)
@@ -199,6 +242,15 @@ def _world(rank, world, params, batches):
         e = halo_exchange(tile, hh, hw, grid, fill)
         _halo_loss(e).backward()
         out["halo"].append((e.detach().numpy(), tile.grad.numpy()))
+    out["exchange"] = []
+    for case, ((th, tw), hh, hw, fill, dtype) in enumerate(EXCHANGE_CASES):
+        grid = TileGrid((th, tw), rank)
+        i, j = grid.coords
+        image, ct = _exchange_data(case)
+        tile = _tiles(_to_torch(image, dtype), th, tw)[i][j].clone().requires_grad_(True)
+        e = halo_exchange(tile, hh, hw, grid, fill)
+        (dx,) = torch.autograd.grad(e, tile, _to_torch(ct[i, j], dtype))
+        out["exchange"].append((_to_numpy(e), _to_numpy(dx)))
     for k, (shape, axis) in enumerate(SWAP_CASES):
         grid = TileGrid(shape, rank)
         rng = np.random.default_rng(100 + k)
@@ -306,6 +358,77 @@ def test_distributed_halo_exchange_matches_plain(world, case):
         got_e, got_g = out["halo"][case]
         np.testing.assert_array_equal(got_e, ext[i][j].detach().numpy())
         np.testing.assert_array_equal(got_g, grads[i][j].numpy())
+
+
+def _plain_exchange(case):
+    """Per-tile outputs and input gradients (NHWC f32) of an exchange case
+    through the whole-grid plain version, ``halo_exchange_reference``."""
+    (th, tw), hh, hw, fill, dtype = EXCHANGE_CASES[case]
+    image, ct = _exchange_data(case)
+    x = _to_torch(image, dtype).requires_grad_(True)
+    ext = halo_exchange_reference(_tiles(x, th, tw), hh, hw, fill)
+    outs = [e for row in ext for e in row]
+    cts = [_to_torch(ct[i, j], dtype) for i in range(th) for j in range(tw)]
+    (gx,) = torch.autograd.grad(outs, x, cts)
+    return ({(i, j): _to_numpy(ext[i][j]) for i in range(th) for j in range(tw)},
+            {(i, j): _to_numpy(t) for (i, j), t in np.ndenumerate(_tile_grid(gx, th, tw))})
+
+
+def _tile_grid(x, th, tw):
+    grid = np.empty((th, tw), dtype=object)
+    for i, row in enumerate(_tiles(x, th, tw)):
+        for j, t in enumerate(row):
+            grid[i, j] = t
+    return grid
+
+
+def _jax_exchange(case, impl):
+    """Per-tile outputs and input gradients (NHWC f32) of an exchange case
+    through the JAX ``halo_exchange`` under ``shard_map`` on the CPU
+    interpreter mesh, with ``jax.vjp`` of the same cotangents."""
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+    from mpi4dl_tpu.compat import shard_map
+    from mpi4dl_tpu.parallel.halo import halo_exchange as jax_halo_exchange
+
+    (th, tw), hh, hw, fill, dtype = EXCHANGE_CASES[case]
+    image, ct = _exchange_data(case)
+    mesh = Mesh(np.asarray(jax.devices()[: th * tw]).reshape(th, tw), ("tile_h", "tile_w"))
+    spec = P(None, "tile_h", "tile_w", None)
+    fn = shard_map(lambda t: jax_halo_exchange(t, hh, hw, fill_value=fill, impl=impl),
+                   mesh=mesh, in_specs=(spec,), out_specs=spec, check_vma=False)
+    jdt = getattr(jnp, dtype)
+    put = lambda v: jax.device_put(jnp.asarray(v).astype(jdt), NamedSharding(mesh, spec))
+    # The cotangents laid out as the shard_map output: tiles side by side.
+    ct_global = np.concatenate([np.concatenate(list(row), axis=2) for row in ct], axis=1)
+    y, vjp = jax.vjp(jax.jit(fn), put(image))
+    (gx,) = vjp(put(ct_global))
+    y, gx = np.asarray(y.astype(jnp.float32)), np.asarray(gx.astype(jnp.float32))
+    eh, ew = ct.shape[3], ct.shape[4]
+    h, w = 16 // th, 16 // tw
+    return ({(i, j): y[:, i * eh:(i + 1) * eh, j * ew:(j + 1) * ew] for i in range(th)
+             for j in range(tw)},
+            {(i, j): gx[:, i * h:(i + 1) * h, j * w:(j + 1) * w] for i in range(th)
+             for j in range(tw)})
+
+
+@pytest.mark.parametrize("oracle", ["plain", "jax_pallas", "jax_xla"])
+@pytest.mark.parametrize("case", range(len(EXCHANGE_CASES)), ids=EXCHANGE_IDS)
+def test_distributed_exchange_matches_plain_and_jax(world, case, oracle):
+    """The distributed exchange (one autograd function; its explicit
+    backward in the kernel's order) against the whole-grid plain version
+    and the JAX exchange (Pallas kernel in interpret mode, and XLA):
+    outputs and input gradients exactly equal."""
+    if oracle == "plain":
+        want_e, want_g = _plain_exchange(case)
+    else:
+        want_e, want_g = _jax_exchange(case, oracle[4:])
+    (th, tw) = EXCHANGE_CASES[case][0]
+    for rank, out in enumerate(world["ranks"]):
+        ij = divmod(rank, tw)
+        got_e, got_g = out["exchange"][case]
+        np.testing.assert_array_equal(got_e, want_e[ij], err_msg=f"rank {rank} output")
+        np.testing.assert_array_equal(got_g, want_g[ij], err_msg=f"rank {rank} gradient")
 
 
 @pytest.mark.parametrize("case", range(len(SWAP_CASES)), ids=["2x2_h", "2x2_w", "1x4_w"])
