@@ -20,23 +20,33 @@ Phases (any failure exits non-zero; nothing is caught):
      @1024 bs2. The first warm-up step of each records every shape the
      kernels are called with; then every kernel's launch count is set to
      0, the timed steps run, and the counts are read (each kernel of the
-     path must be > 0);
+     path must be > 0); then the first step once more with f32 compute
+     (TF32 off), the spatial paths' reference;
   s. the spatial slice in 4 rank processes (``parallel.multihost.spawn``)
      on a 2x2 tile grid. With 4 or more cards, one rank per card and
      NCCL; with fewer, the ranks share card 0 over a gloo group, and K4's
      CUDA IPC transport stores into another process's buffer on the same
      card:
-     s1. a small spatial reference: ResNet-v2 depth 20 @32 bs2 f32 (TF32
-         off), 2x2 tiles, against the single-device step on the CPU with
-         the same weights and batch (loss and per-leaf gradients, 1e-3);
-     s2. the spatial main path: ResNet-110 v2 @1024 bs2, every cell but the
-         head on the tiles, bf16 compute / f32 params, SGD momentum 0.9,
-         random weights from the seed of phase c, remat=False, 2 warm-up
-         and 5 timed steps. The first warm-up records the K2 and K3 call
-         shapes and the halo exchanges (K4 runs their axis phases, one
-         launch each); the step time of each timed step is its slowest
-         rank's; K4, K2 and K3 must each launch in every rank's steps;
-     s3. K4 against its plain version: at every recorded exchange shape a
+     s1. small spatial references, f32 (TF32 off), 2x2 tiles: ResNet-v2
+         depth 20 @32 bs2 (every cell but the head on the tiles) and
+         AmoebaNet-D 3L/32F @128 bs2 (4 cells on the tiles: the normal
+         cell runs on 8-px tiles, the least at which every exchanged
+         extent is twice its halo), each against the single-device step
+         on the CPU with the same weights and batch (loss and per-leaf
+         gradients, 1e-3);
+     s2. the spatial main paths: ResNet-110 v2 (``resnet_sp``) and then
+         AmoebaNet-D 18L/416F (``amoebanet_sp``) @1024 bs2, every cell but
+         the head on the tiles, bf16 compute / f32 params, SGD momentum
+         0.9, random weights from the seed of phase c, remat=False, 2
+         warm-up and 5 timed steps each. The first warm-up records the
+         kernels' call shapes and the halo exchanges (K4 runs their axis
+         phases, one launch each); the step time of each timed step is its
+         slowest rank's; every kernel of the path must launch in every
+         rank's steps. Then the first step once more with f32 compute (TF32
+         off), whose loss must be within ``F32_LOSS_RTOL`` of the
+         single-device path's f32 first step (phase c runs one too);
+     s3. K4 against its plain version: at every recorded exchange shape of
+         both paths (one-axis exchanges too) a
          whole exchange (output and input gradient) against the whole-grid
          ``halo_exchange_reference`` of all ranks' tiles, made from the
          seed on every rank, bf16 and f32, fills 0 and −inf; the plain swap
@@ -48,7 +58,7 @@ Phases (any failure exits non-zero; nothing is caught):
          at every recorded shape beside NCCL's ``batch_isend_irecv`` of the
          same strips (one rank per card only) and the bound (bytes over the
          card's and NVLink's rates plus half a round trip a phase), and their
-         launch-weighted sum per step; the timed exchange's plain
+         launch-weighted sum per step of each path; the timed exchange's plain
          distributed version (CPU tensors over gloo); one swap of the
          largest strip pair beside NCCL;
      s5. K4's time-bounded wait: a swap that only rank 0 makes must end
@@ -57,19 +67,23 @@ Phases (any failure exits non-zero; nothing is caught):
          on every rank and replayed 3 times on new inputs, each replay
          exactly equal to the plain version;
   d. K1 (max-pool backward) against its plain PyTorch version at every
-     recorded main-path shape, then at a few edge shapes (``K1_EDGE``), on
-     tie-heavy integer data: exact equality;
+     recorded main-path shape (the halo-extended tiles of the spatial path,
+     p = 0, also with a −inf outer ring, as a tile at the image's edge
+     has), then at a few edge shapes (``K1_EDGE``), on tie-heavy integer
+     data: exact equality;
   e. K2 (stride-1 weight gradient) against its plain version at every
-     recorded shape of the three paths, bf16 and f32 (tolerance below);
+     recorded shape of the four paths, bf16 and f32 (tolerance below);
   f. K3 (fused 1x1-conv backward) against its plain version at every
-     recorded shape of the three paths (tolerances below);
+     recorded shape of the four paths (tolerances below);
   g. per-kernel times (kernel, plain version, one library call) at the
      largest main-path shape of each, beside the bound the card's peaks give;
-     then K1, K2 and K3 at every recorded call shape of the three paths (kernel,
+     then K1, K2 and K3 at every recorded call shape of the four paths (kernel,
      library call, bound, launches per step of each path there) and each
      path's launch-weighted sum per step, and the layout copies that
      ``MaxPool.backward`` makes in front of K1 on the main path;
-  h. the card's name and power limit from nvidia-smi.
+  h. the card's name and power limit from nvidia-smi, and each path's MFU
+     (``mpi4dl_tpu_torch.flops``: 3x the forward's conv and dense FLOPs an
+     image, over the card's bf16 peak).
 
 The last lines are the ``{"kernels": [...]}`` line and then
 ``{"ok": true, "device": {...}}``.
@@ -103,6 +117,11 @@ NVLINK_BYTES_PER_S = 450e9  # each way, to the other cards of the host
 K3_DX_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
 DW_TOL = 1e-5
 SMALL_GRAD_TOL = 1e-3  # per-leaf-normalised, as tests/test_torch_amoebanet.py
+# A spatial path's first-step loss with f32 compute against its single-device
+# path's, relative. Measured on an H100: AmoebaNet-D 18L/416F 6.7e-4 apart,
+# ResNet-110 v2 equal to 6 digits; in bf16 the two AmoebaNet-D losses are
+# 0.063 apart, and bf16 moves each from its f32 value by 0.013-0.052.
+F32_LOSS_RTOL = 5e-3
 ZERO_GRAD = 1e-4  # of the cell's largest gradient, as tests/test_torch_resnet.py
 
 DEVICE = "cuda"
@@ -114,8 +133,10 @@ WARMUP, STEPS = 2, 5
 # @1024 bs2 without recomputation.
 LAYERS, FILTERS = 18, 416
 RESNET_DEPTH = 110  # utils.get_depth(2, 12)
-# The spatial path: ResNet-110 v2 on a 2x2 grid of tiles, one per rank.
+# The spatial paths: ResNet-110 v2 and AmoebaNet-D 18L/416F on a 2x2 grid of
+# tiles, one per rank, every cell but the head on the tiles.
 SP_GRID, SP_RANKS = (2, 2), 4
+SP_PATHS = ("resnet_sp", "amoebanet_sp")
 K4_TIMING_ITERS = 20
 K4_TIMEOUT_S = 0.5  # phase s5's wait limit
 K4_ROUND_TRIPS = {"nccl": 1000, "gloo": 20}  # flag round trips timed in one launch
@@ -124,11 +145,12 @@ K4_ROUND_TRIPS = {"nccl": 1000, "gloo": 20}  # flag round trips timed in one lau
 # kernel.
 K4_TIMED = (2, 256, 128, 128)
 KERNELS = ("pool_bwd", "wgrad", "dot1x1_bwd", "halo_swap")
-# The kernels each path must launch (resnet_sp: per rank).
+# The kernels each path must launch (the spatial paths: per rank).
 PATH_KERNELS = {
     "amoebanet": ("pool_bwd", "wgrad", "dot1x1_bwd"),
     "resnet": ("wgrad", "dot1x1_bwd"),
     "resnet_sp": ("halo_swap", "wgrad", "dot1x1_bwd"),
+    "amoebanet_sp": ("pool_bwd", "wgrad", "dot1x1_bwd", "halo_swap"),
 }
 # The path whose slice ported each kernel: a kernels row's ``launches`` is
 # that path's count per step (``launches_per_step`` gives every path's).
@@ -341,26 +363,47 @@ def main_batch(device):
 
 
 def main_models():
-    """(path, description, builder) of the main paths."""
+    """(path, description, builder taking the compute dtype) of the main
+    paths."""
     import torch
 
     from mpi4dl_tpu_torch.models.amoebanet import amoebanetd
     from mpi4dl_tpu_torch.models.resnet import get_resnet_v2
 
-    bf16 = torch.bfloat16
     return [
         ("amoebanet", f"AmoebaNet-D {LAYERS}L/{FILTERS}F @{SIZE} bs{BATCH}",
-         lambda: amoebanetd(10, LAYERS, FILTERS, dtype=bf16)),
+         lambda dtype: amoebanetd(10, LAYERS, FILTERS, dtype=dtype)),
         ("resnet", f"ResNet-{RESNET_DEPTH} v2 @{SIZE} bs{BATCH}",
-         lambda: get_resnet_v2(RESNET_DEPTH, 10, pool_kernel=SIZE // 4, dtype=bf16)),
+         lambda dtype: get_resnet_v2(RESNET_DEPTH, 10, pool_kernel=SIZE // 4, dtype=dtype)),
     ]
+
+
+def f32_first_loss(model, device, config=None, **trainer_kwargs):
+    """The loss of a main path's first step with f32 compute (TF32 off):
+    the seed's weights and the main batch, as the bf16 path's first step,
+    without bf16's rounding. ``config``: extra ``ParallelConfig`` fields."""
+    import torch
+
+    from mpi4dl_tpu_torch.config import ParallelConfig
+    from mpi4dl_tpu_torch.train import Trainer
+    from mpi4dl_tpu_torch.weights import init
+
+    init(model, torch.Generator().manual_seed(SEED))
+    cfg = ParallelConfig(batch_size=BATCH, image_size=SIZE, **(config or {}))
+    trainer = Trainer(model, cfg, learning_rate=0.0, device=device, **trainer_kwargs)
+    x, y = main_batch(device)
+    loss = float(trainer.train_step(x.float(), y)["loss"])
+    del trainer, model, x, y
+    torch.cuda.empty_cache()
+    return loss
 
 
 def phase_main(path, desc, build, shapes, profile=False):
     """Train one main path; returns its launches in the timed steps, its
-    first step's loss and the layout copies in front of K1 in its first step
-    (see :func:`_record_k1_layout`), and counts the kernels' call shapes of
-    its first step into ``shapes`` (from :func:`_new_calls`)."""
+    first step's loss in bf16 and f32 (:func:`f32_first_loss`), the layout
+    copies in front of K1 in its first step (see :func:`_record_k1_layout`)
+    and its img/s, and counts the kernels' call shapes of its first step
+    into ``shapes`` (from :func:`_new_calls`)."""
     import torch
 
     from mpi4dl_tpu_torch.config import ParallelConfig
@@ -368,7 +411,7 @@ def phase_main(path, desc, build, shapes, profile=False):
     from mpi4dl_tpu_torch.weights import init
 
     t0 = time.time()
-    model = init(build(), torch.Generator().manual_seed(SEED))
+    model = init(build(torch.bfloat16), torch.Generator().manual_seed(SEED))
     n_params = sum(p.numel() for p in model.parameters())
     cfg = ParallelConfig(batch_size=BATCH, image_size=SIZE)
     trainer = Trainer(model, cfg, learning_rate=0.001, momentum=0.9, device=DEVICE)
@@ -418,7 +461,10 @@ def phase_main(path, desc, build, shapes, profile=False):
         f"{name} {launches[name] // STEPS}" for name in counters))
     del trainer, model, x, y
     torch.cuda.empty_cache()
-    return launches, first_loss, k1_copies
+    f32_loss = f32_first_loss(build(torch.float32), DEVICE)
+    log(f"[c] first step loss with f32 compute (TF32 off, same weights and batch): "
+        f"{f32_loss:.6f} (bf16 {first_loss:.6f})")
+    return launches, (first_loss, f32_loss), k1_copies, BATCH / (ms / 1e3)
 
 
 def profile_step(trainer, x, y, top=15, tag="c", emit=log):
@@ -473,15 +519,29 @@ def sp_layout():
     return "gloo", f"{SP_RANKS} ranks sharing card 0 (gloo group)"
 
 
-def _sp_small(grid, device):
-    """Phase s1 in one rank: the small spatial step's (loss, gradients)."""
+def sp_small_models():
+    """(name, image size, spatial cells, builder taking the grid (None:
+    the plain model)) of phase s1's small references."""
+    from mpi4dl_tpu_torch.models.amoebanet import amoebanetd
     from mpi4dl_tpu_torch.models.resnet import get_resnet_v2
 
-    depth, cells = 20, 7  # stem + 6 cells on the tiles, the head after the join
-    return small_step(
-        lambda: get_resnet_v2(depth, 10, spatial_cells=cells, pool_kernel=8, grid=grid), 32,
-        device, config=dict(spatial_size=1, num_spatial_parts=SP_RANKS),
-        num_spatial_cells=cells, grid=grid)
+    return [
+        # stem + 6 cells on the tiles, the head after the join
+        ("ResNet-v2 depth 20 @32 bs2", 32, 7,
+         lambda grid: get_resnet_v2(20, 10, spatial_cells=7 if grid else 0, pool_kernel=8,
+                                    grid=grid)),
+        # stem, 2 reduction cells and a normal cell (its 1x7/7x1 on 8-px tiles)
+        ("AmoebaNet-D 3L/32F @128 bs2", 128, 4,
+         lambda grid: amoebanetd(10, 3, 32, spatial_cells=4 if grid else 0, grid=grid)),
+    ]
+
+
+def _sp_small(grid, device):
+    """Phase s1 in one rank: each small spatial step's (loss, gradients)."""
+    return [small_step(lambda: build(grid), size, device,
+                       config=dict(spatial_size=1, num_spatial_parts=SP_RANKS),
+                       num_spatial_cells=cells, grid=grid)
+            for _, size, cells, build in sp_small_models()]
 
 
 def _count_calls(cls, name, box):
@@ -644,27 +704,41 @@ def _sp_exchange_times(grid, device, exchanges, backend, round_trip_ms=None):
     return rows
 
 
-def _sp_main(rank, grid, device, profile):
-    """Phase s2 in one rank: the spatial ResNet-110 v2 main path."""
+def sp_models():
+    """Per spatial path, (description, builder taking the grid and the
+    compute dtype): the model of the single-device path on the tiles, every
+    cell but the head spatial."""
+    from mpi4dl_tpu_torch.models.amoebanet import amoebanetd
+    from mpi4dl_tpu_torch.models.resnet import get_resnet_v2
+
+    return {
+        "resnet_sp": (f"ResNet-{RESNET_DEPTH} v2", lambda grid, dtype: get_resnet_v2(
+            RESNET_DEPTH, 10, spatial_cells=10**6, pool_kernel=SIZE // 4, dtype=dtype, grid=grid)),
+        "amoebanet_sp": (f"AmoebaNet-D {LAYERS}L/{FILTERS}F", lambda grid, dtype: amoebanetd(
+            10, LAYERS, FILTERS, spatial_cells=10**6, dtype=dtype, grid=grid)),
+    }
+
+
+def _sp_main(rank, grid, device, profile, path):
+    """Phase s2 in one rank: one spatial main path."""
     import torch
     import torch.distributed as dist
 
     from mpi4dl_tpu_torch.config import ParallelConfig
-    from mpi4dl_tpu_torch.models.resnet import get_resnet_v2
     from mpi4dl_tpu_torch.ops import layers
     from mpi4dl_tpu_torch.train import Trainer
     from mpi4dl_tpu_torch.weights import init
 
     t0 = time.time()
-    model = get_resnet_v2(RESNET_DEPTH, 10, spatial_cells=10**6, pool_kernel=SIZE // 4,
-                          dtype=torch.bfloat16, grid=grid)
-    init(model, torch.Generator().manual_seed(SEED))
+    build = sp_models()[path][1]
+    model = init(build(grid, torch.bfloat16), torch.Generator().manual_seed(SEED))
     cfg = ParallelConfig(batch_size=BATCH, image_size=SIZE, spatial_size=1,
                          num_spatial_parts=SP_RANKS)
     trainer = Trainer(model, cfg, learning_rate=0.001, momentum=0.9, device=device,
                       num_spatial_cells=len(model) - 1, grid=grid)
     x, y = main_batch(device)
-    out = {"setup_s": time.time() - t0, "warm": [], "losses": [], "times": []}
+    out = {"setup_s": time.time() - t0, "warm": [], "losses": [], "times": [],
+           "cells": len(model) - 1}
     shapes = _new_calls()
     bn_reduces = [0]
     for i in range(WARMUP):
@@ -692,7 +766,7 @@ def _sp_main(rank, grid, device, profile):
     if profile:
         # Every rank profiles, so no rank's exchanges wait out the others'
         # profiler set-up and read-out; rank 0 prints.
-        profile_step(trainer, x, y, tag="s2", emit=log if rank == 0 else lambda *a: None)
+        profile_step(trainer, x, y, tag=f"s2 {path}", emit=log if rank == 0 else lambda *a: None)
         dist.barrier()
     out["shapes"] = {name: sorted(v.items()) for name, v in shapes.items()}
     # The exchanges that move data (a 1x1 conv's has no halo).
@@ -700,6 +774,8 @@ def _sp_main(rank, grid, device, profile):
     out["bn_allreduces"] = bn_reduces[0]
     del trainer, model, x, y
     torch.cuda.empty_cache()
+    out["f32_loss"] = f32_first_loss(build(grid, torch.float32), device, config=dict(
+        spatial_size=1, num_spatial_parts=SP_RANKS), num_spatial_cells=out["cells"], grid=grid)
     return out
 
 
@@ -930,10 +1006,17 @@ def _sp_worker(rank, world, backend, profile):
     plain_group = dist.group.WORLD if backend == "gloo" else dist.new_group(backend="gloo")
     halo_kernel.open_rings(grid, device)
     out = {"small": _sp_small(grid, device)}
-    out["main"] = _sp_main(rank, grid, device, profile)
-    exchanges = out["main"]["exchanges"]
-    # Each phase starts on every rank together: a rank that is late on the
-    # host by more than K4's wait limit fails its neighbours' exchanges.
+    # Every exchange shape of the paths, with its count per step on each.
+    exchanges = {}
+    for path in SP_PATHS:
+        # Each phase starts on every rank together: a rank that is late on
+        # the host by more than K4's wait limit fails its neighbours'
+        # exchanges.
+        dist.barrier()
+        out[path] = _sp_main(rank, grid, device, profile, path)
+        for key, n in out[path]["exchanges"]:
+            exchanges.setdefault(key, dict.fromkeys(SP_PATHS, 0))[path] = n
+    exchanges = sorted(exchanges.items())
     dist.barrier()
     out["k4_lines"], out["k4_err"] = _sp_k4_check(rank, grid, device, exchanges)
     dist.barrier()
@@ -945,14 +1028,14 @@ def _sp_worker(rank, world, backend, profile):
     return out
 
 
-def phase_spatial(shapes, profile, single_first_loss=None):
+def phase_spatial(calls, profile, first_loss):
     """Phase s: spawn the 4 ranks, run every spatial phase, report. Counts
-    the spatial path's call shapes (rank 0's first step) into ``shapes``;
-    returns the path's launches (rank 0's, per kernel) and K4's timing
-    (slowest rank)."""
+    each spatial path's call shapes (rank 0's first step) into
+    ``calls[path]``; ``first_loss`` holds phase c's first-step losses by
+    path. Returns the paths' launches (rank 0's, per kernel), their img/s,
+    the cards the ranks ran on, and K4's timing (slowest rank)."""
     import torch
 
-    from mpi4dl_tpu_torch.models.resnet import get_resnet_v2
     from mpi4dl_tpu_torch.parallel import multihost
 
     backend, desc = sp_layout()
@@ -963,43 +1046,58 @@ def phase_spatial(shapes, profile, single_first_loss=None):
                             timeout=900)
     log(f"[s] 4 ranks ran phases s1-s6 in {time.time() - t0:.1f} s")
 
-    want = small_step(lambda: get_resnet_v2(20, 10, pool_kernel=8), 32, "cpu")
-    worst = max(check_small(f"spatial rank {r}", out["small"], want)
-                for r, out in enumerate(ranks))
-    log(f"[s1] small spatial reference ResNet-v2 depth 20 @32 bs2 f32, 2x2 tiles: loss "
-        f"{ranks[0]['small'][0]:.6f}, single-device CPU {want[0]:.6f}; gradients normalised "
-        f"max|err| {worst:.2e} over the ranks (tolerance {SMALL_GRAD_TOL:g})")
+    for i, (name, size, _, build) in enumerate(sp_small_models()):
+        want = small_step(lambda: build(None), size, "cpu")
+        worst = max(check_small(f"spatial rank {r} {name}", out["small"][i], want)
+                    for r, out in enumerate(ranks))
+        log(f"[s1] small spatial reference {name} f32, 2x2 tiles: loss "
+            f"{ranks[0]['small'][i][0]:.6f}, single-device CPU {want[0]:.6f}; gradients "
+            f"normalised max|err| {worst:.2e} over the ranks (tolerance {SMALL_GRAD_TOL:g})")
 
-    mains = [out["main"] for out in ranks]
-    for r, m in enumerate(mains):
-        if not all(math.isfinite(v) for v in m["losses"] + [w[0] for w in m["warm"]]):
-            raise AssertionError(f"spatial rank {r}: non-finite loss {m['losses']}")
-        for name in PATH_KERNELS["resnet_sp"]:
-            n = m["launches"][name]
-            if n == 0 or n % STEPS:
-                raise AssertionError(f"spatial rank {r}: {name} launched {n} times in {STEPS} steps")
-    slowest = [max(m["times"][i] for m in mains) for i in range(STEPS)]
-    ms = sorted(slowest)[STEPS // 2] * 1e3
-    m0 = mains[0]
-    log(f"[s2] ResNet-{RESNET_DEPTH} v2 @{SIZE} bs{BATCH}, 2x2 tiles of {SIZE // 2}x{SIZE // 2}, "
-        f"bf16 compute, f32 params, remat=False; set-up {m0['setup_s']:.1f} s; warm-up "
-        f"steps {[f'{loss:.4f} ({t:.2f} s)' for loss, t in m0['warm']]}")
-    first = f"{single_first_loss:.4f}" if single_first_loss is not None else "not run"
-    log(f"[s2] first step loss: spatial {m0['warm'][0][0]:.4f}, single-device ResNet-"
-        f"{RESNET_DEPTH} (phase c, same weights and batch) {first}")
-    log(f"[s2] losses {['%.4f' % v for v in m0['losses']]}")
-    log(f"[s2] step time median {ms:.1f} ms (slowest rank per step: "
-        f"{[round(t * 1e3, 1) for t in slowest]}), {BATCH / (ms / 1e3):.3f} img/s, peak memory "
-        f"allocated per rank {[round(m['peak'] / 2**30, 2) for m in mains]} GiB")
-    log(f"[s2] launches per rank per step: " + "; ".join(
-        ", ".join(f"{k} {v // STEPS}" for k, v in m["launches"].items()) for m in mains)
-        + f"; BN all-reduces per step {m0['bn_allreduces']}; exchanges per step "
-        f"{sum(n for _, n in m0['exchanges'])} (K4 launches are their axis phases)")
-    for name in KERNELS:
-        shapes[name].update(dict(m0["shapes"][name]))
-        for m in mains[1:]:  # every rank's shapes are checked; counts are rank 0's
-            for key, _ in m["shapes"][name]:
-                shapes[name].setdefault(key, 0)
+    launches, ips = {}, {}
+    for path in SP_PATHS:
+        name = sp_models()[path][0]
+        mains = [out[path] for out in ranks]
+        for r, m in enumerate(mains):
+            if not all(math.isfinite(v) for v in m["losses"] + [w[0] for w in m["warm"]]):
+                raise AssertionError(f"{path} rank {r}: non-finite loss {m['losses']}")
+            for kernel in PATH_KERNELS[path]:
+                n = m["launches"][kernel]
+                if n == 0 or n % STEPS:
+                    raise AssertionError(f"{path} rank {r}: {kernel} launched {n} times in "
+                                         f"{STEPS} steps")
+        slowest = [max(m["times"][i] for m in mains) for i in range(STEPS)]
+        ms = sorted(slowest)[STEPS // 2] * 1e3
+        ips[path] = BATCH / (ms / 1e3)
+        m0 = mains[0]
+        log(f"[s2] {path}: {name} @{SIZE} bs{BATCH}, 2x2 tiles of {SIZE // 2}x{SIZE // 2}, "
+            f"bf16 compute, f32 params, remat=False; set-up {m0['setup_s']:.1f} s; warm-up "
+            f"steps {[f'{loss:.4f} ({t:.2f} s)' for loss, t in m0['warm']]}")
+        single = path.removesuffix("_sp")
+        first = ("bf16 %.6f, f32 %.6f" % first_loss[single] if single in first_loss
+                 else "not run")
+        if single in first_loss:
+            want = first_loss[single][1]
+            if not abs(m0["f32_loss"] - want) <= F32_LOSS_RTOL * abs(want):
+                raise AssertionError(f"{path}: f32 first-step loss {m0['f32_loss']} against the "
+                                     f"single-device {want} (rtol {F32_LOSS_RTOL})")
+        log(f"[s2] {path} first step loss: spatial bf16 {m0['warm'][0][0]:.6f}, f32 "
+            f"{m0['f32_loss']:.6f} (TF32 off); single-device {name} (phase c, same weights "
+            f"and batch) {first} (f32 within {F32_LOSS_RTOL:g})")
+        log(f"[s2] {path} losses {['%.4f' % v for v in m0['losses']]}")
+        log(f"[s2] {path} step time median {ms:.1f} ms (slowest rank per step: "
+            f"{[round(t * 1e3, 1) for t in slowest]}), {ips[path]:.3f} img/s, peak memory "
+            f"allocated per rank {[round(m['peak'] / 2**30, 2) for m in mains]} GiB")
+        log(f"[s2] {path} launches per rank per step: " + "; ".join(
+            ", ".join(f"{k} {v // STEPS}" for k, v in m["launches"].items()) for m in mains)
+            + f"; BN all-reduces per step {m0['bn_allreduces']}; exchanges per step "
+            f"{sum(n for _, n in m0['exchanges'])} (K4 launches are their axis phases)")
+        for kernel in KERNELS:
+            calls[path][kernel].update(dict(m0["shapes"][kernel]))
+            for m in mains[1:]:  # every rank's shapes are checked; counts are rank 0's
+                for key, _ in m["shapes"][kernel]:
+                    calls[path][kernel].setdefault(key, 0)
+        launches[path] = {kernel: m0["launches"][kernel] for kernel in PATH_KERNELS[path]}
     for line in ranks[0]["k4_lines"]:
         log(line)
     timing = exchange_rows(ranks)
@@ -1022,15 +1120,16 @@ def phase_spatial(shapes, profile, single_first_loss=None):
     timing["swap"] = swap
     timing["layout"] = desc
     timing["backend"] = backend
-    launches = {name: m0["launches"][name] for name in PATH_KERNELS["resnet_sp"]}
-    return launches, timing
+    cards = 1 if backend == "gloo" else SP_RANKS
+    return launches, ips, cards, timing
 
 
 def exchange_rows(ranks):
     """Phase s4's per-shape exchange times (slowest rank at each shape)
-    and their launch-weighted sums per step, logged."""
+    and their launch-weighted sums per step of each spatial path, logged."""
     rows = []
-    sums = {"ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "exchanges": 0}
+    sums = {path: {"ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "exchanges": 0}
+            for path in SP_PATHS}
     rt = ranks[0]["k4_time"]["round_trip_ms"]
     log(f"[s4] one-word flag round trip between two ranks' arenas (tile_w ring, mean of "
         f"{K4_ROUND_TRIPS[ranks[0]['k4_time']['backend']]} in one launch): {rt * 1e3:.2f} us")
@@ -1039,21 +1138,23 @@ def exchange_rows(ranks):
         for key in ("ms", "library_ms"):
             if row[key] is not None:
                 row[key] = max(out["k4_time"]["exchanges"][i][key] for out in ranks)
-        n = row["launches_per_step"]
-        sums["exchanges"] += n
-        for key in ("ms", "bound_ms", "library_ms"):
-            sums[key] += n * (row[key] or 0.0)
+        for path, n in row["launches_per_step"].items():
+            sums[path]["exchanges"] += n
+            for key in ("ms", "bound_ms", "library_ms"):
+                sums[path][key] += n * (row[key] or 0.0)
         lib = row["library_ms"]
         log(f"[s4] halo_exchange {row['shape']} bf16: {row['ms']:.4f} ms, NCCL strips "
             f"{'%.4f ms' % lib if lib is not None else 'n/a (ranks share a card)'}, bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']}); {n} a rank and step")
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}); a rank and step "
+            f"{row['launches_per_step']}")
         rows.append(row)
-    if sums["library_ms"] == 0.0:
-        sums["library_ms"] = None
-    log(f"[s4] halo_exchange per rank and step, launch-weighted: {sums['exchanges']} exchanges, "
-        f"{sums['ms']:.3f} ms, NCCL strips "
-        f"{'%.3f ms' % sums['library_ms'] if sums['library_ms'] is not None else 'n/a'}, "
-        f"bound {sums['bound_ms']:.3f} ms")
+    for path, t in sums.items():
+        if t["library_ms"] == 0.0:
+            t["library_ms"] = None
+        log(f"[s4] halo_exchange on {path} per rank and step, launch-weighted: {t['exchanges']} "
+            f"exchanges, {t['ms']:.3f} ms, NCCL strips "
+            f"{'%.3f ms' % t['library_ms'] if t['library_ms'] is not None else 'n/a'}, "
+            f"bound {t['bound_ms']:.3f} ms")
     return {"exchanges": rows, "exchange_per_step": sums}
 
 
@@ -1089,8 +1190,10 @@ def halo_row(timing, launches):
 
 
 def phase_k1(gen, shapes):
-    """K1 vs its plain version at every main-path shape, then at the edge
-    shapes, bf16 and f32; returns the main-path shapes' worst error."""
+    """K1 vs its plain version at every main-path shape (a halo-extended
+    tile, p = 0 with overlapping windows, also with a −inf outer ring), then
+    at the edge shapes, bf16 and f32; returns the main-path shapes' worst
+    error."""
     import torch
 
     from mpi4dl_tpu_torch.ops import pool_kernel
@@ -1098,25 +1201,32 @@ def phase_k1(gen, shapes):
     worst = 0.0
     for i, (shape, kh, kw, sh, sw, ph, pw) in enumerate(list(shapes) + K1_EDGE):
         edge = i >= len(shapes)
+        # The spatial paths' pools run on halo-extended tiles with no padding;
+        # a tile at the image's edge has −inf in its outer ring there.
+        extended = not edge and (ph, pw) == (0, 0) and (kh > sh or kw > sw)
         b, h, w, c = shape
         ho, wo = pool_kernel.out_size(h, kh, sh, ph), pool_kernel.out_size(w, kw, sw, pw)
-        for dtype, offset in [(d, o) for d in (torch.bfloat16, torch.float32)
-                              for o in ((0, 1) if edge else (0,))]:
+        for dtype, offset, ring in [(d, o, r) for d in (torch.bfloat16, torch.float32)
+                                    for o in ((0, 1) if edge else (0,))
+                                    for r in ((False, True) if extended else (False,))]:
             x = torch.randint(0, 3, shape, generator=gen, device=DEVICE).to(dtype)
             if offset:  # one element past a 16-byte boundary: the one-element path
                 x = torch.cat([x.new_zeros(offset), x.flatten()])[offset:].view(shape)
+            if ring:
+                x[:, 0] = x[:, -1] = x[:, :, 0] = x[:, :, -1] = float("-inf")
             dy = torch.randint(-64, 64, (b, ho, wo, c), generator=gen, device=DEVICE).to(dtype)
             got = pool_kernel.pool_bwd(x, dy, kh, kw, sh, sw, ph, pw)
             want = pool_kernel.pool_bwd_reference(x, dy, kh, kw, sh, sw, ph, pw)
             err = float((got.float() - want.float()).abs().max())
             if not torch.equal(got, want):
                 raise AssertionError(f"K1 x{list(shape)} {kh}x{kw} s({sh},{sw}) p({ph},{pw}) "
-                                     f"{dtype} offset {offset}: max |err| {err}")
+                                     f"{dtype} offset {offset} ring {ring}: max |err| {err}")
             if not edge:
                 worst = max(worst, err)
         log(f"[d] K1 {'edge ' if edge else ''}x{list(shape)} {kh}x{kw} s({sh},{sw}) p({ph},{pw}): "
-            f"bf16 and f32{', aligned and not,' if edge else ''} equal to the plain version "
-            f"(tie-heavy ints)")
+            f"bf16 and f32{', aligned and not,' if edge else ''}"
+            f"{', with and without a -inf outer ring,' if extended else ''} equal to the plain "
+            f"version (tie-heavy ints)")
     return worst
 
 
@@ -1422,17 +1532,21 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     phase_build()
     calls = {}  # path -> kernel -> Counter of call shape -> calls in one step
-    launches, rows, first_loss, k1_copies = {}, [], {}, {}
+    launches, rows, first_loss, k1_copies, ips = {}, [], {}, {}, {}
+    cards = dict.fromkeys(("amoebanet", "resnet"), 1)
     if not args.spatial_only:
         for name, build, size in small_models():
             phase_small_reference(name, build, size)
         for path, desc, build in main_models():
             calls[path] = _new_calls()
-            launches[path], first_loss[path], k1_copies[path] = phase_main(
+            launches[path], first_loss[path], k1_copies[path], ips[path] = phase_main(
                 path, desc, build, calls[path], args.profile)
-    calls["resnet_sp"] = _new_calls()
-    launches["resnet_sp"], k4_timing = phase_spatial(calls["resnet_sp"], args.profile,
-                                                     first_loss.get("resnet"))
+    for path in SP_PATHS:
+        calls[path] = _new_calls()
+    sp_launches, sp_ips, sp_cards, k4_timing = phase_spatial(calls, args.profile, first_loss)
+    launches.update(sp_launches)
+    ips.update(sp_ips)
+    cards.update(dict.fromkeys(SP_PATHS, sp_cards))
     if not args.spatial_only:
         shapes = {name: sorted(set().union(*(c[name] for c in calls.values())))
                   for name in KERNELS}
@@ -1457,12 +1571,39 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     log(f"[h] {time.time() - t_start:.1f} s in all")
     log(smi)
+    log(phase_mfu(ips, cards, smi))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }}), flush=True)
     return 0
+
+
+def phase_mfu(ips, cards, smi):
+    """Phase h's MFU line: per path, the training FLOPs an image of its plain
+    model (``mpi4dl_tpu_torch.flops``, counted on the meta device) times its
+    img/s over the bf16 peak of the cards it ran on."""
+    import torch
+
+    from mpi4dl_tpu_torch import flops
+    from mpi4dl_tpu_torch.models.amoebanet import amoebanetd
+    from mpi4dl_tpu_torch.models.resnet import get_resnet_v2
+
+    with torch.device("meta"):
+        models = {"amoebanet": amoebanetd(10, LAYERS, FILTERS),
+                  "resnet": get_resnet_v2(RESNET_DEPTH, 10, pool_kernel=SIZE // 4)}
+    per_image = {name: flops.train_flops_per_image(m, SIZE) for name, m in models.items()}
+    peak = flops.peak_flops()
+    parts = []
+    for path, v in ips.items():
+        fpi = per_image[path.removesuffix("_sp")]
+        mfu = flops.mfu(v, fpi, cards[path])
+        parts.append(f"{path} {'%.2f%%' % (100 * mfu) if mfu is not None else 'n/a'} "
+                     f"({fpi / 1e12:.3f} TFLOP an image, {v:.3f} img/s, {cards[path]} card(s))")
+    return (f"[h] MFU on {smi} (training FLOPs = 3x the forward's conv and dense FLOPs, "
+            f"bf16 peak {'%g TFLOP/s a card' % (peak / 1e12) if peak else 'unknown'}): "
+            + "; ".join(parts))
 
 
 if __name__ == "__main__":

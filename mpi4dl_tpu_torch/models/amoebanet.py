@@ -5,7 +5,16 @@ JAX model (reference ``src/models/amoebanet.py``), with the same two
 deliberate deviations from the reference: ``max_pool_3x3`` is a real max
 pool, and ``FactorizedReduce`` feeds both 1x1 convs the same input.
 Submodule names follow the Flax modules (``reduce1.conv.conv.kernel``,
-``op3.bn0.scale`` ...). No spatial form and no D2 form yet.
+``op3.bn0.scale`` ...).
+
+``spatial_cells``/``grid`` (``amoebanet.py:591-674``, the per-op "D1"
+form): the first cells run on this rank's tile of ``grid``, with spatial
+convs and pools (a halo exchange in every padded window op) and, with
+``cross_tile_bn``, BN moments averaged over the grid (``_bn_axes``,
+``amoebanet.py:49``). Every module takes ``grid`` (None: plain) and
+``cross_tile_bn``. The parameters and their names are those of the plain
+model, so one set of weights serves both. The D2 fused-halo form
+(``halo_d2``) is not ported yet.
 
 Widths are passed explicitly (Flax infers them at first call): every cell
 state carries ``channels`` channels; a cell's inputs carry
@@ -28,15 +37,25 @@ from mpi4dl_tpu_torch.ops.layers import (
 )
 
 
+def _conv(in_features, features, kernel_size, strides, padding, dtype, grid):
+    return Conv2d(in_features, features, kernel_size, strides, padding, use_bias=False,
+                  dtype=dtype, spatial=grid is not None, grid=grid)
+
+
+def _bn(features, grid, cross_tile_bn):
+    """BN whose moments span the grid on a spatial module with
+    ``cross_tile_bn`` (``_bn_axes``, ``amoebanet.py:49``)."""
+    return TrainBatchNorm(features, grid=grid if cross_tile_bn else None)
+
+
 class ReluConvBn(nn.Module):
     """relu → conv → BN (ref ``relu_conv_bn``, ``amoebanet.py:365-398``)."""
 
     def __init__(self, in_features, features, kernel_size=1, strides=1,
-                 padding=0, dtype=None):
+                 padding=0, dtype=None, grid=None, cross_tile_bn=True):
         super().__init__()
-        self.conv = Conv2d(in_features, features, kernel_size, strides, padding,
-                           use_bias=False, dtype=dtype)
-        self.bn = TrainBatchNorm(features)
+        self.conv = _conv(in_features, features, kernel_size, strides, padding, dtype, grid)
+        self.bn = _bn(features, grid, cross_tile_bn)
 
     def forward(self, x):
         return self.bn(self.conv(F.relu(x)))
@@ -45,12 +64,11 @@ class ReluConvBn(nn.Module):
 class FactorizedReduce(nn.Module):
     """relu → concat(1×1 s2 conv, 1×1 s2 conv) → BN (ref ``amoebanet.py:56-78``)."""
 
-    def __init__(self, in_features, features, dtype=None):
+    def __init__(self, in_features, features, dtype=None, grid=None, cross_tile_bn=True):
         super().__init__()
-        common = dict(kernel_size=1, strides=2, padding=0, use_bias=False, dtype=dtype)
-        self.conv1 = Conv2d(in_features, features // 2, **common)
-        self.conv2 = Conv2d(in_features, features - features // 2, **common)
-        self.bn = TrainBatchNorm(features)
+        self.conv1 = _conv(in_features, features // 2, 1, 2, 0, dtype, grid)
+        self.conv2 = _conv(in_features, features - features // 2, 1, 2, 0, dtype, grid)
+        self.bn = _bn(features, grid, cross_tile_bn)
 
     def forward(self, x):
         x = F.relu(x)
@@ -62,7 +80,8 @@ class ConvBranch(nn.Module):
     convs, each relu → conv → BN (refs ``conv_1x7_7x1``, ``conv_1x1``,
     ``conv_3x3``, ``amoebanet.py:240-291``)."""
 
-    def __init__(self, channels, convs, bottleneck=False, dtype=None):
+    def __init__(self, channels, convs, bottleneck=False, dtype=None, grid=None,
+                 cross_tile_bn=True):
         super().__init__()
         inner = channels // 4 if bottleneck else channels
         specs = []  # (in, out, kernel, stride, padding)
@@ -73,11 +92,8 @@ class ConvBranch(nn.Module):
             specs.append((inner, channels, 1, 1, 0))
         self.n = len(specs)
         for idx, (cin, cout, k, s, p) in enumerate(specs):
-            self.add_module(
-                f"conv{idx}",
-                Conv2d(cin, cout, k, s, p, use_bias=False, dtype=dtype),
-            )
-            self.add_module(f"bn{idx}", TrainBatchNorm(cout))
+            self.add_module(f"conv{idx}", _conv(cin, cout, k, s, p, dtype, grid))
+            self.add_module(f"bn{idx}", _bn(cout, grid, cross_tile_bn))
 
     def forward(self, x):
         for idx in range(self.n):
@@ -88,40 +104,45 @@ class ConvBranch(nn.Module):
 
 
 # -- operation factories (ref amoebanet.py:81-291) ---------------------------
+# Each: (channels, stride, dtype, grid, cross_tile_bn) -> module.
 
 
-def op_none(channels, stride, dtype):
+def op_none(channels, stride, dtype, grid=None, cross_tile_bn=True):
     if stride == 1:
         return Identity()
-    return FactorizedReduce(channels, channels, dtype=dtype)
+    return FactorizedReduce(channels, channels, dtype, grid, cross_tile_bn)
 
 
-def op_avg_pool_3x3(channels, stride, dtype):
-    return Pool("avg", 3, stride, 1, count_include_pad=False)
+def _pool(kind, kernel, stride, padding, grid, **kwargs):
+    return Pool(kind, kernel, stride, padding, spatial=grid is not None, grid=grid, **kwargs)
 
 
-def op_max_pool_3x3(channels, stride, dtype):
-    return Pool("max", 3, stride, 1)
+def op_avg_pool_3x3(channels, stride, dtype, grid=None, cross_tile_bn=True):
+    return _pool("avg", 3, stride, 1, grid, count_include_pad=False)
 
 
-def op_max_pool_2x2(channels, stride, dtype):
-    return Pool("max", 2, stride, 0)
+def op_max_pool_3x3(channels, stride, dtype, grid=None, cross_tile_bn=True):
+    return _pool("max", 3, stride, 1, grid)
 
 
-def op_conv_1x7_7x1(channels, stride, dtype):
+def op_max_pool_2x2(channels, stride, dtype, grid=None, cross_tile_bn=True):
+    return _pool("max", 2, stride, 0, grid)
+
+
+def op_conv_1x7_7x1(channels, stride, dtype, grid=None, cross_tile_bn=True):
     return ConvBranch(
         channels,
         [((1, 7), (1, stride), (0, 3)), ((7, 1), (stride, 1), (3, 0))],
-        bottleneck=True, dtype=dtype,
+        True, dtype, grid, cross_tile_bn,
     )
 
 
-def op_conv_1x1(channels, stride, dtype):
-    return ConvBranch(channels, [(1, stride, 0)], bottleneck=False, dtype=dtype)
+def op_conv_1x1(channels, stride, dtype, grid=None, cross_tile_bn=True):
+    return ConvBranch(channels, [(1, stride, 0)], False, dtype, grid, cross_tile_bn)
 
 
-def op_conv_3x3(channels, stride, dtype):
-    return ConvBranch(channels, [(3, stride, 1)], bottleneck=True, dtype=dtype)
+def op_conv_3x3(channels, stride, dtype, grid=None, cross_tile_bn=True):
+    return ConvBranch(channels, [(3, stride, 1)], True, dtype, grid, cross_tile_bn)
 
 
 # AmoebaNet-D genotype (ref amoebanet.py:295-351; NORMAL_CONCAT follows the
@@ -158,10 +179,10 @@ REDUCTION_CONCAT = [4, 5, 6]
 class Stem(nn.Module):
     """relu → 3×3 stride-2 conv → BN (ref ``Stem``, ``amoebanet.py:417-446``)."""
 
-    def __init__(self, in_features, channels, dtype=None):
+    def __init__(self, in_features, channels, dtype=None, grid=None, cross_tile_bn=True):
         super().__init__()
-        self.conv = Conv2d(in_features, channels, 3, 2, 1, use_bias=False, dtype=dtype)
-        self.bn = TrainBatchNorm(channels)
+        self.conv = _conv(in_features, channels, 3, 2, 1, dtype, grid)
+        self.bn = _bn(channels, grid, cross_tile_bn)
 
     def forward(self, x):
         return self.bn(self.conv(F.relu(x)))
@@ -188,16 +209,17 @@ class Classify(nn.Module):
 class AmoebaCell(nn.Module):
     """Two-state NAS cell (ref ``Cell``, ``amoebanet.py:449-532``). Input: a
     tensor (after the stem) or an ``(s, skip)`` tuple; output ``(concat,
-    skip)``."""
+    skip)``. ``grid``, ``cross_tile_bn``: see the module docstring."""
 
     def __init__(self, channels_prev_prev, channels_prev, channels, reduction,
-                 reduction_prev, dtype=None):
+                 reduction_prev, dtype=None, grid=None, cross_tile_bn=True):
         super().__init__()
-        self.reduce1 = ReluConvBn(channels_prev, channels, dtype=dtype)
+        common = dict(dtype=dtype, grid=grid, cross_tile_bn=cross_tile_bn)
+        self.reduce1 = ReluConvBn(channels_prev, channels, **common)
         if reduction_prev:
-            self.reduce2 = FactorizedReduce(channels_prev_prev, channels, dtype=dtype)
+            self.reduce2 = FactorizedReduce(channels_prev_prev, channels, **common)
         elif channels_prev_prev != channels:
-            self.reduce2 = ReluConvBn(channels_prev_prev, channels, dtype=dtype)
+            self.reduce2 = ReluConvBn(channels_prev_prev, channels, **common)
         else:
             self.reduce2 = None
         table = REDUCTION_OPERATIONS if reduction else NORMAL_OPERATIONS
@@ -205,7 +227,7 @@ class AmoebaCell(nn.Module):
         self.sources = [src for src, _ in table]
         for i, (src, factory) in enumerate(table):
             stride = 2 if (reduction and src < 2) else 1
-            self.add_module(f"op{i}", factory(channels, stride, dtype))
+            self.add_module(f"op{i}", factory(channels, stride, **common))
 
     def forward(self, input_or_states):
         if isinstance(input_or_states, (tuple, list)):
@@ -225,17 +247,31 @@ class AmoebaCell(nn.Module):
 
 
 def amoebanetd(num_classes: int = 10, num_layers: int = 4, num_filters: int = 512,
-               dtype=torch.float32, in_channels: int = 3) -> nn.Sequential:
+               spatial_cells: int = 0, cross_tile_bn: bool = True, halo_d2: bool = False,
+               dtype=torch.float32, in_channels: int = 3, grid=None) -> nn.Sequential:
     """AmoebaNet-D as a flat cell sequence (ref ``amoebanetd``,
-    ``amoebanet.py:535-615``): stem, 2 reduction stems, then r normal /
+    ``amoebanet.py:591-674``): stem, 2 reduction stems, then r normal /
     reduction / r normal / reduction / r normal (r = num_layers // 3),
     classifier. Channels start at num_filters / 4 and double at each
-    reduction. ``dtype`` is the compute dtype; parameters stay f32."""
+    reduction. ``dtype`` is the compute dtype; parameters stay f32.
+    ``spatial_cells``, ``cross_tile_bn``, ``grid``: see the module
+    docstring; the classifier is never spatial."""
     if num_layers % 3:
         raise ValueError("num_layers must be a multiple of 3")
+    if halo_d2:
+        raise NotImplementedError("the D2 fused-halo AmoebaNet (halo_d2=True) is not ported yet")
+    if spatial_cells and grid is None:
+        raise ValueError("spatial cells need the rank's TileGrid (grid=...)")
     r = num_layers // 3
     channels = num_filters // 4
-    cells: list[nn.Module] = [Stem(in_channels, channels, dtype=dtype)]
+    cells: list[nn.Module] = []
+
+    def common():
+        # Spatial while fewer than ``spatial_cells`` cells precede this one.
+        spatial = len(cells) < spatial_cells
+        return dict(dtype=dtype, grid=grid if spatial else None, cross_tile_bn=cross_tile_bn)
+
+    cells.append(Stem(in_channels, channels, **common()))
     state = dict(prev_prev=channels, prev=channels, reduction_prev=False,
                  channels=channels)
 
@@ -244,7 +280,7 @@ def amoebanetd(num_classes: int = 10, num_layers: int = 4, num_filters: int = 51
             state["channels"] *= 2
         cells.append(AmoebaCell(
             state["prev_prev"], state["prev"], state["channels"], reduction,
-            state["reduction_prev"], dtype=dtype,
+            state["reduction_prev"], **common(),
         ))
         concat = REDUCTION_CONCAT if reduction else NORMAL_CONCAT
         state["prev_prev"] = state["prev"]

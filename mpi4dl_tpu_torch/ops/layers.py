@@ -6,8 +6,8 @@ call; submodule and parameter names follow the Flax modules so that
 :func:`mpi4dl_tpu_torch.weights.from_jax_params` maps weights by name.
 
 Spatial forms take the rank's :class:`TileGrid` at construction: the
-spatial ``Conv2d`` (halo exchange, VALID conv, trim) and the cross-tile
-``TrainBatchNorm`` (moments averaged over the grid).
+spatial ``Conv2d`` and ``Pool`` (halo exchange, VALID window op, trim) and
+the cross-tile ``TrainBatchNorm`` (moments averaged over the grid).
 """
 
 from __future__ import annotations
@@ -162,9 +162,19 @@ class Pool(nn.Module):
     the K1 kernel (every max pool, stride 1 or not). Avg divides the window
     sum by kh·kw (``count_include_pad=True``, the JAX ``Pool`` default,
     ``layers.py:656``) or by the count of in-bounds taps
-    (``count_include_pad=False``, as AmoebaNet uses)."""
+    (``count_include_pad=False``, as AmoebaNet uses).
 
-    def __init__(self, kind, kernel_size=2, strides=None, padding=0, count_include_pad=True):
+    ``spatial=True`` (``layers.py:642-783``, its monolithic form): ``x`` is
+    this rank's tile of ``grid``. A pool with padding exchanges ``padding``
+    rows/cols of halo (fill −inf for max, 0 for avg), pools VALID on the
+    extended tile and keeps this tile's ``H/stride x W/stride`` outputs, so
+    K1 runs on the extended tile with no padding. The avg divisor for
+    ``count_include_pad=False`` is the window sum of a mask of ones whose
+    outside-image halo is zeroed from the tile's grid position (no second
+    exchange)."""
+
+    def __init__(self, kind, kernel_size=2, strides=None, padding=0, count_include_pad=True,
+                 spatial=False, grid=None):
         super().__init__()
         if kind not in ("max", "avg"):
             raise ValueError(f"unknown pool kind {kind!r}")
@@ -173,9 +183,25 @@ class Pool(nn.Module):
         self.strides = _pair(strides if strides is not None else kernel_size)
         self.padding = _pair(padding)
         self.count_include_pad = count_include_pad
+        self.spatial = spatial
+        if spatial:
+            if grid is None:
+                raise ValueError("a spatial Pool needs the rank's TileGrid")
+            _check_window_coverage(*self.kernel, *self.strides, *self.padding)
+        self.grid = grid
+        self._divisors = {}  # count_include_pad=False: (shape, dtype, device) -> divisor
 
     def forward(self, x):
-        (kh, kw), (sh, sw), (ph, pw) = self.kernel, self.strides, self.padding
+        (sh, sw), (ph, pw) = self.strides, self.padding
+        if not (self.spatial and (ph or pw)):
+            return self._pool(x, ph, pw)
+        h, w = x.shape[2], x.shape[3]
+        fill = float("-inf") if self.kind == "max" else 0.0
+        xe = halo.halo_exchange(x, ph, pw, self.grid, fill)
+        return self._pool(xe, 0, 0)[:, :, :h // sh, :w // sw]
+
+    def _pool(self, x, ph, pw):
+        (kh, kw), (sh, sw) = self.kernel, self.strides
         if self.kind == "max":
             return MaxPool.apply(x, kh, kw, sh, sw, ph, pw)
         if (ph, pw) == (0, 0) and (sh, sw) == (kh, kw):
@@ -187,9 +213,9 @@ class Pool(nn.Module):
             t = x[:, :, :ho * kh, :wo * kw].unflatten(3, (wo, kw)).unflatten(2, (ho, kh))
             return t.mean(dim=(3, 5))
         # Window sum (a depthwise conv with a ones kernel) over the divisor,
-        # as Flax's avg_pool computes it. F.avg_pool2d is not used: its CUDA
-        # backward on channels_last input returned wrong input gradients
-        # (torch 2.11.0+cu128 on an H100).
+        # as Flax's avg_pool computes it. F.avg_pool2d's backward is not
+        # used: its CUDA backward on channels_last input returned wrong input
+        # gradients (torch 2.11.0+cu128 on an H100).
         c = x.shape[1]
         fmt = (torch.channels_last if x.is_contiguous(memory_format=torch.channels_last)
                else torch.contiguous_format)
@@ -197,9 +223,21 @@ class Pool(nn.Module):
         total = F.conv2d(x, ones_k.contiguous(memory_format=fmt), None, (sh, sw), (ph, pw), 1, c)
         if self.count_include_pad:
             return total / (kh * kw)
-        ones = torch.ones((1, 1) + x.shape[2:], dtype=x.dtype, device=x.device)
-        count = F.avg_pool2d(ones, (kh, kw), (sh, sw), (ph, pw), divisor_override=1)
-        return total / count
+        return total / self._divisor(x, ph, pw)
+
+    @torch.no_grad()
+    def _divisor(self, x, ph, pw):
+        """The count of in-image taps of each window: a window sum of ones
+        (zero-padded by ``(ph, pw)``; on a spatial tile, the extended tile's
+        outside-image halo zeroed instead)."""
+        key = (tuple(x.shape[2:]), x.dtype, x.device)
+        if key not in self._divisors:
+            ones = torch.ones((1, 1) + x.shape[2:], dtype=x.dtype, device=x.device)
+            if self.spatial:
+                ones = halo.zero_boundary_halo(ones, *self.padding, self.grid)
+            self._divisors[key] = F.avg_pool2d(ones, self.kernel, self.strides, (ph, pw),
+                                               divisor_override=1)
+        return self._divisors[key]
 
 
 class Identity(nn.Module):

@@ -122,6 +122,26 @@ def exchange_plain_bwd(g, halo_h: int, halo_w: int, grid: TileGrid, group=None):
     return g
 
 
+def fill_boundary_halo(x, halo_h: int, halo_w: int, grid: TileGrid, value: float = 0.0):
+    """``x`` (a halo-extended tile ``[B, C, H, W]``) with its halo rows and
+    cols that lie outside the global image set to ``value`` (twin of
+    ``mpi4dl_tpu/parallel/halo.py:223-259``): the leading ring on the first
+    tile of an axis, the trailing ring on the last. A function of the tile's
+    grid position only; no communication."""
+    (th, tw), (i, j) = grid.shape, grid.coords
+    rows = torch.arange(x.shape[2], device=x.device)
+    cols = torch.arange(x.shape[3], device=x.device)
+    outside_h = ((rows < halo_h) & (i == 0)) | ((rows >= x.shape[2] - halo_h) & (i == th - 1))
+    outside_w = ((cols < halo_w) & (j == 0)) | ((cols >= x.shape[3] - halo_w) & (j == tw - 1))
+    outside = outside_h[:, None] | outside_w[None, :]
+    return torch.where(outside, torch.full((), value, dtype=x.dtype, device=x.device), x)
+
+
+def zero_boundary_halo(x, halo_h: int, halo_w: int, grid: TileGrid):
+    """:func:`fill_boundary_halo` with 0 (a zero-padded window's edge)."""
+    return fill_boundary_halo(x, halo_h, halo_w, grid, 0.0)
+
+
 def check_kernel_exchange(x, halo_h: int, halo_w: int, slot_bytes: int = SLOT_BYTES) -> None:
     """Raise on a tile the CUDA exchange does not take: not 4-D, an extent
     under twice its halo (the backward's edge sums would overlap), or a

@@ -134,7 +134,10 @@ class Trainer:
         h = x
         for i, cell in enumerate(self.model):
             if i == self.n_spatial and i > 0:
-                h = gather_tiles(h, self.grid)  # the SP -> plain join
+                # The SP -> plain join gathers every tensor of a tuple state
+                # (AmoebaNet's (concat, skip)), as ``train.py:686-689``.
+                h = (tuple(gather_tiles(t, self.grid) for t in h) if isinstance(h, tuple)
+                     else gather_tiles(h, self.grid))
             if self.remat == "cell" and torch.is_grad_enabled():
                 h = checkpoint(cell, h, use_reentrant=False)
             else:

@@ -34,6 +34,7 @@ def test_port_modules_listed():
     assert "mpi4dl_tpu_torch.parallel.multihost" in PORT_MODULES
     assert "mpi4dl_tpu_torch.parallel.halo" in PORT_MODULES
     assert "mpi4dl_tpu_torch.ops.halo_kernel" in PORT_MODULES
+    assert "mpi4dl_tpu_torch.flops" in PORT_MODULES
 
 
 def test_no_jax_and_no_jax_package_loaded():
