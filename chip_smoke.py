@@ -22,6 +22,25 @@ Phases (any failure exits non-zero; nothing is caught):
      0, the timed steps run, and the counts are read (each kernel of the
      path must be > 0); then the first step once more with f32 compute
      (TF32 off), the spatial paths' reference;
+  m. the bench's slice, in this process:
+     m1. ``python -m mpi4dl_tpu_torch.bench``'s 2048 px training points
+         through the functions it calls (``bench.measure_amoeba``,
+         ``bench.measure_resnet``): AmoebaNet-D 18L/416F @2048 bs2 (two bs1
+         chunks, grad_accum=2) and bs1, ResNet-110 v2 @2048 bs1, remat=False,
+         2 warm-up and 3 timed steps each. The first warm-up records the
+         kernels' call shapes (phases d-g gate and time them); every kernel
+         of the point must launch in its timed steps, chunks times as often
+         a step as on phase c's path; img/s, step p50/p90/p99, MFU and peak
+         memory printed;
+     m2. every ported remat policy on both main paths @1024 bs2: the first
+         step's loss bit-equal to remat=False's and the same K1-K3 launches
+         a step; peak memory and a step's time printed. Then phase b's
+         small f32 models under each policy on the card against remat=False
+         (loss equal, gradients within ``REMAT_GRAD_TOL``);
+     m3. ``python -m mpi4dl_tpu_torch.bench`` as a subprocess
+         (BENCH_MODEL=amoebanet BENCH_STEPS=3 BENCH_TIME_BUDGET=1): every
+         JSON line parses, the last is ``amoebanetd_1024px_bs2_train_gpu``
+         with a value and an MFU, exit 0;
   s. the spatial slice in 4 rank processes (``parallel.multihost.spawn``)
      on a 2x2 tile grid. With 4 or more cards, one rank per card and
      NCCL; with fewer, the ranks share card 0 over a gloo group, and K4's
@@ -72,12 +91,13 @@ Phases (any failure exits non-zero; nothing is caught):
      has), then at a few edge shapes (``K1_EDGE``), on tie-heavy integer
      data: exact equality;
   e. K2 (stride-1 weight gradient) against its plain version at every
-     recorded shape of the four paths, bf16 and f32 (tolerance below);
+     recorded shape of the paths (phase m1's too), bf16 and f32 (tolerance
+     below);
   f. K3 (fused 1x1-conv backward) against its plain version at every
-     recorded shape of the four paths (tolerances below);
+     recorded shape of the paths (tolerances below);
   g. per-kernel times (kernel, plain version, one library call) at the
      largest main-path shape of each, beside the bound the card's peaks give;
-     then K1, K2 and K3 at every recorded call shape of the four paths (kernel,
+     then K1, K2 and K3 at every recorded call shape of the paths (kernel,
      library call, bound, launches per step of each path there) and each
      path's launch-weighted sum per step, and the layout copies that
      ``MaxPool.backward`` makes in front of K1 on the main path;
@@ -145,13 +165,32 @@ K4_ROUND_TRIPS = {"nccl": 1000, "gloo": 20}  # flag round trips timed in one lau
 # kernel.
 K4_TIMED = (2, 256, 128, 128)
 KERNELS = ("pool_bwd", "wgrad", "dot1x1_bwd", "halo_swap")
+# Phase m1: the training points ``python -m mpi4dl_tpu_torch.bench`` adds at
+# 2048 px, (path, model, image size, batch, chunks); AmoebaNet-D @2048 bs2
+# runs as two bs1 chunks (grad_accum=2), as bench.py does.
+BENCH_POINTS = [
+    ("amoebanet_2048_bs2", "amoebanet", 2048, 2, 2),
+    ("amoebanet_2048_bs1", "amoebanet", 2048, 1, 1),
+    ("resnet_2048_bs1", "resnet", 2048, 1, 1),
+]
+BENCH_STEPS = 3  # timed steps of a phase m1 point, after WARMUP
 # The kernels each path must launch (the spatial paths: per rank).
+_MODEL_KERNELS = {"amoebanet": ("pool_bwd", "wgrad", "dot1x1_bwd"),
+                  "resnet": ("wgrad", "dot1x1_bwd")}
 PATH_KERNELS = {
-    "amoebanet": ("pool_bwd", "wgrad", "dot1x1_bwd"),
-    "resnet": ("wgrad", "dot1x1_bwd"),
+    **_MODEL_KERNELS,
     "resnet_sp": ("halo_swap", "wgrad", "dot1x1_bwd"),
     "amoebanet_sp": ("pool_bwd", "wgrad", "dot1x1_bwd", "halo_swap"),
+    **{path: _MODEL_KERNELS[model] for path, model, *_ in BENCH_POINTS},
 }
+# Timed steps behind each path's launch counts (STEPS unless listed).
+STEPS_IN_RUN = {path: BENCH_STEPS for path, *_ in BENCH_POINTS}
+# Phase m2: the first step's loss of every ported remat policy must equal
+# remat=False's bit for bit (the forward is the same), and the small f32
+# models' gradients must match remat=False's within this, per leaf
+# normalised (the backward sums the same products; only cuDNN's data
+# gradient may order them differently).
+REMAT_GRAD_TOL = 1e-5
 # The path whose slice ported each kernel: a kernels row's ``launches`` is
 # that path's count per step (``launches_per_step`` gives every path's).
 HOME_PATH = {"pool_bwd": "amoebanet", "dot1x1_bwd": "amoebanet", "wgrad": "resnet",
@@ -248,15 +287,16 @@ def small_step(build, size, device, **trainer_kwargs):
     return float(out["loss"]), [flax_arrays(c, grads=True) for c in trainer.model]
 
 
-def check_small(name, got, want):
-    """Hold a small model's (loss, gradients) to the CPU run's: loss within
-    1e-4, gradients per-leaf normalised within SMALL_GRAD_TOL. Returns the
-    worst normalised error."""
+def check_small(name, got, want, tol=SMALL_GRAD_TOL, loss_rtol=1e-4):
+    """Hold a small model's (loss, gradients) to a reference run's (the
+    CPU's, unless phase m2's): loss within ``loss_rtol``, gradients
+    per-leaf normalised within ``tol``. Returns the worst normalised
+    error."""
     import numpy as np
 
     (l_got, g_got), (l_want, g_want) = got, want
-    if not abs(l_got - l_want) <= 1e-4 * abs(l_want):
-        raise AssertionError(f"{name} loss: card {l_got} vs CPU {l_want}")
+    if not abs(l_got - l_want) <= loss_rtol * abs(l_want):
+        raise AssertionError(f"{name} loss: {l_got} vs reference {l_want} (rtol {loss_rtol:g})")
     worst = 0.0
     for gg, gc in zip(g_got, g_want):
         cell = max(float(np.abs(v).max()) for v in gc.values())
@@ -269,8 +309,9 @@ def check_small(name, got, want):
                     raise AssertionError(f"{name} {k}: gradient should be 0")
                 continue
             worst = max(worst, float(np.abs(gg[k] - gc[k]).max()) / scale)
-    if worst > SMALL_GRAD_TOL:
-        raise AssertionError(f"{name} gradients: normalised max |err| {worst:.3g}")
+    if worst > tol:
+        raise AssertionError(f"{name} gradients: normalised max |err| {worst:.3g} "
+                             f"(tolerance {tol:g})")
     return worst
 
 
@@ -505,6 +546,190 @@ def profile_step(trainer, x, y, top=15, tag="c", emit=log):
          f"{sum(e.count for e in kernels)} kernel launches")
     for e in kernels[:top]:
         emit(f"[{tag}]   {e.device_time_total / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:110]}")
+
+
+def _bench_hooks(path, shapes, launches, losses):
+    """The context-manager factories ``bench.train_throughput`` wraps its
+    first warm-up step and its timed steps in: the first records the
+    kernels' call shapes into ``shapes``; the second zeroes every launch
+    count, keeps each timed step's loss in ``losses`` and writes the counts
+    into ``launches[path]`` at the end."""
+    import contextlib
+
+    from mpi4dl_tpu_torch.train import Trainer
+
+    @contextlib.contextmanager
+    def first_step():
+        restore = _record_shapes(shapes)
+        try:
+            yield
+        finally:
+            for undo in restore:
+                undo()
+
+    @contextlib.contextmanager
+    def timed_steps():
+        orig = Trainer.train_step
+
+        def train_step(self, x, y):
+            out = orig(self, x, y)
+            losses.append(out["loss"])
+            return out
+
+        counters = _counters()
+        for mod in counters.values():
+            mod.launch_count = 0
+        Trainer.train_step = train_step
+        try:
+            yield
+        finally:
+            Trainer.train_step = orig
+        launches[path] = {name: mod.launch_count for name, mod in counters.items()}
+
+    return first_step, timed_steps
+
+
+def phase_bench_points(calls, launches):
+    """Phase m1: ``python -m mpi4dl_tpu_torch.bench``'s 2048 px training
+    points through the function it calls (``bench.measure_amoeba`` and
+    ``measure_resnet``), remat=False, WARMUP + BENCH_STEPS steps each. The
+    first warm-up counts the kernels' call shapes into ``calls[path]`` (for
+    phases d-g); every kernel of the point must launch in its timed steps,
+    chunks times as often a step as on phase c's path of the same model."""
+    import torch
+
+    from mpi4dl_tpu_torch import bench
+
+    device = torch.device(DEVICE)
+    for path, model, size, batch, chunks in BENCH_POINTS:
+        calls[path] = _new_calls()
+        losses = []
+        first_step, timed_steps = _bench_hooks(path, calls[path], launches, losses)
+        kw = dict(device=device, steps=BENCH_STEPS, remats=[False], first_step=first_step,
+                  timed_steps=timed_steps)
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        if model == "amoebanet":
+            entry = bench.measure_amoeba(size, batch, **kw)
+        else:
+            entry = bench.measure_resnet(size, batch, bench.RESNET_2048_BASELINE, **kw)
+        peak = torch.cuda.max_memory_allocated()
+        losses = [float(v) for v in losses]
+        if len(losses) != BENCH_STEPS or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{path}: timed-step losses {losses}")
+        if entry.get("grad_accum", 1) != chunks:
+            raise AssertionError(f"{path}: grad_accum {entry.get('grad_accum')}, want {chunks}")
+        per_step = {name: n // BENCH_STEPS for name, n in launches[path].items()}
+        for name in PATH_KERNELS[path]:
+            want = chunks * launches[model][name] // STEPS
+            if launches[path][name] != want * BENCH_STEPS:
+                raise AssertionError(f"{path}: {name} launched {launches[path][name]} times in "
+                                     f"{BENCH_STEPS} steps, want {want} a step")
+        t = entry["step_time_s"]
+        desc = (f"AmoebaNet-D {LAYERS}L/{FILTERS}F" if model == "amoebanet"
+                else f"ResNet-{RESNET_DEPTH} v2")
+        if chunks > 1:
+            desc += f" as {chunks} bs{batch // chunks} chunks (grad_accum)"
+        log(f"[m1] {path}: {desc} @{size} bs{batch}, bf16 compute, f32 params, "
+            f"remat={entry['remat']}: {entry['value']:.3f} img/s, step p50 {t['p50']:.4f} s "
+            f"(p90 {t['p90']:.4f}, p99 {t['p99']:.4f}), MFU {entry['mfu']}, vs_baseline "
+            f"{entry.get('vs_baseline')}, peak memory allocated {peak / 2**30:.2f} GiB; "
+            f"losses {['%.4f' % v for v in losses]}; launches per step {per_step}; "
+            f"{time.time() - t0:.1f} s in all")
+    torch.cuda.empty_cache()
+
+
+def _remat_step(build, policy, path):
+    """Phase m2's run of one policy on a main path: the first step's loss,
+    then one more step's time, its K1-K3 launches and the peak memory
+    allocated over both."""
+    import torch
+
+    from mpi4dl_tpu_torch.config import ParallelConfig
+    from mpi4dl_tpu_torch.train import Trainer
+    from mpi4dl_tpu_torch.weights import init
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = init(build(torch.bfloat16), torch.Generator().manual_seed(SEED))
+    trainer = Trainer(model, ParallelConfig(batch_size=BATCH, image_size=SIZE),
+                      learning_rate=0.001, momentum=0.9, device=DEVICE, remat=policy)
+    x, y = main_batch(DEVICE)
+    first = float(trainer.train_step(x, y)["loss"])
+    counters = {name: mod for name, mod in _counters().items() if name in PATH_KERNELS[path]}
+    for mod in counters.values():
+        mod.launch_count = 0
+    t = time.perf_counter()
+    loss = float(trainer.train_step(x, y)["loss"])
+    ms = (time.perf_counter() - t) * 1e3
+    launches = {name: mod.launch_count for name, mod in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    if not math.isfinite(loss):
+        raise AssertionError(f"{path} remat={policy!r}: second-step loss {loss}")
+    del trainer, model, x, y
+    return first, ms, launches, peak
+
+
+def phase_remat(policies):
+    """Phase m2: every ported remat policy at full width on the two main
+    paths @1024 bs2 (the first step's loss bit-equal to remat=False's, the
+    same K1-K3 launches a step; peak memory and a step's time printed), then
+    phase b's small f32 models under each policy against remat=False on
+    the card (loss equal, gradients within REMAT_GRAD_TOL)."""
+    import torch
+
+    for path, desc, build in main_models():
+        base = None
+        for policy in (False,) + tuple(policies):
+            first, ms, launches, peak = _remat_step(build, policy, path)
+            if base is None:
+                base = first, launches
+            elif first != base[0] or launches != base[1]:
+                raise AssertionError(
+                    f"{desc} remat={policy!r}: first-step loss {first!r} and launches {launches} "
+                    f"against remat=False's {base[0]!r} and {base[1]}")
+            log(f"[m2] {desc} remat={policy!r}: first-step loss {first:.6f}"
+                f"{' (bit-equal to remat=False)' if policy is not False else ''}, "
+                f"a step {ms:.1f} ms, peak memory allocated {peak / 2**30:.2f} GiB, "
+                f"launches a step {launches}")
+    torch.cuda.empty_cache()
+    for name, build, size in small_models():
+        want = small_step(build, size, DEVICE)
+        for policy in policies:
+            got = small_step(build, size, DEVICE, remat=policy)
+            worst = check_small(f"{name} remat={policy!r}", got, want, tol=REMAT_GRAD_TOL,
+                                loss_rtol=0.0)
+            log(f"[m2] small {name} f32 on the card, remat={policy!r}: loss {got[0]:.6f} equal "
+                f"to remat=False's; gradients normalised max|err| {worst:.2e} (tolerance "
+                f"{REMAT_GRAD_TOL:g})")
+
+
+def phase_bench_cli():
+    """Phase m3: ``python -m mpi4dl_tpu_torch.bench`` as a subprocess with
+    BENCH_MODEL=amoebanet BENCH_STEPS=3 BENCH_TIME_BUDGET=1: every JSON line
+    parses, the last is the headline with a value and an MFU, exit 0."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update(BENCH_MODEL="amoebanet", BENCH_STEPS="3", BENCH_TIME_BUDGET="1",
+               PYTHONPATH=here + os.pathsep + env.get("PYTHONPATH", ""))
+    t0 = time.time()
+    out = subprocess.run([sys.executable, "-m", "mpi4dl_tpu_torch.bench"], cwd=here, env=env,
+                         capture_output=True, text=True, timeout=600)
+    lines = out.stdout.splitlines()
+    records = [json.loads(line) for line in lines if line.startswith("{")]
+    if out.returncode != 0 or not records:
+        raise AssertionError(f"bench exited {out.returncode} with {len(records)} JSON lines: "
+                             f"{out.stdout[-2000:]} {out.stderr[-2000:]}")
+    last = records[-1]
+    if not (last.get("metric") == "amoebanetd_1024px_bs2_train_gpu"
+            and (last.get("value") or 0) > 0 and last.get("mfu")):
+        raise AssertionError(f"bench's last line: {last}")
+    for line in lines:
+        if not line.startswith("{"):
+            log(f"[m3] bench: {line}")
+    log(f"[m3] python -m mpi4dl_tpu_torch.bench (BENCH_MODEL=amoebanet BENCH_STEPS=3 "
+        f"BENCH_TIME_BUDGET=1): exit 0, {len(records)} JSON line(s) in {time.time() - t0:.1f} s, "
+        f"the last: {json.dumps(last)}")
 
 
 def sp_layout():
@@ -1294,13 +1519,15 @@ def phase_k3(gen, shapes):
 
 
 def _launch_fields(name, launches):
-    per_step = {path: n[name] // STEPS for path, n in launches.items() if name in PATH_KERNELS[path]}
+    steps = {path: STEPS_IN_RUN.get(path, STEPS) for path in launches
+             if name in PATH_KERNELS[path]}
+    per_step = {path: launches[path][name] // n for path, n in steps.items()}
     return {
         "launches": per_step[HOME_PATH[name]],
         "launches_path": HOME_PATH[name],
         "launches_per_step": per_step,
         "launches_in_run": {path: launches[path][name] for path in per_step},
-        "steps_in_run": STEPS,
+        "steps_in_run": steps,
     }
 
 
@@ -1524,6 +1751,7 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
         return 2
     import mpi4dl_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+    from mpi4dl_tpu_torch.train import PEAK_PIXEL_POLICIES, REMAT_POLICIES
 
     # f32 checks compare full-f32 products; the bf16 main paths are unaffected.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1541,6 +1769,9 @@ def main(argv=None) -> int:
             calls[path] = _new_calls()
             launches[path], first_loss[path], k1_copies[path], ips[path] = phase_main(
                 path, desc, build, calls[path], args.profile)
+        phase_bench_points(calls, launches)
+        phase_remat([p for p in REMAT_POLICIES if p is not False and p not in PEAK_PIXEL_POLICIES])
+        phase_bench_cli()
     for path in SP_PATHS:
         calls[path] = _new_calls()
     sp_launches, sp_ips, sp_cards, k4_timing = phase_spatial(calls, args.profile, first_loss)

@@ -1,0 +1,357 @@
+"""Training benchmark of the port (twin of ``bench.py``'s training points):
+
+    python -m mpi4dl_tpu_torch.bench                # on the card
+    python -m mpi4dl_tpu_torch.bench --device cpu   # small shapes on the CPU
+
+The headline is AmoebaNet-D 18L/416F @1024 bs2 (the reference's headline
+model), images/sec against the reference's best published number (its
+GPU cluster, ``BASELINE.md``); ``BENCH_MODEL=resnet`` makes ResNet-110 v2
+the headline. With ``BENCH_MODEL=all`` (the default) ``extras`` carries
+the other published chart points, in ``bench.py``'s order:
+``resnet110_1024px_bs2``, ``resnet110_2048px_bs1``,
+``amoebanetd_2048px_bs2`` (as two bs1 chunks, ``grad_accum=2``) and
+``amoebanetd_2048px_bs1``. Each entry has ``value`` (img/s), ``remat``
+(the policy that ran), ``mfu`` (:mod:`mpi4dl_tpu_torch.flops` on the
+logical model), ``step_time_s`` (p50/p90/p99) and ``vs_baseline``.
+
+Protocol (``bench.py``'s): one complete JSON line is printed and flushed
+when the headline lands and again after each extra; the last line is the
+one to keep. SIGTERM/SIGINT re-emit the latest line. Extras start only
+within ``BENCH_TIME_BUDGET`` seconds (default 1800) and are otherwise
+marked ``"skipped": "insufficient budget: ..."``. A run that measured
+nothing ends on a ``bench_failed_*`` line with ``error`` and exits 1; a
+failure after a value re-emits the value with a ``note`` and exits 0.
+Lines starting with ``#`` are comments (the policy tried, its peak memory).
+
+Environment: ``BENCH_IMAGE_SIZE`` (1024), ``BENCH_BATCH`` (2),
+``BENCH_STEPS`` (10), ``BENCH_MODEL`` (``all|amoebanet|resnet``),
+``BENCH_REMAT`` (pins one remat policy; ``false`` pins False),
+``BENCH_NO_ACCUM`` (run AmoebaNet-D @2048 bs2 unchunked) and
+``BENCH_TIME_BUDGET``.
+
+Each point trains 2 warm-up steps and then ``BENCH_STEPS`` timed ones, each
+timed on the host clock and ended by reading the loss. Parameters are f32
+and compute bf16 on the card; the batch comes from
+``numpy.random.default_rng(0)`` and the weights from seed 0. A point tries
+its remat policies in order, ``[False]`` and then ``bench.py``'s list for
+that point, and moves on only when the card runs out of memory. On the CPU
+the points shrink as ``bench.py``'s do: a 64 px headline of AmoebaNet-D
+6L/64F, f32, 3 steps, and the ResNet extra at 128 px.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import functools
+import gc
+import json
+import os
+import signal
+import sys
+import time
+
+import numpy as np
+import torch
+
+from mpi4dl_tpu_torch import flops
+from mpi4dl_tpu_torch.config import ParallelConfig
+from mpi4dl_tpu_torch.models.amoebanet import amoebanetd
+from mpi4dl_tpu_torch.models.resnet import get_resnet_v2
+from mpi4dl_tpu_torch.profiling import StepTimer
+from mpi4dl_tpu_torch.train import REMAT_POLICIES, Trainer
+from mpi4dl_tpu_torch.utils import get_depth, resolve_device
+from mpi4dl_tpu_torch.weights import init
+
+# The reference's best published img/s (``bench.py:72-78``, read off its
+# charts in ``BASELINE.md``: a multi-GPU cluster).
+RESNET_BASELINE = 3.1  # ResNet-110 @1024 bs2
+RESNET_2048_BASELINE = 1.0  # ResNet-110 @2048 bs1
+AMOEBA_BASELINE = {(1024, 2): 3.0, (2048, 2): 5.1, (2048, 1): 2.9}
+WARMUP = 2
+SEED = 0
+
+_T0 = time.monotonic()
+_RESULT: dict = {}  # the latest complete line
+
+
+def _emit():
+    """Print the current result as one flushed JSON line."""
+    if _RESULT:
+        print(json.dumps(_RESULT), flush=True)
+
+
+def _on_signal(signum, frame):  # noqa: ARG001
+    # Re-emit what there is and exit at once; exit 0 only if a value landed.
+    if _RESULT.get("value") is not None:
+        _RESULT.setdefault("note", f"interrupted by signal {signum}")
+        _emit()
+        os._exit(0)
+    out = {"metric": "bench_interrupted", "value": None, "unit": "images/sec",
+           "vs_baseline": None, "error": f"signal {signum} before any successful measurement"}
+    for key in ("extras", "headline_error"):
+        if _RESULT.get(key):
+            out[key] = _RESULT[key]
+    print(json.dumps(out), flush=True)
+    os._exit(1)
+
+
+def _budget() -> float:
+    return float(os.environ.get("BENCH_TIME_BUDGET", "1800"))
+
+
+def _remaining() -> float:
+    return _budget() - (time.monotonic() - _T0)
+
+
+def parse_remat(value: str):
+    """A ``BENCH_REMAT`` value as a Trainer policy."""
+    policy = {"false": False, "true": True}.get(value.lower(), value)
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"BENCH_REMAT must name a remat policy {REMAT_POLICIES}, got {value!r}")
+    return policy
+
+
+def train_throughput(build, image_size, batch, steps, device, remats, grad_accum=1,
+                     tag="", warmup=WARMUP, first_step=contextlib.nullcontext,
+                     timed_steps=contextlib.nullcontext):
+    """(img/s, remat policy that ran, ``StepTimer.summary()``) of a Trainer
+    over ``build()`` (a fresh model each policy), with weights from the
+    seed and a numpy-seeded batch.
+
+    The policies in ``remats`` are tried in order; the next one only after
+    ``torch.cuda.OutOfMemoryError`` in the warm-up, once the failed Trainer
+    is freed. Each timed step ends on the loss read. ``first_step`` and
+    ``timed_steps`` (context-manager factories) wrap the first warm-up step
+    and the timed steps."""
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(rng.standard_normal((batch, image_size, image_size, 3)))
+    y = torch.from_numpy(rng.integers(0, 10, size=(batch,)))
+    dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
+    x, y = x.to(device, dtype), y.to(device)
+    cfg = ParallelConfig(batch_size=batch, image_size=image_size)
+    on_card = device.type == "cuda"
+    trainer = None
+    for n, remat in enumerate(remats):
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(device)
+        failed = None
+        try:
+            trainer = Trainer(init(build(), torch.Generator().manual_seed(SEED)), cfg,
+                              remat=remat, grad_accum=grad_accum, device=device)
+            for i in range(warmup):
+                with first_step() if i == 0 else contextlib.nullcontext():
+                    float(trainer.train_step(x, y)["loss"])
+        except torch.cuda.OutOfMemoryError as e:
+            if n == len(remats) - 1:
+                raise
+            failed = f"{type(e).__name__}: {str(e)[:120]}"
+        if failed is None:
+            break
+        trainer = None  # free the failed Trainer before the next policy starts
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"# {tag} remat={remat!r} ran out of memory (peak allocated "
+              f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB): {failed!r}; "
+              f"trying remat={remats[n + 1]!r}", flush=True)
+    timer = StepTimer(batch_size=batch, warmup=0)
+    with timed_steps():
+        for _ in range(steps):
+            with timer.step():
+                float(trainer.train_step(x, y)["loss"])
+    summary = timer.summary()
+    peak = (f"peak memory allocated {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB"
+            if on_card else "peak memory not measured on the CPU")
+    print(f"# {tag} remat={trainer.remat!r}: {peak}, step median "
+          f"{summary['step_time_median_s']:.4f} s", flush=True)
+    ips = batch * steps / sum(timer.times)
+    return ips, trainer.remat, summary
+
+
+def step_percentiles(summary: dict) -> dict:
+    """p50/p90/p99 step times from a ``StepTimer.summary()``."""
+    return {p: round(summary[f"step_time_{p}_s"], 4) for p in ("p50", "p90", "p99")
+            if f"step_time_{p}_s" in summary}
+
+
+def _mfu(ips, model, size):
+    util = flops.mfu(ips, flops.train_flops_per_image(model, size))
+    return round(util, 4) if util is not None else None
+
+
+def resnet_remats(size: int) -> list:
+    """[False], then ``bench.py``'s ResNet order for the size."""
+    return [False] + (["cell_save", "scan_save", "scan"] if size < 2048 else ["scan"])
+
+
+# [False], then ``bench.py``'s AmoebaNet-D order, the same at every size (at
+# 2048 px and up ``bench.py`` grants ``scan_save`` a save budget, which is not
+# ported: here it saves every conv output).
+AMOEBA_REMATS = (False, "scan_save", "scan")
+
+
+def measure_resnet(size, b, baseline, device, steps, remats=None, **kw):
+    """One ResNet-110 v2 point (head pool ``size // 4``, as
+    ``bench.py:1667-1693``)."""
+    depth = get_depth(2, 12)
+    dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
+    build = functools.partial(get_resnet_v2, depth, 10, pool_kernel=size // 4, dtype=dtype)
+    ips, remat, summary = train_throughput(
+        build, size, b, steps, device, remats or resnet_remats(size),
+        tag=f"resnet110_{size}px_bs{b}", **kw)
+    with torch.device("meta"):
+        logical = get_resnet_v2(depth, 10, pool_kernel=size // 4)
+    return {
+        "value": round(ips, 3),
+        "remat": remat,
+        "mfu": _mfu(ips, logical, size),
+        "step_time_s": step_percentiles(summary),
+        "vs_baseline": round(ips / baseline, 3),
+    }
+
+
+def measure_amoeba(size, b, device, steps, remats=None, no_accum=False, **kw):
+    """One AmoebaNet-D point: 18L/416F on the card, 6L/64F on the CPU. At
+    2048 px and up a batch over 1 runs as bs1 chunks (``grad_accum = b``,
+    per-chunk BN; ``bench.py:1708-1711``) unless ``no_accum``."""
+    on_cpu = device.type == "cpu"
+    layers, filters = (6, 64) if on_cpu else (18, 416)
+    dtype = torch.float32 if on_cpu else torch.bfloat16
+    build = functools.partial(amoebanetd, 10, layers, filters, dtype=dtype)
+    accum = b if size >= 2048 and b > 1 and not no_accum else 1
+    ips, remat, summary = train_throughput(
+        build, size, b, steps, device, remats or AMOEBA_REMATS, grad_accum=accum,
+        tag=f"amoebanetd_{size}px_bs{b}", **kw)
+    with torch.device("meta"):
+        logical = amoebanetd(10, layers, filters)
+    entry = {
+        "value": round(ips, 3),
+        "remat": remat,
+        "mfu": _mfu(ips, logical, size),
+        "step_time_s": step_percentiles(summary),
+    }
+    if accum > 1:
+        entry["grad_accum"] = accum
+        entry["note"] = (f"bs-{b // accum} chunks x{accum} (GEMS --times semantics, "
+                         "per-chunk BN) vs the reference's full-batch number")
+    base = AMOEBA_BASELINE.get((size, b))
+    if base:
+        entry["vs_baseline"] = round(ips / base, 3)
+    return entry
+
+
+def main(argv=None):
+    signal.signal(signal.SIGTERM, _on_signal)
+    signal.signal(signal.SIGINT, _on_signal)
+    _budget()  # a malformed BENCH_TIME_BUDGET fails before any training
+    ap = argparse.ArgumentParser(description="Training benchmark of mpi4dl_tpu_torch.")
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default; raises without a GPU) or cpu")
+    args = ap.parse_args(argv)
+
+    image_size = int(os.environ.get("BENCH_IMAGE_SIZE", "1024"))
+    batch = int(os.environ.get("BENCH_BATCH", "2"))
+    steps = int(os.environ.get("BENCH_STEPS", "10"))
+    which = os.environ.get("BENCH_MODEL", "all")
+    if which not in ("resnet", "amoebanet", "all"):
+        raise ValueError(f"BENCH_MODEL must be resnet|amoebanet|all, got {which!r}")
+    pinned = os.environ.get("BENCH_REMAT")
+    remats = [parse_remat(pinned)] if pinned else None
+    no_accum = bool(os.environ.get("BENCH_NO_ACCUM"))
+    device = resolve_device(args.device)
+    on_cpu = device.type == "cpu"
+    platform = "cpu" if on_cpu else "gpu"
+    if on_cpu and "BENCH_IMAGE_SIZE" not in os.environ:
+        image_size, steps = 128, 3  # keep the CPU smoke path tractable
+    point = dict(device=device, steps=steps, remats=remats)
+
+    extras: dict = {}
+    headline_error = None
+    h_size = h_b = None
+    try:
+        if which in ("amoebanet", "all"):
+            h_size, h_b = (image_size, batch) if not on_cpu else (64, 2)
+            entry = measure_amoeba(h_size, h_b, no_accum=no_accum, **point)
+            entry.setdefault("vs_baseline", None)
+            _RESULT.update(metric=f"amoebanetd_{h_size}px_bs{h_b}_train_{platform}",
+                           unit="images/sec", **entry)
+        else:
+            entry = measure_resnet(image_size, batch, RESNET_BASELINE, **point)
+            _RESULT.update(metric=f"resnet110_{image_size}px_bs{batch}_train_{platform}",
+                           unit="images/sec", **entry)
+        _emit()
+    except Exception as e:  # noqa: BLE001 — the extras may still succeed
+        headline_error = f"{type(e).__name__}: {str(e)[:200]}"
+        _RESULT["headline_error"] = headline_error
+        print(f"# headline failed: {headline_error}", flush=True)
+
+    def run_extra(tag, fn, est_seconds=300.0):
+        """Run one extra under the budget and re-emit either way; without a
+        headline, a successful extra becomes the headline."""
+        if _remaining() < est_seconds:
+            extras[tag] = {
+                "skipped": f"insufficient budget: {int(_remaining())}s of "
+                f"{int(_budget())}s left, estimated need {int(est_seconds)}s"
+            }
+        else:
+            try:
+                extras[tag] = fn()
+            except Exception as e:  # noqa: BLE001 — extras never kill the line
+                extras[tag] = {"error": f"{type(e).__name__}: {str(e)[:200]}"}
+        if _RESULT.get("metric") is None and extras[tag].get("value") is not None:
+            _RESULT.update(metric=f"{tag}_train_{platform}", unit="images/sec", **extras[tag])
+            _RESULT.setdefault("vs_baseline", None)
+        _RESULT["extras"] = extras
+        if _RESULT.get("metric"):
+            _emit()
+
+    if which in ("resnet", "all") and not on_cpu:
+        if which == "all":
+            run_extra(f"resnet110_{image_size}px_bs{batch}",
+                      lambda: measure_resnet(image_size, batch, RESNET_BASELINE, **point),
+                      est_seconds=300.0)
+        run_extra("resnet110_2048px_bs1",
+                  lambda: measure_resnet(2048, 1, RESNET_2048_BASELINE, **point),
+                  est_seconds=200.0)
+    elif which == "all" and on_cpu:
+        run_extra(f"resnet110_{image_size}px_bs{batch}",
+                  lambda: measure_resnet(image_size, batch, RESNET_BASELINE, **point),
+                  est_seconds=120.0)
+    if which in ("amoebanet", "all") and not on_cpu:
+        for size, b in [(2048, 2), (2048, 1)]:
+            if (size, b) == (h_size, h_b):
+                continue  # already the headline
+            run_extra(f"amoebanetd_{size}px_bs{b}",
+                      functools.partial(measure_amoeba, size, b, no_accum=no_accum, **point),
+                      est_seconds=300.0)
+
+    if _RESULT.get("value") is None:
+        _RESULT.update({
+            "metric": _RESULT.get("metric") or f"bench_failed_{platform}",
+            "value": None,
+            "unit": "images/sec",
+            "vs_baseline": None,
+            "error": headline_error or "no configuration produced a throughput",
+            "extras": extras,
+        })
+        _emit()
+        sys.exit(1)
+
+
+if __name__ == "__main__":
+    try:
+        main()
+    except SystemExit:
+        raise
+    except Exception as _e:  # noqa: BLE001
+        # Every way out leaves one parseable line: a value that landed is
+        # re-emitted with a note; otherwise the setup failure is the line.
+        if _RESULT.get("value") is not None:
+            _RESULT["note"] = (f"late failure after measurement: "
+                               f"{type(_e).__name__}: {str(_e)[:200]}")
+            _emit()
+            sys.exit(0)
+        print(json.dumps({"metric": "bench_failed_setup", "value": None, "unit": "images/sec",
+                          "vs_baseline": None, "error": f"{type(_e).__name__}: {str(_e)[:300]}"}),
+              flush=True)
+        sys.exit(1)

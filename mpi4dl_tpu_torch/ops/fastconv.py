@@ -23,6 +23,7 @@ counterpart here.
 from __future__ import annotations
 
 import math
+import threading
 
 import torch
 import torch.nn as nn
@@ -85,15 +86,32 @@ class ConvS1(torch.autograd.Function):
         return dx, dw.permute(3, 2, 0, 1).to(w.dtype), None
 
 
+# ``active`` is True while this thread runs ``conv2d``: the conv-saving remat
+# policies keep the outputs of its conv ops (``is_conv_output``), the twin of
+# the JAX package's ``conv_out`` tag (``fastconv.py:540-552``).
+_conv = threading.local()
+_CONV_OPS = (torch.ops.aten.convolution.default, torch.ops.aten.mm.default)
+
+
+def is_conv_output(op) -> bool:
+    """Whether ``op`` (an aten overload, as a dispatch mode sees it) is the
+    conv op of a running ``conv2d``: ``F.conv2d`` or Conv1x1's matmul."""
+    return getattr(_conv, "active", False) and op in _CONV_OPS
+
+
 def conv2d(x, w, strides=(1, 1), padding=(0, 0)):
     """2-D conv (NCHW x OIHW -> NCHW), symmetric zero padding (ph, pw)."""
     strides, padding = tuple(strides), tuple(padding)
     o, c, kh, kw = w.shape
-    if strides == (1, 1) and (kh, kw) != (1, 1):
-        return ConvS1.apply(x, w, padding)
-    if (kh, kw) == (1, 1) and strides == (1, 1) and padding == (0, 0):
-        return Conv1x1.apply(x, w.reshape(o, c).t())
-    return F.conv2d(x, w, None, strides, padding)
+    _conv.active = True
+    try:
+        if strides == (1, 1) and (kh, kw) != (1, 1):
+            return ConvS1.apply(x, w, padding)
+        if (kh, kw) == (1, 1) and strides == (1, 1) and padding == (0, 0):
+            return Conv1x1.apply(x, w.reshape(o, c).t())
+        return F.conv2d(x, w, None, strides, padding)
+    finally:
+        _conv.active = False
 
 
 def lecun_normal_(t: torch.Tensor, fan_in: int, generator=None) -> torch.Tensor:
