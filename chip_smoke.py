@@ -41,6 +41,31 @@ Phases (any failure exits non-zero; nothing is caught):
          (BENCH_MODEL=amoebanet BENCH_STEPS=3 BENCH_TIME_BUDGET=1): every
          JSON line parses, the last is ``amoebanetd_1024px_bs2_train_gpu``
          with a value and an MFU, exit 0;
+  w. the peak-pixel walk's slice, in this process:
+     w1. ResNet-110 v2 @1024 bs2 under ``scan2``, ``scan2`` with
+         ``MPI4DL_TPU_SCAN2_OFFLOAD=1``, ``scanlog``, ``scanq``, ``scanq``
+         with a store budget, ``scan_save`` with a save budget and ``scan``
+         with a no-checkpoint budget (``WALK_VARIANTS``): the first step's
+         loss bit-equal to remat=False's (phase m2's) and the same K2/K3
+         launches a step; peak memory, a step's time and the budgets'
+         grants printed. Then phase b's small f32 models and ResNet-v1
+         depth 44 @32 bs2 (runs of 6 cells) under each variant against
+         remat=False (loss equal, gradients within ``REMAT_GRAD_TOL``);
+     w2. the walk's steps past what remat=False fits, ResNet-110 v2 bs1:
+         @3072 under ``scanlog`` and @4096 under ``scanq`` with the bench's
+         3000 MB store budget, 2 steps each. The first records the
+         kernels' call shapes (phases d-g gate and time them: x up to
+         [1,4096,4096,64], 2^31 bytes); every count is set to 0 before the
+         second and read after it: K2 and K3 launch as often as on phase
+         c's ResNet-110 path; peak memory and step times printed;
+     w3. (after phase g) K1 at AmoebaNet-D 18L/416F @4096 bs1's shapes
+         (phase m1's @2048 bs1 shapes, H and W doubled) and K2/K3 at
+         ResNet-110's stage-0 shapes @8192 bs1 (x[1,8192,8192,64], 2^32
+         elements), bf16, against their plain versions (K1 exact, K2/K3
+         within phases e-f's tolerances; K2's and K3's dw, sums of 2^26
+         products, held against a float64 sum, their errors against the f32
+         plain version printed beside it), then timed beside the library
+         call and the bound;
   s. the spatial slice in 4 rank processes (``parallel.multihost.spawn``)
      on a 2x2 tile grid. With 4 or more cards, one rank per card and
      NCCL; with fewer, the ranks share card 0 over a gloo group, and K4's
@@ -191,6 +216,25 @@ STEPS_IN_RUN = {path: BENCH_STEPS for path, *_ in BENCH_POINTS}
 # normalised (the backward sums the same products; only cuDNN's data
 # gradient may order them differently).
 REMAT_GRAD_TOL = 1e-5
+# Phase w1: the peak-pixel walk's policies and the budgets, each (policy,
+# environment), on ResNet-110 v2 @1024 bs2. Its runs' carries are 0.74,
+# 1.48 and 2.95 GB, so a 1000 MB store grants the last run only; the save
+# and no-checkpoint budgets likewise grant some runs, not all.
+WALK_VARIANTS = [
+    ("scan2", {}), ("scan2", {"MPI4DL_TPU_SCAN2_OFFLOAD": "1"}), ("scanlog", {}),
+    ("scanq", {}), ("scanq", {"MPI4DL_TPU_SCANQ_STORE_MB": "1000"}),
+    ("scan_save", {"MPI4DL_TPU_SAVE_BUDGET_MB": "2000"}),
+    ("scan", {"MPI4DL_TPU_NOCKPT_BUDGET_MB": "4000"}),
+]
+# Phase w2: (path, image size, policy, environment) of the walk's steps past
+# what remat=False fits, ResNet-110 v2 bs1 (the 4096 one with the bench's
+# scanq store budget).
+WALK_POINTS = [
+    ("resnet_walk_3072", 3072, "scanlog", {}),
+    ("resnet_walk_4096", 4096, "scanq", {"MPI4DL_TPU_SCANQ_STORE_MB": "3000"}),
+]
+PATH_KERNELS.update({path: _MODEL_KERNELS["resnet"] for path, *_ in WALK_POINTS})
+STEPS_IN_RUN.update({path: 1 for path, *_ in WALK_POINTS})
 # The path whose slice ported each kernel: a kernels row's ``launches`` is
 # that path's count per step (``launches_per_step`` gives every path's).
 HOME_PATH = {"pool_bwd": "amoebanet", "dot1x1_bwd": "amoebanet", "wgrad": "resnet",
@@ -666,8 +710,11 @@ def _remat_step(build, policy, path):
     peak = torch.cuda.max_memory_allocated()
     if not math.isfinite(loss):
         raise AssertionError(f"{path} remat={policy!r}: second-step loss {loss}")
+    grants = {key: {i: round(v / 1e6, 1) for i, v in getattr(trainer, key).items()}
+              for key in ("save_grants", "nockpt_grants", "scanq_grant_bytes")
+              if getattr(trainer, key)}
     del trainer, model, x, y
-    return first, ms, launches, peak
+    return first, ms, launches, peak, grants
 
 
 def phase_remat(policies):
@@ -675,15 +722,17 @@ def phase_remat(policies):
     paths @1024 bs2 (the first step's loss bit-equal to remat=False's, the
     same K1-K3 launches a step; peak memory and a step's time printed), then
     phase b's small f32 models under each policy against remat=False on
-    the card (loss equal, gradients within REMAT_GRAD_TOL)."""
+    the card (loss equal, gradients within REMAT_GRAD_TOL). Returns each
+    path's remat=False first-step loss and launches."""
     import torch
 
+    bases = {}
     for path, desc, build in main_models():
         base = None
         for policy in (False,) + tuple(policies):
-            first, ms, launches, peak = _remat_step(build, policy, path)
+            first, ms, launches, peak, _ = _remat_step(build, policy, path)
             if base is None:
-                base = first, launches
+                base = bases[path] = first, launches
             elif first != base[0] or launches != base[1]:
                 raise AssertionError(
                     f"{desc} remat={policy!r}: first-step loss {first!r} and launches {launches} "
@@ -702,6 +751,7 @@ def phase_remat(policies):
             log(f"[m2] small {name} f32 on the card, remat={policy!r}: loss {got[0]:.6f} equal "
                 f"to remat=False's; gradients normalised max|err| {worst:.2e} (tolerance "
                 f"{REMAT_GRAD_TOL:g})")
+    return bases
 
 
 def phase_bench_cli():
@@ -730,6 +780,248 @@ def phase_bench_cli():
     log(f"[m3] python -m mpi4dl_tpu_torch.bench (BENCH_MODEL=amoebanet BENCH_STEPS=3 "
         f"BENCH_TIME_BUDGET=1): exit 0, {len(records)} JSON line(s) in {time.time() - t0:.1f} s, "
         f"the last: {json.dumps(last)}")
+
+
+def _env(values):
+    """A context manager that sets the environment variables ``values`` for
+    its block and restores what was there before."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def scope():
+        before = {k: os.environ.get(k) for k in values}
+        os.environ.update(values)
+        try:
+            yield
+        finally:
+            for k, v in before.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    return scope()
+
+
+def _variant(policy, env):
+    return f"remat={policy!r}" + "".join(f" {k}={v}" for k, v in env.items())
+
+
+def walk_small_models():
+    """Phase b's small f32 models and ResNet-v1 depth 44 @32 bs2, whose
+    planned runs of 6 cells take scan2's chunks and scanq's sweep."""
+    from mpi4dl_tpu_torch.models.resnet import get_resnet_v1
+
+    return small_models() + [("ResNet-v1 depth 44 @32 bs2",
+                              lambda: get_resnet_v1(44, 10, pool_kernel=8), 32)]
+
+
+def phase_walk_policies(base):
+    """Phase w1: ResNet-110 v2 @1024 bs2 under each of ``WALK_VARIANTS``
+    (a remat policy and its budgets): the first step's loss bit-equal to
+    remat=False's and K2/K3 launching as often a step (``base``: phase m2's
+    remat=False first loss and launches); peak memory, a step's time and
+    the budgets' grants printed. Then the small f32 models under each
+    variant on the card against remat=False (loss equal, gradients within
+    ``REMAT_GRAD_TOL``)."""
+    import torch
+
+    desc, build = next((d, b) for p, d, b in main_models() if p == "resnet")
+    for policy, env in WALK_VARIANTS:
+        with _env(env):
+            first, ms, launches, peak, grants = _remat_step(build, policy, "resnet")
+        if first != base[0] or launches != base[1]:
+            raise AssertionError(
+                f"{desc} {_variant(policy, env)}: first-step loss {first!r} and launches "
+                f"{launches} against remat=False's {base[0]!r} and {base[1]}")
+        log(f"[w1] {desc} {_variant(policy, env)}: first-step loss {first:.6f} (bit-equal to "
+            f"remat=False), a step {ms:.1f} ms, peak memory allocated {peak / 2**30:.2f} GiB, "
+            f"launches a step {launches}; grants {grants}")
+    torch.cuda.empty_cache()
+    for name, build, size in walk_small_models():
+        want = small_step(build, size, DEVICE)
+        for policy, env in WALK_VARIANTS:
+            with _env(env):
+                got = small_step(build, size, DEVICE, remat=policy)
+            worst = check_small(f"{name} {_variant(policy, env)}", got, want,
+                                tol=REMAT_GRAD_TOL, loss_rtol=0.0)
+            log(f"[w1] small {name} f32 on the card, {_variant(policy, env)}: loss "
+                f"{got[0]:.6f} equal to remat=False's; gradients normalised max|err| "
+                f"{worst:.2e} (tolerance {REMAT_GRAD_TOL:g})")
+
+
+def phase_walk_steps(calls, launches):
+    """Phase w2: the walk's steps past what remat=False fits, ResNet-110 v2
+    bs1 bf16: @3072 under scanlog and @4096 under scanq (with the bench's
+    store budget). The first step records the kernels' call shapes into
+    ``calls[path]``; every count is set to 0 just before the second step
+    and read just after it, and K2 and K3 must launch as often as on phase
+    c's ResNet-110 path a step; peak memory and both steps' times
+    printed."""
+    import torch
+
+    from mpi4dl_tpu_torch.config import ParallelConfig
+    from mpi4dl_tpu_torch.models.resnet import get_resnet_v2
+    from mpi4dl_tpu_torch.train import Trainer
+    from mpi4dl_tpu_torch.weights import init
+
+    for path, size, policy, env in WALK_POINTS:
+        calls[path] = _new_calls()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with _env(env):
+            model = init(get_resnet_v2(RESNET_DEPTH, 10, pool_kernel=size // 4,
+                                       dtype=torch.bfloat16), torch.Generator().manual_seed(SEED))
+            trainer = Trainer(model, ParallelConfig(batch_size=1, image_size=size),
+                              learning_rate=0.001, momentum=0.9, device=DEVICE, remat=policy)
+            gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+            x = torch.randn((1, size, size, 3), generator=gen, device=DEVICE).to(torch.bfloat16)
+            y = torch.randint(0, 10, (1,), generator=gen, device=DEVICE)
+            restore = _record_shapes(calls[path])
+            t = time.perf_counter()
+            try:
+                first = float(trainer.train_step(x, y)["loss"])
+            finally:
+                for undo in restore:
+                    undo()
+            first_s = time.perf_counter() - t
+            counters = _counters()
+            for mod in counters.values():
+                mod.launch_count = 0
+            t = time.perf_counter()
+            loss = float(trainer.train_step(x, y)["loss"])
+            step_s = time.perf_counter() - t
+            launches[path] = {name: mod.launch_count for name, mod in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        if not (math.isfinite(first) and math.isfinite(loss)):
+            raise AssertionError(f"{path}: losses {first}, {loss}")
+        for name in PATH_KERNELS[path]:
+            want = launches["resnet"][name] // STEPS
+            if launches[path][name] != want:
+                raise AssertionError(f"{path}: {name} launched {launches[path][name]} times in "
+                                     f"a step, want {want} (phase c's ResNet-110 a step)")
+        log(f"[w2] {path}: ResNet-{RESNET_DEPTH} v2 @{size} bs1, bf16 compute, f32 params, "
+            f"{_variant(policy, env)}: losses {first:.4f}, {loss:.4f}; steps {first_s:.2f} s "
+            f"(the first) and {step_s:.2f} s, {1 / step_s:.4f} img/s; peak memory allocated "
+            f"{peak / 2**30:.2f} GiB; scanq store grants {trainer.scanq_grant_bytes}; launches "
+            f"a step {launches[path]}")
+        del trainer, model, x, y
+    torch.cuda.empty_cache()
+
+
+def walk_large_shapes(calls):
+    """Phase w3's shapes: K1 at AmoebaNet-D 18L/416F @4096 bs1's (phase
+    m1's @2048 bs1 call shapes with H and W doubled: the model is fully
+    convolutional), K2 and K3 at ResNet-110's stage-0 shapes @8192 bs1
+    (every tensor past 2^31 elements or bytes)."""
+    k1 = sorted({((b, 2 * h, 2 * w, c),) + tuple(geom)
+                 for (b, h, w, c), *geom in calls["amoebanet_2048_bs1"]["pool_bwd"]})
+    k2 = [((1, 8192, 8192, 3), 16, 3, 3, 1, 1), ((1, 8192, 8192, 16), 16, 3, 3, 1, 1),
+          ((1, 8192, 8192, 64), 16, 3, 3, 1, 1)]
+    k3 = [((1, 8192, 8192, 16), 64)]
+    return {"pool_bwd": k1, "wgrad": k2, "dot1x1_bwd": k3}
+
+
+def dw_f64(x, dy, kh, kw, ph, pw, band=512):
+    """K2's dw (and K3's, as 1x1) summed in float64 over bands of ``band``
+    output rows: the exact sum of the bf16 products, to the last f32 bit.
+    At 8192 px a dw entry sums 2^26 products, and the f32 plain version's
+    own rounding comes within a factor of the gate."""
+    import torch
+    import torch.nn.functional as F
+
+    c, o = x.shape[3], dy.shape[3]
+    h, ho, wo = x.shape[1], dy.shape[1], dy.shape[2]
+    dw = torch.zeros((kh, kw, c, o), dtype=torch.float64, device=x.device)
+    for r0 in range(0, ho, band):
+        r1 = min(r0 + band, ho)
+        lo, hi = r0 - ph, r1 + kh - 1 - ph  # the x rows the band's outputs read
+        xb = F.pad(x[:, max(lo, 0):min(hi, h)].double(),
+                   (0, 0, pw, pw, max(-lo, 0), max(hi - h, 0)))
+        dyb = dy[:, r0:r1].reshape(-1, o).double()
+        for u in range(kh):
+            for v in range(kw):
+                dw[u, v] += xb[:, u:u + r1 - r0, v:v + wo, :].reshape(-1, c).t() @ dyb
+        del xb, dyb
+    return dw
+
+
+def rel_err64(got, want) -> float:
+    """:func:`rel_err` in float64 (for a float64 reference)."""
+    scale = float(want.double().abs().max())
+    return float((got.double() - want.double()).abs().max()) / max(scale, 1e-300)
+
+
+def phase_walk_large(gen, calls):
+    """Phase w3: K1, K2 and K3 against their plain versions at
+    :func:`walk_large_shapes`, bf16 (K1 exact on tie-heavy integers; K2's
+    dw and K3's dx and dw within the tolerances of phases e-f), then each
+    timed beside its library call and its bound. K2's and K3's dw are
+    held against :func:`dw_f64`; their errors against the f32 plain
+    version, and that version's own error, are printed beside it. (Phases
+    d-g cover the ResNet-110 @3072 and @4096 shapes phase w2 recorded.)"""
+    import torch
+
+    from mpi4dl_tpu_torch.ops import dot1x1_kernel, pool_kernel, wgrad_kernel
+
+    shapes = walk_large_shapes(calls)
+    for shape, kh, kw, sh, sw, ph, pw in shapes["pool_bwd"]:
+        b, h, w, c = shape
+        ho, wo = pool_kernel.out_size(h, kh, sh, ph), pool_kernel.out_size(w, kw, sw, pw)
+        x = torch.randint(0, 3, shape, generator=gen, device=DEVICE).to(torch.bfloat16)
+        dy = torch.randint(-64, 64, (b, ho, wo, c), generator=gen, device=DEVICE)
+        dy = dy.to(torch.bfloat16)
+        got = pool_kernel.pool_bwd(x, dy, kh, kw, sh, sw, ph, pw)
+        want = pool_kernel.pool_bwd_reference(x, dy, kh, kw, sh, sw, ph, pw)
+        if not torch.equal(got, want):
+            err = float((got.float() - want.float()).abs().max())
+            raise AssertionError(f"K1 x{list(shape)} {kh}x{kw} s({sh},{sw}) p({ph},{pw}): "
+                                 f"max |err| {err}")
+        log(f"[w3] K1 x{list(shape)} {kh}x{kw} s({sh},{sw}) p({ph},{pw}) bf16: equal to the "
+            f"plain version (tie-heavy ints)")
+        del x, dy, got, want
+    for (b, h, w, c), o, kh, kw, ph, pw in shapes["wgrad"]:
+        x = torch.randn((b, h, w, c), generator=gen, device=DEVICE).to(torch.bfloat16)
+        dy = torch.randn((b, h, w, o), generator=gen, device=DEVICE).to(torch.bfloat16)
+        dw = wgrad_kernel.wgrad(x, dy, kh, kw, ph, pw)
+        ref32 = wgrad_kernel.wgrad_reference(x, dy, kh, kw, ph, pw)
+        ref64 = dw_f64(x, dy, kh, kw, ph, pw)
+        err, err32, ref_err = rel_err64(dw, ref64), rel_err(dw, ref32), rel_err64(ref32, ref64)
+        if not err <= DW_TOL:
+            raise AssertionError(f"K2 x[{b},{h},{w},{c}]->{o} bf16: max|err|/max|ref| "
+                                 f"{err:.3g} against float64 (tolerance {DW_TOL})")
+        log(f"[w3] K2 x[{b},{h},{w},{c}]->{o} {kh}x{kw} p({ph},{pw}) bf16 ({x.numel()} "
+            f"elements, {x.numel() * 2} bytes): max|err|/max|ref| {err:.2e} against float64 "
+            f"(tolerance {DW_TOL}); {err32:.2e} against the f32 plain version, whose own is "
+            f"{ref_err:.2e}")
+        del x, dy, dw, ref32, ref64
+        torch.cuda.empty_cache()
+    for (b, h, w, c), o in shapes["dot1x1_bwd"]:
+        x = torch.randn((b, h, w, c), generator=gen, device=DEVICE).to(torch.bfloat16)
+        dy = torch.randn((b, h, w, o), generator=gen, device=DEVICE).to(torch.bfloat16)
+        w2 = (torch.randn((c, o), generator=gen, device=DEVICE) / c**0.5).to(torch.bfloat16)
+        dx, dw = dot1x1_kernel.bwd_1x1(x, dy, w2)
+        rdx, rdw = dot1x1_kernel.bwd_1x1_reference(x, dy, w2)
+        rdw64 = dw_f64(x, dy, 1, 1, 0, 0).view(rdw.shape)
+        e_dx, e_dw = rel_err(dx, rdx), rel_err64(dw, rdw64)
+        e_dw32, ref_err = rel_err(dw, rdw), rel_err64(rdw, rdw64)
+        if not (e_dx <= K3_DX_TOL["bfloat16"] and e_dw <= DW_TOL):
+            raise AssertionError(f"K3 x[{b},{h},{w},{c}]->{o} bf16: dx {e_dx:.3g}, dw {e_dw:.3g} "
+                                 f"against float64")
+        log(f"[w3] K3 x[{b},{h},{w},{c}]->{o} bf16 (dy {dy.numel()} elements): max|err|/max|ref| "
+            f"dx {e_dx:.1e}, dw {e_dw:.2e} against float64 (tolerances "
+            f"{K3_DX_TOL['bfloat16']}, {DW_TOL}); dw {e_dw32:.2e} against the f32 plain "
+            f"version, whose own is {ref_err:.2e}")
+        del x, dy, w2, dx, dw, rdx, rdw, rdw64
+        torch.cuda.empty_cache()
+    for name, make in (("pool_bwd", _k1_case), ("wgrad", _k2_case), ("dot1x1_bwd", _k3_case)):
+        for shape in shapes[name]:
+            case = make(gen, shape)
+            ms, lib = cuda_ms(case["kernel"], iters=3), cuda_ms(case["library"], iters=3)
+            log(f"[w3] {name} {case['desc']}: kernel {ms:.4f} ms, library {lib:.4f} ms, bound "
+                f"{case['bound']['bound_ms']:.4f} ms ({case['bound']['bound_by']})")
+            del case
+            torch.cuda.empty_cache()
 
 
 def sp_layout():
@@ -1770,8 +2062,11 @@ def main(argv=None) -> int:
             launches[path], first_loss[path], k1_copies[path], ips[path] = phase_main(
                 path, desc, build, calls[path], args.profile)
         phase_bench_points(calls, launches)
-        phase_remat([p for p in REMAT_POLICIES if p is not False and p not in PEAK_PIXEL_POLICIES])
+        bases = phase_remat([p for p in REMAT_POLICIES
+                             if p is not False and p not in PEAK_PIXEL_POLICIES])
         phase_bench_cli()
+        phase_walk_policies(bases["resnet"])
+        phase_walk_steps(calls, launches)
     for path in SP_PATHS:
         calls[path] = _new_calls()
     sp_launches, sp_ips, sp_cards, k4_timing = phase_spatial(calls, args.profile, first_loss)
@@ -1795,6 +2090,7 @@ def main(argv=None) -> int:
         per_shape["pool_bwd"].update(phase_k1_copies(gen, k1_copies))
         for row in rows:
             row.update(per_shape.get(row["name"], {}))
+        phase_walk_large(gen, calls)
     rows.append(halo_row(k4_timing, launches))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -12,7 +12,11 @@ the other published chart points, in ``bench.py``'s order:
 ``amoebanetd_2048px_bs2`` (as two bs1 chunks, ``grad_accum=2``) and
 ``amoebanetd_2048px_bs1``. Each entry has ``value`` (img/s), ``remat``
 (the policy that ran), ``mfu`` (:mod:`mpi4dl_tpu_torch.flops` on the
-logical model), ``step_time_s`` (p50/p90/p99) and ``vs_baseline``.
+logical model), ``step_time_s`` (p50/p90/p99) and ``vs_baseline``. On the
+card, with ``BENCH_MODEL=resnet`` or ``all``, the last extra is
+``resnet_peak_pixels`` (:func:`resnet_peak_pixels`, ``bench.py``'s
+capability metric): the largest square image whose whole ResNet-110 v2
+training step fits the card at bs1.
 
 Protocol (``bench.py``'s): one complete JSON line is printed and flushed
 when the headline lands and again after each extra; the last line is the
@@ -34,9 +38,12 @@ timed on the host clock and ended by reading the loss. Parameters are f32
 and compute bf16 on the card; the batch comes from
 ``numpy.random.default_rng(0)`` and the weights from seed 0. A point tries
 its remat policies in order, ``[False]`` and then ``bench.py``'s list for
-that point, and moves on only when the card runs out of memory. On the CPU
-the points shrink as ``bench.py``'s do: a 64 px headline of AmoebaNet-D
-6L/64F, f32, 3 steps, and the ResNet extra at 128 px.
+that point, and moves on only when the card runs out of memory. At
+2048 px and up an AmoebaNet-D point runs ``scan_save`` with
+``MPI4DL_TPU_SAVE_BUDGET_MB=6000`` unless that variable or ``BENCH_REMAT``
+is set (``bench.py:1712-1736``; the variable is popped afterwards). On the
+CPU the points shrink as ``bench.py``'s do: a 64 px headline of
+AmoebaNet-D 6L/64F, f32, 3 steps, and the ResNet extra at 128 px.
 """
 
 from __future__ import annotations
@@ -54,7 +61,7 @@ import time
 import numpy as np
 import torch
 
-from mpi4dl_tpu_torch import flops
+from mpi4dl_tpu_torch import flops, peak_pixels
 from mpi4dl_tpu_torch.config import ParallelConfig
 from mpi4dl_tpu_torch.models.amoebanet import amoebanetd
 from mpi4dl_tpu_torch.models.resnet import get_resnet_v2
@@ -185,9 +192,30 @@ def resnet_remats(size: int) -> list:
 
 
 # [False], then ``bench.py``'s AmoebaNet-D order, the same at every size (at
-# 2048 px and up ``bench.py`` grants ``scan_save`` a save budget, which is not
-# ported: here it saves every conv output).
+# 2048 px and up ``scan_save`` runs under the save budget below).
 AMOEBA_REMATS = (False, "scan_save", "scan")
+# ``bench.py:1712-1736``: the save budget an AmoebaNet-D point at 2048 px and
+# up grants ``scan_save`` unless the variable or BENCH_REMAT is set.
+AMOEBA_SAVE_BUDGET_MB = "6000"
+# The peak-pixel walk (``bench.py:1933-2133``): ResNet-110 v2 at bs1, these
+# sizes after 2048 px; WALK_STEPS timed steps after one warm-up each.
+WALK_SIZES = (3072, 4096, 8192)
+WALK_STEPS = 3
+
+
+@contextlib.contextmanager
+def _env_default(name, value, when=True):
+    """``name=value`` in the environment for the block when ``when`` and
+    the variable is unset; popped afterwards (``bench.py``'s ``pop``, so a
+    block that clears it cannot turn the cleanup into a KeyError)."""
+    set_here = when and name not in os.environ
+    if set_here:
+        os.environ[name] = value
+    try:
+        yield
+    finally:
+        if set_here:
+            os.environ.pop(name, None)
 
 
 def measure_resnet(size, b, baseline, device, steps, remats=None, **kw):
@@ -219,9 +247,11 @@ def measure_amoeba(size, b, device, steps, remats=None, no_accum=False, **kw):
     dtype = torch.float32 if on_cpu else torch.bfloat16
     build = functools.partial(amoebanetd, 10, layers, filters, dtype=dtype)
     accum = b if size >= 2048 and b > 1 and not no_accum else 1
-    ips, remat, summary = train_throughput(
-        build, size, b, steps, device, remats or AMOEBA_REMATS, grad_accum=accum,
-        tag=f"amoebanetd_{size}px_bs{b}", **kw)
+    with _env_default("MPI4DL_TPU_SAVE_BUDGET_MB", AMOEBA_SAVE_BUDGET_MB,
+                      when=size >= 2048 and not remats):
+        ips, remat, summary = train_throughput(
+            build, size, b, steps, device, remats or AMOEBA_REMATS, grad_accum=accum,
+            tag=f"amoebanetd_{size}px_bs{b}", **kw)
     with torch.device("meta"):
         logical = amoebanetd(10, layers, filters)
     entry = {
@@ -237,6 +267,73 @@ def measure_amoeba(size, b, device, steps, remats=None, no_accum=False, **kw):
     base = AMOEBA_BASELINE.get((size, b))
     if base:
         entry["vs_baseline"] = round(ips / base, 3)
+    return entry
+
+
+def walk_remats(size: int, pinned=None) -> list:
+    """A walk size's policies: ``pinned`` (BENCH_REMAT) if given, else
+    :func:`~mpi4dl_tpu_torch.peak_pixels.size_remats` (``scanlog, scanq``
+    after False below 4096 px, ``scanq`` from 4096: ``bench.py``'s list)."""
+    return list(pinned) if pinned else peak_pixels.size_remats("resnet", size)
+
+
+def resnet_peak_pixels(device, prior_ips=None, record=None, remats=None, sizes=WALK_SIZES,
+                       steps=WALK_STEPS, **kw):
+    """``bench.py``'s ``resnet_peak_pixels`` extra: the largest square
+    image whose whole ResNet-110 v2 training step (head pool ``size // 4``,
+    bf16 compute) fits the card at bs1.
+
+    2048 px is recorded from ``prior_ips`` (the ``resnet110_2048px_bs1``
+    point's img/s) when given; then each of ``sizes`` is tried with
+    :func:`walk_remats` (one warm-up and ``steps`` timed steps, a policy
+    giving way to the next only on ``torch.cuda.OutOfMemoryError``), a
+    ``scanq`` attempt under ``MPI4DL_TPU_SCANQ_STORE_MB=3000`` unless the
+    variable is set (popped afterwards). Each success is recorded at once
+    through ``record(entry)``. The first failure ends the walk with
+    ``stopped_by`` (``"<size>: <Exception>: <message[:120]>"``), and an
+    OOM also with ``oom``: ``{"parsed", "largest_buffer"}``
+    (:func:`~mpi4dl_tpu_torch.peak_pixels.walk_stop`).
+
+    ``bench.py``'s known-fatal sentinel (``.cache/bench_known_fatal.json``)
+    is not ported: it saves a failed XLA compile (about 10 minutes that no
+    cache keeps) from being paid again; an eager attempt that runs out of
+    memory fails within seconds."""
+    entry = {"peak_trainable_px_per_chip": None, "img_per_sec_at_peak": None,
+             "unit": "square image side, bs=1, one chip"}
+
+    def note(size, ips, stopped_by=None, oom=None):
+        if size is not None:
+            entry["peak_trainable_px_per_chip"] = size
+            entry["img_per_sec_at_peak"] = ips
+        if stopped_by:
+            entry["stopped_by"] = stopped_by
+        if oom is not None:
+            entry["oom"] = oom
+        if record:
+            record(entry)
+
+    if prior_ips is not None:
+        note(2048, prior_ips)
+    depth = get_depth(2, 12)
+    dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
+    for size in sizes:
+        if _remaining() < 150:
+            note(None, None, f"{size}: budget exhausted before attempt")
+            break
+        policies = walk_remats(size, remats)
+        build = functools.partial(get_resnet_v2, depth, 10, pool_kernel=size // 4, dtype=dtype)
+        try:
+            with _env_default("MPI4DL_TPU_SCANQ_STORE_MB", peak_pixels.SCANQ_STORE_MB,
+                              when="scanq" in policies):
+                ips, _, _ = train_throughput(build, size, 1, steps, device, policies, warmup=1,
+                                             tag=f"resnet110_{size}px_bs1_walk", **kw)
+        except Exception as e:  # noqa: BLE001 — the walk stops here
+            note(None, None, **peak_pixels.walk_stop(size, e))
+            break
+        note(size, round(ips, 3))
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
     return entry
 
 
@@ -324,6 +421,17 @@ def main(argv=None):
             run_extra(f"amoebanetd_{size}px_bs{b}",
                       functools.partial(measure_amoeba, size, b, no_accum=no_accum, **point),
                       est_seconds=300.0)
+    if which in ("resnet", "all") and not on_cpu:
+        def record(entry):
+            # Each size lands on a line at once: a later attempt may not end.
+            extras["resnet_peak_pixels"] = dict(entry)
+            _RESULT["extras"] = extras
+            if _RESULT.get("metric"):
+                _emit()
+
+        prior = extras.get("resnet110_2048px_bs1", {}).get("value")
+        run_extra("resnet_peak_pixels",
+                  lambda: resnet_peak_pixels(device, prior, record, remats), est_seconds=150.0)
 
     if _RESULT.get("value") is None:
         _RESULT.update({

@@ -35,6 +35,7 @@ from mpi4dl_tpu_torch.ops.layers import (
     linear,
     reset_linear,
 )
+from mpi4dl_tpu_torch.utils import keeps_config
 
 
 def _conv(in_features, features, kernel_size, strides, padding, dtype, grid):
@@ -176,6 +177,7 @@ REDUCTION_OPERATIONS = [
 REDUCTION_CONCAT = [4, 5, 6]
 
 
+@keeps_config
 class Stem(nn.Module):
     """relu → 3×3 stride-2 conv → BN (ref ``Stem``, ``amoebanet.py:417-446``)."""
 
@@ -188,6 +190,7 @@ class Stem(nn.Module):
         return self.bn(self.conv(F.relu(x)))
 
 
+@keeps_config
 class Classify(nn.Module):
     """Global avg pool → linear ``fc`` on the concat state (ref
     ``Classify``, ``amoebanet.py:401-414``)."""
@@ -206,6 +209,7 @@ class Classify(nn.Module):
         return linear(self.fc, x.mean(dim=(2, 3)), self.dtype)
 
 
+@keeps_config
 class AmoebaCell(nn.Module):
     """Two-state NAS cell (ref ``Cell``, ``amoebanet.py:449-532``). Input: a
     tensor (after the stem) or an ``(s, skip)`` tuple; output ``(concat,

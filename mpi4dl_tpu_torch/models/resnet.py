@@ -26,8 +26,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mpi4dl_tpu_torch.ops.layers import Conv2d, Dense, Pool, TrainBatchNorm
+from mpi4dl_tpu_torch.utils import keeps_config
 
 
+@keeps_config
 class ResNetLayer(nn.Module):
     """conv/BN/ReLU unit (ref ``resnet_layer``, ``resnet.py:24-78``):
     conv → BN → ReLU, or BN → ReLU → conv when ``conv_first`` is False.
@@ -58,6 +60,7 @@ class ResNetLayer(nn.Module):
         return self.conv(self._bn_relu(x))
 
 
+@keeps_config
 class CellV1(nn.Module):
     """Basic residual cell (ref ``make_cell_v1``, ``resnet.py:81-114``):
     two 3x3 layers, a 1x1 shortcut conv on each later stack's first block,
@@ -81,6 +84,7 @@ class CellV1(nn.Module):
         return F.relu(x + y)
 
 
+@keeps_config
 class CellV2(nn.Module):
     """Pre-activation bottleneck cell (ref ``make_cell_v2``,
     ``resnet.py:181-231``): 3x3, 3x3, 1x1, and a 1x1 shortcut conv on each
@@ -130,8 +134,11 @@ def _v2_specs(depth: int) -> list[dict]:
                 features_out = features_in * 2
                 if res_block == 0:
                     strides = 2
+            # Only res_block == 0 changes a cell; the clamped index makes a
+            # stage's later cells configured identically (``train``'s scan
+            # planner groups them), as ``resnet.py:311-316`` does.
             specs.append(dict(
-                res_block=res_block, strides=strides, features1=features_in,
+                res_block=min(res_block, 1), strides=strides, features1=features_in,
                 features2=features_out, activation=activation,
                 batch_normalization=batch_normalization,
             ))
@@ -139,6 +146,7 @@ def _v2_specs(depth: int) -> list[dict]:
     return specs
 
 
+@keeps_config
 class HeadV1(nn.Module):
     """AvgPool + Linear head (ref ``end_part_v1``, ``resnet.py:117-142``;
     logits instead of softmax)."""
@@ -152,6 +160,7 @@ class HeadV1(nn.Module):
         return self.fc(self.pool(x))
 
 
+@keeps_config
 class HeadV2(nn.Module):
     """BN + ReLU + AvgPool + Linear head (ref ``end_part_v2``,
     ``resnet.py:234-267``; logits instead of softmax)."""
@@ -199,8 +208,10 @@ def get_resnet_v1(depth: int, num_classes: int = 10, spatial_cells: int = 0,
     for stack in range(3):
         for res_block in range(n_blocks):
             strides = 2 if (stack > 0 and res_block == 0) else 1
-            cells.append(CellV1(features_in, stack, res_block, strides, features, dtype=dtype,
-                                grid=_grid(cells, spatial_cells, grid)))
+            # Clamped indices, as ``resnet.py:403-408``: only (stack > 0,
+            # res_block == 0) changes a cell.
+            cells.append(CellV1(features_in, min(stack, 1), min(res_block, 1), strides, features,
+                                dtype=dtype, grid=_grid(cells, spatial_cells, grid)))
             features_in = features
         features *= 2
     cells.append(HeadV1(features_in, num_classes, pool_kernel, dtype=dtype))

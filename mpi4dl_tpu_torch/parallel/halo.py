@@ -24,6 +24,9 @@ rank it came from and is added to that rank's edge rows.
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 import torch.distributed as dist
 
@@ -31,6 +34,26 @@ from mpi4dl_tpu_torch.ops.halo_kernel import SLOT_BYTES, swap_dist_reference, sw
 from mpi4dl_tpu_torch.parallel.multihost import AXIS_TILE_H, AXIS_TILE_W, TileGrid
 
 _DIM = {AXIS_TILE_H: 2, AXIS_TILE_W: 3}  # NCHW dim of each tile axis
+_walk = threading.local()
+
+
+@contextlib.contextmanager
+def shape_walk():
+    """Within this block, on this thread, an exchange of a meta tensor
+    returns the halo-extended tile's shape (no data, no communication), as
+    does the cross-tile BN's moment mean: the scan planner of
+    ``train.Trainer`` walks spatial cells on the meta device. Outside it a
+    meta tensor has no exchange."""
+    before = getattr(_walk, "on", False)
+    _walk.on = True
+    try:
+        yield
+    finally:
+        _walk.on = before
+
+
+def in_shape_walk() -> bool:
+    return getattr(_walk, "on", False)
 
 
 def _format(x) -> torch.memory_format:
@@ -224,6 +247,10 @@ class HaloExchange(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, halo_h: int, halo_w: int, grid: TileGrid, fill_value):
         ctx.geom = (halo_h, halo_w, grid)
+        if x.device.type == "meta" and in_shape_walk():
+            b, c, h, w = x.shape
+            return x.new_empty((b, c, h + 2 * halo_h, w + 2 * halo_w)).contiguous(
+                memory_format=_format(x))
         if x.device.type == "cpu":
             return exchange_plain(x, halo_h, halo_w, grid, fill_value)
         if not x.is_cuda:

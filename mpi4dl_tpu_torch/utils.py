@@ -2,6 +2,9 @@
 
 from __future__ import annotations
 
+import functools
+import inspect
+
 import torch
 
 
@@ -32,3 +35,36 @@ def resolve_device(device=None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def keeps_config(cls):
+    """Class decorator for ``nn.Module`` cells: each instance keeps its
+    constructor arguments, defaults filled in, as ``init_config`` (a tuple
+    of ``(name, value)``). The port's counterpart of a Flax module's
+    dataclass fields, which ``==`` compares: two cells built with the same
+    arguments are configured identically (:func:`same_config`)."""
+    init = cls.__init__
+    sig = inspect.signature(init)
+
+    @functools.wraps(init)
+    def __init__(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        if type(self) is cls:  # a subclass records its own arguments
+            bound = sig.bind(self, *args, **kwargs)
+            bound.apply_defaults()
+            self.init_config = tuple(bound.arguments.items())[1:]
+
+    cls.__init__ = __init__
+    return cls
+
+
+def same_config(a, b) -> bool:
+    """Whether cells ``a`` and ``b`` are configured identically: the same
+    class, the same constructor arguments (:func:`keeps_config`) and the
+    same parameter names and shapes. A cell that records no arguments is
+    identical to nothing."""
+    ca, cb = getattr(a, "init_config", None), getattr(b, "init_config", None)
+    if type(a) is not type(b) or ca is None or cb is None or ca != cb:
+        return False
+    pa = [(n, tuple(p.shape)) for n, p in a.named_parameters()]
+    return pa == [(n, tuple(p.shape)) for n, p in b.named_parameters()]

@@ -141,3 +141,153 @@ def test_resnet_points_try_false_first():
     assert bench.resnet_remats(1024) == [False, "cell_save", "scan_save", "scan"]
     assert bench.resnet_remats(2048) == [False, "scan"]
     assert bench.parse_remat("false") is False and bench.parse_remat("scan") == "scan"
+
+
+# -- the peak-pixel walk ---------------------------------------------------------
+
+# A CUDA caching-allocator OOM message, in the allocator's wording.
+_OOM = ("CUDA out of memory. Tried to allocate 8.00 GiB. GPU 0 has a total capacity of "
+        "79.18 GiB of which 5.19 GiB is free. Including non-PyTorch memory, this process has "
+        "73.98 GiB memory in use. Of the allocated memory 72.11 GiB is allocated by PyTorch, "
+        "and 1.21 GiB is reserved by PyTorch but unallocated.")
+
+
+def test_peak_pixel_walk_records_success_then_oom(monkeypatch):
+    """``bench.py:1933-2133``'s walk: 2048 from the prior point, each size
+    with [False] then bench.py's list, the scanq store budget set for a
+    scanq attempt only and popped after it; the first failure (an OOM
+    here) ends the walk with ``stopped_by`` and the parsed ``oom``."""
+    import torch
+
+    from mpi4dl_tpu_torch import bench
+
+    monkeypatch.delenv("MPI4DL_TPU_SCANQ_STORE_MB", raising=False)
+    calls, lines = [], []
+
+    def fake_throughput(build, image_size, b, steps, device, remats, warmup=2, **kw):
+        calls.append((image_size, b, steps, warmup, list(remats),
+                      os.environ.get("MPI4DL_TPU_SCANQ_STORE_MB")))
+        if image_size == 4096:
+            raise torch.cuda.OutOfMemoryError(_OOM)
+        return 0.25, remats[-1], {}
+
+    monkeypatch.setattr(bench, "train_throughput", fake_throughput)
+    monkeypatch.setattr(bench, "_remaining", lambda: 1e9)  # however long ago bench was imported
+    entry = bench.resnet_peak_pixels(torch.device("cpu"), prior_ips=1.7,
+                                     record=lambda e: lines.append(dict(e)))
+    assert calls == [(3072, 1, 3, 1, [False, "scanlog", "scanq"], "3000"),
+                     (4096, 1, 3, 1, [False, "scanq"], "3000")]
+    assert "MPI4DL_TPU_SCANQ_STORE_MB" not in os.environ
+    assert set(entry) == {"peak_trainable_px_per_chip", "img_per_sec_at_peak", "unit",
+                          "stopped_by", "oom"}
+    assert entry["peak_trainable_px_per_chip"] == 3072 and entry["img_per_sec_at_peak"] == 0.25
+    assert entry["unit"] == "square image side, bs=1, one chip"
+    assert entry["stopped_by"] == f"4096: OutOfMemoryError: {_OOM[:120]}"
+    parsed = entry["oom"]["parsed"]
+    assert parsed["kind"] == "allocator_oom" and parsed["requested_bytes"] == 8 * 2**30
+    assert parsed["limit_bytes"] == int(79.18 * 2**30)
+    assert parsed["used_bytes"] == int(73.98 * 2**30)
+    assert entry["oom"]["largest_buffer"] == "8.00G requested"
+    # Each milestone was recorded as it landed: 2048, 3072, then the stop.
+    assert [line["peak_trainable_px_per_chip"] for line in lines] == [2048, 3072, 3072]
+    assert "stopped_by" not in lines[1] and lines[2] == entry
+
+
+def test_peak_pixel_walk_stops_on_any_error_and_keeps_a_set_budget(monkeypatch):
+    """A non-OOM error also ends the walk (no ``oom`` key); a store budget
+    the caller set is kept for the attempt and left in place."""
+    import torch
+
+    from mpi4dl_tpu_torch import bench
+
+    monkeypatch.setenv("MPI4DL_TPU_SCANQ_STORE_MB", "123")
+    seen = []
+
+    def fake_throughput(build, image_size, b, steps, device, remats, **kw):
+        seen.append(os.environ["MPI4DL_TPU_SCANQ_STORE_MB"])
+        raise RuntimeError("cuDNN error: CUDNN_STATUS_NOT_SUPPORTED")
+
+    monkeypatch.setattr(bench, "train_throughput", fake_throughput)
+    monkeypatch.setattr(bench, "_remaining", lambda: 1e9)
+    entry = bench.resnet_peak_pixels(torch.device("cpu"))
+    assert seen == ["123"] and os.environ["MPI4DL_TPU_SCANQ_STORE_MB"] == "123"
+    assert entry == {"peak_trainable_px_per_chip": None, "img_per_sec_at_peak": None,
+                     "unit": "square image side, bs=1, one chip",
+                     "stopped_by": "3072: RuntimeError: cuDNN error: CUDNN_STATUS_NOT_SUPPORTED"}
+
+
+@pytest.mark.parametrize("size,pinned,preset,want", [
+    (2048, None, None, "6000"), (1024, None, None, None),
+    (2048, ["scan"], None, None), (2048, None, "100", "100")])
+def test_amoeba_save_budget_set_and_popped(monkeypatch, size, pinned, preset, want):
+    """``bench.py:1712-1736``: an AmoebaNet-D point at 2048 px and up runs
+    under ``MPI4DL_TPU_SAVE_BUDGET_MB=6000`` unless BENCH_REMAT pins a
+    policy or the variable is set; the default is popped afterwards."""
+    import torch
+
+    from mpi4dl_tpu_torch import bench
+
+    if preset:
+        monkeypatch.setenv("MPI4DL_TPU_SAVE_BUDGET_MB", preset)
+    else:
+        monkeypatch.delenv("MPI4DL_TPU_SAVE_BUDGET_MB", raising=False)
+    seen = []
+
+    def fake_throughput(build, image_size, b, steps, device, remats, **kw):
+        seen.append((list(remats), os.environ.get("MPI4DL_TPU_SAVE_BUDGET_MB")))
+        return 2.5, remats[0], {"step_time_p50_s": 0.8, "step_time_p90_s": 0.9,
+                                "step_time_p99_s": 1.0}
+
+    monkeypatch.setattr(bench, "train_throughput", fake_throughput)
+    bench.measure_amoeba(size, 1, device=torch.device("cpu"), steps=1, remats=pinned)
+    assert seen == [(pinned or [False, "scan_save", "scan"], want)]
+    assert os.environ.get("MPI4DL_TPU_SAVE_BUDGET_MB") == preset
+
+
+def test_walk_policies_follow_bench_py():
+    from mpi4dl_tpu_torch import bench, peak_pixels
+
+    assert bench.walk_remats(3072) == [False, "scanlog", "scanq"]
+    assert bench.walk_remats(4096) == bench.walk_remats(8192) == [False, "scanq"]
+    assert bench.walk_remats(4096, ["scanlog"]) == ["scanlog"]
+    # scripts/peak_pixels.py's lists, after False.
+    assert peak_pixels.size_remats("resnet", 1024) == [False, "cell_save", "scan_save", "scan"]
+    assert peak_pixels.size_remats("amoebanet", 2048) == [False, "scan_save", "scan"]
+    assert peak_pixels.size_remats("amoebanet", 3072) == [False, "scanlog", "scanq"]
+    assert peak_pixels.size_remats("resnet", 16384) == [False, "scanq"]
+
+
+def test_peak_pixels_size_reports_the_walk_stop(monkeypatch):
+    """A size's subprocess reports a failed attempt as the bench's walk
+    does: ``stopped_by`` and the parsed ``oom``."""
+    import torch
+
+    from mpi4dl_tpu_torch import bench, peak_pixels
+
+    def fake_throughput(*args, **kw):
+        raise torch.cuda.OutOfMemoryError(_OOM)
+
+    monkeypatch.setattr(bench, "train_throughput", fake_throughput)
+    result = peak_pixels.try_size("resnet", 16, 1, [False], "cpu")
+    assert result == {"ok": False, **peak_pixels.walk_stop(16, torch.cuda.OutOfMemoryError(_OOM))}
+    assert result["stopped_by"] == f"16: OutOfMemoryError: {_OOM[:120]}"
+    assert result["oom"]["largest_buffer"] == "8.00G requested"
+
+
+def test_peak_pixels_cli_walks_on_the_cpu():
+    """``python -m mpi4dl_tpu_torch.peak_pixels --device cpu``: one
+    subprocess a size, a line each, the summary JSON last."""
+    base = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env = dict(base, PYTHONPATH=REPO + os.pathsep + base.get("PYTHONPATH", ""),
+               OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-m", "mpi4dl_tpu_torch.peak_pixels", "--device",
+                          "cpu", "--start", "16", "--max", "32"], env=env, capture_output=True,
+                         text=True, timeout=300, cwd=REPO)
+    assert out.returncode == 0, out.stderr[-2000:]
+    lines = out.stdout.splitlines()
+    assert lines[0].startswith("16px: OK ") and lines[1].startswith("32px: OK ")
+    assert lines[2] == "peak trainable: 32px at bs=1"
+    summary = json.loads(lines[-1])
+    assert summary["peak_px"] == 32 and summary["stopped_by"] is None
+    assert set(summary["sizes"]) == {"16", "32"}
+    assert all(r["ok"] and r["remat"] is False for r in summary["sizes"].values())

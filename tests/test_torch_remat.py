@@ -1,18 +1,27 @@
 """The port's remat policies change what the forward stores, never the math,
 CPU.
 
-- Every ported policy (``True``, ``"cell"``, ``"sqrt"``, ``"scan"``,
-  ``"cell_save"``, ``"scan_save"``, ``"group_save"``) on ResNet-v1 depth 8
-  @32 bs4 and AmoebaNet-D 3L/32F @64 bs2: after two SGD-momentum steps the
-  loss, accuracy and every parameter are ``torch.equal`` to the port's
-  ``remat=False`` run from the same weights and batches.
+- Every policy (``True``, ``"cell"``, ``"sqrt"``, ``"scan"``, ``"scan2"``,
+  ``"scanlog"``, ``"scanq"``, ``"cell_save"``, ``"scan_save"``,
+  ``"group_save"``) on ResNet-v1 depth 8 @32 bs4 and AmoebaNet-D 3L/32F
+  @64 bs2: after two SGD-momentum steps the loss, accuracy and every
+  parameter are ``torch.equal`` to the port's ``remat=False`` run from the
+  same weights and batches.
+- The peak-pixel walk's policies where their schedules differ from
+  ``"cell"`` (ResNet-v1 depth 44 @32 bs2, whose planned runs have 6 cells,
+  and AmoebaNet-D 18L/32F @64 bs2, whose runs have 4): ``torch.equal`` to
+  False after two steps, and each cell's forwards a step equal to the
+  schedule's count (see ``_expected_forwards``); ``"scan2"`` with
+  ``MPI4DL_TPU_SCAN2_OFFLOAD=1`` too, its interior chunk inputs passing
+  through the host hooks; ``MPI4DL_TPU_NOCKPT_BUDGET_MB`` at a budget that
+  grants some runs but not all, under ``"scan"``, ``"scan_save"`` and
+  ``"scanq"``.
 - The recomputations replay forwards only: K1, K2 and K3 (their wrappers
   run in backwards) are called as often a step under every policy as under
   False, and the conv-saving policies run no conv op twice (the same count
   of ``aten.convolution`` and ``aten.mm`` executions a step as False, where
   ``"cell"`` runs more).
-- ``"scan2"``, ``"scanlog"`` and ``"scanq"`` raise ``NotImplementedError``;
-  an unknown policy raises ``ValueError`` with the JAX Trainer's message.
+- An unknown policy raises ``ValueError`` with the JAX Trainer's message.
 - ``"scan_save"`` against the JAX ``Trainer(remat="scan_save")`` from the
   same weights (``weights.from_jax_params``), two steps, JAX in float64
   (ResNet-v1's own f32 JAX gradients are loose), with the tolerances of
@@ -21,7 +30,10 @@ CPU.
 - On the 2x2 gloo grid (4 spawned ranks, spatial ResNet-v1 depth 8 with 3
   spatial cells @32 bs4): ``"cell_save"`` equal to the spatial
   ``remat=False`` step, bit for bit (a recomputed cell repeats its halo
-  exchanges and BN all-reduces in the same order on every rank); and the
+  exchanges and BN all-reduces in the same order on every rank); so is
+  ``"scanq"`` on spatial ResNet-v1 depth 26 with 5 spatial cells, whose
+  planned run of 3 spatial cells takes the anchored-quadratic backward
+  (its replays repeat exchanges and all-reduces in order); and the
   spatial ``grad_accum=2`` step against the port's single-device
   ``grad_accum=2`` step (f32 both, only the reduction order differs: loss
   rtol 1e-6, gradients and params per leaf atol 1e-4).
@@ -41,13 +53,14 @@ from mpi4dl_tpu_torch.models.amoebanet import amoebanetd
 from mpi4dl_tpu_torch.ops import fastconv, pool_kernel
 from mpi4dl_tpu_torch.parallel import multihost
 from mpi4dl_tpu_torch.parallel.multihost import TileGrid
-from mpi4dl_tpu_torch.train import PEAK_PIXEL_POLICIES, REMAT_POLICIES, Trainer
+from mpi4dl_tpu_torch import train
+from mpi4dl_tpu_torch.train import REMAT_POLICIES, Trainer
 from mpi4dl_tpu_torch.weights import flax_arrays, from_jax_params, init
 
 torch.set_num_threads(1)
 
 LR, MOMENTUM = 0.1, 0.9
-POLICIES = [p for p in REMAT_POLICIES if p is not False and p not in PEAK_PIXEL_POLICIES]
+POLICIES = [p for p in REMAT_POLICIES if p is not False]
 SAVE_POLICIES = ("cell_save", "scan_save", "group_save")
 # name: (builder, image size, batch)
 MODELS = {
@@ -70,14 +83,18 @@ class _CountOps(TorchDispatchMode):
     """Counts the conv ops that execute (a selective checkpoint serves its
     saved outputs without executing them): the model's convs and matmuls,
     and apart from them the depthwise convs of the avg pools (not conv
-    outputs in the JAX package either: recomputed under every policy)."""
+    outputs in the JAX package either: recomputed under every policy). Ops
+    on meta tensors (the scan planner's shape walk) execute nothing and are
+    not counted."""
 
     def __init__(self):
         super().__init__()
         self.counts = collections.Counter()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func is torch.ops.aten.convolution.default:
+        if args and isinstance(args[0], torch.Tensor) and args[0].is_meta:
+            pass
+        elif func is torch.ops.aten.convolution.default:
             self.counts["avg pool" if args[8] > 1 else str(func)] += 1
         elif func is torch.ops.aten.mm.default:
             self.counts[str(func)] += 1
@@ -152,13 +169,6 @@ def test_policy_is_bit_equal_to_no_remat(plain, remat):
     else:
         conv = "aten.convolution.default"
         assert got["ops"][conv] > want["ops"][conv]  # the convs are recomputed
-
-
-@pytest.mark.parametrize("remat", PEAK_PIXEL_POLICIES)
-def test_peak_pixel_policies_are_not_ported(remat):
-    with pytest.raises(NotImplementedError, match="peak-pixel"):
-        Trainer(resnet.get_resnet_v1(8, 10), ParallelConfig(batch_size=4), remat=remat,
-                device="cpu")
 
 
 @pytest.mark.parametrize("remat", ["bogus", "Cell", 2])
@@ -263,31 +273,188 @@ def test_scan_save_matches_jax_scan_save():
     _assert_step_close(got, want, start, atol=1e-3, loss_rtol=1e-5)
 
 
+# -- the peak-pixel walk's schedules -------------------------------------------
+
+# name: (model function, image size, batch); their planned runs have 6 and 4 cells.
+WALK_MODELS = {
+    "resnet_v1_depth44": (lambda: resnet.get_resnet_v1(44, 10, pool_kernel=8), 32, 2),
+    "amoebanet_18L_32F": (lambda: amoebanetd(10, 18, 32), 64, 2),
+}
+# MPI4DL_TPU_NOCKPT_BUDGET_MB that grants some runs of each model but not
+# all (their residual estimates are 0.1-10.3 MB and 0.05-15.2 MB a run).
+NOCKPT_MB = "10"
+
+
+def _chunks(m):
+    """scan2's chunks of a run of m cells: (lo, hi) pairs."""
+    g = max(2, int(round(m ** 0.5)))
+    bounds = [0, m % g] if m % g else [0]
+    while bounds[-1] < m:
+        bounds.append(bounds[-1] + g)
+    return list(zip(bounds, bounds[1:]))
+
+
+def _expected_forwards(policy, runs, n):
+    """Each cell's forward calls in one step under ``policy``, from its
+    schedule. False runs a cell once; every checkpointed cell twice (the
+    forward and its own checkpoint's replay). On top of that:
+
+    - ``"scanq"``, a run of m >= 3: cell k also runs once in each later
+      cell's sweep from the anchor (m - k + 1 in all; 2m + m(m-1)/2 a run);
+    - ``"scan2"``, a run of m >= 4: a chunk's replay runs its cells but
+      the last (a replay stops once it has rebuilt the last tensor the
+      chunk saved, its last cell's input), 3 each;
+    - ``"scanlog"``: every left half's replay runs its cells but the last,
+      one more each, at every level of the recursion."""
+    count = [1 if policy is False else 2] * n
+    if policy == "scanq":
+        for run in runs:
+            if len(run) >= 3:
+                for k, i in enumerate(run):
+                    count[i] = len(run) - k + 1
+    elif policy == "scan2":
+        for run in runs:
+            if len(run) >= 4:
+                for lo, hi in _chunks(len(run)):
+                    for i in run[lo:hi - 1]:
+                        count[i] = 3
+    elif policy == "scanlog":
+        def rec(i, j):
+            if j - i > 1:
+                mid = (i + j) // 2
+                for c in range(i, mid - 1):
+                    count[c] += 1
+                rec(i, mid)
+                rec(mid, j)
+        rec(0, n)
+    return count
+
+
+def _run_walk(name, remat):
+    """Two steps of a WALK_MODELS model: per step (loss, accuracy), the
+    params after, each cell's forwards in the first step, and the planned
+    runs."""
+    build, size, batch = WALK_MODELS[name]
+    model = init(build(), torch.Generator().manual_seed(0))
+    forwards = collections.Counter()
+
+    def count(i, args):
+        if train._flat(args[0])[0].device.type != "meta":  # not the planner's walk
+            forwards[i] += 1
+
+    for i, cell in enumerate(model):
+        cell.register_forward_pre_hook(lambda mod, args, i=i: count(i, args))
+    trainer = Trainer(model, ParallelConfig(batch_size=batch, image_size=size),
+                      learning_rate=LR, momentum=MOMENTUM, remat=remat, device="cpu")
+    metrics, counts = [], None
+    for x, y in _batches(size, batch):
+        m = trainer.train_step(x, y)
+        metrics.append((m["loss"], m["accuracy"]))
+        counts = counts or [forwards[i] for i in range(len(model))]
+    return {"metrics": metrics, "params": [p.detach().clone() for p in trainer.model.parameters()],
+            "forwards": counts, "runs": trainer.scan_plan(torch.zeros(batch, 3, size, size)),
+            "trainer": trainer}
+
+
+def _assert_bit_equal(got, want):
+    for (gl, ga), (wl, wa) in zip(got["metrics"], want["metrics"]):
+        assert torch.equal(gl, wl) and torch.equal(ga, wa)
+    assert len(got["params"]) == len(want["params"])
+    for g, w in zip(got["params"], want["params"]):
+        assert torch.equal(g, w)
+
+
+@pytest.fixture(scope="module", params=sorted(WALK_MODELS))
+def walk_plain(request):
+    return request.param, _run_walk(request.param, False)
+
+
+@pytest.mark.parametrize("remat", ["scan2", "scanlog", "scanq", "cell", True], ids=str)
+def test_walk_policy_runs_its_schedule(walk_plain, remat):
+    name, want = walk_plain
+    got = _run_walk(name, remat)
+    _assert_bit_equal(got, want)
+    n = len(got["forwards"])
+    assert max(len(r) for r in got["runs"]) == (6 if name.startswith("resnet") else 4)
+    assert want["forwards"] == _expected_forwards(False, want["runs"], n)
+    assert got["forwards"] == _expected_forwards(remat, got["runs"], n)
+
+
+def test_scan2_offload_is_bit_equal_through_the_host_hooks(walk_plain, monkeypatch):
+    """``MPI4DL_TPU_SCAN2_OFFLOAD=1``: the input of every chunk but a run's
+    first and last passes through the host pack hook (a run of 6 has
+    three chunks of 2, one interior; a run of 4 two, none)."""
+    name, want = walk_plain
+    packed = []
+
+    def to_host(t):
+        packed.append(tuple(t.shape))
+        return orig(t)
+
+    orig = train._to_host
+    monkeypatch.setattr(train, "_to_host", to_host)
+    monkeypatch.setenv("MPI4DL_TPU_SCAN2_OFFLOAD", "1")
+    got = _run_walk(name, "scan2")
+    _assert_bit_equal(got, want)
+    assert got["forwards"] == _expected_forwards("scan2", got["runs"], len(got["forwards"]))
+    interior = sum(max(len(_chunks(len(r))) - 2, 0) for r in got["runs"] if len(r) >= 4)
+    assert interior == (3 if name.startswith("resnet") else 0)
+    assert len(packed) == 2 * interior  # a tensor state, two steps
+
+
+@pytest.mark.parametrize("remat", ["scan", "scan_save", "scanq"])
+def test_nockpt_budget_is_bit_equal(walk_plain, monkeypatch, remat):
+    """``MPI4DL_TPU_NOCKPT_BUDGET_MB`` grants the cheapest runs no
+    checkpoint (they replay nothing) and leaves the rest to the policy."""
+    name, want = walk_plain
+    monkeypatch.setenv("MPI4DL_TPU_NOCKPT_BUDGET_MB", NOCKPT_MB)
+    got = _run_walk(name, remat)
+    _assert_bit_equal(got, want)
+    grants, runs = got["trainer"].nockpt_grants, got["runs"]
+    assert 0 < len(grants) < len(runs)
+    assert sum(grants.values()) <= float(NOCKPT_MB) * 1e6
+    for run in runs:
+        if run[0] in grants:  # no replay
+            assert all(got["forwards"][i] == 1 for i in run)
+        elif remat == "scanq" and len(run) >= 3:
+            assert got["forwards"][run[0]] == len(run) + 1
+        else:
+            assert all(got["forwards"][i] == 2 for i in run)
+
+
 # -- the 2x2 gloo grid ---------------------------------------------------------
 
 SP_SIZE, SP_BATCH, SP_CELLS = 32, 4, 3
+# The spatial scanq model: ResNet-v1 depth 26 with 5 spatial cells, whose
+# stage-0 cells 2-4 form a planned run on the tiles.
+SPQ_DEPTH, SPQ_CELLS = 26, 5
 
 
-def _sp_base():
-    return init(resnet.get_resnet_v1(8, 10, pool_kernel=8), torch.Generator().manual_seed(4))
+def _sp_base(depth=8):
+    return init(resnet.get_resnet_v1(depth, 10, pool_kernel=8), torch.Generator().manual_seed(4))
 
 
 def _sp_world(rank, world):
     """One rank: the spatial step under remat False and "cell_save", and
-    with grad_accum=2, from the same weights and batches."""
+    with grad_accum=2, from the same weights and batches; and the depth-26
+    model under False and "scanq"."""
     grid = TileGrid((2, 2), rank)
-    base = _sp_base()
     batches = _batches(SP_SIZE, SP_BATCH, seed=5)
     cfg = ParallelConfig(batch_size=SP_BATCH, image_size=SP_SIZE, spatial_size=1,
                          num_spatial_parts=4)
     out = {}
-    for key, kwargs in (("plain", {}), ("cell_save", {"remat": "cell_save"}),
-                        ("accum2", {"grad_accum": 2})):
-        model = resnet.get_resnet_v1(8, 10, spatial_cells=SP_CELLS, pool_kernel=8, grid=grid)
-        model.load_state_dict(base.state_dict())
+    for key, depth, cells, kwargs in (
+            ("plain", 8, SP_CELLS, {}), ("cell_save", 8, SP_CELLS, {"remat": "cell_save"}),
+            ("accum2", 8, SP_CELLS, {"grad_accum": 2}), ("plain26", SPQ_DEPTH, SPQ_CELLS, {}),
+            ("scanq26", SPQ_DEPTH, SPQ_CELLS, {"remat": "scanq"})):
+        model = resnet.get_resnet_v1(depth, 10, spatial_cells=cells, pool_kernel=8, grid=grid)
+        model.load_state_dict(_sp_base(depth).state_dict())
         trainer = Trainer(model, cfg, learning_rate=LR, momentum=MOMENTUM, device="cpu",
-                          num_spatial_cells=SP_CELLS, grid=grid, **kwargs)
+                          num_spatial_cells=cells, grid=grid, **kwargs)
         out[key] = _record(trainer, batches)
+        if key == "scanq26":
+            tile = SP_SIZE // 2
+            out["scanq26_runs"] = trainer.scan_plan(torch.zeros(SP_BATCH, 3, tile, tile))
     return out
 
 
@@ -305,6 +472,22 @@ def test_spatial_cell_save_is_bit_equal_to_no_remat(sp_world):
             got, want = saved[key], plain[key]
             for g, w in zip(np.array(got, dtype=object).ravel(),
                             np.array(want, dtype=object).ravel()):
+                for k in w:
+                    np.testing.assert_array_equal(g[k], w[k])
+
+
+def test_spatial_scanq_is_bit_equal_to_no_remat(sp_world):
+    for out in sp_world:
+        # Cells 2-4 run the anchored-quadratic backward on the tiles; the
+        # run stops at the join (cell 5).
+        assert [2, 3, 4] in out["scanq26_runs"]
+        assert all(r[0] >= SPQ_CELLS or r[-1] < SPQ_CELLS for r in out["scanq26_runs"])
+        plain, got = out["plain26"], out["scanq26"]
+        assert got["loss"] == plain["loss"]
+        assert got["accuracy"] == plain["accuracy"]
+        for key in ("grads", "params"):
+            for g, w in zip(np.array(got[key], dtype=object).ravel(),
+                            np.array(plain[key], dtype=object).ravel()):
                 for k in w:
                     np.testing.assert_array_equal(g[k], w[k])
 
