@@ -66,6 +66,31 @@ Phases (any failure exits non-zero; nothing is caught):
          products, held against a float64 sum, their errors against the f32
          plain version printed beside it), then timed beside the library
          call and the bound;
+  v. the eval and checkpoint slice (v3 runs inside phase s's ranks):
+     v1. ``python -m mpi4dl_tpu_torch.convergence_run`` as a subprocess at
+         its defaults (ResNet-20 v2 @32 bs64, 300 steps on
+         ``ClassPatternImages``, a checkpoint every 50; phase A SIGKILLed
+         after step 150, phase B resumes): exit 0 (A killed, B clean, the
+         three checks true) and K2 and K3 launched in both phases; the
+         curve's ends, the final accuracy and the wall seconds printed;
+     v2. AmoebaNet-D 18L/416F @1024 bs2 (phase c's model, seed and bf16 /
+         f32 set-up) on ``ClassPatternImages(2, 1024, 10, seed=SEED)``: two
+         steps, ``save_checkpoint`` with ``model_metadata``,
+         ``rebuild_from_checkpoint`` into a fresh model and Trainer (params,
+         momentum and step bit-equal), one more step on both on one batch
+         (losses within ``RESUME_LOSS_RTOL``, K1-K3 at phase c's per-step
+         counts in the resumed step), then ``collect_batch_stats`` over 2
+         batches and ``evaluate`` over 2 more; checkpoint bytes, save and
+         restore s, calibration and eval ms a batch printed. Then phase b's
+         small f32 models: calibration and eval on the card against the
+         CPU (loss ``EVAL_LOSS_RTOL``, statistics ``EVAL_STAT_TOL``);
+     v3. (in phase s's ranks, after s2) spatial ResNet-110 v2 @1024 bs2 on
+         the 2x2 tiles: ``spatial_collect_batch_stats`` over 2 batches and
+         ``spatial_evaluate`` over 2 (K4 must launch in every rank's eval
+         forward); rank 0 saves, every rank rebuilds a fresh spatial Trainer
+         from the checkpoint (bit-equal on every rank); then s1's small f32
+         spatial models, calibration and eval on the tiles against
+         single-device eval on the CPU (``SP_EVAL_TOL``);
   s. the spatial slice in 4 rank processes (``parallel.multihost.spawn``)
      on a 2x2 tile grid. With 4 or more cards, one rank per card and
      NCCL; with fewer, the ranks share card 0 over a gloo group, and K4's
@@ -144,6 +169,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 # H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit).
@@ -235,6 +261,25 @@ WALK_POINTS = [
 ]
 PATH_KERNELS.update({path: _MODEL_KERNELS["resnet"] for path, *_ in WALK_POINTS})
 STEPS_IN_RUN.update({path: 1 for path, *_ in WALK_POINTS})
+# Phase v: the eval and checkpoint slice. The paths behind its launch counts:
+# the convergence run's ResNet-20 v2 steps (both processes, per step), the
+# resumed AmoebaNet-D step (v2) and the spatial ResNet-110 eval forward (v3,
+# per eval batch: forward exchanges only).
+V_BATCHES = 2  # calibration batches, and eval batches
+PATH_KERNELS.update({"convergence": ("wgrad", "dot1x1_bwd"),
+                     "amoebanet_resumed": _MODEL_KERNELS["amoebanet"],
+                     "resnet_sp_eval": ("halo_swap",)})
+STEPS_IN_RUN.update({"amoebanet_resumed": 1, "resnet_sp_eval": V_BATCHES})
+# The resumed step against the uninterrupted one: bit-equal where cuDNN
+# picks the same algorithms, else within this, relative.
+RESUME_LOSS_RTOL = 1e-3
+# Phase v2's small f32 models, calibration and eval on the card against the
+# CPU: eval loss relative, statistics per leaf normalised (TF32 off).
+EVAL_LOSS_RTOL = 1e-4
+EVAL_STAT_TOL = 1e-3
+# Phase v3's small f32 spatial models against single-device eval on the CPU
+# (statistics per leaf normalised, loss relative).
+SP_EVAL_TOL = 1e-3
 # The path whose slice ported each kernel: a kernels row's ``launches`` is
 # that path's count per step (``launches_per_step`` gives every path's).
 HOME_PATH = {"pool_bwd": "amoebanet", "dot1x1_bwd": "amoebanet", "wgrad": "resnet",
@@ -1024,6 +1069,264 @@ def phase_walk_large(gen, calls):
             torch.cuda.empty_cache()
 
 
+# -- phase v: eval, checkpoints and data --------------------------------------
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def phase_convergence(calls, launches):
+    """Phase v1: ``python -m mpi4dl_tpu_torch.convergence_run`` at its
+    defaults as a subprocess, in a temporary directory: phase A ends by
+    SIGKILL after the checkpoint at step 150, phase B resumes and exits 0,
+    all three checks hold (exit 0), and K2 and K3 launch in both phases.
+    Adds its launches as the path ``convergence``; one more step of its
+    model in this process records the kernels' call shapes into
+    ``calls["convergence"]`` (phases d-g gate and time them), and its
+    launches must equal the run's per step."""
+    from mpi4dl_tpu_torch import convergence_run
+    from mpi4dl_tpu_torch.data import ClassPatternImages
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    with tempfile.TemporaryDirectory(prefix="mpi4dl-convergence-") as tmp:
+        t0 = time.time()
+        out = subprocess.run(
+            [sys.executable, "-m", "mpi4dl_tpu_torch.convergence_run", "--device", DEVICE,
+             "--workdir", tmp, "--out", os.path.join(tmp, "convergence.json")],
+            cwd=here, env=env, capture_output=True, text=True, timeout=900)
+        wall = time.time() - t0
+        if out.returncode != 0:
+            raise AssertionError(f"convergence_run exited {out.returncode}: "
+                                 f"{out.stdout[-2000:]} {out.stderr[-3000:]}")
+        with open(os.path.join(tmp, "convergence.json")) as f:
+            art = json.load(f)
+    lines = out.stdout.strip().splitlines()
+    counts = json.loads(lines[-2])["launches"]
+    for phase, c in counts.items():
+        for kernel in PATH_KERNELS["convergence"]:
+            if not c[kernel] > 0:
+                raise AssertionError(f"convergence run {phase}: {kernel} never launched: {c}")
+    steps = art["config"]["steps"]
+    launches["convergence"] = {k: sum(c[k] for c in counts.values()) for k in KERNELS}
+    STEPS_IN_RUN["convergence"] = steps
+    log(f"[v1] python -m mpi4dl_tpu_torch.convergence_run ({art['config']['model']} "
+        f"@{art['config']['image_size']} bs{art['config']['batch_size']}, lr "
+        f"{art['config']['lr']}, {steps} steps, {art['config']['kill']}, "
+        f"{art['config']['platform']}): phase A SIGKILLed, phase B exit 0; first loss "
+        f"{art['curve'][0]['loss']:.4f}, first-5 mean {art['initial_loss_mean5']}, final-20 "
+        f"mean {art['final_loss_mean20']}, final accuracy {art['final_accuracy_mean20']}; "
+        f"resume jump {art['resume_jump']} (band {art['resume_band']}); checks {art['checks']}; "
+        f"training {art['wall_seconds']} s, {wall:.1f} s in all; {card()}")
+    per_step = ", ".join(f"{k} {launches['convergence'][k] / steps:g}"
+                         for k in PATH_KERNELS["convergence"])
+    log(f"[v1] launches by phase: {json.dumps(counts)} ({per_step} a step)")
+    cfg = art["config"]
+    depth, size, batch = int(cfg["model"].split("-")[1]), cfg["image_size"], cfg["batch_size"]
+    trainer = convergence_run.build_trainer(depth, size, batch, lr=cfg["lr"], device=DEVICE)
+    calls["convergence"] = _new_calls()
+    restore = _record_shapes(calls["convergence"])
+    try:
+        trainer.train_step(*ClassPatternImages(batch, size, 10, seed=SEED).batch(0))
+    finally:
+        for undo in restore:
+            undo()
+    for kernel in PATH_KERNELS["convergence"]:
+        n = sum(calls["convergence"][kernel].values())
+        if n * steps != launches["convergence"][kernel]:
+            raise AssertionError(f"convergence run: {kernel} {launches['convergence'][kernel]} "
+                                 f"launches in {steps} steps, {n} in the recorded step")
+
+
+def _state_equal(a, b) -> bool:
+    """Whether two trainers hold the same params and momentum bit for bit."""
+    import torch
+
+    (pa, ma, sa), (pb, mb, sb) = a.state_tensors(), b.state_tensors()
+    return sa == sb and all(torch.equal(x[k], y[k]) for x, y in zip(pa + ma, pb + mb) for k in x)
+
+
+def phase_checkpoint(launches):
+    """Phase v2: AmoebaNet-D 18L/416F @1024 bs2 (phase c's model, seed and
+    bf16 compute / f32 params) on ``ClassPatternImages(2, 1024, 10,
+    seed=SEED)``: two steps, ``save_checkpoint`` with ``model_metadata``,
+    ``rebuild_from_checkpoint`` into a fresh model and Trainer (params and
+    momentum bit-equal), one more step on both on the same batch (the
+    resumed one with K1-K3 at phase c's per-step counts), then calibration
+    over 2 batches and eval over 2 more, timed. Then the small f32 models:
+    calibration and eval on the card against the CPU."""
+    import shutil
+
+    import torch
+
+    from mpi4dl_tpu_torch.checkpoint import model_metadata, rebuild_from_checkpoint, save_checkpoint
+    from mpi4dl_tpu_torch.config import ParallelConfig
+    from mpi4dl_tpu_torch.data import ClassPatternImages
+    from mpi4dl_tpu_torch.evaluate import collect_batch_stats, evaluate
+    from mpi4dl_tpu_torch.models.amoebanet import amoebanetd
+    from mpi4dl_tpu_torch.train import Trainer
+    from mpi4dl_tpu_torch.weights import init
+
+    desc = f"AmoebaNet-D {LAYERS}L/{FILTERS}F @{SIZE} bs{BATCH}"
+    ds = ClassPatternImages(BATCH, SIZE, 10, seed=SEED)
+    cfg = ParallelConfig(batch_size=BATCH, image_size=SIZE)
+    model = init(amoebanetd(10, LAYERS, FILTERS, dtype=torch.bfloat16),
+                 torch.Generator().manual_seed(SEED))
+    trainer = Trainer(model, cfg, learning_rate=0.001, momentum=0.9, device=DEVICE)
+    losses = [float(trainer.train_step(*ds.batch(i))["loss"]) for i in range(2)]
+    tmp = tempfile.mkdtemp(prefix="mpi4dl-ckpt-")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_checkpoint(tmp, trainer, metadata=model_metadata(
+            "amoebanet", SIZE, num_classes=10, num_layers=LAYERS, num_filters=FILTERS,
+            dtype=torch.bfloat16))
+        save_s = time.perf_counter() - t0
+        nbytes = {f: os.path.getsize(os.path.join(path, f)) for f in sorted(os.listdir(path))}
+        t0 = time.perf_counter()
+        _, resumed, _, meta = rebuild_from_checkpoint(tmp, device=DEVICE, config=cfg,
+                                                      learning_rate=0.001, momentum=0.9)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if not (resumed.step == trainer.step == 2 and _state_equal(resumed, trainer)):
+        raise AssertionError(f"{desc}: the rebuilt trainer's params / momentum / step differ")
+    log(f"[v2] {desc} on ClassPatternImages(seed={SEED}), bf16 compute, f32 params: losses "
+        f"{['%.4f' % v for v in losses]}; checkpoint at step 2 {sum(nbytes.values())} bytes "
+        f"({nbytes}), save {save_s:.2f} s, rebuild_from_checkpoint on the card {restore_s:.2f} s "
+        f"(model {meta['model']}); params, momentum and step bit-equal; {card()}")
+    x, y = ds.batch(2)
+    loss_a = float(trainer.train_step(x, y)["loss"])
+    del trainer, model
+    torch.cuda.empty_cache()
+    counters = _counters()
+    for mod in counters.values():
+        mod.launch_count = 0
+    loss_b = float(resumed.train_step(x, y)["loss"])
+    launches["amoebanet_resumed"] = {name: mod.launch_count for name, mod in counters.items()}
+    for name in PATH_KERNELS["amoebanet_resumed"]:
+        want = launches["amoebanet"][name] // STEPS
+        if launches["amoebanet_resumed"][name] != want:
+            raise AssertionError(f"{desc} resumed step: {name} launched "
+                                 f"{launches['amoebanet_resumed'][name]} times, want {want}")
+    diff = abs(loss_a - loss_b)
+    if not diff <= RESUME_LOSS_RTOL * abs(loss_a):
+        raise AssertionError(f"{desc}: step 3 loss {loss_a} uninterrupted, {loss_b} resumed")
+    log(f"[v2] step 3 on the same batch: uninterrupted {loss_a:.6f}, resumed {loss_b:.6f}, "
+        f"difference {diff:.3g} ({'bit-equal' if diff == 0 else f'within {RESUME_LOSS_RTOL:g} relative'}); "
+        f"resumed step's launches {launches['amoebanet_resumed']}")
+    t0 = time.perf_counter()
+    cal = [ds.batch(3 + i)[0] for i in range(V_BATCHES)]
+    data_s = (time.perf_counter() - t0) / V_BATCHES
+    test = [ds.batch(3 + V_BATCHES + i) for i in range(V_BATCHES)]
+    collect_batch_stats(resumed, cal[:1])  # warm-up (untimed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = collect_batch_stats(resumed, cal)
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t0
+    evaluate(resumed, stats, test[:1])  # warm-up (untimed)
+    t0 = time.perf_counter()
+    res = evaluate(resumed, stats, test)
+    eval_s = time.perf_counter() - t0
+    if not (math.isfinite(res["loss"]) and 0 <= res["accuracy"] <= 1
+            and res["count"] == V_BATCHES * BATCH):
+        raise AssertionError(f"{desc} eval: {res}")
+    log(f"[v2] ClassPatternImages batch on the host {data_s * 1e3:.1f} ms (not timed below); "
+        f"collect_batch_stats over {V_BATCHES} batches {cal_s / V_BATCHES * 1e3:.1f} ms a "
+        f"batch; evaluate over {V_BATCHES} {eval_s / V_BATCHES * 1e3:.1f} ms a batch, "
+        f"{res['count'] / eval_s:.3f} img/s; eval loss {res['loss']:.4f}, accuracy "
+        f"{res['accuracy']:.2f} (random weights after 3 steps); {card()}")
+    del resumed, stats
+    torch.cuda.empty_cache()
+    for name, build, size in small_models():
+        got, want = small_eval(build, size, DEVICE), small_eval(build, size, "cpu")
+        worst = check_small_eval(f"[v2] {name}", got, want, EVAL_STAT_TOL, EVAL_LOSS_RTOL)
+        log(f"[v2] small reference {name} f32: calibration + eval loss card "
+            f"{got[1]['loss']:.6f} CPU {want[1]['loss']:.6f} (rtol {EVAL_LOSS_RTOL:g}); "
+            f"statistics normalised max|err| {worst:.2e} (tolerance {EVAL_STAT_TOL:g})")
+    return {"save_s": save_s, "restore_s": restore_s, "bytes": sum(nbytes.values()),
+            "cal_ms": cal_s / V_BATCHES * 1e3, "eval_ms": eval_s / V_BATCHES * 1e3}
+
+
+def eval_batches(size, batch=2):
+    """Calibration inputs and eval (x, y) batches of the small references,
+    from the seed with numpy."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 2)
+    cal = [rng.standard_normal((batch, size, size, 3)).astype(np.float32)
+           for _ in range(V_BATCHES)]
+    test = [(rng.standard_normal((batch, size, size, 3)).astype(np.float32),
+             rng.integers(0, 10, size=(batch,))) for _ in range(V_BATCHES)]
+    return cal, test
+
+
+def _numpy_stats(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_stats(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy()
+
+
+def small_eval(build, size, device, **trainer_kwargs):
+    """(statistics as numpy, eval result) of a small f32 model with weights
+    from the seed: calibration and eval through its Trainer (spatial when
+    ``trainer_kwargs`` say so: see phase v3)."""
+    import torch
+
+    from mpi4dl_tpu_torch import evaluate
+    from mpi4dl_tpu_torch.config import ParallelConfig
+    from mpi4dl_tpu_torch.train import Trainer
+    from mpi4dl_tpu_torch.weights import init
+
+    cal, test = eval_batches(size)
+    model = init(build(), torch.Generator().manual_seed(SEED))
+    cfg = ParallelConfig(batch_size=2, image_size=size, **trainer_kwargs.pop("config", {}))
+    trainer = Trainer(model, cfg, device=device, **trainer_kwargs)
+    if trainer.n_spatial:
+        stats = evaluate.spatial_collect_batch_stats(trainer, cal)
+        res = evaluate.spatial_evaluate(trainer, stats, test)
+    else:
+        stats = evaluate.collect_batch_stats(trainer, cal)
+        res = evaluate.evaluate(trainer, stats, test)
+    return [_numpy_stats(s) for s in stats], res
+
+
+def check_small_eval(name, got, want, stat_tol, loss_rtol):
+    """Hold (statistics, eval result) to a reference's: every leaf per leaf
+    normalised within ``stat_tol``, loss within ``loss_rtol``, accuracy
+    equal. Returns the worst normalised statistics error."""
+    import numpy as np
+
+    worst = 0.0
+
+    def walk(g, w, path):
+        nonlocal worst
+        if isinstance(w, dict):
+            if set(g) != set(w):
+                raise AssertionError(f"{name} statistics {path}: keys {sorted(g)} != {sorted(w)}")
+            for k in w:
+                walk(g[k], w[k], f"{path}/{k}")
+        else:
+            worst = max(worst, float(np.abs(g - w).max()) / max(float(np.abs(w).max()), 1e-30))
+
+    for i, (g, w) in enumerate(zip(got[0], want[0])):
+        walk(g, w, str(i))
+    if worst > stat_tol:
+        raise AssertionError(f"{name} statistics: normalised max|err| {worst:.3g} "
+                             f"(tolerance {stat_tol:g})")
+    (rg, rw) = got[1], want[1]
+    if not (abs(rg["loss"] - rw["loss"]) <= loss_rtol * abs(rw["loss"])
+            and rg["accuracy"] == rw["accuracy"] and rg["count"] == rw["count"]):
+        raise AssertionError(f"{name} eval: {rg} against {rw} (loss rtol {loss_rtol:g})")
+    return worst
+
+
+
 def sp_layout():
     """(backend, description) of the 4 rank processes on this host: one
     rank per card with 4 or more cards, else all on card 0."""
@@ -1508,7 +1811,80 @@ def _sp_k4_timeout(rank, device):
     return out
 
 
-def _sp_worker(rank, world, backend, profile):
+def _sp_eval(rank, grid, device, ckpt_dir):
+    """Phase v3 in one rank: spatial ResNet-110 v2 @1024 bs2 (phase s2's
+    model and seed, bf16 compute) calibrated over 2 ``ClassPatternImages``
+    batches and evaluated over 2 more on the tiles (K4's phase launches of
+    the eval counted from 0); rank 0 saves it and every rank rebuilds a
+    fresh spatial Trainer from the checkpoint; then s1's small f32 spatial
+    models, calibration and eval on the tiles."""
+    import torch
+
+    from mpi4dl_tpu_torch import evaluate
+    from mpi4dl_tpu_torch.checkpoint import model_metadata, rebuild_from_checkpoint, save_checkpoint
+    from mpi4dl_tpu_torch.config import ParallelConfig
+    from mpi4dl_tpu_torch.data import ClassPatternImages
+    from mpi4dl_tpu_torch.train import Trainer
+    from mpi4dl_tpu_torch.weights import init
+
+    build = sp_models()["resnet_sp"][1]
+    model = init(build(grid, torch.bfloat16), torch.Generator().manual_seed(SEED))
+    cfg = ParallelConfig(batch_size=BATCH, image_size=SIZE, spatial_size=1,
+                         num_spatial_parts=SP_RANKS)
+    trainer = Trainer(model, cfg, learning_rate=0.001, momentum=0.9, device=device,
+                      num_spatial_cells=len(model) - 1, grid=grid)
+    ds = ClassPatternImages(BATCH, SIZE, 10, seed=SEED)
+    counters = _counters()
+    out = {}
+    cal = [ds.batch(i)[0] for i in range(V_BATCHES)]
+    test = [ds.batch(V_BATCHES + i) for i in range(V_BATCHES)]
+    for mod in counters.values():
+        mod.launch_count = 0
+    t0 = time.perf_counter()
+    stats = evaluate.spatial_collect_batch_stats(trainer, cal)
+    out["cal_s"] = time.perf_counter() - t0
+    out["cal_launches"] = {name: mod.launch_count for name, mod in counters.items()}
+    for mod in counters.values():
+        mod.launch_count = 0
+    t0 = time.perf_counter()
+    out["eval"] = evaluate.spatial_evaluate(trainer, stats, test)
+    out["eval_s"] = time.perf_counter() - t0
+    out["launches"] = {name: mod.launch_count for name, mod in counters.items()}
+    t0 = time.perf_counter()
+    save_checkpoint(ckpt_dir, trainer, batch_stats=stats, metadata=model_metadata(
+        "resnet_v2", SIZE, depth=RESNET_DEPTH, num_classes=10, pool_kernel=SIZE // 4,
+        dtype=torch.bfloat16, spatial_cells=len(model) - 1))
+    out["save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, rebuilt, stats2, _ = rebuild_from_checkpoint(ckpt_dir, device=device, grid=grid,
+                                                    config=cfg)
+    out["restore_s"] = time.perf_counter() - t0
+    out["equal"] = _state_equal(rebuilt, trainer) and rebuilt.n_spatial == trainer.n_spatial
+    out["stats_equal"] = all(
+        (a == b).all() for a, b in zip(_flat_leaves([_numpy_stats(s) for s in stats]),
+                                       _flat_leaves(stats2)))
+    del trainer, rebuilt, model, stats, stats2
+    torch.cuda.empty_cache()
+    out["small"] = [small_eval(lambda: build_small(grid), size, device,
+                               config=dict(spatial_size=1, num_spatial_parts=SP_RANKS),
+                               num_spatial_cells=cells, grid=grid)
+                    for _, size, cells, build_small in sp_small_models()]
+    return out
+
+
+def _flat_leaves(stats):
+    out = []
+
+    def walk(t):
+        for k in sorted(t):
+            walk(t[k]) if isinstance(t[k], dict) else out.append(t[k])
+
+    for s in stats:
+        walk(s)
+    return out
+
+
+def _sp_worker(rank, world, backend, profile, ckpt_dir):
     """Every spatial phase in one rank of the 4-rank world."""
     import torch
     import torch.distributed as dist
@@ -1535,6 +1911,8 @@ def _sp_worker(rank, world, backend, profile):
             exchanges.setdefault(key, dict.fromkeys(SP_PATHS, 0))[path] = n
     exchanges = sorted(exchanges.items())
     dist.barrier()
+    out["eval"] = _sp_eval(rank, grid, device, ckpt_dir)
+    dist.barrier()
     out["k4_lines"], out["k4_err"] = _sp_k4_check(rank, grid, device, exchanges)
     dist.barrier()
     out["k4_time"] = _sp_k4_time(rank, grid, device, exchanges, backend, plain_group)
@@ -1559,9 +1937,10 @@ def phase_spatial(calls, profile, first_loss):
     log(f"[s] rank layout: {desc}, 2x2 tile grid")
     torch.cuda.empty_cache()
     t0 = time.time()
-    ranks = multihost.spawn(_sp_worker, SP_RANKS, args=(backend, profile), backend=backend,
-                            timeout=900)
-    log(f"[s] 4 ranks ran phases s1-s6 in {time.time() - t0:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="mpi4dl-sp-ckpt-") as ckpt_dir:
+        ranks = multihost.spawn(_sp_worker, SP_RANKS, args=(backend, profile, ckpt_dir),
+                                backend=backend, timeout=900)
+    log(f"[s] 4 ranks ran phases s1-s6 and v3 in {time.time() - t0:.1f} s")
 
     for i, (name, size, _, build) in enumerate(sp_small_models()):
         want = small_step(lambda: build(None), size, "cpu")
@@ -1572,6 +1951,7 @@ def phase_spatial(calls, profile, first_loss):
             f"normalised max|err| {worst:.2e} over the ranks (tolerance {SMALL_GRAD_TOL:g})")
 
     launches, ips = {}, {}
+    launches["resnet_sp_eval"] = phase_spatial_eval([out["eval"] for out in ranks])
     for path in SP_PATHS:
         name = sp_models()[path][0]
         mains = [out[path] for out in ranks]
@@ -1639,6 +2019,44 @@ def phase_spatial(calls, profile, first_loss):
     timing["backend"] = backend
     cards = 1 if backend == "gloo" else SP_RANKS
     return launches, ips, cards, timing
+
+
+def phase_spatial_eval(evals):
+    """Phase v3's gates and lines from every rank's :func:`_sp_eval`:
+    finite eval results equal on every rank, K4 launched in every rank's
+    eval forward, the rebuilt trainer bit-equal on every rank, the small
+    spatial models within ``SP_EVAL_TOL`` of single-device eval on the CPU.
+    Returns rank 0's eval launches."""
+    e0 = evals[0]
+    for r, e in enumerate(evals):
+        same = (e["eval"]["accuracy"] == e0["eval"]["accuracy"]
+                and abs(e["eval"]["loss"] - e0["eval"]["loss"]) <= 1e-6 * abs(e0["eval"]["loss"]))
+        if not (e["launches"]["halo_swap"] > 0 and e["equal"] and e["stats_equal"]
+                and math.isfinite(e["eval"]["loss"]) and same):
+            raise AssertionError(f"v3 rank {r}: eval {e['eval']} (rank 0 {e0['eval']}), "
+                                 f"launches {e['launches']}, rebuilt equal {e['equal']}, "
+                                 f"statistics equal {e['stats_equal']}")
+    log(f"[v3] resnet_sp: ResNet-{RESNET_DEPTH} v2 @{SIZE} bs{BATCH} on 2x2 tiles, bf16 compute: "
+        f"spatial_collect_batch_stats over {V_BATCHES} ClassPatternImages batches "
+        f"{max(e['cal_s'] for e in evals) / V_BATCHES * 1e3:.1f} ms a batch, spatial_evaluate "
+        f"over {V_BATCHES} {max(e['eval_s'] for e in evals) / V_BATCHES * 1e3:.1f} ms a batch "
+        f"({V_BATCHES * BATCH / max(e['eval_s'] for e in evals):.3f} img/s; slowest rank); "
+        f"loss {e0['eval']['loss']:.4f}, accuracy {e0['eval']['accuracy']:.2f}, the same on "
+        f"every rank; K4 phase launches per eval batch (forward exchanges only) "
+        f"{[e['launches']['halo_swap'] / V_BATCHES for e in evals]} by rank, per calibration "
+        f"batch {[e['cal_launches']['halo_swap'] / V_BATCHES for e in evals]}; {card()}")
+    log(f"[v3] rank 0 saved (with the statistics) in {e0['save_s']:.2f} s; every rank rebuilt a "
+        f"spatial Trainer from it in {max(e['restore_s'] for e in evals):.2f} s (slowest): params, "
+        f"momentum, step and statistics bit-equal on every rank; {card()}")
+    for i, (name, size, _, build) in enumerate(sp_small_models()):
+        want = small_eval(lambda: build(None), size, "cpu")
+        worst = max(check_small_eval(f"v3 rank {r} {name}", e["small"][i], want, SP_EVAL_TOL,
+                                     SP_EVAL_TOL) for r, e in enumerate(evals))
+        log(f"[v3] small spatial reference {name} f32, 2x2 tiles: calibration + eval loss "
+            f"{e0['small'][i][1]['loss']:.6f}, single-device CPU {want[1]['loss']:.6f}; "
+            f"statistics normalised max|err| {worst:.2e} over the ranks (tolerance "
+            f"{SP_EVAL_TOL:g})")
+    return e0["launches"]
 
 
 def exchange_rows(ranks):
@@ -2067,6 +2485,8 @@ def main(argv=None) -> int:
         phase_bench_cli()
         phase_walk_policies(bases["resnet"])
         phase_walk_steps(calls, launches)
+        phase_convergence(calls, launches)
+        phase_checkpoint(launches)
     for path in SP_PATHS:
         calls[path] = _new_calls()
     sp_launches, sp_ips, sp_cards, k4_timing = phase_spatial(calls, args.profile, first_loss)
@@ -2092,10 +2512,7 @@ def main(argv=None) -> int:
             row.update(per_shape.get(row["name"], {}))
         phase_walk_large(gen, calls)
     rows.append(halo_row(k4_timing, launches))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card()
     log(f"[h] {time.time() - t_start:.1f} s in all")
     log(smi)
     log(phase_mfu(ips, cards, smi))

@@ -8,9 +8,16 @@ call; submodule and parameter names follow the Flax modules so that
 Spatial forms take the rank's :class:`TileGrid` at construction: the
 spatial ``Conv2d`` and ``Pool`` (halo exchange, VALID window op, trim) and
 the cross-tile ``TrainBatchNorm`` (moments averaged over the grid).
+
+``TrainBatchNorm`` has the JAX package's three statistics modes
+(``layers.py:219-237``), set per model by :func:`bn_stats_mode`:
+``"batch"`` (the default, training), ``"collect"`` (a calibration pass
+sums each batch's moments) and ``"running"`` (frozen ``{mean, var}``).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.distributed as dist
@@ -83,24 +90,27 @@ class Conv2d(nn.Module):
 
 class _BnMoments(torch.autograd.Function):
     """Per-channel f32 ``(E[x], E[x²])`` over N, H, W with the square taken
-    AFTER the upcast (``layers._bn_moments_plain``). Its backward is stock
-    AD's formula, ``dx = ct_mean/n + 2·x·ct_sq/n`` in f32; saving only ``x``
-    in its own dtype keeps a full-resolution f32 copy out of the saved
-    activations."""
+    AFTER the upcast (``layers._bn_moments_plain``); a float64 input keeps
+    float64 moments, so a float64 run is float64 throughout. Its backward
+    is stock AD's formula, ``dx = ct_mean/n + 2·x·ct_sq/n`` in the same
+    precision; saving only ``x`` in its own dtype keeps a full-resolution
+    f32 copy out of the saved activations."""
 
     @staticmethod
     def forward(ctx, x):
         n = x.numel() // x.shape[1]
+        acc = torch.promote_types(x.dtype, torch.float32)
         ctx.save_for_backward(x)
-        mean = torch.sum(x, (0, 2, 3), dtype=torch.float32) / n
-        mean_sq = torch.sum(x.float().square(), (0, 2, 3)) / n
+        mean = torch.sum(x, (0, 2, 3), dtype=acc) / n
+        mean_sq = torch.sum(x.to(acc).square(), (0, 2, 3)) / n
         return mean, mean_sq
 
     @staticmethod
     def backward(ctx, ct_mean, ct_sq):
         (x,) = ctx.saved_tensors  # (autograd passes zeros for an unused output)
         n = x.numel() // x.shape[1]
-        dx = x.float() * (2.0 * ct_sq / n).view(1, -1, 1, 1) + (ct_mean / n).view(1, -1, 1, 1)
+        acc = torch.promote_types(x.dtype, torch.float32)
+        dx = x.to(acc) * (2.0 * ct_sq / n).view(1, -1, 1, 1) + (ct_mean / n).view(1, -1, 1, 1)
         return dx.to(x.dtype)
 
 
@@ -124,6 +134,9 @@ class _GridMean(torch.autograd.Function):
         return g / ctx.grid.world_size, None
 
 
+BN_MODES = ("batch", "collect", "running")
+
+
 class TrainBatchNorm(nn.Module):
     """Batch normalization with current-batch statistics (``"batch"``
     mode): f32 ``E[x]`` and ``E[x²]``, ``var = E[x²] − E[x]²``, and the
@@ -133,7 +146,20 @@ class TrainBatchNorm(nn.Module):
     ``grid``: cross-tile statistics (``reduce_axes`` over the tile axes,
     ``layers.py:359-361``): the tile's moments are averaged over the grid
     in one ``[2C]`` all-reduce. Tiles are equal, so that is the moment of
-    the whole image."""
+    the whole image.
+
+    ``mode`` (set by :func:`bn_stats_mode`; ``layers.py:332-381``):
+
+    - ``"collect"``: as ``"batch"``, and each batch's f32 moments (after
+      the grid all-reduce) are added into :attr:`collected`
+      ``{count, mean_sum, mean_sq_sum}``;
+    - ``"running"``: normalize with the frozen :attr:`frozen` ``{mean,
+      var}`` (f32 tensors on the module's device), ``w = rsqrt(var+eps)·
+      scale`` and ``b = bias − mean·rsqrt(var+eps)·scale`` cast to the
+      input dtype.
+
+    Neither is a parameter or a buffer: the statistics live outside the
+    model (``evaluate.py`` keys them by the module's Flax path)."""
 
     def __init__(self, features, eps: float = 1e-5, grid=None):
         super().__init__()
@@ -141,21 +167,71 @@ class TrainBatchNorm(nn.Module):
         self.grid = grid
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
+        self.mode = "batch"
+        self.collected = None
+        self.frozen = None
 
     def reset_parameters(self, generator=None):
         nn.init.ones_(self.scale)
         nn.init.zeros_(self.bias)
 
-    def forward(self, x):
-        mean, mean_sq = _BnMoments.apply(x)
-        if self.grid is not None:
-            moments = _GridMean.apply(torch.cat([mean, mean_sq]), self.grid)
-            mean, mean_sq = moments[:x.shape[1]], moments[x.shape[1]:]
-        var = mean_sq - mean.square()
+    def _normalize(self, x, mean, var):
         r = torch.rsqrt(var + self.eps)
         w = (r * self.scale).to(x.dtype).view(1, -1, 1, 1)
         b = (self.bias - mean * r * self.scale).to(x.dtype).view(1, -1, 1, 1)
         return x * w + b
+
+    def forward(self, x):
+        if self.mode == "running":
+            if self.frozen is None:
+                raise RuntimeError("running BN mode without frozen statistics")
+            return self._normalize(x, self.frozen["mean"], self.frozen["var"])
+        mean, mean_sq = _BnMoments.apply(x)
+        if self.grid is not None:
+            moments = _GridMean.apply(torch.cat([mean, mean_sq]), self.grid)
+            mean, mean_sq = moments[:x.shape[1]], moments[x.shape[1]:]
+        if self.mode == "collect":
+            self._accumulate(mean, mean_sq)
+        return self._normalize(x, mean, mean_sq - mean.square())
+
+    @torch.no_grad()
+    def _accumulate(self, mean, mean_sq):
+        """``_accumulate_bn_stats`` (``layers.py:370-381``): equal-size
+        batches make the averaged sums the exact pooled moments."""
+        if self.collected is None:
+            self.collected = {"count": torch.zeros((), dtype=torch.float32, device=mean.device),
+                              "mean_sum": torch.zeros_like(mean),
+                              "mean_sq_sum": torch.zeros_like(mean_sq)}
+        self.collected["count"] += 1.0
+        self.collected["mean_sum"] += mean
+        self.collected["mean_sq_sum"] += mean_sq
+
+
+def bn_modules(module: nn.Module):
+    """``(Flax path, TrainBatchNorm)`` of every BN in ``module``, in module
+    order; the path is the tuple of submodule names."""
+    for name, m in module.named_modules():
+        if isinstance(m, TrainBatchNorm):
+            yield tuple(name.split(".")) if name else (), m
+
+
+@contextlib.contextmanager
+def bn_stats_mode(model: nn.Module, mode: str):
+    """Run ``model``'s BNs in ``mode`` (``"batch"``, ``"collect"`` or
+    ``"running"``) inside the block and restore their modes after it
+    (``layers.bn_stats_mode``; here a property of the model, not of the
+    process)."""
+    if mode not in BN_MODES:
+        raise ValueError(f"bn mode must be batch|collect|running, got {mode!r}")
+    bns = [m for _, m in bn_modules(model)]
+    prev = [m.mode for m in bns]
+    for m in bns:
+        m.mode = mode
+    try:
+        yield
+    finally:
+        for m, p in zip(bns, prev):
+            m.mode = p
 
 
 class Pool(nn.Module):

@@ -337,6 +337,12 @@ class Trainer:
         unless they are open (:func:`~mpi4dl_tpu_torch.ops.halo_kernel.close_rings`
         closes them).
 
+    :attr:`step` counts the ``train_step`` calls (one a call whatever
+    ``grad_accum`` is: ``TrainState.step``). :meth:`state_tensors` and
+    :meth:`load_state_tensors` export and load (params, momentum buffers,
+    step), what a checkpoint holds (``weights.flax_state`` lays it out as
+    the JAX ``TrainState``).
+
     ``train_step`` takes the input NHWC, as the JAX package does (the whole
     batch, on every rank of a spatial run); inside, tensors are
     NCHW-logical (``channels_last`` in memory on the card). After a step
@@ -398,6 +404,7 @@ class Trainer:
         )
         self.model = model.to(device=self.device, memory_format=self.memory_format)
         self.opt = make_optimizer(self.model.parameters(), learning_rate, momentum)
+        self.step = 0
         if num_spatial_cells:
             with torch.no_grad():
                 _flat_all_reduce(list(self.model.parameters()),
@@ -695,6 +702,43 @@ class Trainer:
             h = _checkpoint(functools.partial(self._run_group, idx), h, **kwargs)
         return h
 
+    def state_tensors(self):
+        """``(params, momentum, step)``: per cell, ``{name: tensor}`` of its
+        parameters and of their SGD momentum buffers, and :attr:`step`. A
+        buffer SGD has not made yet (before the first step) is zeros, as
+        optax's trace is at init; loaded back, zeros give the first update
+        that no buffer gives (``m·0 + g = g``)."""
+        def buffer(p):
+            buf = self.opt.state.get(p, {}).get("momentum_buffer")
+            return torch.zeros_like(p) if buf is None else buf
+
+        params = [dict(cell.named_parameters()) for cell in self.model]
+        momentum = [{name: buffer(p) for name, p in named.items()} for named in params]
+        return params, momentum, self.step
+
+    @torch.no_grad()
+    def load_state_tensors(self, params, momentum, step: int) -> None:
+        """Load :meth:`state_tensors`' triple (tensors or arrays of the
+        parameters' shapes, on any device): every parameter and every
+        momentum buffer of every cell must be given."""
+        if len(params) != len(self.model) or len(momentum) != len(self.model):
+            raise ValueError(f"{len(params)} / {len(momentum)} cells of state for "
+                             f"{len(self.model)} cells")
+        for cell, cp, cm in zip(self.model, params, momentum):
+            named = dict(cell.named_parameters())
+            for what, given in (("params", cp), ("momentum", cm)):
+                if set(given) != set(named):
+                    raise KeyError(f"{what} names {sorted(given)} != the cell's {sorted(named)}")
+            for name, p in named.items():
+                value, buf = torch.as_tensor(cp[name]), torch.as_tensor(cm[name])
+                if value.shape != p.shape or buf.shape != p.shape:
+                    raise ValueError(f"{name}: shape {tuple(p.shape)}, given "
+                                     f"{tuple(value.shape)} / {tuple(buf.shape)}")
+                p.copy_(value)
+                # A buffer in the parameter's memory format, as SGD makes one.
+                self.opt.state[p]["momentum_buffer"] = torch.empty_like(p).copy_(buf)
+        self.step = int(step)
+
     def train_step(self, x, y) -> dict:
         b, s = self.config.batch_size, self.config.image_size
         if tuple(x.shape[:3]) != (b, s, s) or tuple(y.shape) != (b,):
@@ -734,6 +778,7 @@ class Trainer:
                 if p.grad is not None:
                     p.grad.div_(k)
         self.opt.step()
+        self.step += 1
         if not self.n_spatial:
             return {"loss": loss_sum, "accuracy": acc_sum}
         metrics = torch.stack([loss_sum, acc_sum])

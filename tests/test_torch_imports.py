@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``mpi4dl_tpu_torch`` and
-``chip_smoke`` loads no ``jax`` and nothing of ``mpi4dl_tpu``, and entry
-points never fall back to the CPU quietly."""
+``chip_smoke`` loads no ``jax`` and nothing of ``mpi4dl_tpu``, nor
+``msgpack`` or ``flax`` (the card has neither: the checkpoint codec is the
+port's own), and entry points never fall back to the CPU quietly."""
 
 import os
 import subprocess
@@ -35,6 +36,9 @@ def test_port_modules_listed():
     assert "mpi4dl_tpu_torch.parallel.halo" in PORT_MODULES
     assert "mpi4dl_tpu_torch.ops.halo_kernel" in PORT_MODULES
     assert "mpi4dl_tpu_torch.flops" in PORT_MODULES
+    for name in ("evaluate", "checkpoint", "serialization", "data", "native",
+                 "convergence_run"):
+        assert f"mpi4dl_tpu_torch.{name}" in PORT_MODULES
 
 
 def test_no_jax_and_no_jax_package_loaded():
@@ -42,7 +46,7 @@ def test_no_jax_and_no_jax_package_loaded():
         "import importlib, sys\n"
         f"for m in {PORT_MODULES!r} + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'mpi4dl_tpu'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'msgpack', 'mpi4dl_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
