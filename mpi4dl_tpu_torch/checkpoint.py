@@ -167,6 +167,11 @@ def rebuild_cells(meta: dict, spatial_cells: int | None = None, grid=None):
         spec["spatial_cells"], spec["grid"] = int(spatial_cells), grid
     if "dtype" in spec:
         spec["dtype"] = _torch_dtype(spec["dtype"])
+    if family.startswith("resnet") and {"halo_d2", "fused_layers"} & spec.keys():
+        # The JAX builders take no D2 argument (get_resnet_v2_d2 is a
+        # builder of its own), so the reference cannot rebuild one either.
+        raise ValueError(f"a {family} checkpoint cannot be rebuilt as the D2 model: build "
+                         "it with models.resnet.get_resnet_v2_d2 and restore_checkpoint")
     if family == "resnet_v1":
         from mpi4dl_tpu_torch.models.resnet import get_resnet_v1
 

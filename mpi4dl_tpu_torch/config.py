@@ -48,6 +48,8 @@ class ParallelConfig:
     spatial_size: int = 0  # leading spatially-partitioned stages (0 or 1)
     slice_method: str = SLICE_SQUARE
     image_size: int = 32
+    halo_d2: bool = False  # the D2 fused-halo spatial models (the builders read it)
+    fused_layers: int = 1  # D2 ResNet: stride-1 cells sharing one wide exchange
     data_parallel: int = 1
 
     def __post_init__(self):

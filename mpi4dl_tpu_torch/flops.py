@@ -4,7 +4,7 @@ Model FLOPs are counted analytically on the plain model: every conv
 (``FastConv``) costs ``2 · out_elems · kh · kw · Cin`` and every dense layer
 (``Dense``, ``Classify``'s linear) ``2 · B · in · out``. These are the
 linears the JAX package's jaxpr counter sees (``conv_general_dilated`` and
-``dot_general``); BN, pools (the avg pool's ones-kernel window sum is a
+``dot_general``); BN, pools (the avg pool's window sum is a
 ``reduce_window`` there) and elementwise work are not counted, and neither
 is what a kernel does beyond the model's math. The forward runs on the meta
 device, so no memory is touched.

@@ -153,12 +153,14 @@ def plan_splits(m: int, c: int, o: int) -> tuple[int, int]:
 
 
 def bwd_1x1_reference(x, dy, w2):
-    """Plain version: (dx in x's dtype, dw in f32) from two matmuls."""
+    """Plain version: (dx in x's dtype, dw in f32, float64 for float64)
+    from two matmuls."""
     c, o = w2.shape
     x2 = x.reshape(-1, c)
     dy2 = dy.reshape(-1, o)
     dx = torch.matmul(dy2, w2.to(dy2.dtype).t()).to(x.dtype).reshape(x.shape)
-    dw = torch.matmul(x2.t().float(), dy2.float())
+    acc = torch.promote_types(x.dtype, torch.float32)
+    dw = torch.matmul(x2.t().to(acc), dy2.to(acc))
     return dx, dw
 
 

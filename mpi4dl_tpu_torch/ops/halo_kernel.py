@@ -15,7 +15,11 @@ since the rings' sequence numbers pair them.
   strips placed (forward) or added (backward) in the output's edge rows.
   :mod:`mpi4dl_tpu_torch.parallel.halo` builds the exchange from it. The
   transport is opened once per grid and card with :func:`open_rings`
-  (collective) and closed with :func:`close_rings`.
+  (collective) and closed with :func:`close_rings`. Every launch goes to
+  the rings' exchange stream (:meth:`HaloRings.on_exchange_stream`), in
+  program order, forward and backward: a ring's sequence number lives on
+  the card, so two launches on one ring must never run at once or in
+  another order than on the neighbours.
 - :func:`halo_swap` / :func:`strip_swap`: the plain swap of two NHWC strips,
   on CUDA tensors the same kernel with no interior; on CPU tensors
   :func:`swap_dist_reference`, ``batch_isend_irecv`` over the process
@@ -26,6 +30,7 @@ since the rings' sequence numbers pair them.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -39,7 +44,7 @@ from mpi4dl_tpu_torch.parallel.multihost import TILE_AXES, TileGrid
 # main path's proof of use).
 launch_count = 0
 
-SLOT_BYTES = 1 << 20  # receive capacity per direction and slot
+SLOT_BYTES = 1 << 20  # the least receive capacity per direction and slot
 TIMEOUT_S = 10.0  # a wait longer than this fails the step instead of hanging the card
 _IPC_HANDLE_BYTES = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # csrc's Dtype
@@ -158,12 +163,21 @@ class HaloRings:
     Memory comes from ``cudaMalloc``/``cudaHostAlloc`` on the C side, not
     from PyTorch's caching allocator. Build it with :func:`open_rings`."""
 
-    def __init__(self, grid: TileGrid, device, timeout_s: float = TIMEOUT_S):
+    def __init__(self, grid: TileGrid, device, timeout_s: float = TIMEOUT_S,
+                 slot_bytes: int = SLOT_BYTES):
         self.device = torch.device(device)
         if self.device.type != "cuda" or self.device.index is None:
             raise ValueError(f"halo rings need an indexed CUDA device, got {device}")
+        if slot_bytes < 256 or slot_bytes % 256:
+            raise ValueError(f"halo rings: slot_bytes {slot_bytes} is not a positive multiple "
+                             "of 256")
         self.grid = grid
-        self.slot_bytes = SLOT_BYTES
+        self.slot_bytes = int(slot_bytes)
+        self.stream = torch.cuda.Stream(device=self.device)
+        # Reused for every fork and join (a wait takes the event's state at
+        # the call); ``_forked`` is True inside on_exchange_stream.
+        self._fork_event, self._join_event = torch.cuda.Event(), torch.cuda.Event()
+        self._forked = False
         self.timeout_ns = int(timeout_s * 1e9)
         self._lib = lib = _lib()
         dev = self.device.index
@@ -178,7 +192,8 @@ class HaloRings:
             if grid.axis_size(axis) > 1:
                 arena = ctypes.c_void_p()
                 handle = ctypes.create_string_buffer(_IPC_HANDLE_BYTES)
-                _build.check(lib.halo_arena_alloc(dev, SLOT_BYTES, ctypes.byref(arena), handle),
+                _build.check(lib.halo_arena_alloc(dev, self.slot_bytes, ctypes.byref(arena),
+                                                  handle),
                              "halo_arena_alloc")
                 self._arenas[axis] = arena.value
                 handles[axis] = handle.raw
@@ -217,9 +232,34 @@ class HaloRings:
         if msg:
             raise RuntimeError(msg)
 
+    @contextlib.contextmanager
+    def on_exchange_stream(self, join: bool = True):
+        """The block's :meth:`phase` launches go to the exchange stream
+        (:attr:`stream`), after the current stream's work so far. With
+        ``join`` the current stream then waits for them; without, the
+        caller calls :meth:`join` before it reads what they wrote (the
+        decomposed spatial conv and pool run their interior in between).
+        The current stream stays current, so tensors made in the block are
+        its own, and the join orders their reuse after the launches."""
+        self._fork_event.record(torch.cuda.current_stream(self.device))
+        self.stream.wait_event(self._fork_event)
+        self._forked = True
+        try:
+            yield
+        finally:
+            self._forked = False
+        if join:
+            self.join()
+
+    def join(self) -> None:
+        """The current stream waits for the exchange stream's launches."""
+        self._join_event.record(self.stream)
+        torch.cuda.current_stream(self.device).wait_event(self._join_event)
+
     def phase(self, axis: str, a, b, ra, rb, src=None, dst=None, add_a=None, add_b=None,
               fill_value: float = 0.0, mask_a: bool = False, mask_b: bool = False) -> None:
-        """Launch one phase on ``axis`` on the current stream. Every tensor
+        """Launch one phase on ``axis`` on the exchange stream, inside
+        :meth:`on_exchange_stream`. Every tensor
         is an NHWC view on this card with contiguous channels: strips ``a``
         (to the ring-previous rank) and ``b`` (to the ring-next); ``ra``,
         ``rb``, where the strips from the next and previous rank land;
@@ -229,6 +269,9 @@ class HaloRings:
         On an axis of one rank nothing is sent and both sides are masked."""
         if a.device != self.device:
             raise ValueError(f"halo_swap: tensors on {a.device}, rings on {self.device}")
+        if not self._forked:
+            raise RuntimeError("halo_swap: K4 launches only on the rings' exchange stream "
+                               "(on_exchange_stream)")
         if a.dtype not in _DTYPES:
             raise TypeError(f"halo_swap: no kernel for {a.dtype}")
         views = [a, b, ra, rb, add_a, add_b, src, dst]  # the order of _Phase._fields_
@@ -253,8 +296,7 @@ class HaloRings:
         p.fill[:] = _fill_bits(0.0 if backward else fill_value, a.dtype)
         p.mask_a, p.mask_b = int(mask_a), int(mask_b)
         p.backward, p.dtype, p.axis = int(backward), _DTYPES[a.dtype], TILE_AXES.index(axis)
-        err = self._lib.halo_phase(self.device.index, ctypes.byref(p),
-                                   torch.cuda.current_stream(self.device).cuda_stream)
+        err = self._lib.halo_phase(self.device.index, ctypes.byref(p), self.stream.cuda_stream)
         _build.check(err, "halo_phase")
         global launch_count
         launch_count += 1
@@ -297,13 +339,15 @@ class HaloRings:
         self._status = None
 
 
-def open_rings(grid: TileGrid, device, timeout_s: float = TIMEOUT_S) -> HaloRings:
+def open_rings(grid: TileGrid, device, timeout_s: float = TIMEOUT_S,
+               slot_bytes: int = SLOT_BYTES) -> HaloRings:
     """Collective: open K4's transport for ``grid`` on ``device`` (this
-    rank's card), with waits that give up after ``timeout_s``, and keep it
-    as ``grid.rings``."""
+    rank's card), with waits that give up after ``timeout_s`` and receive
+    slots of ``slot_bytes`` (:func:`mpi4dl_tpu_torch.parallel.halo.slot_bytes_for`
+    sizes them for a model's widest strip), and keep it as ``grid.rings``."""
     if grid.rings is not None:
         raise RuntimeError("this grid's rings are already open")
-    grid.rings = HaloRings(grid, device, timeout_s)
+    grid.rings = HaloRings(grid, device, timeout_s, slot_bytes)
     return grid.rings
 
 
@@ -343,7 +387,8 @@ def halo_swap(a, b, grid: TileGrid, axis: str):
         raise RuntimeError("halo_swap: the grid's rings are not open (open_rings)")
     ra = torch.empty(a.shape, dtype=a.dtype, device=a.device)
     rb = torch.empty_like(ra)
-    grid.rings.phase(axis, a, b, ra, rb)
+    with grid.rings.on_exchange_stream():
+        grid.rings.phase(axis, a, b, ra, rb)
     return ra, rb
 
 

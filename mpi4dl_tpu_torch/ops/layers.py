@@ -7,7 +7,15 @@ call; submodule and parameter names follow the Flax modules so that
 
 Spatial forms take the rank's :class:`TileGrid` at construction: the
 spatial ``Conv2d`` and ``Pool`` (halo exchange, VALID window op, trim) and
-the cross-tile ``TrainBatchNorm`` (moments averaged over the grid).
+the cross-tile ``TrainBatchNorm`` (moments averaged over the grid). The D2
+fused-halo models add the standalone :class:`HaloExchange`, the "shrink"
+``Conv2d(exchange=False)`` and BN statistics over a tile's ``interior``.
+
+The spatial ``Conv2d`` and ``Pool`` run ``"monolithic"`` (one VALID op on
+the exchanged tile) or ``"decomposed"`` (:func:`overlap_decompose`: the
+interior on the un-exchanged tile while K4 runs on its exchange stream,
+then the boundary strips), chosen per layer by ``overlap=`` or for the
+process by ``MPI4DL_TPU_CONV_OVERLAP`` (:func:`conv_overlap_impl`).
 
 ``TrainBatchNorm`` has the JAX package's three statistics modes
 (``layers.py:219-237``), set per model by :func:`bn_stats_mode`:
@@ -18,6 +26,7 @@ sums each batch's moments) and ``"running"`` (frozen ``{mean, var}``).
 from __future__ import annotations
 
 import contextlib
+import os
 
 import torch
 import torch.distributed as dist
@@ -27,6 +36,9 @@ import torch.nn.functional as F
 from mpi4dl_tpu_torch.ops.fastconv import FastConv, lecun_normal_
 from mpi4dl_tpu_torch.ops.pool_kernel import MaxPool
 from mpi4dl_tpu_torch.parallel import halo  # a module: parallel.halo imports ops
+from mpi4dl_tpu_torch.utils import keeps_config
+
+OVERLAP_IMPLS = ("monolithic", "decomposed")
 
 
 def _pair(v) -> tuple[int, int]:
@@ -46,6 +58,96 @@ def _check_window_coverage(kh, kw, sh, sw, ph, pw):
         )
 
 
+def conv_overlap_impl() -> str:
+    """The process default of the spatial conv's and pool's form
+    (``layers.py:56-77``): ``MPI4DL_TPU_CONV_OVERLAP`` = ``monolithic``
+    (the default; also ``0``/``off``) or ``decomposed`` (``1``/``on``)."""
+    impl = os.environ.get("MPI4DL_TPU_CONV_OVERLAP", "monolithic")
+    impl = {"0": "monolithic", "off": "monolithic", "1": "decomposed", "on": "decomposed"}.get(
+        impl, impl)
+    if impl not in OVERLAP_IMPLS:
+        raise ValueError("MPI4DL_TPU_CONV_OVERLAP must be monolithic|decomposed "
+                         f"(or 0/1/off/on), got {impl!r}")
+    return impl
+
+
+def _overlap(overlap) -> str:
+    """A layer's form: its ``overlap`` field, or the process default."""
+    impl = overlap if overlap is not None else conv_overlap_impl()
+    if impl not in OVERLAP_IMPLS:
+        raise ValueError(f"overlap must be monolithic|decomposed, got {impl!r}")
+    return impl
+
+
+def _strip_bounds(n: int, k: int, s: int, p: int) -> tuple[int, int, int]:
+    """``(t_lo, t_hi, n_out)`` along one dim of a spatial window op on an
+    ``n``-extent tile (``layers.py:120-135``): the output rows whose window
+    reads the low-side / high-side halo, and the trimmed output extent.
+    Output row ``i`` reads tile rows ``[i*s - p, i*s - p + k - 1]``."""
+    n_out = n // s
+    t_lo = min(n_out, -(-p // s))  # first interior row: ceil(p/s)
+    hi_int = (n - k + p) // s  # last row with i*s + k-1 - p <= n-1
+    t_hi = min(n_out, max(0, n_out - 1 - hi_int))
+    return t_lo, t_hi, n_out
+
+
+def has_interior(h: int, w: int, kh, kw, sh, sw, ph, pw) -> bool:
+    """Whether an ``h x w`` tile has interior outputs in both dims and at
+    least one boundary strip, so that :func:`overlap_decompose` applies."""
+    tt, tb, ho = _strip_bounds(h, kh, sh, ph)
+    tl, tr, wo = _strip_bounds(w, kw, sw, pw)
+    return not (tt + tb >= ho or tl + tr >= wo or tt + tb + tl + tr == 0)
+
+
+def overlap_decompose(x, xe, op, kh, kw, sh, sw, ph, pw, wait=None):
+    """``op(xe)[:, :, :H//sh, :W//sw]`` as an interior application on the
+    un-exchanged tile ``x [B, C, H, W]`` plus boundary strips of the
+    exchanged tile ``xe`` (``layers.py:137-191``), stitched in the same
+    order. ``op`` is a VALID window op with window ``(kh, kw)`` and strides
+    ``(sh, sw)``. Every output window reads the bytes the monolithic op
+    reads. ``wait`` runs after the interior and before the first strip
+    reads ``xe`` (the join with the exchange stream). Returns None when the
+    tile has no interior (:func:`has_interior`); the caller then runs the
+    monolithic op."""
+    b, c, h, w = x.shape
+    if not has_interior(h, w, kh, kw, sh, sw, ph, pw):
+        return None
+    tt, tb, ho = _strip_bounds(h, kh, sh, ph)
+    tl, tr, wo = _strip_bounds(w, kw, sw, pw)
+    n_ih, n_iw = ho - tt - tb, wo - tl - tr
+    r0, c0 = tt * sh - ph, tl * sw - pw
+    y_int = op(x[:, :, r0:r0 + (n_ih - 1) * sh + kh, c0:c0 + (n_iw - 1) * sw + kw])
+    if wait is not None:
+        wait()
+    # Middle band: [left strip | interior | right strip] over the interior
+    # rows; the side strips read xe rows aligned with the interior ones.
+    mid = [y_int]
+    rows = slice(tt * sh, (ho - tb - 1) * sh + kh)
+    if tl:
+        mid.insert(0, op(xe[:, :, rows, :(tl - 1) * sw + kw])[:, :, :n_ih, :tl])
+    if tr:
+        mid.append(op(xe[:, :, rows, (wo - tr) * sw:])[:, :, :n_ih, :tr])
+    parts = [torch.cat(mid, 3) if len(mid) > 1 else y_int]
+    if tt:
+        parts.insert(0, op(xe[:, :, :(tt - 1) * sh + kh])[:, :, :tt, :wo])
+    if tb:
+        parts.append(op(xe[:, :, (ho - tb) * sh:])[:, :, :tb, :wo])
+    return torch.cat(parts, 2) if len(parts) > 1 else parts[0]
+
+
+def _decomposed(x, op, kh, kw, sh, sw, ph, pw, grid, fill_value):
+    """The decomposed form of a spatial window op on this rank's tile, or
+    None when the tile has no interior. On a CUDA tile K4 runs on the
+    rings' exchange stream while the interior runs on the current stream;
+    the strips wait for it. On a CPU tile the same decomposition runs with
+    no streams."""
+    if not has_interior(x.shape[2], x.shape[3], kh, kw, sh, sw, ph, pw):
+        return None
+    xe = halo.halo_exchange(x, ph, pw, grid, fill_value, join=False)
+    return overlap_decompose(x, xe, op, kh, kw, sh, sw, ph, pw,
+                             wait=lambda: halo.join_exchange(x, grid))
+
+
 class Conv2d(nn.Module):
     """2-D conv: symmetric zero padding ``padding`` (default ``(k-1)//2``,
     torch style), stride ``strides``. Holds the ``conv`` submodule (Flax
@@ -55,10 +157,18 @@ class Conv2d(nn.Module):
     ``grid``; the conv exchanges ``padding`` rows/cols of halo with the
     neighbours, runs VALID on the extended tile and keeps this tile's
     ``H/stride x W/stride`` outputs (exact for tiles that divide by the
-    stride, which the config's power-of-two rules give)."""
+    stride, which the config's power-of-two rules give). ``overlap``:
+    ``"monolithic"``, ``"decomposed"`` (:func:`overlap_decompose`) or None
+    (:func:`conv_overlap_impl`); the decomposed form applies to padded
+    convs on tiles with an interior.
+
+    ``exchange=False`` (with ``spatial=True``, ``layers.py:499-503``): the
+    D2 "shrink" conv, no exchange and a VALID conv on an input that already
+    carries its halo."""
 
     def __init__(self, in_features, features, kernel_size=3, strides=1,
-                 padding=None, use_bias=True, dtype=None, spatial=False, grid=None):
+                 padding=None, use_bias=True, dtype=None, spatial=False, grid=None,
+                 exchange=True, overlap=None):
         super().__init__()
         kh, kw = _pair(kernel_size)
         sh, sw = _pair(strides)
@@ -70,8 +180,12 @@ class Conv2d(nn.Module):
         if spatial:
             if grid is None:
                 raise ValueError("a spatial Conv2d needs the rank's TileGrid")
-            _check_window_coverage(kh, kw, sh, sw, ph, pw)
+            if exchange:
+                _check_window_coverage(kh, kw, sh, sw, ph, pw)
         self.grid = grid
+        self.exchange = exchange
+        self.overlap = overlap
+        self.kernel = (kh, kw)
         self.halo = (ph, pw)
         self.strides = (sh, sw)
         self.conv = FastConv(
@@ -80,10 +194,14 @@ class Conv2d(nn.Module):
         )
 
     def forward(self, x):
-        if not self.spatial:
+        if not (self.spatial and self.exchange):
             return self.conv(x)
         h, w = x.shape[2], x.shape[3]
         (sh, sw), (ph, pw) = self.strides, self.halo
+        if (ph or pw) and _overlap(self.overlap) == "decomposed":
+            y = _decomposed(x, self.conv, *self.kernel, sh, sw, ph, pw, self.grid, 0.0)
+            if y is not None:
+                return y
         xe = halo.halo_exchange(x, ph, pw, self.grid)
         return self.conv(xe)[:, :, :h // sh, :w // sw]
 
@@ -159,12 +277,18 @@ class TrainBatchNorm(nn.Module):
       input dtype.
 
     Neither is a parameter or a buffer: the statistics live outside the
-    model (``evaluate.py`` keys them by the module's Flax path)."""
+    model (``evaluate.py`` keys them by the module's Flax path).
 
-    def __init__(self, features, eps: float = 1e-5, grid=None):
+    ``interior=(ih, iw)`` (``layers.py:342-351``): a D2 tile carries ``ih``
+    rows and ``iw`` cols of neighbour data on each side; the statistics
+    leave them out (the whole tile is normalised), so cross-tile BN on a D2
+    tile equals the plain model's."""
+
+    def __init__(self, features, eps: float = 1e-5, grid=None, interior=(0, 0)):
         super().__init__()
         self.eps = eps
         self.grid = grid
+        self.interior = _pair(interior)
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.mode = "batch"
@@ -186,7 +310,13 @@ class TrainBatchNorm(nn.Module):
             if self.frozen is None:
                 raise RuntimeError("running BN mode without frozen statistics")
             return self._normalize(x, self.frozen["mean"], self.frozen["var"])
-        mean, mean_sq = _BnMoments.apply(x)
+        ih, iw = self.interior
+        stat = x
+        if ih:
+            stat = stat[:, :, ih:-ih]
+        if iw:
+            stat = stat[:, :, :, iw:-iw]
+        mean, mean_sq = _BnMoments.apply(stat)
         if self.grid is not None:
             moments = _GridMean.apply(torch.cat([mean, mean_sq]), self.grid)
             mean, mean_sq = moments[:x.shape[1]], moments[x.shape[1]:]
@@ -248,10 +378,12 @@ class Pool(nn.Module):
     K1 runs on the extended tile with no padding. The avg divisor for
     ``count_include_pad=False`` is the window sum of a mask of ones whose
     outside-image halo is zeroed from the tile's grid position (no second
-    exchange)."""
+    exchange). ``overlap`` (``layers.py:657``, ``:760-783``): as
+    :class:`Conv2d`'s; the avg ``count_include_pad=False`` pool stays
+    monolithic, as in the JAX package (``:672-675``)."""
 
     def __init__(self, kind, kernel_size=2, strides=None, padding=0, count_include_pad=True,
-                 spatial=False, grid=None):
+                 spatial=False, grid=None, overlap=None):
         super().__init__()
         if kind not in ("max", "avg"):
             raise ValueError(f"unknown pool kind {kind!r}")
@@ -266,7 +398,8 @@ class Pool(nn.Module):
                 raise ValueError("a spatial Pool needs the rank's TileGrid")
             _check_window_coverage(*self.kernel, *self.strides, *self.padding)
         self.grid = grid
-        self._divisors = {}  # count_include_pad=False: (shape, dtype, device) -> divisor
+        self.overlap = overlap
+        self._divisors = {}  # count_include_pad=False: (shape, (ph, pw), dtype, device) -> divisor
 
     def forward(self, x):
         (sh, sw), (ph, pw) = self.strides, self.padding
@@ -274,6 +407,12 @@ class Pool(nn.Module):
             return self._pool(x, ph, pw)
         h, w = x.shape[2], x.shape[3]
         fill = float("-inf") if self.kind == "max" else 0.0
+        if ((self.kind == "max" or self.count_include_pad)
+                and _overlap(self.overlap) == "decomposed"):
+            y = _decomposed(x, lambda t: self._pool(t, 0, 0), *self.kernel, sh, sw, ph, pw,
+                            self.grid, fill)
+            if y is not None:
+                return y
         xe = halo.halo_exchange(x, ph, pw, self.grid, fill)
         return self._pool(xe, 0, 0)[:, :, :h // sh, :w // sw]
 
@@ -289,15 +428,7 @@ class Pool(nn.Module):
             ho, wo = x.shape[2] // kh, x.shape[3] // kw
             t = x[:, :, :ho * kh, :wo * kw].unflatten(3, (wo, kw)).unflatten(2, (ho, kh))
             return t.mean(dim=(3, 5))
-        # Window sum (a depthwise conv with a ones kernel) over the divisor,
-        # as Flax's avg_pool computes it. F.avg_pool2d's backward is not
-        # used: its CUDA backward on channels_last input returned wrong input
-        # gradients (torch 2.11.0+cu128 on an H100).
-        c = x.shape[1]
-        fmt = (torch.channels_last if x.is_contiguous(memory_format=torch.channels_last)
-               else torch.contiguous_format)
-        ones_k = torch.ones((c, 1, kh, kw), dtype=x.dtype, device=x.device)
-        total = F.conv2d(x, ones_k.contiguous(memory_format=fmt), None, (sh, sw), (ph, pw), 1, c)
+        total = window_sum(x, kh, kw, sh, sw, ph, pw)
         if self.count_include_pad:
             return total / (kh * kw)
         return total / self._divisor(x, ph, pw)
@@ -307,14 +438,56 @@ class Pool(nn.Module):
         """The count of in-image taps of each window: a window sum of ones
         (zero-padded by ``(ph, pw)``; on a spatial tile, the extended tile's
         outside-image halo zeroed instead)."""
-        key = (tuple(x.shape[2:]), x.dtype, x.device)
+        key = (tuple(x.shape[2:]), (ph, pw), x.dtype, x.device)
         if key not in self._divisors:
             ones = torch.ones((1, 1) + x.shape[2:], dtype=x.dtype, device=x.device)
             if self.spatial:
                 ones = halo.zero_boundary_halo(ones, *self.padding, self.grid)
-            self._divisors[key] = F.avg_pool2d(ones, self.kernel, self.strides, (ph, pw),
-                                               divisor_override=1)
+            self._divisors[key] = window_sum(ones, *self.kernel, *self.strides, ph, pw)
         return self._divisors[key]
+
+
+def window_sum(x, kh, kw, sh=1, sw=1, ph=0, pw=0):
+    """The sum of each ``kh x kw`` window of ``x`` (zero padding), as
+    Flax's avg_pool sums: strided slices added over the window's rows, then
+    its columns, in f32 (float64 stays float64), rounded once to ``x``'s
+    dtype. Its backward is the slices' and adds', elementwise too. Neither a
+    library conv nor ``F.avg_pool2d``: as a one-channel bf16 conv inside the
+    AmoebaNet-D step on an H100, cuDNN returned zeros at some outputs, and
+    ``F.avg_pool2d``'s CUDA backward on channels_last input returned wrong
+    input gradients (torch 2.11.0+cu128)."""
+    fmt = (torch.channels_last if x.is_contiguous(memory_format=torch.channels_last)
+           else torch.contiguous_format)
+    acc = x.to(torch.promote_types(x.dtype, torch.float32))
+    if ph or pw:
+        acc = F.pad(acc, (pw, pw, ph, ph))
+    ho = (acc.shape[2] - kh) // sh + 1
+    wo = (acc.shape[3] - kw) // sw + 1
+    rows = acc[:, :, 0:sh * (ho - 1) + 1:sh]
+    for i in range(1, kh):
+        rows = rows + acc[:, :, i:i + sh * (ho - 1) + 1:sh]
+    total = rows[:, :, :, 0:sw * (wo - 1) + 1:sw]
+    for j in range(1, kw):
+        total = total + rows[:, :, :, j:j + sw * (wo - 1) + 1:sw]
+    return total.to(x.dtype).contiguous(memory_format=fmt)
+
+
+@keeps_config
+class HaloExchange(nn.Module):
+    """The standalone halo exchange (``layers.py:786-797``): this rank's
+    tile of ``grid`` extended by ``halo_len`` rows/cols of its neighbours'
+    data (zeros beyond the image), through K4 on the card. The D2 models
+    share one wide exchange among several shrink convs. No parameters."""
+
+    def __init__(self, halo_len=1, grid=None):
+        super().__init__()
+        if grid is None:
+            raise ValueError("a HaloExchange needs the rank's TileGrid")
+        self.halo = _pair(halo_len)
+        self.grid = grid
+
+    def forward(self, x):
+        return halo.halo_exchange(x, *self.halo, self.grid)
 
 
 class Identity(nn.Module):

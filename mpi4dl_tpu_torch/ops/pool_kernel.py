@@ -156,11 +156,13 @@ def pool_bwd_reference(x, dy, kh, kw, sh, sw, ph, pw):
     Online argmax over taps in row-major order with strict ``>`` (first max
     wins), padding read as −inf. The scatter visits taps in reverse order so
     that each dx element sums its windows in (oh, ow) row-major order, in
-    f32 — the CUDA kernel's order, so the two agree bit for bit."""
+    f32 — the CUDA kernel's order, so the two agree bit for bit (float64
+    stays float64)."""
     b, h, w, c = x.shape
     ho, wo = dy.shape[1], dy.shape[2]
-    xp = F.pad(x.float(), (0, 0, pw, pw, ph, ph), value=float("-inf"))
-    dyf = dy.float()
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xp = F.pad(x.to(acc), (0, 0, pw, pw, ph, ph), value=float("-inf"))
+    dyf = dy.to(acc)
 
     def window(t, u, v):
         return t[:, u : u + (ho - 1) * sh + 1 : sh, v : v + (wo - 1) * sw + 1 : sw, :]
@@ -174,8 +176,8 @@ def pool_bwd_reference(x, dy, kh, kw, sh, sw, ph, pw):
                 better = tap > best
                 best = torch.where(better, tap, best)
                 win = torch.where(better, torch.full_like(win, u * kw + v), win)
-    dxp = torch.zeros(xp.shape, dtype=torch.float32, device=x.device)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    dxp = torch.zeros(xp.shape, dtype=acc, device=x.device)
+    zero = torch.zeros((), dtype=acc, device=x.device)
     for u in reversed(range(kh)):
         for v in reversed(range(kw)):
             window(dxp, u, v).add_(torch.where(win == u * kw + v, dyf, zero))

@@ -154,13 +154,14 @@ def out_size(n: int, k: int, p: int) -> int:
 
 def wgrad_reference(x, dy, kh: int, kw: int, ph: int, pw: int):
     """Plain version: zero-pad x, then one f32 ``x_uvᵀ · dy`` per tap (the
-    sum of ``fastconv.wgrad_taps``)."""
+    sum of ``fastconv.wgrad_taps``; float64 stays float64)."""
     c, o = x.shape[3], dy.shape[3]
     ho, wo = dy.shape[1], dy.shape[2]
+    acc = torch.promote_types(x.dtype, torch.float32)
     xp = F.pad(x, (0, 0, pw, pw, ph, ph))
-    dy2 = dy.reshape(-1, o).float()
+    dy2 = dy.reshape(-1, o).to(acc)
     taps = [
-        xp[:, u:u + ho, v:v + wo, :].float().reshape(-1, c).t() @ dy2
+        xp[:, u:u + ho, v:v + wo, :].to(acc).reshape(-1, c).t() @ dy2
         for u in range(kh) for v in range(kw)
     ]
     return torch.stack(taps).view(kh, kw, c, o)
@@ -169,7 +170,8 @@ def wgrad_reference(x, dy, kh: int, kw: int, ph: int, pw: int):
 def _check(x, dy, kh, kw, ph, pw):
     if x.device != dy.device:
         raise ValueError(f"wgrad: x on {x.device}, dy on {dy.device}")
-    if x.dtype not in _DTYPE_CODES or x.dtype != dy.dtype:
+    plain = x.dtype == torch.float64 and x.device.type == "cpu"  # the plain version only
+    if (x.dtype not in _DTYPE_CODES and not plain) or x.dtype != dy.dtype:
         raise TypeError(f"wgrad: unsupported dtypes x {x.dtype}, dy {dy.dtype}")
     if x.dim() != 4 or dy.dim() != 4:
         raise ValueError("wgrad: x and dy must be 4-D NHWC")

@@ -15,7 +15,9 @@ rank it came from and is added to that rank's edge rows.
 - CUDA tensors: one K4 launch per phase
   (:meth:`mpi4dl_tpu_torch.ops.halo_kernel.HaloRings.phase`), forward
   straight into the halo-extended tile (the W phase in place), backward
-  straight into dx.
+  straight into dx. Every launch goes to the rings' exchange stream; the
+  current stream waits for it at once, or, with ``join=False`` (the
+  decomposed spatial conv and pool), at :func:`join_exchange`.
 - CPU tensors: the plain composition, :func:`exchange_plain` (strips
   through ``swap_dist_reference`` over gloo, fill and concatenation), and
   its backward :func:`exchange_plain_bwd` written out in the kernel's
@@ -35,6 +37,10 @@ from mpi4dl_tpu_torch.parallel.multihost import AXIS_TILE_H, AXIS_TILE_W, TileGr
 
 _DIM = {AXIS_TILE_H: 2, AXIS_TILE_W: 3}  # NCHW dim of each tile axis
 _walk = threading.local()
+_recording = threading.local()
+# CUDA exchanges issued with ``join=False`` since the last reset: the
+# decomposed arm's proof that K4 ran beside the interior's compute.
+deferred_count = 0
 
 
 @contextlib.contextmanager
@@ -54,6 +60,36 @@ def shape_walk():
 
 def in_shape_walk() -> bool:
     return getattr(_walk, "on", False)
+
+
+@contextlib.contextmanager
+def record_exchanges():
+    """Within this block, on this thread, every :func:`halo_exchange` with
+    a halo (a shape walk's too) appends ``(tile shape, halo_h, halo_w)`` to
+    the yielded list. Blocks do not nest."""
+    if getattr(_recording, "box", None) is not None:
+        raise RuntimeError("record_exchanges blocks do not nest")
+    _recording.box = box = []
+    try:
+        yield box
+    finally:
+        _recording.box = None
+
+
+def strip_bytes(shape, halo_h: int, halo_w: int) -> int:
+    """The larger strip an exchange of a ``[B, C, H, W]`` tile sends (the H
+    phase's rows, the W phase's columns of the H-extended tile), in bytes
+    in f32, the widest dtype K4 takes."""
+    b, c, h, w = shape
+    return 4 * b * c * max(halo_h * w, (h + 2 * halo_h) * halo_w)
+
+
+def slot_bytes_for(exchanges) -> int:
+    """K4's receive slot for ``exchanges`` (:func:`record_exchanges`'
+    records): their widest strip in f32, rounded up to 256 bytes, and at
+    least the default ``SLOT_BYTES``."""
+    widest = max((strip_bytes(*e) for e in exchanges), default=0)
+    return max(SLOT_BYTES, -(-widest // 256) * 256)
 
 
 def _format(x) -> torch.memory_format:
@@ -168,7 +204,7 @@ def zero_boundary_halo(x, halo_h: int, halo_w: int, grid: TileGrid):
 def check_kernel_exchange(x, halo_h: int, halo_w: int, slot_bytes: int = SLOT_BYTES) -> None:
     """Raise on a tile the CUDA exchange does not take: not 4-D, an extent
     under twice its halo (the backward's edge sums would overlap), or a
-    strip larger than the receive slot."""
+    strip larger than the receive slot (``slot_bytes``: the open rings')."""
     if x.dim() != 4:
         raise ValueError(f"halo_exchange: the tile must be [B, C, H, W], got {tuple(x.shape)}")
     b, c, h, w = x.shape
@@ -187,12 +223,24 @@ def _cl(t):
     return t if t.stride(1) == 1 else t.contiguous(memory_format=torch.channels_last)
 
 
-def _kernel_forward(x, hh: int, hw: int, grid: TileGrid, fill_value):
+def _kernel_forward(x, hh: int, hw: int, grid: TileGrid, fill_value, join: bool = True):
     b, c, h, w = x.shape
     rings = grid.rings
     out = torch.empty((b, c, h + 2 * hh, w + 2 * hw), dtype=x.dtype, device=x.device,
                       memory_format=torch.channels_last)
     src = _cl(x)
+    with rings.on_exchange_stream(join):
+        _kernel_phases(src, out, hh, hw, grid, fill_value)
+    if not join and src is not x:
+        # A layout copy dies here, before the caller's join: keep the
+        # allocator from handing its memory out while K4 may still read it.
+        src.record_stream(rings.stream)
+    return out
+
+
+def _kernel_phases(src, out, hh: int, hw: int, grid: TileGrid, fill_value):
+    b, c, h, w = src.shape
+    rings = grid.rings
     if hh:
         n, idx = grid.axis_size(AXIS_TILE_H), grid.axis_index(AXIS_TILE_H)
         cols = out[:, :, :, hw:hw + w]
@@ -211,33 +259,39 @@ def _kernel_forward(x, hh: int, hw: int, grid: TileGrid, fill_value):
                     None if src is None else _nhwc(src),
                     None if src is None else _nhwc(out[:, :, :, hw:hw + w]),
                     fill_value=fill_value, mask_a=idx == n - 1, mask_b=idx == 0)
-    return out
 
 
 def _kernel_backward(g, hh: int, hw: int, grid: TileGrid):
     """W phase, then H phase; each: the halo strips' gradients to the ranks
     they came from, the interior copied, the received strips added to the
-    edge rows of a new buffer."""
+    edge rows of a new buffer (every buffer allocated before the launches,
+    on the current stream)."""
     g = _cl(g)
+    bufs, shape = [], list(g.shape)
     for axis, halo in ((AXIS_TILE_W, hw), (AXIS_TILE_H, hh)):
-        if not halo:
-            continue
-        dim = _DIM[axis]
-        size = g.shape[dim] - 2 * halo
-        shape = list(g.shape)
-        shape[dim] = size
-        dx = torch.empty(shape, dtype=g.dtype, device=g.device, memory_format=torch.channels_last)
-        n, idx = grid.axis_size(axis), grid.axis_index(axis)
-        inner = size - 2 * halo
-        grid.rings.phase(
-            axis, _nhwc(g.narrow(dim, 0, halo)), _nhwc(g.narrow(dim, size + halo, halo)),
-            _nhwc(dx.narrow(dim, size - halo, halo)), _nhwc(dx.narrow(dim, 0, halo)),
-            _nhwc(g.narrow(dim, 2 * halo, inner)) if inner else None,
-            _nhwc(dx.narrow(dim, halo, inner)) if inner else None,
-            add_a=_nhwc(g.narrow(dim, size, halo)), add_b=_nhwc(g.narrow(dim, halo, halo)),
-            mask_a=idx == n - 1, mask_b=idx == 0)
-        g = dx
+        if halo:
+            shape[_DIM[axis]] -= 2 * halo
+            bufs.append((axis, halo, torch.empty(shape, dtype=g.dtype, device=g.device,
+                                                 memory_format=torch.channels_last)))
+    with grid.rings.on_exchange_stream():
+        for axis, halo, dx in bufs:
+            _backward_phase(g, dx, axis, halo, grid)
+            g = dx
     return g
+
+
+def _backward_phase(g, dx, axis: str, halo: int, grid: TileGrid):
+    dim = _DIM[axis]
+    size = dx.shape[dim]
+    n, idx = grid.axis_size(axis), grid.axis_index(axis)
+    inner = size - 2 * halo
+    grid.rings.phase(
+        axis, _nhwc(g.narrow(dim, 0, halo)), _nhwc(g.narrow(dim, size + halo, halo)),
+        _nhwc(dx.narrow(dim, size - halo, halo)), _nhwc(dx.narrow(dim, 0, halo)),
+        _nhwc(g.narrow(dim, 2 * halo, inner)) if inner else None,
+        _nhwc(dx.narrow(dim, halo, inner)) if inner else None,
+        add_a=_nhwc(g.narrow(dim, size, halo)), add_b=_nhwc(g.narrow(dim, halo, halo)),
+        mask_a=idx == n - 1, mask_b=idx == 0)
 
 
 class HaloExchange(torch.autograd.Function):
@@ -245,7 +299,7 @@ class HaloExchange(torch.autograd.Function):
     their transposes, W then H (``halo_pallas.py:214-219``, ``:248-259``)."""
 
     @staticmethod
-    def forward(ctx, x, halo_h: int, halo_w: int, grid: TileGrid, fill_value):
+    def forward(ctx, x, halo_h: int, halo_w: int, grid: TileGrid, fill_value, join: bool):
         ctx.geom = (halo_h, halo_w, grid)
         if x.device.type == "meta" and in_shape_walk():
             b, c, h, w = x.shape
@@ -255,26 +309,46 @@ class HaloExchange(torch.autograd.Function):
             return exchange_plain(x, halo_h, halo_w, grid, fill_value)
         if not x.is_cuda:
             raise ValueError(f"halo_exchange: no kernel for device {x.device}")
-        check_kernel_exchange(x, halo_h, halo_w)
         if grid.rings is None:
             raise RuntimeError("halo_exchange: the grid's rings are not open (open_rings)")
-        return _kernel_forward(x, halo_h, halo_w, grid, fill_value)
+        check_kernel_exchange(x, halo_h, halo_w, grid.rings.slot_bytes)
+        if not join:
+            global deferred_count
+            deferred_count += 1
+        return _kernel_forward(x, halo_h, halo_w, grid, fill_value, join)
 
     @staticmethod
     def backward(ctx, g):
         halo_h, halo_w, grid = ctx.geom
         if g.device.type == "cpu":
-            return exchange_plain_bwd(g, halo_h, halo_w, grid), None, None, None, None
-        return _kernel_backward(g, halo_h, halo_w, grid), None, None, None, None
+            dx = exchange_plain_bwd(g, halo_h, halo_w, grid)
+        else:
+            dx = _kernel_backward(g, halo_h, halo_w, grid)
+        return dx, None, None, None, None, None
 
 
-def halo_exchange(x, halo_h: int, halo_w: int, grid: TileGrid, fill_value: float = 0.0):
+def halo_exchange(x, halo_h: int, halo_w: int, grid: TileGrid, fill_value: float = 0.0,
+                  join: bool = True):
     """This rank's tile ``x [B, C, H, W]`` extended by ``halo_h`` rows and
     ``halo_w`` cols of its neighbours' data on each side (``fill_value``
-    beyond the global image): ``[B, C, H + 2*halo_h, W + 2*halo_w]``."""
+    beyond the global image): ``[B, C, H + 2*halo_h, W + 2*halo_w]``.
+
+    ``join=False``: a CUDA tile's exchange is left running on the rings'
+    exchange stream; read the result only after :func:`join_exchange`."""
     if halo_h <= 0 and halo_w <= 0:
         return x
-    return HaloExchange.apply(x, max(halo_h, 0), max(halo_w, 0), grid, fill_value)
+    halo_h, halo_w = max(halo_h, 0), max(halo_w, 0)
+    box = getattr(_recording, "box", None)
+    if box is not None:
+        box.append((tuple(x.shape), halo_h, halo_w))
+    return HaloExchange.apply(x, halo_h, halo_w, grid, fill_value, join)
+
+
+def join_exchange(x, grid: TileGrid) -> None:
+    """After ``halo_exchange(x, ..., join=False)``: the current stream
+    waits for the exchange (CUDA tiles; a no-op otherwise)."""
+    if x.is_cuda:
+        grid.rings.join()
 
 
 def halo_exchange_reference(tiles, halo_h: int, halo_w: int, fill_value: float = 0.0):

@@ -48,8 +48,15 @@ from torch.utils.checkpoint import (
 
 from mpi4dl_tpu_torch.config import ParallelConfig
 from mpi4dl_tpu_torch.ops import fastconv
-from mpi4dl_tpu_torch.ops.halo_kernel import open_rings
-from mpi4dl_tpu_torch.parallel.halo import gather_tiles, shape_walk, split_tiles
+from mpi4dl_tpu_torch.ops.layers import bn_stats_mode
+from mpi4dl_tpu_torch.ops.halo_kernel import close_rings, open_rings
+from mpi4dl_tpu_torch.parallel.halo import (
+    gather_tiles,
+    record_exchanges,
+    shape_walk,
+    slot_bytes_for,
+    split_tiles,
+)
 from mpi4dl_tpu_torch.parallel.multihost import TileGrid
 from mpi4dl_tpu_torch.utils import resolve_device, same_config
 
@@ -60,8 +67,9 @@ def make_optimizer(params, learning_rate: float = 0.001, momentum: float = 0.9):
 
 
 def cross_entropy_sum(logits, labels) -> torch.Tensor:
-    """Sum (not mean) of per-example CE, in f32."""
-    return F.cross_entropy(logits.float(), labels, reduction="sum")
+    """Sum (not mean) of per-example CE, in f32 (float64 logits: float64)."""
+    return F.cross_entropy(logits.to(torch.promote_types(logits.dtype, torch.float32)), labels,
+                           reduction="sum")
 
 
 def correct_count(logits, labels) -> torch.Tensor:
@@ -70,8 +78,9 @@ def correct_count(logits, labels) -> torch.Tensor:
 
 def _flat_all_reduce(tensors, op) -> None:
     """``op`` (a collective on one tensor) over every tensor of ``tensors``
-    as one flat f32 bucket, written back in place."""
-    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    as one flat f32 bucket (float64 if a tensor is), written back in place."""
+    acc = functools.reduce(torch.promote_types, (t.dtype for t in tensors), torch.float32)
+    flat = torch.cat([t.reshape(-1).to(acc) for t in tensors])
     op(flat)
     offset = 0
     for t in tensors:
@@ -242,6 +251,28 @@ def _from_host(packed):
     return host.to(device, non_blocking=device.type == "cuda")
 
 
+def meta_cell(cell: nn.Module, h):
+    """``cell`` on the meta state ``h``: shapes only, no data and no
+    communication (the counterpart of ``jax.eval_shape``)."""
+    tensors = {n: torch.empty_like(t, device="meta")
+               for n, t in list(cell.named_parameters()) + list(cell.named_buffers())}
+    with torch.no_grad(), shape_walk():
+        return functional_call(cell, tensors, (h,))
+
+
+def spatial_exchanges(model: nn.Module, n_spatial: int, tile_shape) -> list:
+    """Every halo exchange ``(tile shape, halo_h, halo_w)`` that one forward
+    of the first ``n_spatial`` cells of ``model`` makes on a tile of
+    ``tile_shape`` ``[B, C, H, W]``, in order, from a walk on the meta
+    device. The walk runs the BNs in ``"batch"`` mode, whatever their mode:
+    it collects no statistics and reads no frozen ones."""
+    h = torch.empty(tuple(tile_shape), device="meta")
+    with record_exchanges() as box, bn_stats_mode(model, "batch"):
+        for i in range(n_spatial):
+            h = meta_cell(model[i], h)
+    return box
+
+
 class Trainer:
     """Trainer over a flat cell sequence, single-device or spatial.
 
@@ -333,9 +364,15 @@ class Trainer:
     num_spatial_cells, grid: run the first ``num_spatial_cells`` cells
         on this rank's tile of ``grid`` (the model must be built with the
         same grid). Construction is collective: it broadcasts every
-        parameter from rank 0 and, on the card, opens the grid's K4 rings
-        unless they are open (:func:`~mpi4dl_tpu_torch.ops.halo_kernel.close_rings`
-        closes them).
+        parameter from rank 0. On the card, :meth:`forward` is collective
+        too at each new tile shape: it opens the grid's K4 rings unless
+        they are open with slots as large as that tile needs (the widest
+        strip of :func:`spatial_exchanges` in f32; rings with smaller slots
+        are closed and opened anew;
+        :func:`~mpi4dl_tpu_torch.ops.halo_kernel.close_rings` closes them).
+        The D2 models (``get_resnet_v2_d2``' ``n_spatial_d2``,
+        ``amoebanetd(halo_d2=True)``) run as they are: a ``HaloExchange``
+        cell has no parameters, so the planner never starts a run there.
 
     :attr:`step` counts the ``train_step`` calls (one a call whatever
     ``grad_accum`` is: ``TrainState.step``). :meth:`state_tensors` and
@@ -409,8 +446,21 @@ class Trainer:
             with torch.no_grad():
                 _flat_all_reduce(list(self.model.parameters()),
                                  lambda t: dist.broadcast(t, src=0))
-            if self.device.type == "cuda" and grid.rings is None:
-                open_rings(grid, self.device)
+        self._slot_needs = {}  # tile shape -> K4 slot bytes its forward needs
+
+    def _size_rings(self, x) -> None:
+        """On the card: make sure the grid's K4 rings are open with slots for
+        the widest strip that a forward of ``x`` makes (a meta walk, once
+        per tile shape); if not, (re)open them, collectively."""
+        key = tuple(x.shape)
+        if key not in self._slot_needs:
+            self._slot_needs[key] = slot_bytes_for(
+                spatial_exchanges(self.model, self.n_spatial, key))
+        need, grid = self._slot_needs[key], self.grid
+        if grid.rings is not None and grid.rings.slot_bytes < need:
+            close_rings(grid)
+        if grid.rings is None:
+            open_rings(grid, self.device, slot_bytes=need)
 
     def _remat_groups(self, n: int):
         """The checkpointed groups of cells (lists of cell indices) of
@@ -462,13 +512,8 @@ class Trainer:
                        isinstance(h, tuple))
 
     def _meta_cell(self, i: int, h):
-        """Cell ``i`` on the meta device: shapes only, no data and no
-        communication (the counterpart of ``jax.eval_shape``)."""
-        cell = self.model[i]
-        tensors = {n: torch.empty_like(t, device="meta")
-                   for n, t in list(cell.named_parameters()) + list(cell.named_buffers())}
-        with torch.no_grad(), shape_walk():
-            return functional_call(cell, tensors, (h,))
+        """Cell ``i`` on the meta device (:func:`meta_cell`)."""
+        return meta_cell(self.model[i], h)
 
     def scan_plan(self, x) -> list:
         """The scan planner (``Trainer._plan_scan_runs``,
@@ -686,6 +731,8 @@ class Trainer:
 
     def forward(self, x: torch.Tensor):
         """Logits for an NCHW input on the device."""
+        if self.n_spatial and x.is_cuda:
+            self._size_rings(x)
         h = x
         if self.remat is False or not torch.is_grad_enabled():
             for i in range(len(self.model)):

@@ -81,11 +81,9 @@ def _batches(size, batch, seed=0):
 
 class _CountOps(TorchDispatchMode):
     """Counts the conv ops that execute (a selective checkpoint serves its
-    saved outputs without executing them): the model's convs and matmuls,
-    and apart from them the depthwise convs of the avg pools (not conv
-    outputs in the JAX package either: recomputed under every policy). Ops
-    on meta tensors (the scan planner's shape walk) execute nothing and are
-    not counted."""
+    saved outputs without executing them): the model's convs and matmuls.
+    Ops on meta tensors (the scan planner's shape walk) execute nothing and
+    are not counted."""
 
     def __init__(self):
         super().__init__()
@@ -94,9 +92,7 @@ class _CountOps(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if args and isinstance(args[0], torch.Tensor) and args[0].is_meta:
             pass
-        elif func is torch.ops.aten.convolution.default:
-            self.counts["avg pool" if args[8] > 1 else str(func)] += 1
-        elif func is torch.ops.aten.mm.default:
+        elif func in (torch.ops.aten.convolution.default, torch.ops.aten.mm.default):
             self.counts[str(func)] += 1
         return func(*args, **(kwargs or {}))
 

@@ -365,8 +365,7 @@ def test_spatial_model_shares_the_plain_parameters():
 
 @pytest.mark.parametrize("build", [
     lambda: amoebanetd(10, LAYERS, FILTERS, spatial_cells=CELLS),
-    lambda: amoebanetd(10, LAYERS, FILTERS, spatial_cells=CELLS, halo_d2=True,
-                       grid=TileGrid((2, 2), 0)),
+    lambda: amoebanetd(10, LAYERS, FILTERS, spatial_cells=CELLS, halo_d2=True),
     lambda: Pool("max", 3, 1, 1, spatial=True),
     lambda: Pool("avg", 3, 1, 0, spatial=True, grid=TileGrid((2, 2), 0)),
 ], ids=["spatial_cells_without_grid", "halo_d2", "spatial_pool_without_grid",
