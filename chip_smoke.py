@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # the full run, a few minutes on one H100
     python3 chip_smoke.py --profile       # + a torch.profiler breakdown of one step of each path
     python3 chip_smoke.py --spatial-only  # only the build and phase s (for a 4-card host)
+    python3 chip_smoke.py --pipeline-only # only the build and phase p
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -106,9 +107,9 @@ Phases (any failure exits non-zero; nothing is caught):
      s2. the spatial main paths: ResNet-110 v2 (``resnet_sp``) and then
          AmoebaNet-D 18L/416F (``amoebanet_sp``) @1024 bs2, every cell but
          the head on the tiles, bf16 compute / f32 params, SGD momentum
-         0.9, random weights from the seed of phase c, remat=False, 2
-         warm-up and ``SP_STEPS`` timed steps each. The first warm-up records the
-         kernels' call shapes and the halo exchanges (K4 runs their axis
+         0.9, random weights from the seed of phase c, remat=False,
+         ``SP_WARMUP`` warm-up and ``SP_STEPS`` timed steps each. The first
+         warm-up records the kernels' call shapes and the halo exchanges (K4 runs their axis
          phases, one launch each); the step time of each timed step is its
          slowest rank's; every kernel of the path must launch in every
          rank's steps. The first warm-up also holds every avg-pool window
@@ -164,6 +165,35 @@ Phases (any failure exits non-zero; nothing is caught):
      s6. three exchanges, forward and backward, captured in one CUDA graph
          on every rank and replayed 3 times on new inputs, each replay
          exactly equal to the plain version;
+  p. the LP/PP pipeline (``parallel.pipeline.PipelineTrainer``), 2 stages
+     on 2 rank processes: one rank per card with 2 or more cards (NCCL),
+     else both on card 0 over a gloo group with the wires staged through
+     pinned host buffers. AmoebaNet-D 18L/416F and ResNet-110 v2 @1024
+     (phase c's models and seed), batch 4 in 4 micro-batches, GPipe and
+     interleaved 1F1B (v=2):
+     p2. (first) in this script's own 2 ranks, f32 (TF32 off): each
+         schedule's first step, whose loss must be within ``PP_LOSS_RTOL``
+         of ``Trainer(grad_accum=4)``'s on the same weights and batch (run
+         by rank 0), GPipe's within ``PP_SCHED_RTOL`` of 1F1B's, whose
+         gradients (SGD's momentum buffers, gathered to rank 0) must be
+         within ``PP_GRAD_TOL`` of the Trainer's in each virtual stage
+         (relative L2 norm), and whose K1/K2/K3 launches summed over the
+         ranks must equal the Trainer step's; every tick is probed: an
+         idle tick (no stage work) runs no op on the card and launches no
+         K1-K3. The GPipe step records the kernels' call shapes (phases
+         d-g check and time them). Then ResNet-110's checkpoint: a step,
+         ``save_checkpoint`` (rank 0 writes the JAX pipeline layout), a
+         step; a new trainer restores it and its step's loss must be
+         bit-equal on every rank;
+     p1. each LP twin through its own CLI in a subprocess, once a schedule
+         (``MPI4DL_TPU_PIPELINE_SCHEDULE``; ``python -m mpi4dl_tpu_torch.
+         benchmarks.layer_parallelism.benchmark_{amoebanet,resnet}_lp``,
+         bf16, ``--max-steps 3``): exit 0 and its Mean/Median/MFU line.
+         For each model and schedule (the ranks' ``MPI4DL_TPU_RUN_REPORT``
+         records): the
+         step (slowest rank) and img/s, per-rank K1/K2/K3 launches a step
+         (their sum must equal the Trainer's of p2), peak memory per rank,
+         the analytic bubble and the transport;
   d. K1 (max-pool backward) against its plain PyTorch version at every
      recorded main-path shape (the halo-extended tiles of the spatial path,
      p = 0, also with a −inf outer ring, as a tile at the image's edge
@@ -193,6 +223,7 @@ from __future__ import annotations
 import argparse
 import collections
 import copy
+import gc
 import json
 import math
 import os
@@ -248,7 +279,11 @@ SP_SPECS = {
     "amoebanet_sp_dec": ("amoebanet", DEC_ENV),
 }
 SP_PATHS = tuple(SP_SPECS)
-SP_STEPS = 3  # timed steps of a spatial path, after WARMUP
+# Warm-up and timed steps of a spatial path (2 and 3 before phase p came;
+# cut to keep the whole script inside its time limit: the checks made at
+# every step, such as ResNet's bf16 losses against the D1 twin, now see 3
+# steps, not 5, and a path's median step is the larger of its 2).
+SP_WARMUP, SP_STEPS = 1, 2
 D2_FUSED = 2  # the D2 ResNet's fused_layers
 # s8: the decomposed arm's f32 first-step loss against the monolithic arm's,
 # relative (the same math; cuDNN may pick other algorithms for the interior
@@ -348,6 +383,35 @@ EVAL_STAT_TOL = 1e-3
 # Phase v3's small f32 spatial models against single-device eval on the CPU
 # (statistics per leaf normalised, loss relative).
 SP_EVAL_TOL = 1e-3
+# Phase p: the LP/PP pipeline (``PipelineTrainer``), ``PP_RANKS`` stages of
+# AmoebaNet-D 18L/416F and ResNet-110 v2 @1024 (phase c's models), batch
+# ``PP_BATCH`` in ``PP_PARTS`` micro-batches, each schedule. p2 holds each
+# schedule's f32 first step to Trainer(grad_accum=PP_PARTS)'s on the same
+# weights (loss within ``PP_LOSS_RTOL``, each virtual stage's gradients
+# within ``PP_GRAD_TOL`` of the Trainer's, K1-K3 launches summed over the
+# ranks equal) and GPipe's loss to 1F1B's
+# (``PP_SCHED_RTOL``). p1 runs each LP twin through its own CLI under each
+# schedule: bf16, one warm-up step and ``PP_STEPS - 1`` timed and counted.
+PP_RANKS = 2
+PP_BATCH, PP_PARTS = 4, 4
+PP_STEPS = 3
+PP_SCHEDULES = ("gpipe", "1f1b")
+PP_LOSS_RTOL = 1e-4
+# p2's steps take the LP twins' learning rate. After a first step SGD's
+# momentum buffer is the step's gradient; each virtual stage's gradients
+# (all its leaves as one vector) are held to the Trainer's in relative L2
+# norm. A gradient wire that is dropped or carries another micro-batch's
+# gradient puts every stage upstream of it at 1 or more (1.0-2.0 measured
+# with such faults injected, ResNet-v2 d20 and AmoebaNet-D 3L/32F on the
+# CPU); f32 rounding alone gave at most 5.3e-3 there. A per-leaf gate cannot
+# be set: leaves whose f32 gradient is mostly rounding differ by up to 1.9 of
+# their own size where the stage differs by 6e-6.
+PP_LR = 0.001
+PP_GRAD_TOL = 0.05
+PP_SCHED_RTOL = 1e-5
+PP_PATHS = {f"{m}_pp_{s}": (m, s) for m in ("amoebanet", "resnet") for s in PP_SCHEDULES}
+PATH_KERNELS.update({path: _MODEL_KERNELS[m] for path, (m, _) in PP_PATHS.items()})
+STEPS_IN_RUN.update(dict.fromkeys(PP_PATHS, PP_STEPS - 1))
 # The path whose slice ported each kernel: a kernels row's ``launches`` is
 # that path's count per step (``launches_per_step`` gives every path's).
 HOME_PATH = {"pool_bwd": "amoebanet", "dot1x1_bwd": "amoebanet", "wgrad": "resnet",
@@ -604,6 +668,7 @@ def f32_first_loss(model, device, config=None, grads=False, **trainer_kwargs):
     loss = float(trainer.train_step(x.float(), y)["loss"])
     got = {n: p.grad for n, p in trainer.model.named_parameters()} if grads else None
     del trainer, model, x, y
+    gc.collect()  # the trainer's reference cycles, before the cache is returned
     torch.cuda.empty_cache()
     return (loss, got) if grads else loss
 
@@ -670,6 +735,7 @@ def phase_main(path, desc, build, shapes, profile=False):
     log(f"[c] launches per step: " + ", ".join(
         f"{name} {launches[name] // STEPS}" for name in counters))
     del trainer, model, x, y
+    gc.collect()  # trainers hold reference cycles
     torch.cuda.empty_cache()
     f32_loss = f32_first_loss(build(torch.float32), DEVICE)
     log(f"[c] first step loss with f32 compute (TF32 off, same weights and batch): "
@@ -1031,6 +1097,7 @@ def phase_walk_steps(calls, launches):
             f"{peak / 2**30:.2f} GiB; scanq store grants {trainer.scanq_grant_bytes}; launches "
             f"a step {launches[path]}")
         del trainer, model, x, y
+        gc.collect()  # trainers hold reference cycles
     torch.cuda.empty_cache()
 
 
@@ -1282,6 +1349,7 @@ def phase_checkpoint(launches):
     x, y = ds.batch(2)
     loss_a = float(trainer.train_step(x, y)["loss"])
     del trainer, model
+    gc.collect()  # trainers hold reference cycles
     torch.cuda.empty_cache()
     counters = _counters()
     for mod in counters.values():
@@ -1322,6 +1390,7 @@ def phase_checkpoint(launches):
         f"{res['count'] / eval_s:.3f} img/s; eval loss {res['loss']:.4f}, accuracy "
         f"{res['accuracy']:.2f} (random weights after 3 steps); {card()}")
     del resumed, stats
+    gc.collect()  # trainers hold reference cycles
     torch.cuda.empty_cache()
     for name, build, size in small_models():
         got, want = small_eval(build, size, DEVICE), small_eval(build, size, "cpu")
@@ -1405,18 +1474,6 @@ def check_small_eval(name, got, want, stat_tol, loss_rtol):
         raise AssertionError(f"{name} eval: {rg} against {rw} (loss rtol {loss_rtol:g})")
     return worst
 
-
-
-def sp_layout():
-    """(backend, description) of the 4 rank processes on this host: one
-    rank per card with 4 or more cards, else all on card 0."""
-    import torch
-
-    if torch.cuda.device_count() >= SP_RANKS:
-        return "nccl", f"{SP_RANKS} ranks, one per card (NCCL)"
-    # A rank takes card ``rank % device_count``: show the ranks one card.
-    os.environ["CUDA_VISIBLE_DEVICES"] = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
-    return "gloo", f"{SP_RANKS} ranks sharing card 0 (gloo group)"
 
 
 def sp_small_models():
@@ -1794,7 +1851,7 @@ def _sp_path(rank, grid, device, profile, build):
     shapes = _new_calls()
     bn_reduces = [0]
     out["window_sums"] = {}
-    for i in range(WARMUP):
+    for i in range(SP_WARMUP):
         restore = []
         if i == 0:
             restore = _record_shapes(shapes) + [
@@ -1833,6 +1890,7 @@ def _sp_path(rank, grid, device, profile, build):
     out["exchanges"] = [(k, n) for k, n in out["shapes"]["halo_swap"] if k[2] or k[3]]
     out["bn_allreduces"] = bn_reduces[0]
     del trainer, model, x, y
+    gc.collect()  # trainers hold reference cycles
     torch.cuda.empty_cache()
     out["f32_loss"], f32_grads = f32_first_loss(
         build(grid, torch.float32)[0], device, config=dict(spatial_size=1,
@@ -2115,6 +2173,7 @@ def _sp_eval(rank, grid, device, ckpt_dir):
         (a == b).all() for a, b in zip(_flat_leaves([_numpy_stats(s) for s in stats]),
                                        _flat_leaves(stats2)))
     del trainer, rebuilt, model, stats, stats2
+    gc.collect()  # trainers hold reference cycles
     torch.cuda.empty_cache()
     out["small"] = [small_eval(lambda: build_small(grid), size, device,
                                config=dict(spatial_size=1, num_spatial_parts=SP_RANKS),
@@ -2182,15 +2241,16 @@ def phase_spatial(calls, profile, first_loss):
     the cards the ranks ran on, and K4's timing (slowest rank)."""
     import torch
 
+    from mpi4dl_tpu_torch.benchmarks.common import rank_layout
     from mpi4dl_tpu_torch.parallel import multihost
 
-    backend, desc = sp_layout()
+    backend, desc, env = rank_layout(SP_RANKS, DEVICE)
     log(f"[s] rank layout: {desc}, 2x2 tile grid")
     torch.cuda.empty_cache()
     t0 = time.time()
     with tempfile.TemporaryDirectory(prefix="mpi4dl-sp-ckpt-") as ckpt_dir:
         ranks = multihost.spawn(_sp_worker, SP_RANKS, args=(backend, profile, ckpt_dir),
-                                backend=backend, timeout=900)
+                                backend=backend, timeout=900, env=env)
     log(f"[s] 4 ranks ran phases s1-s8 and v3 in {time.time() - t0:.1f} s")
 
     for i, (name, size, _, build) in enumerate(sp_small_models()):
@@ -2239,7 +2299,7 @@ def phase_spatial(calls, profile, first_loss):
                                      f"more than {WS_BOUND:g} of its window's sum of |x|")
             if m["divisors_wrong"]:
                 raise AssertionError(f"{path} rank {r}: wrong avg-pool divisors after "
-                                     f"{WARMUP + SP_STEPS} steps: {m['divisors_wrong']}")
+                                     f"{SP_WARMUP + SP_STEPS} steps: {m['divisors_wrong']}")
         slowest = [max(m["times"][i] for m in mains) for i in range(SP_STEPS)]
         ms = _median_step_ms(mains)
         ips[path] = BATCH / (ms / 1e3)
@@ -2450,6 +2510,377 @@ def halo_row(timing, launches):
         f"{swap['nbytes']} bytes a rank: kernel {swap['ms']:.3f} ms, library (NCCL "
         f"batch_isend_irecv) {'%.3f ms' % slib if slib is not None else 'n/a (ranks share a card)'}")
     return row
+
+
+# -- phase p: the LP/PP pipeline ------------------------------------------------
+
+def pp_batch(device):
+    """The pipeline paths' batch of ``PP_BATCH`` images, from the seed."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    x = torch.randn((PP_BATCH, SIZE, SIZE, 3), generator=gen, device=device).to(torch.bfloat16)
+    y = torch.randint(0, 10, (PP_BATCH,), generator=gen, device=device)
+    return x, y
+
+
+def pp_builders():
+    """model -> builder taking the compute dtype (phase c's models)."""
+    return {path: build for path, _, build in main_models()}
+
+
+def _tick_probe(box, device):
+    """A ``PipelineTrainer.on_tick`` that appends, per tick, (direction,
+    tick, work items, ops run on ``device``, K1-K3 launches) to ``box``:
+    every aten op with a tensor argument on ``device``'s type counts (a
+    ``TorchDispatchMode``)."""
+    import contextlib
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    counters = _counters()
+
+    class Ops(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            import torch
+
+            leaves = torch.utils._pytree.tree_leaves((args, kwargs or {}))
+            if any(isinstance(t, torch.Tensor) and t.device.type == device.type
+                   for t in leaves):
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    @contextlib.contextmanager
+    def tick(direction, t, work):
+        before = sum(counters[k].launch_count for k in ("pool_bwd", "wgrad", "dot1x1_bwd"))
+        ops = Ops()
+        with ops:
+            yield
+        after = sum(counters[k].launch_count for k in ("pool_bwd", "wgrad", "dot1x1_bwd"))
+        box.append((direction, t, len(work), ops.n, after - before))
+
+    return tick
+
+
+def _pp_step(model, config, device, x, y, schedule=None, probe=None, shapes=None,
+             accum=None):
+    """One step at ``PP_LR`` from the model's current weights: a
+    ``PipelineTrainer`` (``schedule``; collective) or, with ``accum``,
+    ``Trainer(grad_accum=accum)``. Returns (loss, this rank's K1-K3
+    launches, the step's gradients, its SGD momentum buffers, per cell as
+    numpy: a pipeline's gathered to rank 0, None on the other ranks, and a
+    pipeline's cells of each virtual stage); ``probe`` (a list) gets
+    the ticks, ``shapes`` (from :func:`_new_calls`) the kernels' call
+    shapes."""
+    import torch
+
+    from mpi4dl_tpu_torch.parallel.pipeline import PipelineTrainer
+    from mpi4dl_tpu_torch.train import Trainer
+    from mpi4dl_tpu_torch.weights import unstack_pipeline
+
+    if accum:
+        tr = Trainer(model, config, learning_rate=PP_LR, device=device, grad_accum=accum)
+    else:
+        tr = PipelineTrainer(model, config, learning_rate=PP_LR, device=device,
+                             schedule=schedule)
+        if probe is not None:
+            tr.on_tick = _tick_probe(probe, device)
+    counters = _counters()
+    for mod in counters.values():
+        mod.launch_count = 0
+    restore = _record_shapes(shapes) if shapes is not None else []
+    try:
+        loss = float(tr.train_step(x, y)["loss"])
+    finally:
+        for undo in restore:
+            undo()
+    launches = {k: counters[k].launch_count for k in ("pool_bwd", "wgrad", "dot1x1_bwd")}
+    if accum:
+        grads = tr.state_tensors()[1]
+    else:
+        stacked = tr.stacked_rows("momentum")
+        grads = (None if stacked is None
+                 else unstack_pipeline(stacked, tr.model, tr.stages, tr.placement))
+    if grads is not None:
+        grads = [{k: v.detach().cpu().numpy() for k, v in cell.items()} for cell in grads]
+    stages = None if accum else tr.stages
+    del tr
+    gc.collect()  # trainers hold reference cycles
+    torch.cuda.empty_cache()
+    return loss, launches, grads, stages
+
+
+def _stage_errors(got, want, stages) -> list:
+    """Per virtual stage (its cells' indices in ``stages``), the relative L2
+    norm of ``got - want`` over every leaf of its cells (per cell
+    ``{name: array}``), in float64."""
+    import numpy as np
+
+    out = []
+    for cells in stages:
+        diff = ref = 0.0
+        for i in cells:
+            for k, w in want[i].items():
+                w = w.astype(np.float64)
+                diff += float(((got[i][k] - w) ** 2).sum())
+                ref += float((w ** 2).sum())
+        out.append((diff / ref) ** 0.5)
+    return out
+
+
+def _pp_resume(model, config, device, x, y, ckpt_dir):
+    """Checkpoint and resume: a gpipe step, ``save_checkpoint`` (rank 0
+    writes), a second step; then a new trainer restores the checkpoint and
+    takes the second step again. Returns both second losses and the
+    checkpoint's bytes."""
+    import torch
+
+    from mpi4dl_tpu_torch import checkpoint
+    from mpi4dl_tpu_torch.parallel.pipeline import PipelineTrainer
+
+    tr = PipelineTrainer(model, config, learning_rate=0.001, device=device)
+    tr.train_step(x, y)
+    t0 = time.time()
+    path = checkpoint.save_checkpoint(ckpt_dir, tr)
+    save_s = time.time() - t0
+    first = float(tr.train_step(x, y)["loss"])
+    del tr
+    tr = PipelineTrainer(model, config, learning_rate=0.001, device=device)
+    t0 = time.time()
+    checkpoint.restore_checkpoint(path, tr)
+    restore_s = time.time() - t0
+    step = tr.step
+    again = float(tr.train_step(x, y)["loss"])
+    nbytes = os.path.getsize(os.path.join(path, "state.msgpack"))
+    del tr
+    gc.collect()  # trainers hold reference cycles
+    torch.cuda.empty_cache()
+    return {"loss": first, "resumed_loss": again, "step": step, "bytes": nbytes,
+            "save_s": save_s, "restore_s": restore_s}
+
+
+def _pp_worker(rank, world, ckpt_dir):
+    """Phase p2 in one rank: per model, one f32 step of each schedule from
+    the seed's weights (the first with the kernels' call shapes recorded
+    and every tick probed), then rank 0 takes ``Trainer(grad_accum=
+    PP_PARTS)``'s step on the same weights while the other ranks wait and
+    holds each schedule's gradients to its (:func:`_stage_errors`); on
+    ResNet-110, the checkpoint and resume."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+
+    from mpi4dl_tpu_torch.config import ParallelConfig
+    from mpi4dl_tpu_torch.weights import init
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = (torch.device("cuda", torch.cuda.current_device()) if DEVICE == "cuda"
+              else torch.device(DEVICE))
+    cfg = ParallelConfig(batch_size=PP_BATCH, parts=PP_PARTS, split_size=PP_RANKS,
+                         image_size=SIZE)
+    x, y = pp_batch(device)
+    x = x.float()
+    out = {}
+    for name, build in pp_builders().items():
+        t0 = time.time()
+        model = init(build(torch.float32), torch.Generator().manual_seed(SEED))
+        start = copy.deepcopy(model.state_dict())
+        res = {"setup_s": time.time() - t0, "shapes": _new_calls()}
+        grads = {}
+        for schedule in PP_SCHEDULES:
+            model.load_state_dict(start)
+            probe = []
+            dist.barrier()
+            loss, launches, g, stages = _pp_step(
+                model, cfg, device, x, y, schedule=schedule, probe=probe,
+                shapes=res["shapes"] if schedule == "gpipe" else None)
+            res[schedule] = (loss, launches)
+            grads[schedule] = (g, stages)
+            del g
+            res[f"{schedule}_ticks"] = probe
+        dist.barrier()
+        if rank == 0:
+            model.load_state_dict(start)
+            loss, launches, want, _ = _pp_step(
+                model, ParallelConfig(batch_size=PP_BATCH, image_size=SIZE), device, x, y,
+                accum=PP_PARTS)
+            res["trainer"] = (loss, launches)
+            for schedule, (g, stages) in grads.items():
+                res[f"{schedule}_grad_err"] = _stage_errors(g, want, stages)
+            del want, g
+        dist.barrier()
+        if name == "resnet":
+            model.load_state_dict(start)
+            res["resume"] = _pp_resume(model, cfg, device, x, y, ckpt_dir)
+        del model, start, grads
+        gc.collect()  # trainers hold reference cycles
+        torch.cuda.empty_cache()
+        out[name] = res
+    return out
+
+
+def phase_pipeline_gates(calls):
+    """Phase p2: spawn the ranks and hold the pipeline to ``Trainer``; counts
+    each model's gpipe call shapes (summed over the ranks) into
+    ``calls[<model>_pp_gpipe]``. Returns, per model, the K1-K3 launches of
+    ``Trainer(grad_accum=PP_PARTS)``'s step."""
+    import torch
+
+    from mpi4dl_tpu_torch.benchmarks.common import rank_layout
+    from mpi4dl_tpu_torch.parallel import multihost
+
+    backend, desc, env = rank_layout(PP_RANKS, DEVICE)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    with tempfile.TemporaryDirectory(prefix="mpi4dl-pp-ckpt-") as ckpt_dir:
+        ranks = multihost.spawn(_pp_worker, PP_RANKS, args=(ckpt_dir,), backend=backend,
+                                timeout=900, env=env)
+    log(f"[p2] {desc}: f32 steps of both schedules and Trainer(grad_accum={PP_PARTS}) in "
+        f"{time.time() - t0:.1f} s")
+    for name in pp_builders():
+        per = [r[name] for r in ranks]
+        path = f"{name}_pp_gpipe"
+        calls[path] = _new_calls()
+        for r in per:
+            for k, c in r["shapes"].items():
+                calls[path][k].update(c)
+        want_loss, want_launch = per[0]["trainer"]
+        losses = {s: per[0][s][0] for s in PP_SCHEDULES}
+        for s in PP_SCHEDULES:
+            if any(r[s][0] != losses[s] for r in per):
+                raise AssertionError(f"{name} {s}: the ranks' losses differ: {[r[s][0] for r in per]}")
+            got = {k: sum(r[s][1][k] for r in per) for k in want_launch}
+            if got != want_launch:
+                raise AssertionError(f"{name} {s}: K1-K3 launches summed over the ranks {got}, "
+                                     f"Trainer(grad_accum={PP_PARTS}) {want_launch}")
+            if not abs(losses[s] - want_loss) <= PP_LOSS_RTOL * abs(want_loss):
+                raise AssertionError(f"{name} {s}: f32 first-step loss {losses[s]!r}, "
+                                     f"Trainer(grad_accum={PP_PARTS}) {want_loss!r}")
+            grad_err = per[0][f"{s}_grad_err"]
+            if not all(e <= PP_GRAD_TOL for e in grad_err):
+                raise AssertionError(f"{name} {s}: each virtual stage's gradients {grad_err} (L2, "
+                                     f"relative) from Trainer(grad_accum={PP_PARTS})'s "
+                                     f"(tolerance {PP_GRAD_TOL:g})")
+            idle = busy = 0
+            for rank, r in enumerate(per):
+                for direction, t, n_work, ops, k_launches in r[f"{s}_ticks"]:
+                    if n_work == 0:
+                        idle += 1
+                        if ops or k_launches:
+                            raise AssertionError(f"{name} {s} rank {rank}: idle {direction} tick "
+                                                 f"{t} ran {ops} ops, {k_launches} K1-K3")
+                    else:
+                        busy += 1
+                        if not ops:
+                            raise AssertionError(f"{name} {s} rank {rank}: busy {direction} "
+                                                 f"tick {t} shows no op (the probe sees nothing)")
+            log(f"[p2] {name} {s}: f32 first-step loss {losses[s]:.7f} (Trainer(grad_accum="
+                f"{PP_PARTS}) {want_loss:.7f}, rel {abs(losses[s] - want_loss) / abs(want_loss):.2e}"
+                f", gate {PP_LOSS_RTOL:g}); virtual stages' gradients {['%.2e' % e for e in grad_err]}"
+                f" from the Trainer's, relative L2 (gate {PP_GRAD_TOL:g}); K1-K3 a step summed "
+                f"over the ranks {got} (the Trainer's {want_launch}); {idle} idle ticks ran no "
+                f"op, {busy} busy ticks did")
+        rel = abs(losses["gpipe"] - losses["1f1b"]) / abs(losses["gpipe"])
+        if rel > PP_SCHED_RTOL:
+            raise AssertionError(f"{name}: gpipe loss {losses['gpipe']!r}, 1f1b "
+                                 f"{losses['1f1b']!r} (rtol {PP_SCHED_RTOL:g})")
+        log(f"[p2] {name}: gpipe and 1f1b f32 losses {rel:.2e} apart (gate {PP_SCHED_RTOL:g}); "
+            f"set-up {max(r['setup_s'] for r in per):.1f} s")
+        if name == "resnet":
+            res = per[0]["resume"]
+            for rank, r in enumerate(per):
+                if r["resume"]["resumed_loss"] != res["loss"] or r["resume"]["step"] != 1:
+                    raise AssertionError(f"rank {rank}: resumed step {r['resume']}, want loss "
+                                         f"{res['loss']!r} at step 1")
+            log(f"[p2] ResNet-110 gpipe checkpoint {res['bytes']} bytes, save "
+                f"{res['save_s']:.2f} s, restore {max(r['resume']['restore_s'] for r in per):.2f} s;"
+                f" resumed step's loss {res['resumed_loss']!r}, bit-equal on every rank")
+    return {name: ranks[0][name]["trainer"][1] for name in pp_builders()}
+
+
+def _pp_path_report(path, reports, desc, want, launches, ips, cards, note):
+    """Check and print one pipeline path's bf16 run from its ranks' records
+    (the ``MPI4DL_TPU_RUN_REPORT`` form): finite losses, every kernel of the
+    path launched, K1-K3 a step summed over the ranks equal to ``want`` (the
+    Trainer's); records the run's launches, img/s and cards."""
+    import torch
+
+    steps = reports[0]["counted_steps"]
+    losses = reports[0]["losses"]
+    if steps != PP_STEPS - 1 or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{path}: {steps} counted steps, losses {losses}")
+    runs = {k: sum(r["launches"][mod] for r in reports)
+            for k, mod in (("pool_bwd", "pool_kernel"), ("wgrad", "wgrad_kernel"),
+                           ("dot1x1_bwd", "dot1x1_kernel"), ("halo_swap", "halo_kernel"))}
+    for k in PATH_KERNELS[path]:
+        if runs[k] == 0 or runs[k] % steps:
+            raise AssertionError(f"{path}: {k} launched {runs[k]} times in {steps} steps")
+    per_step = {k: runs[k] // steps for k in want}
+    if per_step != want:
+        raise AssertionError(f"{path}: K1-K3 a step summed over the ranks {per_step}, "
+                             f"Trainer(grad_accum={PP_PARTS}) {want}")
+    launches[path] = runs
+    # A step's time is its slowest rank's.
+    step_s = [max(r["step_s"][i] for r in reports) for i in range(1, PP_STEPS)]
+    ms = sorted(step_s)[len(step_s) // 2] * 1e3
+    ips[path] = PP_BATCH / (ms / 1e3)
+    cards[path] = min(PP_RANKS, torch.cuda.device_count())
+    per_rank = "; ".join(
+        f"rank {r['rank']}: K1 {r['launches']['pool_kernel'] // steps}, K2 "
+        f"{r['launches']['wgrad_kernel'] // steps}, K3 {r['launches']['dot1x1_kernel'] // steps}"
+        f" a step, peak {r['peak_bytes'] / 2**30:.2f} GiB" for r in reports)
+    log(f"[p] {path} ({desc}, transport {reports[0]['transport']}): step {ms:.1f} ms "
+        f"(slowest rank; all {[round(t * 1e3, 1) for t in step_s]}), {ips[path]:.3f} img/s; "
+        f"analytic bubble {reports[0]['bubble']:.4f}; {per_rank}; losses "
+        f"{['%.4f' % v for v in losses]}{note}")
+
+
+def phase_pipeline_cli(launches, ips, cards, want):
+    """Phase p1: each LP twin through its own CLI in a subprocess, per
+    schedule: bf16, ``PP_RANKS`` stages,
+    ``--max-steps PP_STEPS``. Each run's ranks report through
+    ``MPI4DL_TPU_RUN_REPORT`` (:func:`_pp_path_report`); ``want[model]`` is
+    the Trainer's K1-K3 a step (phase p2)."""
+    from mpi4dl_tpu_torch.benchmarks.common import rank_layout
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    _, desc, _ = rank_layout(PP_RANKS, DEVICE)
+    for path, (name, schedule) in PP_PATHS.items():
+        extra = (["--num-layers", str(LAYERS), "--num-filters", str(FILTERS)]
+                 if name == "amoebanet" else [])
+        argv = [sys.executable, "-m",
+                f"mpi4dl_tpu_torch.benchmarks.layer_parallelism.benchmark_{name}_lp",
+                "--batch-size", str(PP_BATCH), "--parts", str(PP_PARTS),
+                "--split-size", str(PP_RANKS), "--image-size", str(SIZE),
+                "--max-steps", str(PP_STEPS), "--verbose", *extra]
+        with tempfile.TemporaryDirectory(prefix="mpi4dl-pp-") as tmp:
+            env = dict(os.environ, MPI4DL_TPU_PIPELINE_SCHEDULE=schedule,
+                       MPI4DL_TPU_RUN_REPORT=tmp, MPI4DL_TPU_RESNET_N="12",
+                       PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+            t0 = time.time()
+            out = subprocess.run(argv, cwd=here, env=env, capture_output=True, text=True,
+                                 timeout=600)
+            wall = time.time() - t0
+            if out.returncode != 0:
+                raise AssertionError(f"{path}: exit {out.returncode}: {out.stdout[-2000:]} "
+                                     f"{out.stderr[-3000:]}")
+            reports = []
+            for r in range(PP_RANKS):
+                with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                    reports.append(json.load(f))
+        tag = f"benchmark_{name}_lp"
+        final = [ln for ln in out.stdout.splitlines() if ln.startswith(f"{tag}: Mean")]
+        if not final or "MFU" not in final[-1]:
+            raise AssertionError(f"{path}: no Mean/Median/MFU line: {out.stdout[-2000:]}")
+        for ln in out.stdout.splitlines():
+            log(f"[p1] {path}: {ln}")
+        _pp_path_report(path, reports, desc, want[name], launches, ips, cards,
+                        note=f"; through the CLI, {wall:.1f} s with the process start")
 
 
 def phase_k1(gen, shapes):
@@ -2781,7 +3212,11 @@ def main(argv=None) -> int:
                          "spatial path's on rank 0)")
     ap.add_argument("--spatial-only", action="store_true",
                     help="run only the build and the spatial phase s (for a 4-card host)")
+    ap.add_argument("--pipeline-only", action="store_true",
+                    help="run only the build and the pipeline phase p (one rank per card on "
+                         "a host with a card for each)")
     args = ap.parse_args(argv)
+    only = args.spatial_only or args.pipeline_only
 
     import torch
 
@@ -2800,7 +3235,7 @@ def main(argv=None) -> int:
     calls = {}  # path -> kernel -> Counter of call shape -> calls in one step
     launches, rows, first_loss, k1_copies, ips = {}, [], {}, {}, {}
     cards = dict.fromkeys(("amoebanet", "resnet"), 1)
-    if not args.spatial_only:
+    if not only:
         for name, build, size in small_models():
             phase_small_reference(name, build, size)
         for path, desc, build in main_models():
@@ -2815,13 +3250,20 @@ def main(argv=None) -> int:
         phase_walk_steps(calls, launches)
         phase_convergence(calls, launches)
         phase_checkpoint(launches)
-    for path in SP_PATHS:
-        calls[path] = _new_calls()
-    sp_launches, sp_ips, sp_cards, k4_timing = phase_spatial(calls, args.profile, first_loss)
-    launches.update(sp_launches)
-    ips.update(sp_ips)
-    cards.update(dict.fromkeys(SP_PATHS, sp_cards))
+    k4_timing = None
+    if not args.pipeline_only:
+        for path in SP_PATHS:
+            calls[path] = _new_calls()
+        sp_launches, sp_ips, sp_cards, k4_timing = phase_spatial(calls, args.profile, first_loss)
+        launches.update(sp_launches)
+        ips.update(sp_ips)
+        cards.update(dict.fromkeys(SP_PATHS, sp_cards))
     if not args.spatial_only:
+        t_p = time.time()
+        trainer_launches = phase_pipeline_gates(calls)
+        phase_pipeline_cli(launches, ips, cards, trainer_launches)
+        log(f"[p] phase p in {time.time() - t_p:.1f} s")
+    if not only:
         shapes = {name: sorted(set().union(*(c[name] for c in calls.values())))
                   for name in KERNELS}
         for name, timed in (("pool_bwd", K1_TIMED), ("wgrad", K2_TIMED),
@@ -2839,7 +3281,8 @@ def main(argv=None) -> int:
         for row in rows:
             row.update(per_shape.get(row["name"], {}))
         phase_walk_large(gen, calls)
-    rows.append(halo_row(k4_timing, launches))
+    if k4_timing is not None:
+        rows.append(halo_row(k4_timing, launches))
     smi = card()
     log(f"[h] {time.time() - t_start:.1f} s in all")
     log(smi)

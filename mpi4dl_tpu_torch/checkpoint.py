@@ -16,7 +16,12 @@ renamed into place, pruned to the ``keep`` newest:
 
 A checkpoint either package writes, the other reads. On a spatial trainer
 rank 0 writes, then every rank passes a barrier (no rank starts a K4
-exchange while rank 0 is still writing); every rank reads.
+exchange while rank 0 is still writing); every rank reads. A
+:class:`~mpi4dl_tpu_torch.parallel.pipeline.PipelineTrainer`'s checkpoint
+is the JAX ``PipelineTrainer``'s ``TrainState`` (params ``(front_flat,
+stacked [S, MAXP])``, the SGD momentum of that layout, the step;
+``weights.pipeline_flax_state``): every rank sends its stage rows to rank
+0, which writes; every rank reads its own row back.
 """
 
 from __future__ import annotations
@@ -49,11 +54,16 @@ def save_checkpoint(ckpt_dir: str, trainer, step: int | None = None, keep: int =
     if step is None:
         step = trainer.step
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
-    if not _spatial(trainer) or dist.get_rank() == 0:
+    pipeline = getattr(trainer, "is_pipeline", False)
+    collective = pipeline or _spatial(trainer)
+    writer = not collective or dist.get_rank() == 0
+    # A pipeline's state gathers to rank 0: every rank takes part.
+    state = flax_state(trainer) if writer or pipeline else None
+    if writer:
         tmp = path + ".tmp"
         os.makedirs(tmp, exist_ok=True)
         with open(os.path.join(tmp, "state.msgpack"), "wb") as f:
-            serialization.dump(flax_state(trainer), f)
+            serialization.dump(state, f)
         if batch_stats is not None:
             with open(os.path.join(tmp, "batch_stats.msgpack"), "wb") as f:
                 serialization.dump({str(i): s for i, s in enumerate(batch_stats)}, f)
@@ -63,7 +73,7 @@ def save_checkpoint(ckpt_dir: str, trainer, step: int | None = None, keep: int =
             shutil.rmtree(path)
         os.replace(tmp, path)  # atomic publish: no torn checkpoint after a crash
         _prune(ckpt_dir, keep)
-    if _spatial(trainer):
+    if collective:
         dist.barrier()
     return path
 

@@ -1,1 +1,2 @@
-"""Multi-process layouts of the port: process groups, the tile grid, the halo exchange."""
+"""Multi-process layouts of the port: process groups, the tile grid, the halo
+exchange, stage partitioning and the LP/PP pipeline."""

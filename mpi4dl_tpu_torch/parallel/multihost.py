@@ -109,7 +109,8 @@ def init_from_env(backend: str | None = None) -> None:
     dist.init_process_group(backend, init_method="env://")
 
 
-def _run_rank(rank, world_size, store_path, backend, fn, args, results):
+def _run_rank(rank, world_size, store_path, backend, fn, args, results, env):
+    os.environ.update(env)  # before the first CUDA call reads it
     if torch.cuda.is_available():
         torch.cuda.set_device(rank % torch.cuda.device_count())
     dist.init_process_group(
@@ -125,12 +126,13 @@ def _run_rank(rank, world_size, store_path, backend, fn, args, results):
 
 
 def spawn(fn, world_size: int, args: tuple = (), backend: str = "gloo",
-          timeout: float = 900.0) -> list:
+          timeout: float = 900.0, env: dict | None = None) -> list:
     """Run ``fn(rank, world_size, *args)`` in ``world_size`` fresh processes
     that share one process group (``backend``), and return the results in
     rank order. ``fn`` and ``args`` must pickle (a module-level function).
 
-    Each rank selects card ``rank % device_count`` before any CUDA call.
+    Each rank sets the variables of ``env`` in its own environment, then
+    selects card ``rank % device_count`` before any CUDA call.
     A rank that raises, dies, or outlasts ``timeout`` seconds makes this
     raise; every process is stopped before it returns or raises."""
     ctx = mp.get_context("spawn")
@@ -139,7 +141,7 @@ def spawn(fn, world_size: int, args: tuple = (), backend: str = "gloo",
         store = os.path.join(tmp, "store")
         procs = [
             ctx.Process(target=_run_rank, name=f"rank{r}",
-                        args=(r, world_size, store, backend, fn, args, results))
+                        args=(r, world_size, store, backend, fn, args, results, env or {}))
             for r in range(world_size)
         ]
         for p in procs:

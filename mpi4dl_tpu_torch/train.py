@@ -273,6 +273,42 @@ def spatial_exchanges(model: nn.Module, n_spatial: int, tile_shape) -> list:
     return box
 
 
+def cell_state(cells, opt) -> tuple[list, list]:
+    """Per cell of ``cells``, ``{name: tensor}`` of its parameters and of
+    their SGD momentum buffers in ``opt``. A buffer SGD has not made yet
+    (before the first step) is zeros, as optax's trace is at init; loaded
+    back, zeros give the first update that no buffer gives (``m·0 + g =
+    g``)."""
+    def buffer(p):
+        buf = opt.state.get(p, {}).get("momentum_buffer")
+        return torch.zeros_like(p) if buf is None else buf
+
+    params = [dict(cell.named_parameters()) for cell in cells]
+    return params, [{name: buffer(p) for name, p in named.items()} for named in params]
+
+
+@torch.no_grad()
+def load_cell_state(cells, opt, params, momentum) -> None:
+    """Load :func:`cell_state`'s pair into ``cells`` and ``opt``: every
+    parameter and every momentum buffer of every cell must be given."""
+    if len(params) != len(cells) or len(momentum) != len(cells):
+        raise ValueError(f"{len(params)} / {len(momentum)} cells of state for "
+                         f"{len(cells)} cells")
+    for cell, cp, cm in zip(cells, params, momentum):
+        named = dict(cell.named_parameters())
+        for what, given in (("params", cp), ("momentum", cm)):
+            if set(given) != set(named):
+                raise KeyError(f"{what} names {sorted(given)} != the cell's {sorted(named)}")
+        for name, p in named.items():
+            value, buf = torch.as_tensor(cp[name]), torch.as_tensor(cm[name])
+            if value.shape != p.shape or buf.shape != p.shape:
+                raise ValueError(f"{name}: shape {tuple(p.shape)}, given "
+                                 f"{tuple(value.shape)} / {tuple(buf.shape)}")
+            p.copy_(value)
+            # A buffer in the parameter's memory format, as SGD makes one.
+            opt.state[p]["momentum_buffer"] = torch.empty_like(p).copy_(buf)
+
+
 class Trainer:
     """Trainer over a flat cell sequence, single-device or spatial.
 
@@ -751,39 +787,15 @@ class Trainer:
 
     def state_tensors(self):
         """``(params, momentum, step)``: per cell, ``{name: tensor}`` of its
-        parameters and of their SGD momentum buffers, and :attr:`step`. A
-        buffer SGD has not made yet (before the first step) is zeros, as
-        optax's trace is at init; loaded back, zeros give the first update
-        that no buffer gives (``m·0 + g = g``)."""
-        def buffer(p):
-            buf = self.opt.state.get(p, {}).get("momentum_buffer")
-            return torch.zeros_like(p) if buf is None else buf
+        parameters and of their SGD momentum buffers, and :attr:`step`
+        (:func:`cell_state`)."""
+        return (*cell_state(list(self.model), self.opt), self.step)
 
-        params = [dict(cell.named_parameters()) for cell in self.model]
-        momentum = [{name: buffer(p) for name, p in named.items()} for named in params]
-        return params, momentum, self.step
-
-    @torch.no_grad()
     def load_state_tensors(self, params, momentum, step: int) -> None:
         """Load :meth:`state_tensors`' triple (tensors or arrays of the
         parameters' shapes, on any device): every parameter and every
         momentum buffer of every cell must be given."""
-        if len(params) != len(self.model) or len(momentum) != len(self.model):
-            raise ValueError(f"{len(params)} / {len(momentum)} cells of state for "
-                             f"{len(self.model)} cells")
-        for cell, cp, cm in zip(self.model, params, momentum):
-            named = dict(cell.named_parameters())
-            for what, given in (("params", cp), ("momentum", cm)):
-                if set(given) != set(named):
-                    raise KeyError(f"{what} names {sorted(given)} != the cell's {sorted(named)}")
-            for name, p in named.items():
-                value, buf = torch.as_tensor(cp[name]), torch.as_tensor(cm[name])
-                if value.shape != p.shape or buf.shape != p.shape:
-                    raise ValueError(f"{name}: shape {tuple(p.shape)}, given "
-                                     f"{tuple(value.shape)} / {tuple(buf.shape)}")
-                p.copy_(value)
-                # A buffer in the parameter's memory format, as SGD makes one.
-                self.opt.state[p]["momentum_buffer"] = torch.empty_like(p).copy_(buf)
+        load_cell_state(list(self.model), self.opt, params, momentum)
         self.step = int(step)
 
     def train_step(self, x, y) -> dict:

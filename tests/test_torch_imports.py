@@ -21,6 +21,8 @@ def _module_name(path: Path) -> str:
     return ".".join(parts[:-1] if parts[-1] == "__init__" else parts)
 
 
+LP_TWINS = ("benchmarks.layer_parallelism.benchmark_resnet_lp",
+            "benchmarks.layer_parallelism.benchmark_amoebanet_lp")
 PORT_MODULES = sorted(
     _module_name(p) for p in (REPO / "mpi4dl_tpu_torch").rglob("*.py")
 )
@@ -37,7 +39,8 @@ def test_port_modules_listed():
     assert "mpi4dl_tpu_torch.ops.halo_kernel" in PORT_MODULES
     assert "mpi4dl_tpu_torch.flops" in PORT_MODULES
     for name in ("evaluate", "checkpoint", "serialization", "data", "native",
-                 "convergence_run"):
+                 "convergence_run", "parser", "parallel.partition", "parallel.pipeline",
+                 "benchmarks.common", *LP_TWINS):
         assert f"mpi4dl_tpu_torch.{name}" in PORT_MODULES
 
 
@@ -70,3 +73,17 @@ def test_trainer_without_device_raises_without_cuda(monkeypatch):
         Trainer(model, ParallelConfig(batch_size=2, image_size=2))
     # Asked for explicitly, the CPU is fine.
     Trainer(model, ParallelConfig(batch_size=2, image_size=2), device="cpu")
+
+
+@pytest.mark.parametrize("twin", LP_TWINS)
+def test_lp_twins_without_device_refuse_without_cuda(twin):
+    """The LP twins run on the card unless ``--device cpu`` is given: without
+    a card they exit 2 before any rank starts, and train nothing."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run(
+        [sys.executable, "-m", f"mpi4dl_tpu_torch.{twin}", "--max-steps", "1"], cwd=REPO,
+        env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 2, out.stderr[-2000:]
+    assert "CUDA is not available; pass --device cpu" in out.stderr
+    assert "Mean" not in out.stdout and "ranks" not in out.stdout

@@ -121,7 +121,10 @@ def test_config_matches_jax(kwargs):
             cfg.num_spatial_parts, cfg.slice_method)
 
 
-@pytest.mark.parametrize("kwargs", [dict(split_size=2), dict(data_parallel=2)])
+# A spatial front ahead of the pipeline and data parallelism come with the
+# SP+LP slice (the pipeline alone, split_size > 1 without a spatial stage,
+# runs since the LP slice: tests/test_torch_pipeline.py).
+@pytest.mark.parametrize("kwargs", [dict(split_size=2, spatial_size=1), dict(data_parallel=2)])
 def test_config_refuses_unported_layouts(kwargs):
     with pytest.raises(NotImplementedError):
         ParallelConfig(batch_size=4, image_size=SIZE, **kwargs)
