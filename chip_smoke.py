@@ -5,6 +5,7 @@
     python3 chip_smoke.py --profile       # + a torch.profiler breakdown of one step of each path
     python3 chip_smoke.py --spatial-only  # only the build and phase s (for a 4-card host)
     python3 chip_smoke.py --pipeline-only # only the build and phase p
+    python3 chip_smoke.py --sp-lp-only    # only the build and phase q
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -194,6 +195,40 @@ Phases (any failure exits non-zero; nothing is caught):
          step (slowest rank) and img/s, per-rank K1/K2/K3 launches a step
          (their sum must equal the Trainer's of p2), peak memory per rank,
          the analytic bubble and the transport;
+  q. the spatial front ahead of the pipeline (SP+LP,
+     ``parallel.pipeline.PipelineTrainer`` on a ``RankLayout``), LOCAL_DP_LP,
+     SP+DP and skewed SP, on 4 rank processes laid out as phase s's (one
+     rank per card with 4 cards over NCCL, else all on card 0 over gloo):
+     q1. (in the ranks) small f32 references (TF32 off), ResNet-v2 depth 20
+         @32 from the seed: SP+LP on vertical 2 tiles x split 3 (batch 2,
+         parts 2: the front split over the 2 pipe coordinates), LOCAL_DP_LP
+         on square 4 tiles x split 2 (batch 8, ``local_dp`` 4), SP+DP on
+         the ``Trainer`` (vertical 2 tiles x 2 replicas, batch 4) and skewed
+         SP ``(4, 2)`` x split 3, each one step on the card against the
+         port's CPU step on the same weights and batch (rank 0:
+         ``Trainer(grad_accum=parts·replicas)``, or LOCAL_DP_LP's grouping,
+         the front over each micro-batch and the back over each slice):
+         loss and per-leaf gradients, 1e-3;
+     q2. (in the ranks) phase c's models in f32 (TF32 off), ResNet-110 v2 and
+         AmoebaNet-D 18L/416F @1024, vertical 2 tiles x split 3, batch 2 in 2
+         micro-batches: the first step's loss within ``PP_LOSS_RTOL`` of
+         ``Trainer(grad_accum=2)``'s on the same weights, both the spatial
+         one on pipe coordinate 0's tile grid (its 2 ranks) and the one on
+         one device (rank 0), the front's and each virtual stage's
+         gradients within ``PP_GRAD_TOL`` of the spatial Trainer's
+         (relative L2, the pipeline's SGD momentum gathered to rank 0), and
+         of the one-device Trainer's for ResNet-110 (``Q_GRAD_GATED``), K4
+         launched on every rank, and K1-K3 launched, their launches summed
+         over the ranks equal to the tile count times the Trainer's (the
+         front runs once a micro-batch on each tile, the back on each tile
+         rank); the call shapes are recorded for phases d-g;
+     q3. each SP twin through its own CLI in a subprocess (bf16,
+         ``--max-steps 3``, ``MPI4DL_TPU_RUN_REPORT``): ResNet-110 and
+         AmoebaNet-D 18L/416F SP+LP (vertical 2 tiles, split 3, batch 2,
+         parts 2) and ResNet-110 LOCAL_DP_LP (square 4 tiles, split 2,
+         batch 4, ``--local-DP 4``), @1024: exit 0 and the Mean/Median/MFU
+         line; the step (slowest rank), img/s, per-rank K1-K4 launches a
+         step (K4 on every rank) and peak memory, and the transport;
   d. K1 (max-pool backward) against its plain PyTorch version at every
      recorded main-path shape (the halo-extended tiles of the spatial path,
      p = 0, also with a −inf outer ring, as a tile at the image's edge
@@ -222,6 +257,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import copy
 import gc
 import json
@@ -648,6 +684,30 @@ def main_models():
         ("resnet", f"ResNet-{RESNET_DEPTH} v2 @{SIZE} bs{BATCH}",
          lambda dtype: get_resnet_v2(RESNET_DEPTH, 10, pool_kernel=SIZE // 4, dtype=dtype)),
     ]
+
+
+@contextlib.contextmanager
+def whole_card(device, share=1.0):
+    """The block may take ``share`` of the card (all of it by default), not
+    only the rank's share (``multihost.card_share``): a reference that one
+    rank (or ``1/share`` ranks) runs while its card-mates wait, their caches
+    emptied."""
+    import torch
+    import torch.distributed as dist
+
+    from mpi4dl_tpu_torch.parallel.multihost import card_share
+
+    share = card_share(dist.get_world_size(), torch.cuda.device_count())
+    if device.type != "cuda" or share is None:
+        yield
+        return
+    torch.cuda.set_per_process_memory_fraction(share, device)
+    try:
+        yield
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.set_per_process_memory_fraction(share, device)
 
 
 def f32_first_loss(model, device, config=None, grads=False, **trainer_kwargs):
@@ -1835,10 +1895,10 @@ def _sp_path(rank, grid, device, profile, build):
     from mpi4dl_tpu_torch.ops import layers
     from mpi4dl_tpu_torch.parallel import halo
     from mpi4dl_tpu_torch.train import Trainer, spatial_exchanges
-    from mpi4dl_tpu_torch.weights import init
+    from mpi4dl_tpu_torch.weights import init, meta_built
 
     t0 = time.time()
-    model, cells = build(grid, torch.bfloat16)
+    model, cells = meta_built(build, grid, torch.bfloat16)
     init(model, torch.Generator().manual_seed(SEED))
     cfg = ParallelConfig(batch_size=BATCH, image_size=SIZE, spatial_size=1,
                          num_spatial_parts=SP_RANKS)
@@ -1893,7 +1953,7 @@ def _sp_path(rank, grid, device, profile, build):
     gc.collect()  # trainers hold reference cycles
     torch.cuda.empty_cache()
     out["f32_loss"], f32_grads = f32_first_loss(
-        build(grid, torch.float32)[0], device, config=dict(spatial_size=1,
+        meta_built(build, grid, torch.float32)[0], device, config=dict(spatial_size=1,
                                                            num_spatial_parts=SP_RANKS),
         grads=True, num_spatial_cells=cells, grid=grid)
     out["grad_dist"] = _median_leaf_error(first_grads, f32_grads)
@@ -2524,7 +2584,7 @@ def pp_batch(device):
     return x, y
 
 
-def pp_builders():
+def full_builders():
     """model -> builder taking the compute dtype (phase c's models)."""
     return {path: build for path, _, build in main_models()}
 
@@ -2674,7 +2734,7 @@ def _pp_worker(rank, world, ckpt_dir):
     import torch.distributed as dist
 
     from mpi4dl_tpu_torch.config import ParallelConfig
-    from mpi4dl_tpu_torch.weights import init
+    from mpi4dl_tpu_torch.weights import init, meta_built
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2685,9 +2745,9 @@ def _pp_worker(rank, world, ckpt_dir):
     x, y = pp_batch(device)
     x = x.float()
     out = {}
-    for name, build in pp_builders().items():
+    for name, build in full_builders().items():
         t0 = time.time()
-        model = init(build(torch.float32), torch.Generator().manual_seed(SEED))
+        model = init(meta_built(build, torch.float32), torch.Generator().manual_seed(SEED))
         start = copy.deepcopy(model.state_dict())
         res = {"setup_s": time.time() - t0, "shapes": _new_calls()}
         grads = {}
@@ -2705,9 +2765,10 @@ def _pp_worker(rank, world, ckpt_dir):
         dist.barrier()
         if rank == 0:
             model.load_state_dict(start)
-            loss, launches, want, _ = _pp_step(
-                model, ParallelConfig(batch_size=PP_BATCH, image_size=SIZE), device, x, y,
-                accum=PP_PARTS)
+            with whole_card(device):
+                loss, launches, want, _ = _pp_step(
+                    model, ParallelConfig(batch_size=PP_BATCH, image_size=SIZE), device, x, y,
+                    accum=PP_PARTS)
             res["trainer"] = (loss, launches)
             for schedule, (g, stages) in grads.items():
                 res[f"{schedule}_grad_err"] = _stage_errors(g, want, stages)
@@ -2742,7 +2803,7 @@ def phase_pipeline_gates(calls):
                                 timeout=900, env=env)
     log(f"[p2] {desc}: f32 steps of both schedules and Trainer(grad_accum={PP_PARTS}) in "
         f"{time.time() - t0:.1f} s")
-    for name in pp_builders():
+    for name in full_builders():
         per = [r[name] for r in ranks]
         path = f"{name}_pp_gpipe"
         calls[path] = _new_calls()
@@ -2800,7 +2861,7 @@ def phase_pipeline_gates(calls):
             log(f"[p2] ResNet-110 gpipe checkpoint {res['bytes']} bytes, save "
                 f"{res['save_s']:.2f} s, restore {max(r['resume']['restore_s'] for r in per):.2f} s;"
                 f" resumed step's loss {res['resumed_loss']!r}, bit-equal on every rank")
-    return {name: ranks[0][name]["trainer"][1] for name in pp_builders()}
+    return {name: ranks[0][name]["trainer"][1] for name in full_builders()}
 
 
 def _pp_path_report(path, reports, desc, want, launches, ips, cards, note):
@@ -2881,6 +2942,479 @@ def phase_pipeline_cli(launches, ips, cards, want):
             log(f"[p1] {path}: {ln}")
         _pp_path_report(path, reports, desc, want[name], launches, ips, cards,
                         note=f"; through the CLI, {wall:.1f} s with the process start")
+
+
+# -- phase q: the spatial front ahead of the pipeline (SP+LP) -------------------
+
+def q_batch(n, size, seed=SEED + 3):
+    """A batch of ``n`` NHWC f32 images and labels, from the seed with numpy."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((n, size, size, 3)).astype(np.float32),
+            rng.integers(0, 10, size=(n,)))
+
+
+def _q_small_model(spatial_cells, grid):
+    """Phase q1's model: ResNet-v2 depth 20 @32 (phase s1's), its first
+    ``spatial_cells`` cells on ``grid``."""
+    from mpi4dl_tpu_torch.models.resnet import get_resnet_v2
+
+    return get_resnet_v2(20, 10, spatial_cells=spatial_cells, pool_kernel=8, grid=grid)
+
+
+def _q_spatial_cells(config, build):
+    """The front's cells of ``config`` for the model ``build(0, None)``
+    makes (the Trainer's spatial layout: every cell but the head)."""
+    import torch
+
+    from mpi4dl_tpu_torch.parallel.pipeline import PipelineTrainer
+
+    with torch.device("meta"):
+        n = len(build(0, None))
+    if config.split_size == config.spatial_size:
+        return n - 1
+    return PipelineTrainer.spatial_cell_count(n, config)
+
+
+def _named_grads(cells, grads=None):
+    """Per cell, ``{torch name: numpy}`` of the parameters' ``.grad`` (or of
+    ``grads``, per cell ``{name: tensor}``)."""
+    if grads is None:
+        grads = [{n: p.grad for n, p in c.named_parameters()} for c in cells]
+    return [{n: g.detach().float().cpu().numpy() for n, g in cell.items()} for cell in grads]
+
+
+def _q_trainer(model, config, device, layout, n_spatial, lr=PP_LR):
+    """The layout's trainer: ``Trainer`` when every spatial stage is the
+    whole split, else ``PipelineTrainer``."""
+    from mpi4dl_tpu_torch.parallel.pipeline import PipelineTrainer
+    from mpi4dl_tpu_torch.train import Trainer
+
+    if config.split_size == config.spatial_size:
+        return Trainer(model, config, learning_rate=lr, device=device,
+                       num_spatial_cells=n_spatial, grid=layout.grid)
+    return PipelineTrainer(model, config, learning_rate=lr, device=device, layout=layout)
+
+
+def _q_grads(tr):
+    """A step's gradients per cell on rank 0 (a pipeline's are its first
+    step's SGD momentum, gathered; collective), None elsewhere."""
+    import torch.distributed as dist
+
+    if getattr(tr, "is_pipeline", False):
+        got = tr.unstack_params("momentum")
+        return None if got is None else _named_grads(None, got)
+    return _named_grads(tr.model) if dist.get_rank() == 0 else None
+
+
+def _local_dp_reference(model, n_front, x, y, parts, ldp, device):
+    """LOCAL_DP_LP's step on one device (the JAX golden's grouping,
+    ``tests/test_pipeline.py:160-211``): each micro-batch's front over the
+    whole micro-batch, the back over each of its ``ldp`` slices; the summed
+    cross-entropy over the batch. Returns (loss, per-cell gradients)."""
+    import torch
+
+    from mpi4dl_tpu_torch.train import cross_entropy_sum
+
+    model = model.to(device)
+    x = torch.as_tensor(x).to(device).permute(0, 3, 1, 2).contiguous()
+    y = torch.as_tensor(y).to(device, torch.long)
+    b = x.shape[0]
+    mb = b // parts
+    total = 0.0
+    for g in range(parts):
+        h = x[g * mb:(g + 1) * mb]
+        for i in range(n_front):
+            h = model[i](h)
+        k = mb // ldp
+        for d in range(ldp):
+            hs = h[d * k:(d + 1) * k]
+            for i in range(n_front, len(model)):
+                hs = model[i](hs)
+            loss = cross_entropy_sum(hs, y[g * mb + d * k:g * mb + (d + 1) * k]) / b
+            loss.backward(retain_graph=True)
+            total += float(loss.detach())
+    return total, _named_grads(model)
+
+
+# q1: (name, config fields, batch); every one on Q_RANKS ranks.
+Q_RANKS = 4
+Q_SMALL = [
+    ("SP+LP vertical 2 x split 3", dict(batch_size=2, parts=2, split_size=3, spatial_size=1,
+                                        num_spatial_parts=2, slice_method="vertical")),
+    ("LOCAL_DP_LP square 4 x split 2", dict(batch_size=8, parts=1, split_size=2,
+                                            spatial_size=1, num_spatial_parts=4,
+                                            slice_method="square", local_dp=4)),
+    ("SP+DP vertical 2 x DP 2", dict(batch_size=4, split_size=1, spatial_size=1,
+                                     num_spatial_parts=2, slice_method="vertical",
+                                     data_parallel=2)),
+    ("skewed SP (4, 2) x split 3", dict(batch_size=2, parts=2, split_size=3, spatial_size=2,
+                                        num_spatial_parts=(4, 2), slice_method="square")),
+]
+# q2 and q3's layout: vertical 2 tiles, split 3 (2 pipeline stages), batch 2
+# in 2 micro-batches; q3's steps (the first not counted).
+Q_CONFIG = dict(batch_size=2, parts=2, split_size=3, spatial_size=1, num_spatial_parts=2,
+                slice_method="vertical")
+Q_STEPS = 3
+# q3: path -> (model, CLI flags beyond the image size).
+Q_CLI = {
+    "resnet_sp_lp": ("resnet", ["--batch-size", "2", "--parts", "2", "--split-size", "3",
+                                "--spatial-size", "1", "--num-spatial-parts", "2",
+                                "--slice-method", "vertical"]),
+    "amoebanet_sp_lp": ("amoebanet", ["--batch-size", "2", "--parts", "2", "--split-size", "3",
+                                      "--spatial-size", "1", "--num-spatial-parts", "2",
+                                      "--slice-method", "vertical"]),
+    "resnet_local_dp": ("resnet", ["--batch-size", "4", "--parts", "1", "--split-size", "2",
+                                   "--spatial-size", "1", "--num-spatial-parts", "4",
+                                   "--slice-method", "square", "--local-DP", "4"]),
+}
+PATH_KERNELS.update({path: _MODEL_KERNELS[m] + ("halo_swap",) for path, (m, _) in Q_CLI.items()})
+STEPS_IN_RUN.update(dict.fromkeys(Q_CLI, Q_STEPS - 1))
+# q2 holds the SP+LP step's loss and gradients, the front's and each virtual
+# stage's, to the spatial Trainer(grad_accum=2) on pipe coordinate 0's tile
+# grid (its front on the same tiles, so the same f32 sums), and its loss to
+# Trainer(grad_accum=2)'s on one device. Against the one-device step the f32
+# gradients also move with the order of the tiles' sums (halo convs, BN
+# moments averaged over the tiles), amplified through the untrained model:
+# AmoebaNet-D 18L/416F @1024 read 0.27-0.46 a stage there on an H100,
+# ResNet-110 8.6e-3 at most. Those are gated for these models only.
+Q_GRAD_GATED = ("resnet",)
+# q2's f32 first steps are recorded under these paths for phases d-g.
+Q_F32_PATHS = {"resnet": "resnet_sp_lp_f32", "amoebanet": "amoebanet_sp_lp_f32"}
+PATH_KERNELS.update({path: _MODEL_KERNELS[m] + ("halo_swap",) for m, path in Q_F32_PATHS.items()})
+
+
+def _q_small(rank, device):
+    """Phase q1 in one rank: each small layout's f32 step on the card
+    (rank 0 returns (loss, per-cell gradients) of each), then rank 0 takes
+    the port's CPU step of the same weights and batch (``Trainer(grad_accum=
+    parts·D)``, or LOCAL_DP_LP's grouping) while the other ranks wait."""
+    import torch
+    import torch.distributed as dist
+
+    from mpi4dl_tpu_torch.config import ParallelConfig
+    from mpi4dl_tpu_torch.ops.halo_kernel import close_rings
+    from mpi4dl_tpu_torch.parallel.multihost import RankLayout
+    from mpi4dl_tpu_torch.train import Trainer
+    from mpi4dl_tpu_torch.weights import init
+
+    out = []
+    for name, fields in Q_SMALL:
+        cfg = ParallelConfig(image_size=32, **fields)
+        n_sp = _q_spatial_cells(cfg, _q_small_model)
+        x, y = q_batch(cfg.batch_size, 32)
+        layout = RankLayout(cfg.mesh_shape)
+        model = init(_q_small_model(n_sp, layout.grid), torch.Generator().manual_seed(SEED))
+        tr = _q_trainer(model, cfg, device, layout, n_sp)
+        dist.barrier()
+        loss = float(tr.train_step(x, y)["loss"])
+        got = _q_grads(tr)
+        close_rings(layout.grid)
+        del tr, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        if rank == 0:
+            plain = init(_q_small_model(0, None), torch.Generator().manual_seed(SEED))
+            if cfg.local_dp > 1:
+                want = _local_dp_reference(plain, n_sp, x, y, cfg.parts, cfg.local_dp, "cpu")
+            else:
+                ref = Trainer(plain, ParallelConfig(batch_size=cfg.batch_size, image_size=32),
+                              learning_rate=PP_LR, device="cpu",
+                              grad_accum=cfg.parts * cfg.data_parallel)
+                want = (float(ref.train_step(x, y)["loss"]), _named_grads(ref.model))
+            out.append((name, (loss, got), want))
+        dist.barrier()
+    return out
+
+
+def _q_full(rank, device, shapes_by_model):
+    """Phase q2 in one rank: per model, rank 0 first takes
+    ``Trainer(grad_accum=2)``'s f32 step on one device (the other ranks
+    wait), then the ranks of pipe coordinate 0 (one tile grid) the spatial
+    ``Trainer(grad_accum=2)``'s on that grid (the front's cells on the
+    tiles, the rest joined; ``Q_RANKS / tiles`` of the card each), then
+    every rank the SP+LP pipeline's f32 step on the same weights and batch,
+    with its K1-K4 call shapes recorded (``shapes_by_model``) and its
+    launches counted (the back stages' apart: those of its backward ticks)."""
+    import torch
+    import torch.distributed as dist
+
+    from mpi4dl_tpu_torch.config import ParallelConfig
+    from mpi4dl_tpu_torch.ops.halo_kernel import close_rings
+    from mpi4dl_tpu_torch.parallel.multihost import RankLayout
+    from mpi4dl_tpu_torch.parallel.pipeline import PipelineTrainer
+    from mpi4dl_tpu_torch.train import Trainer
+    from mpi4dl_tpu_torch.weights import init, meta_built
+
+    cfg = ParallelConfig(image_size=SIZE, **Q_CONFIG)
+    spatial_cfg = ParallelConfig(image_size=SIZE, batch_size=cfg.batch_size, split_size=1,
+                                 spatial_size=1, num_spatial_parts=cfg.num_spatial_parts,
+                                 slice_method=cfg.slice_method)
+    layout = RankLayout(cfg.mesh_shape)
+    tiles = len(layout.grid.ranks)
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    x = torch.randn((cfg.batch_size, SIZE, SIZE, 3), generator=gen, device=device)
+    y = torch.randint(0, 10, (cfg.batch_size,), generator=gen, device=device)
+    counters = _counters()
+    out = {}
+    for name, build in full_builders().items():
+        res = {}
+        t0 = time.time()
+        with torch.device("meta"):
+            n_sp = PipelineTrainer.spatial_cell_count(len(build(torch.float32)), cfg)
+        if rank == 0:
+            with whole_card(device):
+                model = init(meta_built(build, torch.float32),
+                             torch.Generator().manual_seed(SEED))
+                ref = Trainer(model, ParallelConfig(batch_size=cfg.batch_size, image_size=SIZE),
+                              learning_rate=PP_LR, device=device, grad_accum=cfg.parts)
+                for mod in counters.values():
+                    mod.launch_count = 0
+                res["trainer_loss"] = float(ref.train_step(x, y)["loss"])
+                res["trainer_launches"] = {k: counters[k].launch_count
+                                           for k in ("pool_bwd", "wgrad", "dot1x1_bwd")}
+                want_plain = _named_grads(ref.model)
+                del ref, model
+        dist.barrier()
+        if layout.p == 0:
+            with whole_card(device, share=tiles / Q_RANKS):
+                model = init(meta_built(_q_full_model, name, n_sp, layout.grid),
+                             torch.Generator().manual_seed(SEED))
+                ref = Trainer(model, spatial_cfg, learning_rate=PP_LR, device=device,
+                              grad_accum=cfg.parts, num_spatial_cells=n_sp, grid=layout.grid)
+                res["spatial_loss"] = float(ref.train_step(x, y)["loss"])
+                want = _named_grads(ref.model) if rank == 0 else None
+                close_rings(layout.grid)
+                del ref, model
+        dist.barrier()
+        model = init(meta_built(_q_full_model, name, n_sp, layout.grid),
+                     torch.Generator().manual_seed(SEED))
+        tr = PipelineTrainer(model, cfg, learning_rate=PP_LR, device=device, layout=layout)
+        res["setup_s"] = time.time() - t0
+        back = collections.Counter()
+        tr.on_tick = _q_back_probe(back, counters)
+        for mod in counters.values():
+            mod.launch_count = 0
+        restore = _record_shapes(shapes_by_model[name])
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        dist.barrier()
+        t0 = time.time()
+        try:
+            res["loss"] = float(tr.train_step(x, y)["loss"])
+        finally:
+            for undo in restore:
+                undo()
+        res["step_s"] = time.time() - t0
+        res["launches"] = {k: mod.launch_count for k, mod in counters.items()}
+        res["back_launches"] = dict(back)
+        res["peak_bytes"] = (torch.cuda.max_memory_allocated(device) if device.type == "cuda"
+                             else 0)
+        got = _q_grads(tr)
+        if rank == 0:
+            stages = [list(range(tr.n_spatial_cells))] + tr.stages
+            res["grad_err"] = _stage_errors(got, want, stages)
+            res["grad_err_plain"] = _stage_errors(got, want_plain, stages)
+            del want, want_plain
+        del got, tr, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[name] = res
+    close_rings(layout.grid)
+    return out
+
+
+def _q_full_model(name, spatial_cells, grid):
+    """Phase c's model ``name`` in f32 with its first ``spatial_cells`` cells
+    on ``grid``."""
+    import torch
+
+    from mpi4dl_tpu_torch.models.amoebanet import amoebanetd
+    from mpi4dl_tpu_torch.models.resnet import get_resnet_v2
+
+    if name == "amoebanet":
+        return amoebanetd(10, LAYERS, FILTERS, spatial_cells=spatial_cells, grid=grid,
+                          dtype=torch.float32)
+    return get_resnet_v2(RESNET_DEPTH, 10, pool_kernel=SIZE // 4, spatial_cells=spatial_cells,
+                         grid=grid, dtype=torch.float32)
+
+
+def _q_back_probe(box, counters):
+    """A ``PipelineTrainer.on_tick`` that adds the K1-K3 launches of every
+    backward tick (the back stages' backward) into the Counter ``box``."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def tick(direction, t, work):
+        before = {k: counters[k].launch_count for k in ("pool_bwd", "wgrad", "dot1x1_bwd")}
+        yield
+        if direction == "bwd":
+            for k, n in before.items():
+                box[k] += counters[k].launch_count - n
+
+    return tick
+
+
+def _q_worker(rank, world):
+    """Phases q1 and q2 in one rank of the 4-rank world."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = (torch.device("cuda", torch.cuda.current_device()) if DEVICE == "cuda"
+              else torch.device(DEVICE))
+    t0 = time.time()
+    small = _q_small(rank, device)
+    small_s = time.time() - t0
+    shapes = {name: _new_calls() for name in full_builders()}
+    full = _q_full(rank, device, shapes)
+    return {"small": small, "small_s": small_s, "full": full, "shapes": shapes}
+
+
+def phase_sp_lp_gates(calls):
+    """Phases q1 and q2: spawn the ranks, hold each layout to its CPU or
+    single-device reference, and count q2's call shapes (summed over the
+    ranks) into ``calls[Q_F32_PATHS[model]]``."""
+    import torch
+
+    from mpi4dl_tpu_torch.benchmarks.common import rank_layout
+    from mpi4dl_tpu_torch.config import ParallelConfig
+    from mpi4dl_tpu_torch.parallel import multihost
+
+    backend, desc, env = rank_layout(Q_RANKS, DEVICE)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    ranks = multihost.spawn(_q_worker, Q_RANKS, backend=backend, timeout=900, env=env)
+    log(f"[q] {desc}: q1 and q2 in {time.time() - t0:.1f} s (q1 {ranks[0]['small_s']:.1f} s)")
+    for name, got, want in ranks[0]["small"]:
+        worst = check_small(f"q1 {name}", got, want)
+        log(f"[q1] {name}, ResNet-v2 depth 20 @32 f32: loss card {got[0]:.6f} CPU "
+            f"{want[0]:.6f}; gradients normalised max|err| {worst:.2e} (tolerance "
+            f"{SMALL_GRAD_TOL:g})")
+    th, tw = ParallelConfig(image_size=SIZE, **Q_CONFIG).tile_shape
+    tiles = th * tw
+    for name in full_builders():
+        per = [r["full"][name] for r in ranks]
+        path = Q_F32_PATHS[name]
+        calls[path] = _new_calls()
+        for r in ranks:
+            for k, c in r["shapes"][name].items():
+                calls[path][k].update(c)
+        want_loss, want_launch = per[0]["trainer_loss"], per[0]["trainer_launches"]
+        loss, spatial_loss = per[0]["loss"], per[0]["spatial_loss"]
+        if any(r["loss"] != loss for r in per):
+            raise AssertionError(f"q2 {name}: the ranks' losses differ: {[r['loss'] for r in per]}")
+        for what, want_l in (("one device", want_loss), ("spatial", spatial_loss)):
+            if not abs(loss - want_l) <= PP_LOSS_RTOL * abs(want_l):
+                raise AssertionError(f"q2 {name}: f32 first-step loss {loss!r}, Trainer(grad_"
+                                     f"accum={Q_CONFIG['parts']}) ({what}) {want_l!r}")
+        grad_err, grad_err_plain = per[0]["grad_err"], per[0]["grad_err_plain"]
+        for what, errs in (("the spatial", grad_err), ("the one-device", grad_err_plain)):
+            if (what == "the spatial" or name in Q_GRAD_GATED) and not all(
+                    e <= PP_GRAD_TOL for e in errs):
+                raise AssertionError(f"q2 {name}: the front's and each virtual stage's gradients "
+                                     f"{errs} (L2, relative) from {what} Trainer(grad_accum="
+                                     f"{Q_CONFIG['parts']})'s (tolerance {PP_GRAD_TOL:g})")
+        got = {k: sum(r["launches"][k] for r in per) for k in want_launch}
+        back = {k: sum(r["back_launches"].get(k, 0) for r in per) for k in want_launch}
+        want = {k: tiles * n for k, n in want_launch.items()}
+        for k in PATH_KERNELS[path]:
+            for rank, r in enumerate(per):
+                if k == "halo_swap" and not r["launches"][k]:
+                    raise AssertionError(f"q2 {name} rank {rank}: K4 did not launch")
+            if k != "halo_swap" and not got[k]:
+                raise AssertionError(f"q2 {name}: {k} did not launch")
+        if got != want:
+            raise AssertionError(f"q2 {name}: K1-K3 summed over the ranks {got}, want {tiles} "
+                                 f"tiles x the Trainer's {want_launch} (the front once a "
+                                 f"micro-batch on each tile, the back on each tile rank)")
+        log(f"[q2] {name} SP+LP ({Q_CONFIG['num_spatial_parts']} {Q_CONFIG['slice_method']} "
+            f"tiles x {Q_CONFIG['split_size'] - 1} stages, batch {Q_CONFIG['batch_size']}, "
+            f"parts {Q_CONFIG['parts']}) f32: first-step loss {loss:.7f} (Trainer(grad_accum="
+            f"{Q_CONFIG['parts']}) spatial {spatial_loss:.7f}, rel "
+            f"{abs(loss - spatial_loss) / abs(spatial_loss):.2e}; one device {want_loss:.7f}, rel "
+            f"{abs(loss - want_loss) / abs(want_loss):.2e}; gate {PP_LOSS_RTOL:g}); front and "
+            f"virtual stages' gradients {['%.2e' % e for e in grad_err]} from the spatial "
+            f"Trainer's (gate {PP_GRAD_TOL:g}), {['%.2e' % e for e in grad_err_plain]} from the "
+            f"one-device Trainer's ("
+            f"{'gate %g' % PP_GRAD_TOL if name in Q_GRAD_GATED else 'not gated: Q_GRAD_GATED'})"
+            f"; K1-K3 "
+            f"summed over the ranks {got} = {tiles} x the Trainer's {want_launch} (back stages "
+            f"{back}, front {({k: got[k] - back[k] for k in got})}); K4 per rank "
+            f"{[r['launches']['halo_swap'] for r in per]}; step "
+            f"{max(r['step_s'] for r in per):.1f} s, set-up {max(r['setup_s'] for r in per):.1f}"
+            f" s; peak per rank {[round(r['peak_bytes'] / 2**30, 2) for r in per]} GiB")
+
+
+def phase_sp_lp_cli(launches, ips, cards):
+    """Phase q3: each SP twin through its own CLI in a subprocess (bf16,
+    ``--max-steps Q_STEPS``, ``MPI4DL_TPU_RUN_REPORT``): exit 0 and its
+    Mean/Median/MFU line; from the ranks' records the step (slowest rank),
+    img/s, per-rank launches and peak memory, and the transport."""
+    import torch
+
+    from mpi4dl_tpu_torch.benchmarks.common import rank_layout
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    _, desc, _ = rank_layout(Q_RANKS, DEVICE)
+    for path, (name, flags) in Q_CLI.items():
+        extra = (["--num-layers", str(LAYERS), "--num-filters", str(FILTERS)]
+                 if name == "amoebanet" else [])
+        argv = [sys.executable, "-m",
+                f"mpi4dl_tpu_torch.benchmarks.spatial_parallelism.benchmark_{name}_sp",
+                *flags, "--image-size", str(SIZE), "--max-steps", str(Q_STEPS), "--verbose",
+                *extra]
+        with tempfile.TemporaryDirectory(prefix="mpi4dl-q-") as tmp:
+            env = dict(os.environ, MPI4DL_TPU_RUN_REPORT=tmp, MPI4DL_TPU_RESNET_N="12",
+                       PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+            t0 = time.time()
+            out = subprocess.run(argv, cwd=here, env=env, capture_output=True, text=True,
+                                 timeout=600)
+            wall = time.time() - t0
+            if out.returncode != 0:
+                raise AssertionError(f"{path}: exit {out.returncode}: {out.stdout[-2000:]} "
+                                     f"{out.stderr[-3000:]}")
+            reports = []
+            for r in range(Q_RANKS):
+                with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                    reports.append(json.load(f))
+        tag = f"benchmark_{name}_sp"
+        final = [ln for ln in out.stdout.splitlines() if ln.startswith(f"{tag}: Mean")]
+        if not final or "MFU" not in final[-1]:
+            raise AssertionError(f"{path}: no Mean/Median/MFU line: {out.stdout[-2000:]}")
+        for ln in out.stdout.splitlines():
+            log(f"[q3] {path}: {ln}")
+        steps = reports[0]["counted_steps"]
+        losses = reports[0]["losses"]
+        if steps != Q_STEPS - 1 or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{path}: {steps} counted steps, losses {losses}")
+        runs = {k: sum(r["launches"][mod] for r in reports)
+                for k, mod in (("pool_bwd", "pool_kernel"), ("wgrad", "wgrad_kernel"),
+                               ("dot1x1_bwd", "dot1x1_kernel"), ("halo_swap", "halo_kernel"))}
+        for k in PATH_KERNELS[path]:
+            if runs[k] == 0 or runs[k] % steps:
+                raise AssertionError(f"{path}: {k} launched {runs[k]} times in {steps} steps")
+        for r in reports:
+            if "halo_swap" in PATH_KERNELS[path] and not r["launches"]["halo_kernel"]:
+                raise AssertionError(f"{path}: K4 did not launch on rank {r['rank']}")
+        launches[path] = runs
+        step_s = [max(r["step_s"][i] for r in reports) for i in range(1, Q_STEPS)]
+        ms = sorted(step_s)[len(step_s) // 2] * 1e3
+        batch = int(flags[flags.index("--batch-size") + 1])
+        ips[path] = batch / (ms / 1e3)
+        cards[path] = min(Q_RANKS, torch.cuda.device_count())
+        per_rank = "; ".join(
+            f"rank {r['rank']}: K1 {r['launches']['pool_kernel'] // steps}, K2 "
+            f"{r['launches']['wgrad_kernel'] // steps}, K3 {r['launches']['dot1x1_kernel'] // steps}"
+            f", K4 {r['launches']['halo_kernel'] // steps} a step, peak "
+            f"{(r['peak_bytes'] or 0) / 2**30:.2f} GiB" for r in reports)
+        log(f"[q3] {path} ({desc}, transport {reports[0]['transport']}): step {ms:.1f} ms "
+            f"(slowest rank; all {[round(t * 1e3, 1) for t in step_s]}), {ips[path]:.3f} img/s; "
+            f"analytic bubble {reports[0]['bubble']}; {per_rank}; losses "
+            f"{['%.4f' % v for v in losses]}; through the CLI, {wall:.1f} s with the process "
+            f"start")
 
 
 def phase_k1(gen, shapes):
@@ -3215,8 +3749,11 @@ def main(argv=None) -> int:
     ap.add_argument("--pipeline-only", action="store_true",
                     help="run only the build and the pipeline phase p (one rank per card on "
                          "a host with a card for each)")
+    ap.add_argument("--sp-lp-only", action="store_true",
+                    help="run only the build and phase q, the spatial front ahead of the "
+                         "pipeline (one rank per card on a host with 4 cards)")
     args = ap.parse_args(argv)
-    only = args.spatial_only or args.pipeline_only
+    only = args.spatial_only or args.pipeline_only or args.sp_lp_only
 
     import torch
 
@@ -3251,18 +3788,23 @@ def main(argv=None) -> int:
         phase_convergence(calls, launches)
         phase_checkpoint(launches)
     k4_timing = None
-    if not args.pipeline_only:
+    if not (args.pipeline_only or args.sp_lp_only):
         for path in SP_PATHS:
             calls[path] = _new_calls()
         sp_launches, sp_ips, sp_cards, k4_timing = phase_spatial(calls, args.profile, first_loss)
         launches.update(sp_launches)
         ips.update(sp_ips)
         cards.update(dict.fromkeys(SP_PATHS, sp_cards))
-    if not args.spatial_only:
+    if not (args.spatial_only or args.sp_lp_only):
         t_p = time.time()
         trainer_launches = phase_pipeline_gates(calls)
         phase_pipeline_cli(launches, ips, cards, trainer_launches)
         log(f"[p] phase p in {time.time() - t_p:.1f} s")
+    if not (args.spatial_only or args.pipeline_only):
+        t_q = time.time()
+        phase_sp_lp_gates(calls)
+        phase_sp_lp_cli(launches, ips, cards)
+        log(f"[q] phase q in {time.time() - t_q:.1f} s")
     if not only:
         shapes = {name: sorted(set().union(*(c[name] for c in calls.values())))
                   for name in KERNELS}

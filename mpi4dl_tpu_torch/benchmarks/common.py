@@ -17,15 +17,21 @@ each process joins the launcher's world instead
 (:func:`~mpi4dl_tpu_torch.parallel.multihost.init_from_env`). Rank 0
 prints.
 
-**Trainers.** ``make_trainer`` follows ``benchmarks/common.py:140-187``:
-``split_size == 1`` takes :class:`~mpi4dl_tpu_torch.train.Trainer` (which,
-as the JAX one, runs the whole batch at once: ``--parts`` is not
-``grad_accum``); ``split_size > 1`` without a spatial front takes
-:class:`~mpi4dl_tpu_torch.parallel.pipeline.PipelineTrainer`, with the
-schedule from ``MPI4DL_TPU_PIPELINE_SCHEDULE`` (``gpipe``, the default, or
-``1f1b`` with 2 virtual stages a rank). A spatial front,
-GEMS, ``--max-restarts > 0`` and ``--trace-dir`` come with later slices and
-raise.
+**Ranks and trainers.** Every rank builds the
+:class:`~mpi4dl_tpu_torch.parallel.multihost.RankLayout` of
+``cfg.mesh_shape`` (world rank ``((d·S + p)·th + i)·tw + j``) and its
+model with ``spatial_cells`` on the layout's tile grid. ``make_trainer``
+follows ``benchmarks/common.py:140-187``: ``split_size == 1`` or
+``spatial_size == split_size`` takes :class:`~mpi4dl_tpu_torch.train.Trainer`
+(which, as the JAX one, runs the whole batch at once: ``--parts`` is not
+``grad_accum``; it refuses a model whose every cell is spatial, as
+``--split-size 1 --spatial-size 1`` makes); otherwise
+:class:`~mpi4dl_tpu_torch.parallel.pipeline.PipelineTrainer`, behind the
+spatial front when ``--spatial-size`` > 0 (the SP twins), with the schedule
+from ``MPI4DL_TPU_PIPELINE_SCHEDULE`` (``gpipe``, the default, or ``1f1b``
+with 2 virtual stages a rank). ``--halo-D2`` builds the D2 spatial models
+(``--fused-layers`` for ResNet). GEMS, ``--max-restarts > 0`` and
+``--trace-dir`` come with later slices and raise.
 
 Weights are random from seed 0 (``weights.init``), the same on every rank.
 ``MPI4DL_TPU_RESNET_N`` sets the ResNet block multiplier (default 12:
@@ -48,7 +54,6 @@ import torch
 import torch.distributed as dist
 
 RUN_TIMEOUT_S = 7 * 24 * 3600.0
-_SP_LP = "the SP+LP slice (ROADMAP queue 1 item 5)"
 _GEMS = "the GEMS slice (ROADMAP queue 1 item 6)"
 _SUPERVISOR = "the slice that ports elastic.py and profiling.trace (after ROADMAP queue 1 item 5)"
 
@@ -60,22 +65,20 @@ def parse_csv_ints(s):
 
 
 def build_config(args, spatial: bool):
-    """The ``ParallelConfig`` of ``args`` (``benchmarks/common.py:35-69``).
-    Refuses what the port does not run yet."""
+    """The ``ParallelConfig`` of ``args`` (``benchmarks/common.py:35-69``);
+    ``--num-spatial-parts`` is a csv list (skewed SP). Refuses what the port
+    does not run yet."""
     from mpi4dl_tpu_torch.config import ParallelConfig
 
     if args.max_restarts > 0:
         raise NotImplementedError(f"--max-restarts > 0 (the supervisor) comes with {_SUPERVISOR}")
     if args.trace_dir:
         raise NotImplementedError(f"--trace-dir comes with {_SUPERVISOR}")
-    parts = parse_csv_ints(args.num_spatial_parts) or [4]
-    if len(parts) > 1:
-        raise NotImplementedError(f"multi-stage spatial parts come with {_SP_LP}")
     return ParallelConfig(
         batch_size=args.batch_size,
         parts=args.parts,
         split_size=args.split_size,
-        num_spatial_parts=parts[0],
+        num_spatial_parts=tuple(parse_csv_ints(args.num_spatial_parts) or (4,)),
         spatial_size=args.spatial_size if spatial else 0,
         slice_method=args.slice_method,
         times=args.times,
@@ -93,56 +96,76 @@ def _dtype(args):
     return torch.bfloat16 if args.precision == "bf16" else torch.float32
 
 
-def build_resnet(args, cfg, spatial_cells=0):
-    """``(model, plain)``: ResNet-v2 of depth ``9·MPI4DL_TPU_RESNET_N + 2``
-    (default 110) in the compute dtype, and its f32 twin on the meta device
-    (FLOPs; eval materializes it) (``benchmarks/common.py:72-110``)."""
-    from mpi4dl_tpu_torch.models.resnet import get_resnet_v2
+def build_resnet(args, cfg, spatial_cells=0, grid=None):
+    """``(model, plain, n_spatial)``: ResNet-v2 of depth ``9·MPI4DL_TPU_RESNET_N
+    + 2`` (default 110) in the compute dtype, its first ``spatial_cells``
+    cells on ``grid``, and its f32 twin on the meta device (FLOPs; eval
+    materializes it) (``benchmarks/common.py:72-110``). ``--halo-D2`` with a
+    front swaps the front for the fused-halo design (one wide exchange per
+    ``--fused-layers`` cells) and ``n_spatial`` is the D2 cell list's front
+    (``num_spatial_cells``' override); else it is None."""
+    from mpi4dl_tpu_torch.models.resnet import get_resnet_v2, get_resnet_v2_d2
+    from mpi4dl_tpu_torch.parallel.multihost import TileGrid
     from mpi4dl_tpu_torch.utils import get_depth
 
-    if spatial_cells:
-        raise NotImplementedError(f"the spatial ResNet benchmarks come with {_SP_LP}")
     depth = get_depth(2, int(os.environ.get("MPI4DL_TPU_RESNET_N", "12")))
     kw = dict(depth=depth, num_classes=args.num_classes,
               pool_kernel=max(args.image_size // 4, 1))  # the head pools image/4 to 1x1
-    model = get_resnet_v2(dtype=_dtype(args), **kw)
+    if args.halo_d2 and spatial_cells:
+        model, _, n_sp = get_resnet_v2_d2(spatial_cells=spatial_cells,
+                                          fused_layers=args.fused_layers, dtype=_dtype(args),
+                                          grid=grid, **kw)
+        with torch.device("meta"):  # the plain twin mirrors the D2 cells one to one
+            _, plain, _ = get_resnet_v2_d2(spatial_cells=spatial_cells,
+                                           fused_layers=args.fused_layers, dtype=torch.float32,
+                                           grid=TileGrid(grid.shape, 0), **kw)
+        return model, plain, n_sp
+    model = get_resnet_v2(dtype=_dtype(args), spatial_cells=spatial_cells, grid=grid, **kw)
     with torch.device("meta"):
         plain = get_resnet_v2(dtype=torch.float32, **kw)
-    return model, plain
+    return model, plain, None
 
 
-def build_amoebanet(args, cfg, spatial_cells=0):
-    """``(model, plain)`` of AmoebaNet-D ``--num-layers``/``--num-filters``
-    (``benchmarks/common.py:113-134``), as :func:`build_resnet`."""
+def build_amoebanet(args, cfg, spatial_cells=0, grid=None):
+    """``(model, plain, None)`` of AmoebaNet-D ``--num-layers``/``--num-filters``
+    (``benchmarks/common.py:113-134``), as :func:`build_resnet`;
+    ``--halo-D2`` builds the D2 front (the cell count stays)."""
     from mpi4dl_tpu_torch.models.amoebanet import amoebanetd
 
-    if spatial_cells:
-        raise NotImplementedError(f"the spatial AmoebaNet benchmarks come with {_SP_LP}")
     kw = dict(num_classes=args.num_classes, num_layers=args.num_layers,
               num_filters=args.num_filters)
-    model = amoebanetd(dtype=_dtype(args), **kw)
+    model = amoebanetd(dtype=_dtype(args), spatial_cells=spatial_cells,
+                       halo_d2=bool(args.halo_d2 and spatial_cells), grid=grid, **kw)
     with torch.device("meta"):
         plain = amoebanetd(dtype=torch.float32, **kw)
-    return model, plain
+    return model, plain, None
 
 
 BUILDERS = {"resnet": build_resnet, "amoebanet": build_amoebanet}
 
 
-def make_trainer(args, cfg, model, plain=None, gems: bool = False, n_spatial=None):
+def make_trainer(args, cfg, model, plain=None, gems: bool = False, n_spatial=None,
+                 layout=None):
     """``(trainer, n_spatial)`` for the layout (``benchmarks/common.py:
-    137-187``)."""
+    137-187``): ``n_spatial`` overrides the front's length (the D2 ResNet's
+    cell count), else it follows the config's stage bounds; ``layout`` is
+    the :class:`RankLayout` whose grid built ``model``."""
     from mpi4dl_tpu_torch.parallel.pipeline import PipelineTrainer
     from mpi4dl_tpu_torch.train import Trainer
 
     if gems:
         raise NotImplementedError(f"GemsMasterTrainer comes with {_GEMS}")
-    if cfg.spatial_size:
-        raise NotImplementedError(f"a spatial layout in the benchmark runner comes with {_SP_LP}")
-    if cfg.split_size == 1:
-        return Trainer(model, cfg, device=args.device), 0
+    override = n_spatial
+    if n_spatial is None:
+        n_spatial = (PipelineTrainer.spatial_cell_count(len(model), cfg)
+                     if cfg.spatial_size else 0)
+    if cfg.split_size == 1 or cfg.spatial_size == cfg.split_size:
+        grid = layout.grid if n_spatial else None
+        return Trainer(model, cfg, device=args.device, num_spatial_cells=n_spatial,
+                       grid=grid), n_spatial
     schedule = os.environ.get("MPI4DL_TPU_PIPELINE_SCHEDULE", "gpipe")
-    return PipelineTrainer(model, cfg, device=args.device, schedule=schedule), 0
+    return PipelineTrainer(model, cfg, device=args.device, schedule=schedule,
+                           num_spatial_cells=override, layout=layout), n_spatial
 
 
 def _rank() -> int:
@@ -276,18 +299,27 @@ def run_training(args, trainer, tag: str, plain=None):
 
 
 def run_eval(args, trainer, ds, n: int, plain, skip: int = 0):
-    """BN-calibrate on ``n`` batches and evaluate on ``n`` more, on rank 0,
-    with the plain f32 model and the trained params (a pipeline's gathered
-    from every rank; ``benchmarks/common.py:333-409``, through
-    ``evaluate.py``)."""
-    from mpi4dl_tpu_torch.evaluate import collect_batch_stats, evaluate
+    """BN-calibrate on ``n`` batches and evaluate on ``n`` more
+    (``benchmarks/common.py:333-409``, through ``evaluate.py``): a spatial
+    ``Trainer`` through its own tiled forward on every rank
+    (``spatial_collect_batch_stats``, ``spatial_evaluate``); otherwise on
+    rank 0, with the plain f32 model and the trained params (a pipeline's
+    gathered from every rank). Rank 0 prints."""
+    from mpi4dl_tpu_torch.evaluate import (
+        collect_batch_stats,
+        evaluate,
+        spatial_collect_batch_stats,
+        spatial_evaluate,
+    )
 
+    spatial = (not getattr(trainer, "is_pipeline", False)
+               and getattr(trainer, "n_spatial", 0) > 0)
     if getattr(trainer, "is_pipeline", False):
         params = trainer.unstack_params()  # collective; None off rank 0
     else:
         params = [dict(cell.named_parameters()) for cell in trainer.model]
     res = None
-    if _rank() == 0:
+    if spatial or _rank() == 0:
         it = iter(ds)
 
         def take():
@@ -295,8 +327,9 @@ def run_eval(args, trainer, ds, n: int, plain, skip: int = 0):
             try:
                 return next(it)
             except StopIteration:
-                print("eval: dataset exhausted — wrapping (eval batches overlap training data)",
-                      flush=True)
+                if _rank() == 0:
+                    print("eval: dataset exhausted — wrapping (eval batches overlap training "
+                          "data)", flush=True)
                 it = iter(ds)
                 return next(it)
 
@@ -304,17 +337,19 @@ def run_eval(args, trainer, ds, n: int, plain, skip: int = 0):
             take()
         cal = [take()[0] for _ in range(n)]
         test = [take() for _ in range(n)]
-        model = plain.to_empty(device=trainer.device)
-        model.to(memory_format=trainer.memory_format)
-        with torch.no_grad():
-            for cell, named in zip(model, params):
-                own = dict(cell.named_parameters())
-                for name, v in named.items():
-                    own[name].copy_(v)
-        stats = collect_batch_stats(model, cal)
-        res = evaluate(model, stats, test)
-        print(f"eval ({n} cal / {n} test batches, {res['count']} images): "
-              f"loss {res['loss']:.4f} acc {res['accuracy']:.4f}", flush=True)
+        if spatial:
+            res = spatial_evaluate(trainer, spatial_collect_batch_stats(trainer, cal), test)
+        else:
+            model = plain.to_empty(device=trainer.device)
+            model.to(memory_format=trainer.memory_format)
+            with torch.no_grad():
+                for cell, named in zip(model, params):
+                    own = dict(cell.named_parameters())
+                    for name, v in named.items():
+                        own[name].copy_(v)
+            res = evaluate(model, collect_batch_stats(model, cal), test)
+        say(f"eval ({n} cal / {n} test batches, {res['count']} images): "
+            f"loss {res['loss']:.4f} acc {res['accuracy']:.4f}")
     if dist.is_initialized():
         dist.barrier()
     return res
@@ -335,12 +370,22 @@ def rank_layout(n: int, device: str) -> tuple[str, str, dict]:
 
 
 def _run(args, model_name: str, tag: str, spatial: bool):
-    from mpi4dl_tpu_torch.weights import init
+    from mpi4dl_tpu_torch.parallel.multihost import RankLayout
+    from mpi4dl_tpu_torch.parallel.pipeline import PipelineTrainer
+    from mpi4dl_tpu_torch.weights import init, meta_built
 
     cfg = build_config(args, spatial)
-    model, plain = BUILDERS[model_name](args, cfg)
+    layout = RankLayout(cfg.mesh_shape) if dist.is_initialized() else None
+    build = BUILDERS[model_name]
+    n_spatial = 0
+    if cfg.spatial_size:
+        with torch.device("meta"):
+            n_spatial = PipelineTrainer.spatial_cell_count(len(build(args, cfg)[1]), cfg)
+    model, plain, override = meta_built(
+        build, args, cfg, spatial_cells=n_spatial,
+        grid=layout.grid if n_spatial and layout is not None else None)
     init(model, torch.Generator().manual_seed(0))
-    trainer, _ = make_trainer(args, cfg, model, plain)
+    trainer, _ = make_trainer(args, cfg, model, plain, n_spatial=override, layout=layout)
     run_training(args, trainer, tag, plain)
 
 

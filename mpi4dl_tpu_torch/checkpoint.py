@@ -43,7 +43,8 @@ _MODEL_FAMILIES = ("resnet_v1", "resnet_v2", "amoebanet")
 
 
 def _spatial(trainer) -> bool:
-    return bool(getattr(trainer, "n_spatial", 0)) and dist.is_initialized()
+    """A spatial or data-parallel ``Trainer``: every rank holds the state."""
+    return bool(getattr(trainer, "distributed", False)) and dist.is_initialized()
 
 
 def save_checkpoint(ckpt_dir: str, trainer, step: int | None = None, keep: int = 3,
@@ -56,7 +57,8 @@ def save_checkpoint(ckpt_dir: str, trainer, step: int | None = None, keep: int =
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     pipeline = getattr(trainer, "is_pipeline", False)
     collective = pipeline or _spatial(trainer)
-    writer = not collective or dist.get_rank() == 0
+    # The first rank of the trainer's group writes (a pipeline's: rank 0).
+    writer = not collective or dist.get_rank() == getattr(trainer, "ranks", (0,))[0]
     # A pipeline's state gathers to rank 0: every rank takes part.
     state = flax_state(trainer) if writer or pipeline else None
     if writer:
@@ -74,7 +76,7 @@ def save_checkpoint(ckpt_dir: str, trainer, step: int | None = None, keep: int =
         os.replace(tmp, path)  # atomic publish: no torn checkpoint after a crash
         _prune(ckpt_dir, keep)
     if collective:
-        dist.barrier()
+        dist.barrier(group=getattr(trainer, "group", None))
     return path
 
 

@@ -23,9 +23,12 @@ The spatial variants (:func:`spatial_collect_batch_stats`,
 319-553``) run a spatial trainer's tile cells with their K4 exchanges, the
 SP -> plain join and the head, on every rank of its grid: each pass starts
 with ``dist.barrier()`` (K4's wait gives up after 10 s, so no rank may run
-ahead on the host); the tile-local moments are averaged over the ranks in
-one all-reduce (the JAX ``pmean``); the loss and the correct count are
-summed over the ranks, each rank contributing ``1/replicas``.
+ahead on the host). With ``data_parallel = D > 1`` replica ``d`` takes rows
+``[d·b/D, (d+1)·b/D)`` of each batch (the JAX ``P(data, tile_h,
+tile_w)``). The tile-local moments are averaged over the trainer's group
+(``Trainer.group``: every replica's tiles) in one all-reduce (the JAX
+``pmean`` over ``(data, tile_h, tile_w)``); the loss and the correct count
+are summed over it, each rank contributing ``1/tiles``.
 """
 
 from __future__ import annotations
@@ -199,9 +202,17 @@ def evaluate(runner, batch_stats, batches) -> dict:
 
 # -- the spatial trainer's calibration and eval -------------------------------
 
+def _replica_rows(trainer, a):
+    """This replica's rows of a batch (all of it without data parallelism)."""
+    a = torch.as_tensor(a)
+    if trainer.data_parallel == 1:
+        return a
+    return a[trainer.config.replica_rows(trainer.data_index, 0, a.shape[0])]
+
+
 def _tiles(trainer, x):
-    """This rank's tile of an NHWC batch, on the device."""
-    return trainer.input_to_device(split_tiles(torch.as_tensor(x), trainer.grid))
+    """This rank's tile of its replica's rows of an NHWC batch, on the device."""
+    return trainer.input_to_device(split_tiles(_replica_rows(trainer, x), trainer.grid))
 
 
 def _check_rings(trainer) -> None:
@@ -224,7 +235,7 @@ def spatial_collect_batch_stats(trainer, batches) -> list:
     tiles average to the image's; a cross-tile BN's are already averaged."""
     _spatial_trainer(trainer)
     stats = _collect(trainer.model, trainer.forward, lambda x: _tiles(trainer, x), batches,
-                     before_batch=dist.barrier)
+                     before_batch=lambda: dist.barrier(group=trainer.group))
     _check_rings(trainer)
     leaves = []
 
@@ -234,8 +245,8 @@ def spatial_collect_batch_stats(trainer, batches) -> list:
 
     for s in stats:
         gather(s)
-    world = trainer.grid.world_size
-    _flat_all_reduce(leaves, lambda t: (dist.all_reduce(t), t.div_(world)))
+    n = len(trainer.ranks)  # every replica's tiles
+    _flat_all_reduce(leaves, lambda t: (dist.all_reduce(t, group=trainer.group), t.div_(n)))
     return [_finalize(s) for s in stats]
 
 
@@ -243,18 +254,18 @@ def make_spatial_eval_step(trainer):
     """``step(batch_stats, x, y) -> (ce_sum, correct)`` through a spatial
     trainer's forward with frozen statistics (``evaluate.py:371``): the CE
     sum and the count of hits over the whole batch, each rank contributing
-    ``1/replicas`` to one all-reduce. Starts with a barrier."""
+    ``1/tiles`` to one all-reduce over the trainer's group. Starts with a barrier."""
     _spatial_trainer(trainer)
     replicas = trainer.grid.world_size
 
     def step(batch_stats, x, y):
-        dist.barrier()
+        dist.barrier(group=trainer.group)
         with _running(trainer.model, batch_stats):
             logits = trainer.forward(_tiles(trainer, x))
-        y = torch.as_tensor(y).to(logits.device, torch.long)
+        y = _replica_rows(trainer, y).to(logits.device, torch.long)
         m = torch.stack([cross_entropy_sum(logits, y) / replicas,
                          correct_count(logits, y).float() / replicas])
-        dist.all_reduce(m)
+        dist.all_reduce(m, group=trainer.group)
         return m[0], m[1]
 
     return step

@@ -110,9 +110,11 @@ def swap_reference(a_tiles, b_tiles):
 
 def swap_dist_reference(a, b, grid: TileGrid, axis: str, group=None):
     """Plain distributed version for CPU tensors: ``batch_isend_irecv`` to
-    the ring neighbours over ``group`` (default: the world, which must then
-    take CPU tensors, as gloo does). Tag 0 carries ``a``-strips, tag 1
-    ``b``-strips, so a ring of two, where prev is next, pairs them right."""
+    the ring neighbours (global ranks) over ``group`` (default: the grid's,
+    which must then take CPU tensors, as gloo does). Tag 0 carries
+    ``a``-strips, tag 1 ``b``-strips, so a ring of two, where prev is next,
+    pairs them right."""
+    group = grid.group if group is None else group
     a, b = a.contiguous(), b.contiguous()
     ra, rb = torch.empty_like(a), torch.empty_like(b)
     prev, nxt = grid.prev(axis), grid.next(axis)
@@ -197,8 +199,9 @@ class HaloRings:
                              "halo_arena_alloc")
                 self._arenas[axis] = arena.value
                 handles[axis] = handle.raw
+        # Indexed by tile (the group's rank order); peers are global ranks.
         everyone: list = [None] * grid.world_size
-        dist.all_gather_object(everyone, handles)
+        dist.all_gather_object(everyone, handles, group=grid.group)
         self._peers: dict[tuple[str, int], int] = {}
         self._rings: dict[str, _Ring] = {}
         for axis, arena in self._arenas.items():
@@ -206,7 +209,8 @@ class HaloRings:
             for rank in (grid.prev(axis), grid.next(axis)):
                 if (axis, rank) not in self._peers:
                     peer = ctypes.c_void_p()
-                    _build.check(lib.halo_arena_open(dev, everyone[rank][axis], ctypes.byref(peer)),
+                    handle = everyone[grid.ranks.index(rank)][axis]
+                    _build.check(lib.halo_arena_open(dev, handle, ctypes.byref(peer)),
                                  "halo_arena_open")
                     self._peers[(axis, rank)] = peer.value
                 ptrs.append(self._peers[(axis, rank)])
@@ -322,15 +326,15 @@ class HaloRings:
         return start.elapsed_time(end) / iters if leader else None
 
     def close(self) -> None:
-        """Collective: wait for every rank's phases to end, unmap the
-        neighbours' arenas, then free this rank's."""
+        """Collective over the grid's group: wait for every rank's phases to
+        end, unmap the neighbours' arenas, then free this rank's."""
         torch.cuda.synchronize(self.device)
-        dist.barrier()
+        dist.barrier(group=self.grid.group)
         dev = self.device.index
         for ptr in self._peers.values():
             _build.check(self._lib.halo_arena_close(dev, ptr), "halo_arena_close")
         self._peers.clear()
-        dist.barrier()
+        dist.barrier(group=self.grid.group)
         for arena in self._arenas.values():
             _build.check(self._lib.halo_arena_free(dev, arena), "halo_arena_free")
         self._arenas.clear()

@@ -233,22 +233,22 @@ class _BnMoments(torch.autograd.Function):
 
 
 class _GridMean(torch.autograd.Function):
-    """Mean of a tensor over the ranks of ``grid`` (one all-reduce); its
-    backward is the same mean of the cotangent, as pmean's transpose is
-    pmean."""
+    """Mean of a tensor over the ranks of ``grid`` (one all-reduce over its
+    group); its backward is the same mean of the cotangent, as pmean's
+    transpose is pmean."""
 
     @staticmethod
     def forward(ctx, t, grid):
         ctx.grid = grid
         t = t.clone()
         if not (t.is_meta and halo.in_shape_walk()):  # a shape walk exchanges nothing
-            dist.all_reduce(t)
+            dist.all_reduce(t, group=grid.group)
         return t / grid.world_size
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone()
-        dist.all_reduce(g)
+        dist.all_reduce(g, group=ctx.grid.group)
         return g / ctx.grid.world_size, None
 
 

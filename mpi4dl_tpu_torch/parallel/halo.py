@@ -128,7 +128,7 @@ def _nchw(t):
 
 def _axis_exchange(x, halo: int, axis: str, grid: TileGrid, fill_value, group=None):
     """One plain forward phase on CPU tensors (``swap_dist_reference``
-    over ``group``)."""
+    over ``group``, default the grid's)."""
     dim = _DIM[axis]
     lo, hi = _strips(x, halo, dim)
     n, idx = grid.axis_size(axis), grid.axis_index(axis)
@@ -164,7 +164,7 @@ def _axis_exchange_bwd(g, halo: int, axis: str, grid: TileGrid, group=None):
 
 def exchange_plain(x, halo_h: int, halo_w: int, grid: TileGrid, fill_value=0.0, group=None):
     """The plain distributed exchange of a CPU tile (``group``: a process
-    group that takes CPU tensors; default the world)."""
+    group of the grid's ranks that takes CPU tensors; default the grid's)."""
     if halo_h > 0:
         x = _axis_exchange(x, halo_h, AXIS_TILE_H, grid, fill_value, group)
     if halo_w > 0:
@@ -374,10 +374,10 @@ def halo_exchange_reference(tiles, halo_h: int, halo_w: int, fill_value: float =
 
 
 class _GatherTiles(torch.autograd.Function):
-    """Forward: every rank's tile, assembled row-major into the full image
-    (the all-gather along H, then W, of ``halo.py:110-126``). Backward: the
-    cotangent summed over the ranks, this tile's slice kept (the transpose
-    of JAX's tiled ``all_gather``)."""
+    """Forward: every tile of the grid, assembled row-major into the full
+    image (the all-gather along H, then W, of ``halo.py:110-126``), over the
+    grid's group. Backward: the cotangent summed over the grid, this tile's
+    slice kept (the transpose of JAX's tiled ``all_gather``)."""
 
     @staticmethod
     def forward(ctx, x, grid: TileGrid):
@@ -386,7 +386,7 @@ class _GatherTiles(torch.autograd.Function):
         th, tw = grid.shape
         xh = _nhwc(x).contiguous()  # a view for channels_last tiles
         parts = [torch.empty_like(xh) for _ in range(grid.world_size)]
-        dist.all_gather(parts, xh)
+        dist.all_gather(parts, xh, group=grid.group)
         rows = [torch.cat(parts[i * tw:(i + 1) * tw], 2) for i in range(th)]
         return _nchw(torch.cat(rows, 1)).contiguous(memory_format=ctx.fmt)
 
@@ -394,7 +394,7 @@ class _GatherTiles(torch.autograd.Function):
     def backward(ctx, g):
         grid = ctx.grid
         gh = _nhwc(g).clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(gh)
+        dist.all_reduce(gh, group=grid.group)
         h, w = gh.shape[1] // grid.shape[0], gh.shape[2] // grid.shape[1]
         i, j = grid.coords
         tile = gh[:, i * h:(i + 1) * h, j * w:(j + 1) * w, :]

@@ -107,3 +107,15 @@ def spatial_shape(shape: Sequence[int], tile_shape: tuple[int, int]) -> tuple[in
     if h % th or w % tw:
         raise ValueError(f"activation {shape} not divisible by tile grid {tile_shape}")
     return (b, h // th, w // tw, c)
+
+
+def joined_state(h, tile_shape: tuple[int, int], batch: int | None = None):
+    """The meta state ``h`` (NCHW, a tensor or a tuple of them) of one tile
+    as the SP -> plain join gives it: H and W times the grid
+    (``train.py:361-374``), and ``batch`` rows when given (LOCAL_DP_LP's
+    slice, ``pipeline.py:334-343``)."""
+    th, tw = tile_shape
+    out = [torch.empty((t.shape[0] if batch is None else batch, t.shape[1],
+                        t.shape[2] * th, t.shape[3] * tw), dtype=t.dtype, device="meta")
+           for t in (h if isinstance(h, (tuple, list)) else (h,))]
+    return tuple(out) if isinstance(h, (tuple, list)) else out[0]

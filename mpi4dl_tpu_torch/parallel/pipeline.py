@@ -41,6 +41,36 @@ micro-batch goes through each stage alone, so BatchNorm statistics are per
 micro-batch (the point of ``parts``): the step equals
 ``Trainer(grad_accum=parts)``'s on the same weights.
 
+**The rank layout.** The world is a
+:class:`~mpi4dl_tpu_torch.parallel.multihost.RankLayout` of the config's
+``mesh_shape`` ``(D, S, th, tw)``, the JAX mesh ``(data, pipe, tile_h,
+tile_w)``. The ranks of one ``(d, i, j)`` form a pipeline (its pipe group
+carries the wires); every ``(d, i, j)`` runs the whole back schedule, on
+its own rows:
+
+- **Data parallelism** (``D > 1``): replica ``d`` takes rows ``[d·mb/D,
+  (d+1)·mb/D)`` of every micro-batch (JAX's ``x_spec``, ``pipeline.py:
+  888-896``).
+- **The spatial front** (``spatial_size > 0``): the first
+  ``n_spatial_cells`` cells run on the tiles of the tile group of each
+  ``(d, p)``, one micro-batch at a time, without recomputation (JAX puts
+  its checkpoint on the back stages only), and the join is
+  :func:`~mpi4dl_tpu_torch.parallel.halo.gather_tiles`
+  (``pipeline.py:434-472``). When ``parts % S == 0`` pipe coordinate
+  ``p`` runs micro-batches ``[p·parts/S, (p+1)·parts/S)`` of the front;
+  otherwise pipe 0 runs all of them (JAX computes them on every pipe
+  coordinate and uses pipe 0's). Only stage 0 needs the joined
+  micro-batches: each is sent to pipe 0 of its ``(d, i, j)``, and after the
+  back schedule its gradient goes back to the pipe coordinate that ran its
+  front, which then runs the front's backward.
+- **The back** (``pipeline.py:845-874``): redundant over the tiles (each
+  tile rank's loss is divided by ``th·tw``), or, with LOCAL_DP_LP
+  (``local_dp == th·tw``), tile ``i·tw + j`` runs slice ``i·tw + j`` of
+  every micro-batch (``mb_back`` rows), with a divisor of 1.
+- **Gradients**: summed over the replica group of each pipe coordinate
+  (every ``d, i, j``) for the back stages, over the world for the front;
+  the loss and accuracy over the world.
+
 **Transport.** Chosen from the process group's backend and the device,
 and named in :attr:`PipelineTrainer.transport`:
 
@@ -66,16 +96,26 @@ import torch.distributed as dist
 import torch.nn as nn
 
 from mpi4dl_tpu_torch.config import ParallelConfig
-from mpi4dl_tpu_torch.parallel.partition import eval_stage_shapes, split_cells, stage_bounds
+from mpi4dl_tpu_torch.ops.halo_kernel import close_rings, open_rings
+from mpi4dl_tpu_torch.parallel.halo import gather_tiles, slot_bytes_for, split_tiles
+from mpi4dl_tpu_torch.parallel.multihost import RankLayout
+from mpi4dl_tpu_torch.parallel.partition import (
+    eval_stage_shapes,
+    joined_state,
+    split_cells,
+    stage_bounds,
+)
 from mpi4dl_tpu_torch.train import (
     _checkpoint,
     _flat,
+    _flat_all_reduce,
     _unflat,
     cell_state,
     correct_count,
     cross_entropy_sum,
     load_cell_state,
     make_optimizer,
+    spatial_exchanges,
 )
 from mpi4dl_tpu_torch.utils import resolve_device
 from mpi4dl_tpu_torch.weights import flatten_cells, pipeline_layout, unflatten_cells
@@ -83,7 +123,6 @@ from mpi4dl_tpu_torch.weights import flatten_cells, pipeline_layout, unflatten_c
 SCHEDULES = ("gpipe", "1f1b")
 # How long a rank waits for one tick's transfers (gloo) before it raises.
 WIRE_TIMEOUT_S = 600.0
-_SP_LP = "the SP+LP slice (ROADMAP queue 1 item 5)"
 _GEMS = "the GEMS slice (ROADMAP queue 1 item 6)"
 _ANALYZERS = "the analyzers' slice (ROADMAP queue 1 item 10)"
 
@@ -108,26 +147,36 @@ def virtual_stage_cells(n_cells: int, S: int, v: int = 1, balance=None) -> list[
 
 
 class PipelineTrainer:
-    """LP/PP trainer over ``split_size`` ranks, one pipeline stage each.
+    """LP/PP trainer over ``lp_stages`` pipe coordinates, with an optional
+    spatial front and data parallelism (see the module docstring).
 
     model: an ``nn.Sequential`` of cells (the full model, the same weights
-        on every rank: a seeded init or loaded params). Each rank moves the
-        cells of its hosted stages to its device; the others stay where
-        they are and are not used.
-    config: ``split_size`` stages (``lp_stages``), ``parts`` micro-batches
-        a step, ``balance`` cells a stage (gpipe only: a 1f1b ``balance``
-        would have to address every virtual stage, as in JAX).
+        on every rank: a seeded init or loaded params). Its first
+        ``n_spatial_cells`` cells must be built with ``layout.grid`` (the
+        front); each rank moves the front and its hosted stages' cells to
+        its device, the others stay where they are and are not used.
+    config: ``split_size`` stages of which the first ``spatial_size`` are
+        the front (``lp_stages`` pipe coordinates behind it), ``parts``
+        micro-batches a step, ``balance`` cells a stage (under 1f1b only a
+        ``balance`` addressing every virtual stage applies, as in JAX),
+        ``data_parallel`` replicas, ``local_dp``.
     schedule: ``"gpipe"`` (fill-drain) or ``"1f1b"``: each rank ``d`` hosts
         ``virtual_stages`` chunks ``d, S+d, ...``, micro-batches ring
         through ``v·S`` stages in ``parts + v·S - 1`` ticks, and the bubble
         shrinks to ``(S-1)/(parts + v·S - 1)``.
-    remat: checkpoint each stage body (see the module docstring).
+    remat: checkpoint each back stage body (see the module docstring).
     device: ``cuda`` (the rank's current card) unless given.
+    num_spatial_cells: the front's length when it is not the config's
+        stage bounds (the D2 models' ``n_spatial_d2``;
+        ``pipeline.py:242-252``); ``balance`` then addresses the back
+        stages only.
+    layout: the :class:`RankLayout` of ``config.mesh_shape`` (collective
+        to build); a front needs the one whose grid built the model.
+        Without it, one is built here.
 
-    Construction needs an initialized process group of ``lp_stages``
-    ranks; rank ``d`` hosts stages :meth:`stages_of_device` ``(d)``.
-    ``train_step(x, y)`` is collective and takes the whole NHWC batch on
-    every rank (rank 0 reads ``x``, the last rank ``y``).
+    Construction needs an initialized process group of
+    ``config.num_devices`` ranks. ``train_step(x, y)`` is collective and
+    takes the whole NHWC batch on every rank.
 
     :attr:`on_tick`, when set, is called as ``on_tick(direction, tick,
     work)`` (``"fwd"`` / ``"bwd"``; ``work`` the ``(stage, micro-batch)``
@@ -143,7 +192,8 @@ class PipelineTrainer:
     def __init__(self, model: nn.Module, config: ParallelConfig,
                  learning_rate: float = 0.001, momentum: float = 0.9, remat: bool = True,
                  device=None, mirror: bool = False, num_spatial_cells: int | None = None,
-                 schedule: str = "gpipe", virtual_stages: int = 2):
+                 schedule: str = "gpipe", virtual_stages: int = 2,
+                 layout: RankLayout | None = None):
         if schedule not in SCHEDULES:
             raise ValueError(f"schedule must be 'gpipe' or '1f1b', got {schedule!r}")
         if schedule == "1f1b":
@@ -163,29 +213,58 @@ class PipelineTrainer:
                                  "(need spatial_size < split_size)")
         elif config.split_size < 2:
             raise ValueError("PipelineTrainer needs split_size >= 2 (use Trainer)")
-        if num_spatial_cells:
-            raise NotImplementedError(f"the spatial front comes with {_SP_LP}")
         self.schedule = schedule
         self.v = int(virtual_stages) if schedule == "1f1b" else 1
         self.config = config
         self.remat = remat
         self.S = config.lp_stages
         self.parts = config.parts
-        self.mb_local = config.batch_size // config.parts
-        self.n_spatial_cells = 0
+        self.dp = config.data_parallel
+        if config.batch_size % (config.parts * self.dp):
+            raise ValueError("batch_size must divide by parts * data_parallel")
+        self.mb_local = config.batch_size // config.parts // self.dp
+        self.local_dp = config.local_dp
+        if self.mb_local % self.local_dp:
+            raise ValueError(f"micro-batch size must divide by local_dp "
+                             f"({self.mb_local} % {self.local_dp})")
+        self.mb_back = self.mb_local // self.local_dp
+        # The front and the back stages' balance (``pipeline.py:227-262``).
+        if num_spatial_cells is not None:
+            n_sp = int(num_spatial_cells)
+            back_balance = (list(config.balance) if config.balance is not None
+                            and len(config.balance) == self.S else None)
+        else:
+            bounds = stage_bounds(len(model), config.split_size, config.balance)
+            n_sp = self.spatial_cell_count(len(model), config)
+            back_balance = ([e - s for s, e in bounds[config.spatial_size:]]
+                            if config.balance is not None or config.spatial_size else None)
+        if n_sp and not config.spatial_size:
+            raise ValueError("num_spatial_cells needs a spatial front (spatial_size > 0)")
+        if not 0 <= n_sp < len(model):
+            raise ValueError(f"num_spatial_cells must leave back cells, got {n_sp} of "
+                             f"{len(model)}")
+        self.n_spatial_cells = n_sp
         self.n_virtual = self.v * self.S
-        # Cell indices of each virtual stage, and each rank's stages.
-        self.stages = virtual_stage_cells(len(model), self.S, self.v, config.balance)
+        # Cell indices of each virtual stage, and each pipe coordinate's stages.
+        self.stages = [[n_sp + i for i in st]
+                       for st in virtual_stage_cells(len(model) - n_sp, self.S, self.v,
+                                                     back_balance)]
         self.placement = [self.stages_of_device(d) for d in range(self.S)]
 
-        if not dist.is_initialized() or dist.get_world_size() != self.S:
-            raise ValueError(f"a {self.S}-stage pipeline needs an initialized process group "
-                             f"of {self.S} ranks")
-        self.rank = dist.get_rank()
+        if layout is None:
+            if n_sp:
+                raise ValueError("a spatial front needs the RankLayout whose grid built its "
+                                 "cells (layout=...)")
+            layout = RankLayout(config.mesh_shape)
+        if layout.shape != config.mesh_shape:
+            raise ValueError(f"layout {layout.shape} for the config's mesh {config.mesh_shape}")
+        self.layout = layout
+        self.grid = layout.grid
+        self.pipe = layout.p
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
-        backend = dist.get_backend()
+        backend = dist.get_backend(layout.pipe_group)
         if self.device.type == "cuda":
             if backend == "nccl":
                 self.transport = "nccl"
@@ -200,21 +279,25 @@ class PipelineTrainer:
         self.memory_format = (torch.channels_last if self.device.type == "cuda"
                               else torch.contiguous_format)
         self.model = model
-        self.hosted = self.placement[self.rank]
-        self.hosted_cells = [i for k in self.hosted for i in self.stages[k]]
+        self.hosted = self.placement[self.pipe]
+        self.front_cells = list(range(n_sp))
+        self.hosted_cells = self.front_cells + [i for k in self.hosted for i in self.stages[k]]
         for i in self.hosted_cells:
             model[i].to(device=self.device, memory_format=self.memory_format)
         params = [p for i in self.hosted_cells for p in model[i].parameters()]
         self.opt = make_optimizer(params, learning_rate, momentum)
+        # Micro-batches whose front this pipe coordinate runs.
+        self.front_mbs = [m for m in range(self.parts) if n_sp and self.front_owner(m) == self.pipe]
         self.step = 0
         self.on_tick = None
         self.transfers = 0  # stage-boundary wires this rank sent in the last step
         self._pinned: dict = {}
+        self._slot_needs: dict = {}
         self._build_static_plan()
 
     # -- placement and planning ---------------------------------------------
     def stages_of_device(self, d: int) -> list[int]:
-        """Virtual stages hosted by rank ``d`` (:func:`stages_of_device`)."""
+        """Virtual stages hosted by pipe coordinate ``d`` (:func:`stages_of_device`)."""
         return stages_of_device(d, self.S, self.v)
 
     @staticmethod
@@ -226,14 +309,32 @@ class PipelineTrainer:
         bounds = stage_bounds(num_cells, config.split_size, config.balance)
         return bounds[config.spatial_size - 1][1]
 
+    def front_owner(self, m: int) -> int:
+        """The pipe coordinate that runs micro-batch ``m``'s front: its
+        share ``parts / S`` when ``parts % S == 0``, else pipe 0
+        (``pipeline.py:455-462``)."""
+        if self.S > 1 and self.parts % self.S == 0:
+            return m // (self.parts // self.S)
+        return 0
+
     def _build_static_plan(self):
-        """The shape and dtype of every stage boundary's wire for one
-        micro-batch, and ``num_classes`` from the last stage's output, from
-        a forward on the meta device (``_build_static_plan``,
-        ``pipeline.py:298-359``). A wire is a tuple of tensors where the
-        boundary carries AmoebaNet's ``(concat, skip)``."""
+        """The shape and dtype of the front's output as stage 0 takes it
+        (joined, and sliced to ``mb_back`` under LOCAL_DP_LP) and of every
+        stage boundary's wire for one micro-batch, and ``num_classes`` from
+        the last stage's output, from a forward on the meta device
+        (``_build_static_plan``, ``pipeline.py:298-359``). A wire is a tuple
+        of tensors where the boundary carries AmoebaNet's ``(concat,
+        skip)``."""
         cfg = self.config
-        x = torch.empty((self.mb_local, 3, cfg.image_size, cfg.image_size), device="meta")
+        if self.n_spatial_cells:
+            th, tw = cfg.tile_shape
+            x = torch.empty((self.mb_local, 3, cfg.image_size // th, cfg.image_size // tw),
+                            device="meta")
+            x, _ = eval_stage_shapes([self.model[i] for i in self.front_cells], x)
+            x = joined_state(x, cfg.tile_shape, self.mb_back)
+        else:
+            x = torch.empty((self.mb_back, 3, cfg.image_size, cfg.image_size), device="meta")
+        self.front_wire = (isinstance(x, tuple), [(tuple(t.shape), t.dtype) for t in _flat(x)])
         self.wires = []  # per boundary k: (is_tuple, [(NCHW shape, dtype)])
         for k, ids in enumerate(self.stages):
             x, _ = eval_stage_shapes([self.model[i] for i in ids], x)
@@ -245,7 +346,7 @@ class PipelineTrainer:
         self.num_classes = x.shape[-1]
         # The loss's dtype (``train.cross_entropy_sum``), the same on every rank.
         self.loss_dtype = torch.promote_types(x.dtype, torch.float32)
-        self.layout, self.max_p = pipeline_layout(self.model, self.stages, self.placement)
+        self.layout_rows, self.max_p = pipeline_layout(self.model, self.stages, self.placement)
 
     def analytic_bubble_fraction(self) -> float:
         """GPipe ``(S-1)/(S-1+M)``, interleaved 1F1B ``(S-1)/(M + v·S - 1)``
@@ -256,11 +357,27 @@ class PipelineTrainer:
         return (S - 1) / (S - 1 + M)
 
     def stage_permute_count(self) -> int:
-        """Stage-boundary wire transfers of one step, over all ranks: each
-        micro-batch crosses ``v·S - 1`` boundaries forward and as many
-        backward. (The JAX count, ``2·(v·S - 1)`` at ``pipeline.py:692-699``,
-        is the ppermutes in the compiled scan body, each run once a tick.)"""
+        """Stage-boundary wire transfers of one step, over the ranks of one
+        pipe group: each micro-batch crosses ``v·S - 1`` boundaries forward
+        and as many backward. (The JAX count, ``2·(v·S - 1)`` at
+        ``pipeline.py:692-699``, is the ppermutes in the compiled scan body,
+        each run once a tick.)"""
         return 2 * self.parts * (self.n_virtual - 1)
+
+    def halo_shift_count(self, x_shape, dtype=torch.float32) -> int:
+        """Forward halo shifts of the spatial front in one pass over one
+        micro-batch (``pipeline.py:701-732``): each exchange of the front's
+        meta walk (:func:`~mpi4dl_tpu_torch.train.spatial_exchanges`) makes
+        two shifts along each tile axis longer than 1 that it has a halo
+        on, as JAX's ``_shift``s do. ``x_shape`` is the global NHWC batch
+        shape. 0 without a front."""
+        if not self.n_spatial_cells:
+            return 0
+        th, tw = self.config.tile_shape
+        b = int(x_shape[0]) // self.parts // self.dp
+        shape = (b, int(x_shape[3]), int(x_shape[1]) // th, int(x_shape[2]) // tw)
+        return sum(2 * (hh > 0 and th > 1) + 2 * (hw > 0 and tw > 1)
+                   for _, hh, hw in spatial_exchanges(self.model, self.n_spatial_cells, shape))
 
     def num_ticks(self) -> int:
         return self.parts + self.n_virtual - 1
@@ -270,15 +387,6 @@ class PipelineTrainer:
         return [(k, t - k) for k in self.hosted if 0 <= t - k < self.parts]
 
     # -- not in this slice ---------------------------------------------------
-    def _front(self, *args, **kwargs):
-        raise NotImplementedError(f"the spatial front comes with {_SP_LP}")
-
-    def _back_inputs(self, *args, **kwargs):
-        raise NotImplementedError(f"local_dp comes with {_SP_LP}")
-
-    def halo_shift_count(self, *args, **kwargs):
-        raise NotImplementedError(f"halo_shift_count comes with {_SP_LP}")
-
     def collective_deltas(self, *args, **kwargs):
         raise NotImplementedError(f"collective_deltas come with {_ANALYZERS}")
 
@@ -310,12 +418,14 @@ class PipelineTrainer:
 
     def _exchange(self, sends, recvs) -> None:
         """Post every ``(tensor, dst)`` send and ``(buffer, src)`` receive of
-        one tick together, then wait for all of them. Tensors are in the
+        one tick together, then wait for all of them; ``dst`` and ``src``
+        are pipe coordinates of this rank's pipe group. Tensors are in the
         trainer's memory format; both sides list a pair's transfers in the
         same order."""
         if not sends and not recvs:
             return
         staged = self.transport == "gloo+pinned"
+        group, peer = self.layout.pipe_group, self.layout.pipe_peer
         ops, copy_back = [], []
         # The n-th transfer between two ranks in a tick carries tag n on
         # both sides (NCCL matches in order and ignores tags).
@@ -327,7 +437,7 @@ class PipelineTrainer:
                 host.copy_(view)  # blocking: the data is on the host before gloo reads it
                 view = host
             tag = sent[dst] = sent.get(dst, -1) + 1
-            ops.append(dist.P2POp(dist.isend, view, dst, tag=tag))
+            ops.append(dist.P2POp(dist.isend, view, peer(dst), group, tag=tag))
         for i, (buf, src) in enumerate(recvs):
             view = self._wire_view(buf)
             if staged:
@@ -335,11 +445,11 @@ class PipelineTrainer:
                 copy_back.append((view, host))
                 view = host
             tag = received[src] = received.get(src, -1) + 1
-            ops.append(dist.P2POp(dist.irecv, view, src, tag=tag))
+            ops.append(dist.P2POp(dist.irecv, view, peer(src), group, tag=tag))
         if self.transport == "nccl":
             reqs = dist.batch_isend_irecv(ops)
         else:
-            reqs = [op.op(op.tensor, op.peer, tag=op.tag) for op in ops]
+            reqs = [op.op(op.tensor, op.peer, group=op.group, tag=op.tag) for op in ops]
         for r in reqs:
             if self.transport == "nccl":
                 r.wait()
@@ -348,12 +458,118 @@ class PipelineTrainer:
         for view, host in copy_back:
             view.copy_(host)  # blocking: the buffer is reused at the next tick
 
-    def _recv_buffers(self, k: int):
-        _, specs = self.wires[k]
+    def _buffers(self, specs):
         return [torch.empty(shape, dtype=dtype, device=self.device,
                             memory_format=self.memory_format if len(shape) == 4
                             else torch.contiguous_format)
                 for shape, dtype in specs]
+
+    def _recv_buffers(self, k: int):
+        return self._buffers(self.wires[k][1])
+
+    # -- the front ------------------------------------------------------------
+    def _size_rings(self, x) -> None:
+        """On the card: the grid's K4 rings open with slots for the widest
+        strip a front forward of ``x`` makes (collective over the tile
+        group; ``Trainer._size_rings``)."""
+        key = tuple(x.shape)
+        if key not in self._slot_needs:
+            self._slot_needs[key] = slot_bytes_for(
+                spatial_exchanges(self.model, self.n_spatial_cells, key))
+        need, grid = self._slot_needs[key], self.grid
+        if grid.rings is not None and grid.rings.slot_bytes < need:
+            close_rings(grid)
+        if grid.rings is None:
+            open_rings(grid, self.device, slot_bytes=need)
+
+    def _rows(self, m: int) -> slice:
+        """This replica's rows of micro-batch ``m`` of the global batch."""
+        mb = self.config.batch_size // self.parts
+        return self.config.replica_rows(self.layout.d, m * mb, mb)
+
+    def _back_rows(self, m: int) -> slice:
+        """The rows of micro-batch ``m`` that this rank's back stages run:
+        :meth:`_rows`, or its tile's slice under LOCAL_DP_LP."""
+        rows = self._rows(m)
+        if self.local_dp == 1:
+            return rows
+        start = rows.start + self._tile_index() * self.mb_back
+        return slice(start, start + self.mb_back)
+
+    def _tile_index(self) -> int:
+        return self.layout.i * self.config.tile_shape[1] + self.layout.j
+
+    def _back_inputs(self, h):
+        """The joined front output as the back stages take it: the whole
+        micro-batch, or this tile's ``mb_back`` slice under LOCAL_DP_LP
+        (``_back_inputs``, ``pipeline.py:859-874``)."""
+        if self.local_dp == 1:
+            return h
+        k, idx = self.mb_back, self._tile_index()
+        return _unflat([t[idx * k:(idx + 1) * k] for t in _flat(h)], isinstance(h, tuple))
+
+    def _front(self, x) -> dict:
+        """The front of this rank's micro-batches (:attr:`front_mbs`), one at
+        a time on its tile, joined over the tile group and cut by
+        :meth:`_back_inputs`: ``{m: state}`` with its autograd graph
+        (``_front``, ``pipeline.py:434-472``)."""
+        out = {}
+        for m in self.front_mbs:
+            h = self.input_to_device(split_tiles(torch.as_tensor(x[self._rows(m)]), self.grid))
+            if h.is_cuda:
+                self._size_rings(h)
+            for i in self.front_cells:
+                h = self.model[i](h)
+            h = _unflat([gather_tiles(t, self.grid) for t in _flat(h)], isinstance(h, tuple))
+            out[m] = self._back_inputs(h)
+        return out
+
+    def _ship_front(self, front_out) -> dict:
+        """Every micro-batch's front output to pipe 0 of this ``(d, i,
+        j)``: ``{m: leaf tensors}`` there (empty elsewhere), each a leaf
+        whose gradient stage 0's backward fills."""
+        is_tuple, specs = self.front_wire
+        for m, h in front_out.items():
+            got = [(tuple(t.shape), t.dtype) for t in _flat(h)]
+            if isinstance(h, tuple) != is_tuple or got != specs:
+                raise RuntimeError(f"the front sent {got}, the plan says {specs}")
+        sends, recvs, leaves = [], [], {}
+        if self.pipe != 0:
+            sends = [(self._to_wire(t.detach()), 0) for m in self.front_mbs
+                     for t in _flat(front_out[m])]
+        else:
+            for m in range(self.parts):
+                if m in front_out:
+                    leaves[m] = [self._to_wire(t.detach()) for t in _flat(front_out[m])]
+                else:
+                    leaves[m] = self._buffers(specs)
+                    recvs += [(u, self.front_owner(m)) for u in leaves[m]]
+        self._exchange(sends, recvs)
+        return {m: [u.requires_grad_(u.is_floating_point()) for u in us]
+                for m, us in leaves.items()}
+
+    def _front_backward(self, front_out, leaves) -> None:
+        """Stage 0's input gradients back to the pipe coordinates that ran
+        each micro-batch's front, then the front's backward there, one
+        micro-batch at a time in order (every rank of a tile group makes
+        the same collectives)."""
+        sends, recvs, grads = [], [], {}
+        for m, us in leaves.items():
+            g = [u.grad if u.grad is not None else torch.zeros_like(u) for u in us]
+            if self.front_owner(m) == 0:
+                grads[m] = g
+            else:
+                sends += [(self._to_wire(t), self.front_owner(m)) for t in g]
+        if self.pipe != 0:
+            for m in self.front_mbs:
+                grads[m] = self._buffers(self.front_wire[1])
+                recvs += [(u, 0) for u in grads[m]]
+        self._exchange(sends, recvs)
+        for m in self.front_mbs:
+            outs = _flat(front_out.pop(m))
+            pairs = [(o, g) for o, g in zip(outs, grads.pop(m)) if o.requires_grad]
+            if pairs:
+                torch.autograd.backward([o for o, _ in pairs], [g for _, g in pairs])
 
     # -- the step ---------------------------------------------------------------
     def _stage_fn(self, k: int):
@@ -387,19 +603,45 @@ class PipelineTrainer:
         x = torch.as_tensor(x).to(self.device)
         return x.permute(0, 3, 1, 2).contiguous(memory_format=self.memory_format)
 
+    def _reduce_grads(self) -> None:
+        """Back-stage gradients summed over the replica group of this pipe
+        coordinate, the front's over the world (the transposes of their
+        replication, ``pipeline.py:362-405``)."""
+        groups = [([p for k in self.hosted for i in self.stages[k]
+                    for p in self.model[i].parameters()],
+                   self.layout.replica_group, len(self.layout.replica_ranks())),
+                  ([p for i in self.front_cells for p in self.model[i].parameters()],
+                   None, self.layout.world_size)]
+        for params, group, size in groups:
+            for p in params:
+                if p.grad is None:  # optax sees a zero gradient
+                    p.grad = torch.zeros_like(p)
+            if params and size > 1:
+                _flat_all_reduce([p.grad for p in params],
+                                 lambda t, g=group: dist.all_reduce(t, group=g))
+
     def train_step(self, x, y) -> dict:
         b, s = self.config.batch_size, self.config.image_size
         if tuple(x.shape[:3]) != (b, s, s) or tuple(y.shape) != (b,):
             raise ValueError(
                 f"batch x{tuple(x.shape)} y{tuple(y.shape)} does not match the "
                 f"config (batch {b}, image {s}x{s}, NHWC)")
-        S, nv, mb, rank = self.S, self.n_virtual, self.mb_local, self.rank
+        S, nv, pipe = self.S, self.n_virtual, self.pipe
         hosts_first, hosts_last = 0 in self.hosted, nv - 1 in self.hosted
-        xs = self.input_to_device(x) if hosts_first else None
-        ys = torch.as_tensor(y).to(self.device, torch.long) if hosts_last else None
-        n = self.parts * mb
+        th, tw = self.config.tile_shape
+        # The psum of the contributions is the mean (``_reduce_metrics``).
+        n = self.parts * self.mb_local * self.dp * (1 if self.local_dp > 1 else th * tw)
         self.opt.zero_grad(set_to_none=True)
         self.transfers = 0
+        front_out, leaves = {}, {}
+        if self.n_spatial_cells:
+            dist.barrier()  # every rank enters the step's swaps together
+            front_out = self._front(x)
+            leaves = self._ship_front(front_out)
+        elif hosts_first:
+            leaves = {m: [self.input_to_device(x[self._back_rows(m)])]
+                      for m in range(self.parts)}
+        ys = torch.as_tensor(y).to(self.device, torch.long) if hosts_last else None
         inbox, stage_in, stage_out, terms = {}, {}, {}, {}
         ce_sum = torch.zeros((), dtype=self.loss_dtype, device=self.device)
         cc_sum = torch.zeros((), dtype=self.loss_dtype, device=self.device)
@@ -411,14 +653,14 @@ class PipelineTrainer:
             with self._tick("fwd", t, work):
                 for k, m in work:
                     if k == 0:
-                        h = xs[m * mb:(m + 1) * mb]
+                        h = _unflat(leaves[m], self.front_wire[0])
                     else:
                         h = _unflat([u.requires_grad_(u.is_floating_point())
                                      for u in inbox.pop((k - 1, m))], self.wires[k - 1][0])
                     stage_in[(k, m)] = h
                     out = self._run_stage(k, h)
                     if k == nv - 1:
-                        yc = ys[m * mb:(m + 1) * mb]
+                        yc = ys[self._back_rows(m)]
                         ce = cross_entropy_sum(out, yc)
                         terms[(k, m)] = ce / n
                         ce_sum = ce_sum + ce.detach()
@@ -430,11 +672,11 @@ class PipelineTrainer:
                         stage_out[(k, m)] = out
                         sends += [(u.detach(), (k + 1) % S) for u in _flat(out)]
                         self.transfers += 1
-            # Wires k' that rank (k' % S) sends this tick to this rank.
+            # Wires k' that pipe coordinate (k' % S) sends this tick to this one.
             recvs, keys = [], []
             for k2 in range(nv - 1):
                 m2 = t - k2
-                if (k2 + 1) % S == rank and 0 <= m2 < self.parts:
+                if (k2 + 1) % S == pipe and 0 <= m2 < self.parts:
                     bufs = self._recv_buffers(k2)
                     keys.append(((k2, m2), bufs))
                     recvs += [(u, k2 % S) for u in bufs]
@@ -469,7 +711,7 @@ class PipelineTrainer:
             recvs, keys = [], []
             for k2 in range(nv - 1):
                 m2 = t - (k2 + 1)
-                if k2 % S == rank and 0 <= m2 < self.parts:
+                if k2 % S == pipe and 0 <= m2 < self.parts:
                     bufs = self._recv_buffers(k2)
                     keys.append(((k2, m2), bufs))
                     recvs += [(u, (k2 + 1) % S) for u in bufs]
@@ -477,13 +719,18 @@ class PipelineTrainer:
             for key, bufs in keys:
                 grad_inbox[key] = bufs
 
-        for p in self.opt.param_groups[0]["params"]:
-            if p.grad is None:  # optax sees a zero gradient
-                p.grad = torch.zeros_like(p)
+        if self.n_spatial_cells:
+            self._front_backward(front_out, leaves)
+        del leaves
+        self._reduce_grads()
         self.opt.step()
         self.step += 1
         metrics = torch.stack([ce_sum / n, cc_sum / n])
-        dist.all_reduce(metrics)  # the other ranks contribute zeros
+        dist.all_reduce(metrics)  # over the world; the other ranks contribute zeros
+        if self.grid is not None and self.grid.rings is not None:
+            # A K4 wait that ran out raises here, at the step's sync.
+            torch.cuda.current_stream(self.device).synchronize()
+            self.grid.rings.check()
         return {"loss": metrics[0], "accuracy": metrics[1]}
 
     # -- state: params, momentum, step ---------------------------------------
@@ -491,15 +738,24 @@ class PipelineTrainer:
         return [self.model[i] for i in self.hosted_cells]
 
     def state_tensors(self):
-        """``(params, momentum, step)`` of this rank's hosted cells: per cell
-        of :attr:`hosted_cells`, ``{name: tensor}`` of its parameters and of
-        their SGD momentum buffers (``train.cell_state``)."""
+        """``(params, momentum, step)`` of this rank's cells (the front's,
+        then its hosted stages'): per cell of :attr:`hosted_cells`,
+        ``{name: tensor}`` of its parameters and of their SGD momentum
+        buffers (``train.cell_state``)."""
         return (*cell_state(self._cells(), self.opt), self.step)
 
     def load_state_tensors(self, params, momentum, step: int) -> None:
-        """Load :meth:`state_tensors`' triple for this rank's hosted cells."""
+        """Load :meth:`state_tensors`' triple for this rank's cells."""
         load_cell_state(self._cells(), self.opt, params, momentum)
         self.step = int(step)
+
+    def _values(self, which: str):
+        if which not in ("params", "momentum"):
+            raise ValueError(f"which must be params|momentum, got {which!r}")
+        if which == "params":
+            return None
+        _, momentum, _ = self.state_tensors()
+        return dict(zip(self.hosted_cells, momentum))
 
     def _row(self, values=None) -> torch.Tensor:
         """This rank's row of the stacked layout, unpadded, f32 on the
@@ -512,54 +768,71 @@ class PipelineTrainer:
             parts.append(flatten_cells(cells, vals).to(self.device))
         return torch.cat(parts)
 
+    def front_flat(self, which: str = "params") -> np.ndarray:
+        """``which`` ("params" or "momentum") of the front's cells as the
+        JAX ``front_flat`` f32 vector (every rank holds the same)."""
+        values = self._values(which)
+        cells = [self.model[i] for i in self.front_cells]
+        vals = None if values is None else [values[i] for i in self.front_cells]
+        return flatten_cells(cells, vals).cpu().numpy().astype(np.float32)
+
     def stacked_rows(self, which: str = "params"):
-        """``which`` ("params" or "momentum") of every rank as the stacked
-        ``[S, MAXP]`` f32 array of the JAX layout. Collective: rank 0
-        returns it, the other ranks None."""
-        if which not in ("params", "momentum"):
-            raise ValueError(f"which must be params|momentum, got {which!r}")
-        values = None
-        if which == "momentum":
-            _, momentum, _ = self.state_tensors()
-            values = dict(zip(self.hosted_cells, momentum))
-        row = self._row(values)
-        if self.rank != 0:
+        """``which`` ("params" or "momentum") of every pipe coordinate as the
+        stacked ``[S, MAXP]`` f32 array of the JAX layout, from the pipe
+        group of ``(d, i, j) = (0, 0, 0)``. Collective: rank 0 returns it,
+        the other ranks None."""
+        row = self._row(self._values(which))
+        lay = self.layout
+        if (lay.d, lay.i, lay.j) != (0, 0, 0):
+            return None
+        if self.pipe != 0:
             self._exchange([(row, 0)], [])
             return None
         out = np.zeros((self.S, self.max_p), np.float32)
         out[0, :row.numel()] = row.cpu().numpy()
         for d in range(1, self.S):
-            size = sum(s for _, _, s in self.layout[d])
+            size = sum(s for _, _, s in self.layout_rows[d])
             buf = torch.empty(size, dtype=torch.float32, device=self.device)
             self._exchange([], [(buf, d)])
             out[d, :size] = buf.cpu().numpy()
         return out
 
-    def load_rows(self, params, momentum, step: int) -> None:
+    def load_rows(self, params, momentum, step: int, front=None, front_momentum=None) -> None:
         """Load this rank's hosted stages from the stacked ``[S, MAXP]``
-        params and momentum arrays (every rank reads its own row)."""
+        params and momentum arrays (every rank reads its pipe coordinate's
+        row), and the front from ``front``/``front_momentum`` (the JAX
+        ``front_flat`` vectors; needed when the model has a front)."""
         if tuple(params.shape) != (self.S, self.max_p) or params.shape != momentum.shape:
             raise ValueError(f"stacked params {params.shape} / momentum {momentum.shape} for "
                              f"the layout [{self.S}, {self.max_p}]")
         cp, cm = [], []
-        for k, off, size in self.layout[self.rank]:
+        front_cells = [self.model[i] for i in self.front_cells]
+        if front_cells:
+            if front is None or front_momentum is None:
+                raise ValueError("the model has a spatial front: give its params and momentum")
+            cp += unflatten_cells(torch.from_numpy(np.array(front, np.float32)), front_cells)
+            cm += unflatten_cells(torch.from_numpy(np.array(front_momentum, np.float32)),
+                                  front_cells)
+        for k, off, size in self.layout_rows[self.pipe]:
             cells = [self.model[i] for i in self.stages[k]]
-            cp += unflatten_cells(torch.from_numpy(np.array(params[self.rank, off:off + size])),
+            cp += unflatten_cells(torch.from_numpy(np.array(params[self.pipe, off:off + size])),
                                   cells)
-            cm += unflatten_cells(torch.from_numpy(np.array(momentum[self.rank, off:off + size])),
+            cm += unflatten_cells(torch.from_numpy(np.array(momentum[self.pipe, off:off + size])),
                                   cells)
         self.load_state_tensors(cp, cm, step)
 
-    def unstack_params(self):
-        """Every cell's parameters gathered to rank 0 (``pipeline.py:
-        415-432``): on rank 0, per cell of the model, ``{name: tensor}`` on
-        the CPU in the torch layouts; None on the other ranks. Collective."""
+    def unstack_params(self, which: str = "params"):
+        """Every cell's parameters (or momentum) gathered to rank 0
+        (``pipeline.py:415-432``): on rank 0, per cell of the model,
+        ``{name: tensor}`` on the CPU in the torch layouts; None on the
+        other ranks. Collective."""
         from mpi4dl_tpu_torch.weights import unstack_pipeline
 
-        stacked = self.stacked_rows("params")
+        front = self.front_flat(which)
+        stacked = self.stacked_rows(which)
         if stacked is None:
             return None
-        return unstack_pipeline(stacked, self.model, self.stages, self.placement)
+        return unstack_pipeline(stacked, self.model, self.stages, self.placement, front=front)
 
 
 class GemsMasterTrainer(PipelineTrainer):

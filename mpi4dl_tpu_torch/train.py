@@ -8,13 +8,18 @@ equals ``optax.sgd(lr, momentum)`` (both keep ``buf = m·buf + g`` and step
 ``p -= lr·buf``, with ``buf = g`` on the first step).
 
 Spatial (``num_spatial_cells > 0``): one process per tile of a
-:class:`TileGrid` spanning the process group. Each rank runs the first
-``num_spatial_cells`` cells on its tile and gathers the tiles before the
-rest, which every rank runs whole. Its loss contribution is
-``CE_sum / (B · tiles)`` (``train.py:873-891``), so the sum over ranks is
-the batch mean; after ``backward()`` the gradients are summed over the
-ranks in one flat all-reduce (the transpose of ``shard_map``'s replicated
-parameters) before the optimizer step.
+:class:`TileGrid`. Each rank runs the first ``num_spatial_cells`` cells on
+its tile and gathers the tiles before the rest, which every rank runs
+whole. Data parallel (``data_parallel = D > 1``): the world is ``D``
+replicas of that grid (or of one rank), laid out as
+:class:`~mpi4dl_tpu_torch.parallel.multihost.RankLayout` ``(D, 1, th,
+tw)``; replica ``d`` takes rows ``[d·B/D, (d+1)·B/D)`` of each chunk. With
+one replica the trainer's group is its grid's, which may be part of a
+larger world. A rank's loss contribution is ``CE_sum / (B · tiles)``
+(``train.py:873-891``, ``B`` the global chunk), so the sum over the group
+is the batch mean; after ``backward()`` the gradients are summed over the
+group in one flat all-reduce (the transpose of ``shard_map``'s replicated
+parameters) before the optimizer step. BN statistics stay per tile grid.
 
 ``grad_accum = k`` (twin of ``Trainer._accum_grads``,
 ``mpi4dl_tpu/train.py:925-971``) runs the batch as ``k`` equal contiguous
@@ -58,6 +63,7 @@ from mpi4dl_tpu_torch.parallel.halo import (
     split_tiles,
 )
 from mpi4dl_tpu_torch.parallel.multihost import TileGrid
+from mpi4dl_tpu_torch.parallel.partition import joined_state
 from mpi4dl_tpu_torch.utils import resolve_device, same_config
 
 
@@ -399,8 +405,13 @@ class Trainer:
     device: ``cuda`` unless given; without a GPU, ``None`` raises.
     num_spatial_cells, grid: run the first ``num_spatial_cells`` cells
         on this rank's tile of ``grid`` (the model must be built with the
-        same grid). Construction is collective: it broadcasts every
-        parameter from rank 0. On the card, :meth:`forward` is collective
+        same grid; with ``data_parallel > 1``, the grid of this rank's
+        replica, ``RankLayout.grid``). A spatial or data-parallel trainer
+        spans a process group of ``config.num_devices`` ranks (:attr:`group`,
+        :attr:`ranks`): the grid's with one replica (a grid of a larger
+        world, whose other ranks take no part), else the world. Its
+        construction is collective over it: it broadcasts every parameter
+        from its first rank. On the card, :meth:`forward` is collective
         too at each new tile shape: it opens the grid's K4 rings unless
         they are open with slots as large as that tile needs (the widest
         strip of :func:`spatial_exchanges` in f32; rings with smaller slots
@@ -454,12 +465,34 @@ class Trainer:
         self.grad_accum = grad_accum
         self.n_spatial = num_spatial_cells
         self.grid = grid
+        self.data_parallel = config.data_parallel
+        # Spatial or data-parallel: the process group is the layout (D, 1,
+        # th, tw): the grid's group with one replica, else the world.
+        self.distributed = bool(num_spatial_cells) or self.data_parallel > 1
+        self.group, self.ranks = None, (0,)
+        if self.distributed:
+            if self.data_parallel == 1 and grid is not None:
+                self.group, self.ranks = grid.group, grid.ranks
+            elif dist.is_initialized():
+                self.ranks = tuple(range(dist.get_world_size()))
+            if not dist.is_initialized() or len(self.ranks) != config.num_devices:
+                raise ValueError(f"the layout {config.mesh_shape} must span an initialized "
+                                 f"process group ({config.num_devices} ranks)")
+            if config.lp_stages != 1:
+                raise ValueError("Trainer runs no pipeline stage: use PipelineTrainer "
+                                 "(split_size > spatial_size)")
+            if config.batch_size % (grad_accum * self.data_parallel):
+                raise ValueError(f"batch {config.batch_size} does not split into {grad_accum} "
+                                 f"chunks of {self.data_parallel} replicas")
+            tiles = config.tile_shape[0] * config.tile_shape[1]
+            self.data_index = self.ranks.index(dist.get_rank()) // tiles
         if num_spatial_cells:
             if grid is None or grid.shape != config.tile_shape:
                 raise ValueError(f"a spatial step needs a TileGrid of the config's tile shape "
                                  f"{config.tile_shape}, got {grid}")
-            if not dist.is_initialized() or dist.get_world_size() != grid.world_size:
-                raise ValueError("the grid must span the initialized process group")
+            d = self.data_index
+            if grid.ranks != self.ranks[d * tiles:(d + 1) * tiles]:
+                raise ValueError(f"the grid {grid} is not replica {d}'s tile group")
             if not 0 < num_spatial_cells < len(model):
                 raise ValueError(f"num_spatial_cells must leave the head unsplit, got "
                                  f"{num_spatial_cells} of {len(model)} cells")
@@ -478,10 +511,10 @@ class Trainer:
         self.model = model.to(device=self.device, memory_format=self.memory_format)
         self.opt = make_optimizer(self.model.parameters(), learning_rate, momentum)
         self.step = 0
-        if num_spatial_cells:
-            with torch.no_grad():
+        if self.distributed:
+            with torch.no_grad():  # over the group: every replica and tile
                 _flat_all_reduce(list(self.model.parameters()),
-                                 lambda t: dist.broadcast(t, src=0))
+                                 lambda t: dist.broadcast(t, src=self.ranks[0], group=self.group))
         self._slot_needs = {}  # tile shape -> K4 slot bytes its forward needs
 
     def _size_rings(self, x) -> None:
@@ -542,10 +575,7 @@ class Trainer:
         (the shape math of ``train.py:361-374``): H and W times the grid."""
         if i != self.n_spatial or i == 0:
             return h
-        th, tw = self.grid.shape
-        return _unflat([torch.empty((t.shape[0], t.shape[1], t.shape[2] * th, t.shape[3] * tw),
-                                    dtype=t.dtype, device="meta") for t in _flat(h)],
-                       isinstance(h, tuple))
+        return joined_state(h, self.grid.shape)
 
     def _meta_cell(self, i: int, h):
         """Cell ``i`` on the meta device (:func:`meta_cell`)."""
@@ -798,6 +828,18 @@ class Trainer:
         load_cell_state(list(self.model), self.opt, params, momentum)
         self.step = int(step)
 
+    def local_rows(self, a):
+        """This replica's rows of a global batch ``a`` (the whole of it
+        without data parallelism): of each of the ``grad_accum`` chunks,
+        rows ``[d·c/D, (d+1)·c/D)`` (``Trainer.shard_batch``'s
+        ``P(data)`` on each chunk of ``_accum_grads``)."""
+        if self.data_parallel == 1:
+            return a
+        k = self.grad_accum
+        c = a.shape[0] // k
+        return torch.cat([torch.as_tensor(a[self.config.replica_rows(self.data_index, i * c, c)])
+                          for i in range(k)])
+
     def train_step(self, x, y) -> dict:
         b, s = self.config.batch_size, self.config.image_size
         if tuple(x.shape[:3]) != (b, s, s) or tuple(y.shape) != (b,):
@@ -805,19 +847,21 @@ class Trainer:
                 f"batch x{tuple(x.shape)} y{tuple(y.shape)} does not match the "
                 f"config (batch {b}, image {s}x{s}, NHWC)"
             )
-        if self.n_spatial:
-            dist.barrier()  # every rank enters the step's swaps together
-            x = split_tiles(torch.as_tensor(x), self.grid)
-        x = self.input_to_device(x)
-        y = torch.as_tensor(y).to(self.device, torch.long)
-        self.opt.zero_grad(set_to_none=True)
         k = self.grad_accum
         cb = b // k
+        x, y = self.local_rows(x), torch.as_tensor(self.local_rows(y))
+        if self.n_spatial:
+            dist.barrier(group=self.group)  # every rank enters the step's swaps together
+            x = split_tiles(torch.as_tensor(x), self.grid)
+        x = self.input_to_device(x)
+        y = y.to(self.device, torch.long)
+        self.opt.zero_grad(set_to_none=True)
+        lb = cb // self.data_parallel  # this replica's rows of a chunk
         # The psum of the ranks' contributions is the chunk's mean.
         denom = cb * (self.grid.world_size if self.n_spatial else 1)
         loss_sum = acc_sum = None
         for i in range(k):
-            xc, yc = x[i * cb:(i + 1) * cb], y[i * cb:(i + 1) * cb]
+            xc, yc = x[i * lb:(i + 1) * lb], y[i * lb:(i + 1) * lb]
             logits = self.forward(xc)
             loss = cross_entropy_sum(logits, yc) / denom
             acc = correct_count(logits, yc).float() / denom
@@ -826,11 +870,12 @@ class Trainer:
             loss_sum = loss if loss_sum is None else loss_sum + loss
             acc_sum = acc if acc_sum is None else acc_sum + acc
         params = list(self.model.parameters())
-        if self.n_spatial:
+        if self.distributed:
             for p in params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-            _flat_all_reduce([p.grad for p in params], dist.all_reduce)
+            _flat_all_reduce([p.grad for p in params],
+                             lambda t: dist.all_reduce(t, group=self.group))
         if k > 1:
             loss_sum, acc_sum = loss_sum / k, acc_sum / k
             for p in params:
@@ -838,11 +883,11 @@ class Trainer:
                     p.grad.div_(k)
         self.opt.step()
         self.step += 1
-        if not self.n_spatial:
+        if not self.distributed:
             return {"loss": loss_sum, "accuracy": acc_sum}
         metrics = torch.stack([loss_sum, acc_sum])
-        dist.all_reduce(metrics)
-        if self.grid.rings is not None:
+        dist.all_reduce(metrics, group=self.group)
+        if self.grid is not None and self.grid.rings is not None:
             # A K4 wait that ran out raises here, at the step's sync.
             torch.cuda.current_stream(self.device).synchronize()
             self.grid.rings.check()

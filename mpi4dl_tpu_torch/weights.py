@@ -42,6 +42,19 @@ def init(model: nn.Module, generator: torch.Generator | None = None) -> nn.Modul
     return model
 
 
+def meta_built(make, *args, **kwargs):
+    """``make(*args, **kwargs)`` built on the meta device, its model (the
+    first element when it returns a tuple) given uninitialized CPU memory:
+    :func:`init` sets every parameter next, so the constructors' own
+    initialization would be work thrown away (the same weights: ``init``
+    draws in module order)."""
+    with torch.device("meta"):
+        out = make(*args, **kwargs)
+    if isinstance(out, tuple):
+        return (out[0].to_empty(device="cpu"),) + out[1:]
+    return out.to_empty(device="cpu")
+
+
 def _flatten(tree, prefix=""):
     for k, v in tree.items():
         name = f"{prefix}{k}"
@@ -265,11 +278,13 @@ def pipeline_layout(model: nn.Module, stages, placement):
     return offsets, max(rows)
 
 
-def unstack_pipeline(stacked, model: nn.Module, stages, placement) -> list[dict]:
+def unstack_pipeline(stacked, model: nn.Module, stages, placement, front=None) -> list[dict]:
     """The stacked ``[S, MAXP]`` array (params or momentum of the JAX
     pipeline's layout) as per cell ``{torch name: tensor}``, for every cell
     of ``model``, in the torch layouts (``PipelineTrainer.unstack_params``,
-    ``pipeline.py:415-432``)."""
+    ``pipeline.py:415-432``). The cells ahead of the first stage (a spatial
+    front) come from ``front``, the JAX ``front_flat`` vector (None there
+    without it)."""
     stacked = torch.from_numpy(np.array(stacked, np.float32))
     cells = list(model)
     offsets, max_p = pipeline_layout(model, stages, placement)
@@ -277,6 +292,10 @@ def unstack_pipeline(stacked, model: nn.Module, stages, placement) -> list[dict]
         raise ValueError(f"stacked {tuple(stacked.shape)} for the layout [{len(placement)}, "
                          f"{max_p}]")
     out: list = [None] * len(cells)
+    n_front = stages[0][0]
+    if front is not None:
+        out[:n_front] = unflatten_cells(torch.from_numpy(np.array(front, np.float32)),
+                                        cells[:n_front])
     for d, row in enumerate(offsets):
         for k, off, size in row:
             ids = stages[k]
@@ -302,13 +321,12 @@ def stack_pipeline(values, model: nn.Module, stages, placement) -> np.ndarray:
 
 def from_jax_pipeline_params(params, model: nn.Module, stages, placement) -> nn.Module:
     """Load the JAX ``PipelineTrainer``'s params ``(front_flat, stacked)``
-    (numpy) into ``model``'s cells."""
+    (numpy) into ``model``'s cells: the front's into the cells ahead of
+    ``stages[0]``, the rows into the stages'."""
     front, stacked = params
-    if np.asarray(front).size:
-        raise NotImplementedError("a spatial front's params come with the SP+LP slice "
-                                  "(ROADMAP queue 1 item 5)")
     with torch.no_grad():
-        for cell, named in zip(model, unstack_pipeline(stacked, model, stages, placement)):
+        for cell, named in zip(model, unstack_pipeline(stacked, model, stages, placement,
+                                                       front=front)):
             own = dict(cell.named_parameters())
             for name, v in named.items():
                 own[name].copy_(v)
@@ -319,15 +337,15 @@ def pipeline_flax_state(trainer) -> dict | None:
     """The pipeline trainer's (params, momentum, step) as the state dict of
     the JAX ``PipelineTrainer``'s ``TrainState`` (``params = (front_flat,
     stacked)``, the optax trace of the same layout, the step). Collective:
-    every rank sends its row to rank 0, which returns the dict; the other
-    ranks return None."""
+    the rows gather to rank 0, which returns the dict; the other ranks
+    return None."""
+    front, front_m = trainer.front_flat("params"), trainer.front_flat("momentum")
     params, momentum = trainer.stacked_rows("params"), trainer.stacked_rows("momentum")
     if params is None:
         return None
-    front = np.zeros((0,), np.float32)
     return {
         "params": {"0": front, "1": params},
-        "opt_state": {"0": {"trace": {"0": front.copy(), "1": momentum}}, "1": {}},
+        "opt_state": {"0": {"trace": {"0": front_m, "1": momentum}}, "1": {}},
         "step": np.asarray(trainer.step, np.int32),
     }
 
@@ -335,11 +353,8 @@ def pipeline_flax_state(trainer) -> dict | None:
 def load_pipeline_flax_state(state: dict, trainer) -> None:
     """Load a JAX pipeline ``TrainState`` state dict (as
     :func:`pipeline_flax_state` writes it, or a JAX checkpoint's) into this
-    rank's stages."""
+    rank's front and stages."""
     trace = state["opt_state"]["0"]["trace"]
-    for front in (state["params"]["0"], trace["0"]):
-        if np.asarray(front).size:
-            raise NotImplementedError("a spatial front's state comes with the SP+LP slice "
-                                      "(ROADMAP queue 1 item 5)")
     trainer.load_rows(np.asarray(state["params"]["1"]), np.asarray(trace["1"]),
-                      int(np.asarray(state["step"])))
+                      int(np.asarray(state["step"])), front=np.asarray(state["params"]["0"]),
+                      front_momentum=np.asarray(trace["0"]))

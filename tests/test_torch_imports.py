@@ -23,6 +23,8 @@ def _module_name(path: Path) -> str:
 
 LP_TWINS = ("benchmarks.layer_parallelism.benchmark_resnet_lp",
             "benchmarks.layer_parallelism.benchmark_amoebanet_lp")
+SP_TWINS = ("benchmarks.spatial_parallelism.benchmark_resnet_sp",
+            "benchmarks.spatial_parallelism.benchmark_amoebanet_sp")
 PORT_MODULES = sorted(
     _module_name(p) for p in (REPO / "mpi4dl_tpu_torch").rglob("*.py")
 )
@@ -40,7 +42,7 @@ def test_port_modules_listed():
     assert "mpi4dl_tpu_torch.flops" in PORT_MODULES
     for name in ("evaluate", "checkpoint", "serialization", "data", "native",
                  "convergence_run", "parser", "parallel.partition", "parallel.pipeline",
-                 "benchmarks.common", *LP_TWINS):
+                 "benchmarks.common", *LP_TWINS, *SP_TWINS):
         assert f"mpi4dl_tpu_torch.{name}" in PORT_MODULES
 
 
@@ -75,10 +77,7 @@ def test_trainer_without_device_raises_without_cuda(monkeypatch):
     Trainer(model, ParallelConfig(batch_size=2, image_size=2), device="cpu")
 
 
-@pytest.mark.parametrize("twin", LP_TWINS)
-def test_lp_twins_without_device_refuse_without_cuda(twin):
-    """The LP twins run on the card unless ``--device cpu`` is given: without
-    a card they exit 2 before any rank starts, and train nothing."""
+def _refuses_without_cuda(twin):
     env = dict(os.environ, PYTHONPATH=str(REPO), CUDA_VISIBLE_DEVICES="")
     out = subprocess.run(
         [sys.executable, "-m", f"mpi4dl_tpu_torch.{twin}", "--max-steps", "1"], cwd=REPO,
@@ -87,3 +86,16 @@ def test_lp_twins_without_device_refuse_without_cuda(twin):
     assert out.returncode == 2, out.stderr[-2000:]
     assert "CUDA is not available; pass --device cpu" in out.stderr
     assert "Mean" not in out.stdout and "ranks" not in out.stdout
+
+
+@pytest.mark.parametrize("twin", LP_TWINS)
+def test_lp_twins_without_device_refuse_without_cuda(twin):
+    """The LP twins run on the card unless ``--device cpu`` is given: without
+    a card they exit 2 before any rank starts, and train nothing."""
+    _refuses_without_cuda(twin)
+
+
+@pytest.mark.parametrize("twin", SP_TWINS)
+def test_sp_twins_without_device_refuse_without_cuda(twin):
+    """The SP twins, likewise."""
+    _refuses_without_cuda(twin)

@@ -121,12 +121,13 @@ def test_config_matches_jax(kwargs):
             cfg.num_spatial_parts, cfg.slice_method)
 
 
-# A spatial front ahead of the pipeline and data parallelism come with the
-# SP+LP slice (the pipeline alone, split_size > 1 without a spatial stage,
-# runs since the LP slice: tests/test_torch_pipeline.py).
-@pytest.mark.parametrize("kwargs", [dict(split_size=2, spatial_size=1), dict(data_parallel=2)])
-def test_config_refuses_unported_layouts(kwargs):
-    with pytest.raises(NotImplementedError):
+# A spatial front ahead of the pipeline and data parallelism run since the
+# SP+LP slice (tests/test_torch_sp_lp.py, test_torch_sp_dp.py); GEMS
+# (times > 1) is still refused, and local DP needs a front.
+@pytest.mark.parametrize("kwargs,exc", [(dict(split_size=2, times=2), NotImplementedError),
+                                        (dict(local_dp=4), ValueError)])
+def test_config_refuses_unported_layouts(kwargs, exc):
+    with pytest.raises(exc):
         ParallelConfig(batch_size=4, image_size=SIZE, **kwargs)
 
 
