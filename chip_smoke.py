@@ -6,6 +6,7 @@
     python3 chip_smoke.py --spatial-only  # only the build and phase s (for a 4-card host)
     python3 chip_smoke.py --pipeline-only # only the build and phase p
     python3 chip_smoke.py --sp-lp-only    # only the build and phase q
+    python3 chip_smoke.py --gems-only     # only the build and phase g (for a 4-card host)
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -169,10 +170,10 @@ Phases (any failure exits non-zero; nothing is caught):
   p. the LP/PP pipeline (``parallel.pipeline.PipelineTrainer``), 2 stages
      on 2 rank processes: one rank per card with 2 or more cards (NCCL),
      else both on card 0 over a gloo group with the wires staged through
-     pinned host buffers. AmoebaNet-D 18L/416F and ResNet-110 v2 @1024
-     (phase c's models and seed), batch 4 in 4 micro-batches, GPipe and
-     interleaved 1F1B (v=2):
-     p2. (first) in this script's own 2 ranks, f32 (TF32 off): each
+     pinned host buffers. AmoebaNet-D 6L/416F (``PIPE_LAYERS``) and
+     ResNet-110 v2 @1024 (phase c's seed), batch 4 in 4 micro-batches, GPipe
+     and interleaved 1F1B (v=2):
+     p2. (first) in the phase's 2 ranks, f32 (TF32 off): each
          schedule's first step, whose loss must be within ``PP_LOSS_RTOL``
          of ``Trainer(grad_accum=4)``'s on the same weights and batch (run
          by rank 0), GPipe's within ``PP_SCHED_RTOL`` of 1F1B's, whose
@@ -186,15 +187,17 @@ Phases (any failure exits non-zero; nothing is caught):
          ``save_checkpoint`` (rank 0 writes the JAX pipeline layout), a
          step; a new trainer restores it and its step's loss must be
          bit-equal on every rank;
-     p1. each LP twin through its own CLI in a subprocess, once a schedule
-         (``MPI4DL_TPU_PIPELINE_SCHEDULE``; ``python -m mpi4dl_tpu_torch.
-         benchmarks.layer_parallelism.benchmark_{amoebanet,resnet}_lp``,
-         bf16, ``--max-steps 3``): exit 0 and its Mean/Median/MFU line.
-         For each model and schedule (the ranks' ``MPI4DL_TPU_RUN_REPORT``
-         records): the
-         step (slowest rank) and img/s, per-rank K1/K2/K3 launches a step
-         (their sum must equal the Trainer's of p2), peak memory per rank,
-         the analytic bubble and the transport;
+     p1. then, in the same 2 ranks, each LP twin under each schedule
+         (``MPI4DL_TPU_PIPELINE_SCHEDULE``; the ``main`` of
+         ``mpi4dl_tpu_torch.benchmarks.layer_parallelism.benchmark_{
+         amoebanet,resnet}_lp`` as ``torchrun`` would start it: each run
+         joins a process group of its own, so the runs share the ranks'
+         start but not their set-up; bf16, ``--max-steps 3``): its
+         Mean/Median/MFU line. For each model and schedule (the ranks'
+         ``MPI4DL_TPU_RUN_REPORT`` records): the step (slowest rank) and
+         img/s, per-rank K1/K2/K3 launches a step (their sum must equal the
+         Trainer's of p2), peak memory per rank, the analytic bubble and
+         the transport;
   q. the spatial front ahead of the pipeline (SP+LP,
      ``parallel.pipeline.PipelineTrainer`` on a ``RankLayout``), LOCAL_DP_LP,
      SP+DP and skewed SP, on 4 rank processes laid out as phase s's (one
@@ -222,13 +225,53 @@ Phases (any failure exits non-zero; nothing is caught):
          over the ranks equal to the tile count times the Trainer's (the
          front runs once a micro-batch on each tile, the back on each tile
          rank); the call shapes are recorded for phases d-g;
-     q3. each SP twin through its own CLI in a subprocess (bf16,
-         ``--max-steps 3``, ``MPI4DL_TPU_RUN_REPORT``): ResNet-110 and
-         AmoebaNet-D 18L/416F SP+LP (vertical 2 tiles, split 3, batch 2,
+     q3. (in the ranks, as p1 runs its twins) each SP twin's ``main``
+         (bf16, ``--max-steps 3``, ``MPI4DL_TPU_RUN_REPORT``): ResNet-110
+         and AmoebaNet-D 6L/416F SP+LP (vertical 2 tiles, split 3, batch 2,
          parts 2) and ResNet-110 LOCAL_DP_LP (square 4 tiles, split 2,
-         batch 4, ``--local-DP 4``), @1024: exit 0 and the Mean/Median/MFU
+         batch 4, ``--local-DP 4``), @1024: the Mean/Median/MFU
          line; the step (slowest rank), img/s, per-rank K1-K4 launches a
          step (K4 on every rank) and peak memory, and the transport;
+  g1-g3. GEMS-MASTER (``parallel.pipeline.GemsMasterTrainer``: the
+     pipeline in both directions over the same ranks, ``2·times`` chunks of
+     the batch a step, the odd ones on the mirror placement), in worlds of
+     its own: 2 rank processes laid out as phase p's (g1's LP layouts, g2,
+     g3's LP twins) and 4 laid out as phase q's (g1's SP layouts, g3's
+     SP+GEMS twins). Its sub-phases are g1-g3; the kernel timings below
+     keep the name g:
+     g1. small f32 references (TF32 off), ResNet-v2
+         depth 20 @32 from the seed: LP GEMS split 2 with ``times`` 1 (2
+         chunks of 2 images) and 2 (4 chunks of 1 image), the mirror
+         placement alone (``PipelineTrainer(mirror=True)``), and SP+GEMS on
+         vertical 2 tiles x split 3 (2 chunks of 1 image), each one step on
+         the card against the port's CPU
+         ``Trainer(grad_accum=chunks·parts)`` on the same weights and the
+         same ``chunks·batch`` rows: loss and per-leaf gradients, 1e-3; and
+         SP+GEMS on 2 chunks of 2 images, its loss and the front's and each
+         stage's gradients in relative L2 (``PP_GRAD_TOL``);
+     g2. phase c's models in f32 (TF32 off),
+         ResNet-110 v2 and AmoebaNet-D 18L/416F @1024, GEMS ``times`` 1
+         on split 2, 2 chunks of 2 images in 2 micro-batches (4 images): the
+         first step's loss within ``PP_LOSS_RTOL`` of
+         ``Trainer(grad_accum=4)``'s on one device (rank 0) and within
+         ``G_PP_LOSS_RTOL`` of ``PipelineTrainer(parts=4)``'s gpipe step on
+         the same weights and batch, each stage's gradients (the first
+         step's SGD momentum, gathered) within ``PP_GRAD_TOL`` of the
+         Trainer's (relative L2), K1-K3 launched on every rank and their sum
+         over the ranks equal to the Trainer's; the call shapes are
+         recorded for phases d-g. Rank 0 also counts the K1-K3 launches of
+         ``Trainer(grad_accum=4)``'s step of AmoebaNet-D at g3's depth;
+     g3. (as p1 runs its twins) each GEMS twin's ``main`` (bf16,
+         ``--times 1``, ``--max-steps 3``, ``MPI4DL_TPU_RUN_REPORT``): LP
+         GEMS ResNet-110 and AmoebaNet-D 6L/416F (split 2, batch 2, parts 2,
+         2 ranks) and SP+GEMS (vertical 2 tiles x split 3, batch 2, parts
+         2, 4 ranks), @1024: the Mean/Median/MFU line; every kernel of the
+         path launched on every rank (K4 on every SP+GEMS rank), K1-K3 a
+         step summed over the ranks equal to the tile count (1 for LP) times
+         ``Trainer(grad_accum=4)``'s of the twin's model and depth (g2's);
+         the step (slowest rank), img/s (``2·times·batch`` images a step),
+         per-rank K1-K4 launches, peak memory and mirror exchange bytes, and
+         the transport;
   d. K1 (max-pool backward) against its plain PyTorch version at every
      recorded main-path shape (the halo-extended tiles of the spatial path,
      p = 0, also with a −inf outer ring, as a tile at the image's edge
@@ -420,14 +463,14 @@ EVAL_STAT_TOL = 1e-3
 # (statistics per leaf normalised, loss relative).
 SP_EVAL_TOL = 1e-3
 # Phase p: the LP/PP pipeline (``PipelineTrainer``), ``PP_RANKS`` stages of
-# AmoebaNet-D 18L/416F and ResNet-110 v2 @1024 (phase c's models), batch
+# AmoebaNet-D ``PIPE_LAYERS``L/416F and ResNet-110 v2 @1024, batch
 # ``PP_BATCH`` in ``PP_PARTS`` micro-batches, each schedule. p2 holds each
 # schedule's f32 first step to Trainer(grad_accum=PP_PARTS)'s on the same
 # weights (loss within ``PP_LOSS_RTOL``, each virtual stage's gradients
 # within ``PP_GRAD_TOL`` of the Trainer's, K1-K3 launches summed over the
 # ranks equal) and GPipe's loss to 1F1B's
-# (``PP_SCHED_RTOL``). p1 runs each LP twin through its own CLI under each
-# schedule: bf16, one warm-up step and ``PP_STEPS - 1`` timed and counted.
+# (``PP_SCHED_RTOL``). p1 runs each LP twin through its own entry point under
+# each schedule: bf16, one warm-up step and ``PP_STEPS - 1`` timed and counted.
 PP_RANKS = 2
 PP_BATCH, PP_PARTS = 4, 4
 PP_STEPS = 3
@@ -448,6 +491,15 @@ PP_SCHED_RTOL = 1e-5
 PP_PATHS = {f"{m}_pp_{s}": (m, s) for m in ("amoebanet", "resnet") for s in PP_SCHEDULES}
 PATH_KERNELS.update({path: _MODEL_KERNELS[m] for path, (m, _) in PP_PATHS.items()})
 STEPS_IN_RUN.update(dict.fromkeys(PP_PATHS, PP_STEPS - 1))
+# AmoebaNet-D's depth in phase p, in q3's SP+LP twin and in g3's GEMS twins
+# (18L before phase g came; cut to keep the whole script inside its time
+# limit). A twin run's rank draws the whole model on the host, which took
+# 9-23 s of its set-up at 18L on an H100's host. q2 and g2 keep 18L in f32.
+PIPE_LAYERS = 6
+# The AmoebaNet-D depth of a path where it is not ``LAYERS`` (phase h's MFU).
+PATH_LAYERS = {path: PIPE_LAYERS for path in (
+    "amoebanet_pp_gpipe", "amoebanet_pp_1f1b", "amoebanet_sp_lp", "amoebanet_gems",
+    "amoebanet_gems_sp")}
 # The path whose slice ported each kernel: a kernels row's ``launches`` is
 # that path's count per step (``launches_per_step`` gives every path's).
 HOME_PATH = {"pool_bwd": "amoebanet", "dot1x1_bwd": "amoebanet", "wgrad": "resnet",
@@ -494,6 +546,36 @@ def rel_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max()) / max(scale, 1e-30)
 
 
+# The seed's parameter values by model signature, in this process
+# (:func:`_seeded`).
+_SEED_VALUES = {}
+
+
+def _seeded(model):
+    """``weights.init(model)`` from ``SEED``: the same values, drawn once in
+    this process for each signature (the sequence of initialized modules'
+    types and parameter shapes, which alone set what ``init`` draws) and
+    copied after that. A rank builds the same model several times, and a
+    draw of AmoebaNet-D 18L's 312M parameters takes seconds."""
+    import torch
+
+    from mpi4dl_tpu_torch.weights import _OWN_INIT, init
+
+    mods = [m for m in model.modules() if isinstance(m, _OWN_INIT)]
+    key = tuple((type(m), tuple((tuple(p.shape), p.dtype) for p in m.parameters()))
+                for m in mods)
+    values = _SEED_VALUES.get(key)
+    if values is None:
+        init(model, torch.Generator().manual_seed(SEED))
+        _SEED_VALUES[key] = [[p.detach().clone() for p in m.parameters()] for m in mods]
+        return model
+    with torch.no_grad():
+        for m, vals in zip(mods, values):
+            for p, v in zip(m.parameters(), vals):
+                p.copy_(v)
+    return model
+
+
 def phase_build():
     from mpi4dl_tpu_torch.ops import _build
 
@@ -534,10 +616,10 @@ def small_step(build, size, device, **trainer_kwargs):
 
     from mpi4dl_tpu_torch.config import ParallelConfig
     from mpi4dl_tpu_torch.train import Trainer
-    from mpi4dl_tpu_torch.weights import flax_arrays, init
+    from mpi4dl_tpu_torch.weights import flax_arrays
 
     x, y = small_batch(size)
-    model = init(build(), torch.Generator().manual_seed(SEED))
+    model = _seeded(build())
     cfg = ParallelConfig(batch_size=2, image_size=size, **trainer_kwargs.pop("config", {}))
     trainer = Trainer(model, cfg, learning_rate=0.1, device=device, **trainer_kwargs)
     out = trainer.train_step(x, y)
@@ -554,8 +636,21 @@ def check_small(name, got, want, tol=SMALL_GRAD_TOL, loss_rtol=1e-4):
     (l_got, g_got), (l_want, g_want) = got, want
     if not abs(l_got - l_want) <= loss_rtol * abs(l_want):
         raise AssertionError(f"{name} loss: {l_got} vs reference {l_want} (rtol {loss_rtol:g})")
-    worst = 0.0
-    for gg, gc in zip(g_got, g_want):
+    worst, leaf = _worst_leaf(name, g_got, g_want)
+    if worst > tol:
+        raise AssertionError(f"{name} gradients: normalised max |err| {worst:.3g} at {leaf} "
+                             f"(tolerance {tol:g})")
+    return worst
+
+
+def _worst_leaf(name, g_got, g_want):
+    """The largest per-leaf normalised gradient error (max |err| / max |ref|
+    of the leaf) and its ``cell <i> <name>``; a leaf whose reference is 0
+    (under ``ZERO_GRAD`` of its cell's largest) must be 0 in both."""
+    import numpy as np
+
+    worst, leaf = 0.0, None
+    for i, (gg, gc) in enumerate(zip(g_got, g_want)):
         if not gc:  # a cell without parameters (a D2 HaloExchange)
             continue
         cell = max(float(np.abs(v).max()) for v in gc.values())
@@ -567,11 +662,10 @@ def check_small(name, got, want, tol=SMALL_GRAD_TOL, loss_rtol=1e-4):
                 if not float(np.abs(gg[k]).max()) < ZERO_GRAD * cell:
                     raise AssertionError(f"{name} {k}: gradient should be 0")
                 continue
-            worst = max(worst, float(np.abs(gg[k] - gc[k]).max()) / scale)
-    if worst > tol:
-        raise AssertionError(f"{name} gradients: normalised max |err| {worst:.3g} "
-                             f"(tolerance {tol:g})")
-    return worst
+            err = float(np.abs(gg[k] - gc[k]).max()) / scale
+            if err >= worst:
+                worst, leaf = err, f"cell {i} {k}"
+    return worst, leaf
 
 
 def phase_small_reference(name, build, size):
@@ -719,9 +813,8 @@ def f32_first_loss(model, device, config=None, grads=False, **trainer_kwargs):
 
     from mpi4dl_tpu_torch.config import ParallelConfig
     from mpi4dl_tpu_torch.train import Trainer
-    from mpi4dl_tpu_torch.weights import init
 
-    init(model, torch.Generator().manual_seed(SEED))
+    _seeded(model)
     cfg = ParallelConfig(batch_size=BATCH, image_size=SIZE, **(config or {}))
     trainer = Trainer(model, cfg, learning_rate=0.0, device=device, **trainer_kwargs)
     x, y = main_batch(device)
@@ -743,10 +836,10 @@ def phase_main(path, desc, build, shapes, profile=False):
 
     from mpi4dl_tpu_torch.config import ParallelConfig
     from mpi4dl_tpu_torch.train import Trainer
-    from mpi4dl_tpu_torch.weights import init
+    from mpi4dl_tpu_torch.weights import meta_built
 
     t0 = time.time()
-    model = init(build(torch.bfloat16), torch.Generator().manual_seed(SEED))
+    model = _seeded(meta_built(build, torch.bfloat16))
     n_params = sum(p.numel() for p in model.parameters())
     cfg = ParallelConfig(batch_size=BATCH, image_size=SIZE)
     trainer = Trainer(model, cfg, learning_rate=0.001, momentum=0.9, device=DEVICE)
@@ -797,7 +890,7 @@ def phase_main(path, desc, build, shapes, profile=False):
     del trainer, model, x, y
     gc.collect()  # trainers hold reference cycles
     torch.cuda.empty_cache()
-    f32_loss = f32_first_loss(build(torch.float32), DEVICE)
+    f32_loss = f32_first_loss(meta_built(build, torch.float32), DEVICE)
     log(f"[c] first step loss with f32 compute (TF32 off, same weights and batch): "
         f"{f32_loss:.6f} (bf16 {first_loss:.6f})")
     return launches, (first_loss, f32_loss), k1_copies, BATCH / (ms / 1e3)
@@ -942,11 +1035,11 @@ def _remat_step(build, policy, path):
 
     from mpi4dl_tpu_torch.config import ParallelConfig
     from mpi4dl_tpu_torch.train import Trainer
-    from mpi4dl_tpu_torch.weights import init
+    from mpi4dl_tpu_torch.weights import meta_built
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    model = init(build(torch.bfloat16), torch.Generator().manual_seed(SEED))
+    model = _seeded(meta_built(build, torch.bfloat16))
     trainer = Trainer(model, ParallelConfig(batch_size=BATCH, image_size=SIZE),
                       learning_rate=0.001, momentum=0.9, device=DEVICE, remat=policy)
     x, y = main_batch(DEVICE)
@@ -1114,15 +1207,14 @@ def phase_walk_steps(calls, launches):
     from mpi4dl_tpu_torch.config import ParallelConfig
     from mpi4dl_tpu_torch.models.resnet import get_resnet_v2
     from mpi4dl_tpu_torch.train import Trainer
-    from mpi4dl_tpu_torch.weights import init
 
     for path, size, policy, env in WALK_POINTS:
         calls[path] = _new_calls()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         with _env(env):
-            model = init(get_resnet_v2(RESNET_DEPTH, 10, pool_kernel=size // 4,
-                                       dtype=torch.bfloat16), torch.Generator().manual_seed(SEED))
+            model = _seeded(get_resnet_v2(RESNET_DEPTH, 10, pool_kernel=size // 4,
+                                       dtype=torch.bfloat16))
             trainer = Trainer(model, ParallelConfig(batch_size=1, image_size=size),
                               learning_rate=0.001, momentum=0.9, device=DEVICE, remat=policy)
             gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
@@ -1375,13 +1467,12 @@ def phase_checkpoint(launches):
     from mpi4dl_tpu_torch.evaluate import collect_batch_stats, evaluate
     from mpi4dl_tpu_torch.models.amoebanet import amoebanetd
     from mpi4dl_tpu_torch.train import Trainer
-    from mpi4dl_tpu_torch.weights import init
+    from mpi4dl_tpu_torch.weights import meta_built
 
     desc = f"AmoebaNet-D {LAYERS}L/{FILTERS}F @{SIZE} bs{BATCH}"
     ds = ClassPatternImages(BATCH, SIZE, 10, seed=SEED)
     cfg = ParallelConfig(batch_size=BATCH, image_size=SIZE)
-    model = init(amoebanetd(10, LAYERS, FILTERS, dtype=torch.bfloat16),
-                 torch.Generator().manual_seed(SEED))
+    model = _seeded(meta_built(amoebanetd, 10, LAYERS, FILTERS, dtype=torch.bfloat16))
     trainer = Trainer(model, cfg, learning_rate=0.001, momentum=0.9, device=DEVICE)
     losses = [float(trainer.train_step(*ds.batch(i))["loss"]) for i in range(2)]
     tmp = tempfile.mkdtemp(prefix="mpi4dl-ckpt-")
@@ -1490,10 +1581,9 @@ def small_eval(build, size, device, **trainer_kwargs):
     from mpi4dl_tpu_torch import evaluate
     from mpi4dl_tpu_torch.config import ParallelConfig
     from mpi4dl_tpu_torch.train import Trainer
-    from mpi4dl_tpu_torch.weights import init
 
     cal, test = eval_batches(size)
-    model = init(build(), torch.Generator().manual_seed(SEED))
+    model = _seeded(build())
     cfg = ParallelConfig(batch_size=2, image_size=size, **trainer_kwargs.pop("config", {}))
     trainer = Trainer(model, cfg, device=device, **trainer_kwargs)
     if trainer.n_spatial:
@@ -1895,11 +1985,11 @@ def _sp_path(rank, grid, device, profile, build):
     from mpi4dl_tpu_torch.ops import layers
     from mpi4dl_tpu_torch.parallel import halo
     from mpi4dl_tpu_torch.train import Trainer, spatial_exchanges
-    from mpi4dl_tpu_torch.weights import init, meta_built
+    from mpi4dl_tpu_torch.weights import meta_built
 
     t0 = time.time()
     model, cells = meta_built(build, grid, torch.bfloat16)
-    init(model, torch.Generator().manual_seed(SEED))
+    _seeded(model)
     cfg = ParallelConfig(batch_size=BATCH, image_size=SIZE, spatial_size=1,
                          num_spatial_parts=SP_RANKS)
     trainer = Trainer(model, cfg, learning_rate=0.001, momentum=0.9, device=device,
@@ -2194,10 +2284,9 @@ def _sp_eval(rank, grid, device, ckpt_dir):
     from mpi4dl_tpu_torch.config import ParallelConfig
     from mpi4dl_tpu_torch.data import ClassPatternImages
     from mpi4dl_tpu_torch.train import Trainer
-    from mpi4dl_tpu_torch.weights import init
 
     model, cells = sp_models()["resnet_sp"][1](grid, torch.bfloat16)
-    init(model, torch.Generator().manual_seed(SEED))
+    _seeded(model)
     cfg = ParallelConfig(batch_size=BATCH, image_size=SIZE, spatial_size=1,
                          num_spatial_parts=SP_RANKS)
     trainer = Trainer(model, cfg, learning_rate=0.001, momentum=0.9, device=device,
@@ -2589,6 +2678,16 @@ def full_builders():
     return {path: build for path, _, build in main_models()}
 
 
+def pp_builders():
+    """model -> builder taking the compute dtype of phase p: phase c's
+    ResNet-110 and AmoebaNet-D at ``PIPE_LAYERS``."""
+    from mpi4dl_tpu_torch.models.amoebanet import amoebanetd
+
+    out = full_builders()
+    out["amoebanet"] = lambda dtype: amoebanetd(10, PIPE_LAYERS, FILTERS, dtype=dtype)
+    return out
+
+
 def _tick_probe(box, device):
     """A ``PipelineTrainer.on_tick`` that appends, per tick, (direction,
     tick, work items, ops run on ``device``, K1-K3 launches) to ``box``:
@@ -2625,9 +2724,10 @@ def _tick_probe(box, device):
 
 
 def _pp_step(model, config, device, x, y, schedule=None, probe=None, shapes=None,
-             accum=None):
+             accum=None, gems=False):
     """One step at ``PP_LR`` from the model's current weights: a
-    ``PipelineTrainer`` (``schedule``; collective) or, with ``accum``,
+    ``PipelineTrainer`` (``schedule``; collective), with ``gems`` a
+    ``GemsMasterTrainer`` (collective), or, with ``accum``,
     ``Trainer(grad_accum=accum)``. Returns (loss, this rank's K1-K3
     launches, the step's gradients, its SGD momentum buffers, per cell as
     numpy: a pipeline's gathered to rank 0, None on the other ranks, and a
@@ -2636,12 +2736,14 @@ def _pp_step(model, config, device, x, y, schedule=None, probe=None, shapes=None
     shapes."""
     import torch
 
-    from mpi4dl_tpu_torch.parallel.pipeline import PipelineTrainer
+    from mpi4dl_tpu_torch.parallel.pipeline import GemsMasterTrainer, PipelineTrainer
     from mpi4dl_tpu_torch.train import Trainer
     from mpi4dl_tpu_torch.weights import unstack_pipeline
 
     if accum:
         tr = Trainer(model, config, learning_rate=PP_LR, device=device, grad_accum=accum)
+    elif gems:
+        tr = GemsMasterTrainer(model, config, learning_rate=PP_LR, device=device)
     else:
         tr = PipelineTrainer(model, config, learning_rate=PP_LR, device=device,
                              schedule=schedule)
@@ -2721,20 +2823,21 @@ def _pp_resume(model, config, device, x, y, ckpt_dir):
             "save_s": save_s, "restore_s": restore_s}
 
 
-def _pp_worker(rank, world, ckpt_dir):
-    """Phase p2 in one rank: per model, one f32 step of each schedule from
-    the seed's weights (the first with the kernels' call shapes recorded
-    and every tick probed), then rank 0 takes ``Trainer(grad_accum=
-    PP_PARTS)``'s step on the same weights while the other ranks wait and
-    holds each schedule's gradients to its (:func:`_stage_errors`); on
-    ResNet-110, the checkpoint and resume."""
+def _pp_worker(rank, world, ckpt_dir, twins):
+    """Phase p in one rank of its 2-rank world. p2: per model, one f32 step
+    of each schedule from the seed's weights (the first with the kernels'
+    call shapes recorded and every tick probed), then rank 0 takes
+    ``Trainer(grad_accum=PP_PARTS)``'s step on the same weights while the
+    other ranks wait and holds each schedule's gradients to its
+    (:func:`_stage_errors`); on ResNet-110, the checkpoint and resume. Then
+    p1: the LP twins ``twins`` (:func:`_launched_twins`)."""
     import copy
 
     import torch
     import torch.distributed as dist
 
     from mpi4dl_tpu_torch.config import ParallelConfig
-    from mpi4dl_tpu_torch.weights import init, meta_built
+    from mpi4dl_tpu_torch.weights import meta_built
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2745,9 +2848,9 @@ def _pp_worker(rank, world, ckpt_dir):
     x, y = pp_batch(device)
     x = x.float()
     out = {}
-    for name, build in full_builders().items():
+    for name, build in pp_builders().items():
         t0 = time.time()
-        model = init(meta_built(build, torch.float32), torch.Generator().manual_seed(SEED))
+        model = _seeded(meta_built(build, torch.float32))
         start = copy.deepcopy(model.state_dict())
         res = {"setup_s": time.time() - t0, "shapes": _new_calls()}
         grads = {}
@@ -2781,14 +2884,13 @@ def _pp_worker(rank, world, ckpt_dir):
         gc.collect()  # trainers hold reference cycles
         torch.cuda.empty_cache()
         out[name] = res
+    out["twins"] = _launched_twins(rank, world, twins)
     return out
 
 
-def phase_pipeline_gates(calls):
-    """Phase p2: spawn the ranks and hold the pipeline to ``Trainer``; counts
-    each model's gpipe call shapes (summed over the ranks) into
-    ``calls[<model>_pp_gpipe]``. Returns, per model, the K1-K3 launches of
-    ``Trainer(grad_accum=PP_PARTS)``'s step."""
+def phase_pipeline(calls, launches, ips, cards):
+    """Phase p: spawn its 2-rank world (:func:`_pp_worker`), then check p2
+    (:func:`phase_pipeline_gates`) and p1 (:func:`phase_pipeline_cli`)."""
     import torch
 
     from mpi4dl_tpu_torch.benchmarks.common import rank_layout
@@ -2798,12 +2900,23 @@ def phase_pipeline_gates(calls):
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.time()
-    with tempfile.TemporaryDirectory(prefix="mpi4dl-pp-ckpt-") as ckpt_dir:
-        ranks = multihost.spawn(_pp_worker, PP_RANKS, args=(ckpt_dir,), backend=backend,
-                                timeout=900, env=env)
-    log(f"[p2] {desc}: f32 steps of both schedules and Trainer(grad_accum={PP_PARTS}) in "
-        f"{time.time() - t0:.1f} s")
-    for name in full_builders():
+    with tempfile.TemporaryDirectory(prefix="mpi4dl-pp-") as tmp:
+        twins = _twin_specs(_p1_runs(), tmp)
+        ranks = multihost.spawn(_pp_worker, PP_RANKS,
+                                args=(os.path.join(tmp, "ckpt"), _worker_twins(twins)),
+                                backend=backend, timeout=900, env=env)
+        log(f"[p] {desc}: p2's f32 steps of both schedules, Trainer(grad_accum={PP_PARTS}) and "
+            f"the checkpoint, then p1's {len(twins)} twin runs, in {time.time() - t0:.1f} s")
+        want = phase_pipeline_gates(calls, ranks)
+        phase_pipeline_cli(launches, ips, cards, want, twins, ranks[0]["twins"], desc)
+
+
+def phase_pipeline_gates(calls, ranks):
+    """Phase p2: hold the pipeline to ``Trainer`` from the ranks' records
+    (:func:`_pp_worker`); counts each model's gpipe call shapes (summed over
+    the ranks) into ``calls[<model>_pp_gpipe]``. Returns, per model, the
+    K1-K3 launches of ``Trainer(grad_accum=PP_PARTS)``'s step."""
+    for name in pp_builders():
         per = [r[name] for r in ranks]
         path = f"{name}_pp_gpipe"
         calls[path] = _new_calls()
@@ -2861,7 +2974,119 @@ def phase_pipeline_gates(calls):
             log(f"[p2] ResNet-110 gpipe checkpoint {res['bytes']} bytes, save "
                 f"{res['save_s']:.2f} s, restore {max(r['resume']['restore_s'] for r in per):.2f} s;"
                 f" resumed step's loss {res['resumed_loss']!r}, bit-equal on every rank")
-    return {name: ranks[0][name]["trainer"][1] for name in full_builders()}
+    return {name: ranks[0][name]["trainer"][1] for name in pp_builders()}
+
+
+# -- the benchmark twins, run in a phase's own world ----------------------------
+
+def _free_ports(n: int) -> list:
+    """``n`` distinct free TCP ports on this host: a twin run's
+    ``MASTER_PORT`` each."""
+    import socket
+
+    socks = []
+    try:
+        for _ in range(n):
+            s = socket.socket()
+            s.bind(("127.0.0.1", 0))
+            socks.append(s)
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def _twin_specs(runs, tmp) -> list:
+    """``runs`` ((path, twin module under ``mpi4dl_tpu_torch.benchmarks``,
+    ranks, argv, environment)) made ready for :func:`_launched_twins`: each
+    gets a ``MPI4DL_TPU_RUN_REPORT`` folder under ``tmp``, ResNet-110
+    (``MPI4DL_TPU_RESNET_N``) and a free ``MASTER_PORT``. Returns
+    (path, twin, ranks, argv, environment, port, report folder) each."""
+    out = []
+    for (path, twin, n_ranks, argv, env), port in zip(runs, _free_ports(len(runs))):
+        report = os.path.join(tmp, path)
+        out.append((path, twin, n_ranks, argv,
+                    dict(env, MPI4DL_TPU_RUN_REPORT=report, MPI4DL_TPU_RESNET_N="12"),
+                    port, report))
+    return out
+
+
+def _worker_twins(twins) -> list:
+    """What a rank needs of :func:`_twin_specs`'s runs: (twin, argv,
+    environment, port) each."""
+    return [(twin, argv, env, port) for _, twin, _, argv, env, port, _ in twins]
+
+
+def _twin_argv(flags, model, steps, layers=PIPE_LAYERS) -> list:
+    """A twin's arguments: ``flags``, the image size, ``--max-steps steps``,
+    ``--verbose``, and AmoebaNet-D's ``layers`` and filters."""
+    extra = (["--num-layers", str(layers), "--num-filters", str(FILTERS)]
+             if model == "amoebanet" else [])
+    return [*flags, "--image-size", str(SIZE), "--max-steps", str(steps), "--verbose", *extra]
+
+
+def _launched_twins(rank, world, twins) -> list:
+    """The twin runs ``twins`` ((twin, argv, environment, port) each) in one
+    rank of a spawned world, each through the twin module's ``main`` as a
+    rank that ``torchrun`` started runs it (``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``): it joins a process
+    group of its own and ends it. The world's group ends first. The ranks
+    share the start of their processes, not the twin's set-up. Returns per
+    run (this rank's standard output, the seconds of its ``main``)."""
+    import importlib
+    import io
+
+    import torch
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+    out = []
+    for twin, argv, env, port in twins:
+        saved = dict(os.environ)
+        os.environ.update(env, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                          LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                          MASTER_PORT=str(port))
+        buf = io.StringIO()
+        t0 = time.time()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = importlib.import_module(f"mpi4dl_tpu_torch.benchmarks.{twin}").main(argv)
+        finally:
+            os.environ.clear()
+            os.environ.update(saved)
+        if rc != 0:
+            raise AssertionError(f"{twin}: main returned {rc}: {buf.getvalue()[-2000:]}")
+        out.append((buf.getvalue(), time.time() - t0))
+        gc.collect()  # trainers hold reference cycles
+        torch.cuda.empty_cache()
+    return out
+
+
+def _twin_reports(tag, path, twin, n_ranks, report, stdout) -> list:
+    """One twin run's outcome: its closing Mean/Median/MFU line in rank 0's
+    ``stdout`` (every line logged under ``tag``), and its ranks' run
+    reports, which it returns."""
+    name = twin.split(".")[-1]
+    final = [ln for ln in stdout.splitlines() if ln.startswith(f"{name}: Mean")]
+    if not final or "MFU" not in final[-1]:
+        raise AssertionError(f"{path}: no Mean/Median/MFU line: {stdout[-2000:]}")
+    for ln in stdout.splitlines():
+        log(f"[{tag}] {path}: {ln}")
+    reports = []
+    for r in range(n_ranks):
+        with open(os.path.join(report, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def _p1_runs() -> list:
+    """Phase p1's twin runs: each LP twin under each schedule."""
+    return [(path, f"layer_parallelism.benchmark_{name}_lp", PP_RANKS,
+             _twin_argv(["--batch-size", str(PP_BATCH), "--parts", str(PP_PARTS),
+                         "--split-size", str(PP_RANKS)], name, PP_STEPS),
+             {"MPI4DL_TPU_PIPELINE_SCHEDULE": schedule})
+            for path, (name, schedule) in PP_PATHS.items()]
 
 
 def _pp_path_report(path, reports, desc, want, launches, ips, cards, note):
@@ -2894,54 +3119,26 @@ def _pp_path_report(path, reports, desc, want, launches, ips, cards, note):
     per_rank = "; ".join(
         f"rank {r['rank']}: K1 {r['launches']['pool_kernel'] // steps}, K2 "
         f"{r['launches']['wgrad_kernel'] // steps}, K3 {r['launches']['dot1x1_kernel'] // steps}"
-        f" a step, peak {r['peak_bytes'] / 2**30:.2f} GiB" for r in reports)
+        f" a step, peak {(r['peak_bytes'] or 0) / 2**30:.2f} GiB" for r in reports)
     log(f"[p] {path} ({desc}, transport {reports[0]['transport']}): step {ms:.1f} ms "
-        f"(slowest rank; all {[round(t * 1e3, 1) for t in step_s]}), {ips[path]:.3f} img/s; "
+        f"(slowest rank; all {[round(t * 1e3, 1) for t in step_s]}; warm-up "
+        f"{max(r['step_s'][0] for r in reports) * 1e3:.1f} ms, after "
+        f"{max(r['setup_s'] for r in reports):.1f} s of rank set-up), {ips[path]:.3f} img/s; "
         f"analytic bubble {reports[0]['bubble']:.4f}; {per_rank}; losses "
         f"{['%.4f' % v for v in losses]}{note}")
 
 
-def phase_pipeline_cli(launches, ips, cards, want):
-    """Phase p1: each LP twin through its own CLI in a subprocess, per
-    schedule: bf16, ``PP_RANKS`` stages,
-    ``--max-steps PP_STEPS``. Each run's ranks report through
+def phase_pipeline_cli(launches, ips, cards, want, twins, outs, desc):
+    """Phase p1: each LP twin under each schedule (``MPI4DL_TPU_PIPELINE_
+    SCHEDULE``), bf16, ``PP_RANKS`` stages, ``--max-steps PP_STEPS``, run
+    through its entry point in phase p's world (:func:`_launched_twins`;
+    rank 0's ``outs``). Each run's ranks report through
     ``MPI4DL_TPU_RUN_REPORT`` (:func:`_pp_path_report`); ``want[model]`` is
     the Trainer's K1-K3 a step (phase p2)."""
-    from mpi4dl_tpu_torch.benchmarks.common import rank_layout
-
-    here = os.path.dirname(os.path.abspath(__file__))
-    _, desc, _ = rank_layout(PP_RANKS, DEVICE)
-    for path, (name, schedule) in PP_PATHS.items():
-        extra = (["--num-layers", str(LAYERS), "--num-filters", str(FILTERS)]
-                 if name == "amoebanet" else [])
-        argv = [sys.executable, "-m",
-                f"mpi4dl_tpu_torch.benchmarks.layer_parallelism.benchmark_{name}_lp",
-                "--batch-size", str(PP_BATCH), "--parts", str(PP_PARTS),
-                "--split-size", str(PP_RANKS), "--image-size", str(SIZE),
-                "--max-steps", str(PP_STEPS), "--verbose", *extra]
-        with tempfile.TemporaryDirectory(prefix="mpi4dl-pp-") as tmp:
-            env = dict(os.environ, MPI4DL_TPU_PIPELINE_SCHEDULE=schedule,
-                       MPI4DL_TPU_RUN_REPORT=tmp, MPI4DL_TPU_RESNET_N="12",
-                       PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
-            t0 = time.time()
-            out = subprocess.run(argv, cwd=here, env=env, capture_output=True, text=True,
-                                 timeout=600)
-            wall = time.time() - t0
-            if out.returncode != 0:
-                raise AssertionError(f"{path}: exit {out.returncode}: {out.stdout[-2000:]} "
-                                     f"{out.stderr[-3000:]}")
-            reports = []
-            for r in range(PP_RANKS):
-                with open(os.path.join(tmp, f"rank{r}.json")) as f:
-                    reports.append(json.load(f))
-        tag = f"benchmark_{name}_lp"
-        final = [ln for ln in out.stdout.splitlines() if ln.startswith(f"{tag}: Mean")]
-        if not final or "MFU" not in final[-1]:
-            raise AssertionError(f"{path}: no Mean/Median/MFU line: {out.stdout[-2000:]}")
-        for ln in out.stdout.splitlines():
-            log(f"[p1] {path}: {ln}")
-        _pp_path_report(path, reports, desc, want[name], launches, ips, cards,
-                        note=f"; through the CLI, {wall:.1f} s with the process start")
+    for (path, twin, n_ranks, _, _, _, report), (stdout, wall) in zip(twins, outs):
+        reports = _twin_reports("p1", path, twin, n_ranks, report, stdout)
+        _pp_path_report(path, reports, desc, want[PP_PATHS[path][0]], launches, ips, cards,
+                        note=f"; through the twin's main, {wall:.1f} s in the world")
 
 
 # -- phase q: the spatial front ahead of the pipeline (SP+LP) -------------------
@@ -3057,7 +3254,8 @@ Q_SMALL = [
 Q_CONFIG = dict(batch_size=2, parts=2, split_size=3, spatial_size=1, num_spatial_parts=2,
                 slice_method="vertical")
 Q_STEPS = 3
-# q3: path -> (model, CLI flags beyond the image size).
+# q3: path -> (model, CLI flags beyond the image size); AmoebaNet-D at
+# ``PIPE_LAYERS``.
 Q_CLI = {
     "resnet_sp_lp": ("resnet", ["--batch-size", "2", "--parts", "2", "--split-size", "3",
                                 "--spatial-size", "1", "--num-spatial-parts", "2",
@@ -3097,7 +3295,6 @@ def _q_small(rank, device):
     from mpi4dl_tpu_torch.ops.halo_kernel import close_rings
     from mpi4dl_tpu_torch.parallel.multihost import RankLayout
     from mpi4dl_tpu_torch.train import Trainer
-    from mpi4dl_tpu_torch.weights import init
 
     out = []
     for name, fields in Q_SMALL:
@@ -3105,7 +3302,7 @@ def _q_small(rank, device):
         n_sp = _q_spatial_cells(cfg, _q_small_model)
         x, y = q_batch(cfg.batch_size, 32)
         layout = RankLayout(cfg.mesh_shape)
-        model = init(_q_small_model(n_sp, layout.grid), torch.Generator().manual_seed(SEED))
+        model = _seeded(_q_small_model(n_sp, layout.grid))
         tr = _q_trainer(model, cfg, device, layout, n_sp)
         dist.barrier()
         loss = float(tr.train_step(x, y)["loss"])
@@ -3115,7 +3312,7 @@ def _q_small(rank, device):
         gc.collect()
         torch.cuda.empty_cache()
         if rank == 0:
-            plain = init(_q_small_model(0, None), torch.Generator().manual_seed(SEED))
+            plain = _seeded(_q_small_model(0, None))
             if cfg.local_dp > 1:
                 want = _local_dp_reference(plain, n_sp, x, y, cfg.parts, cfg.local_dp, "cpu")
             else:
@@ -3145,7 +3342,7 @@ def _q_full(rank, device, shapes_by_model):
     from mpi4dl_tpu_torch.parallel.multihost import RankLayout
     from mpi4dl_tpu_torch.parallel.pipeline import PipelineTrainer
     from mpi4dl_tpu_torch.train import Trainer
-    from mpi4dl_tpu_torch.weights import init, meta_built
+    from mpi4dl_tpu_torch.weights import meta_built
 
     cfg = ParallelConfig(image_size=SIZE, **Q_CONFIG)
     spatial_cfg = ParallelConfig(image_size=SIZE, batch_size=cfg.batch_size, split_size=1,
@@ -3165,8 +3362,7 @@ def _q_full(rank, device, shapes_by_model):
             n_sp = PipelineTrainer.spatial_cell_count(len(build(torch.float32)), cfg)
         if rank == 0:
             with whole_card(device):
-                model = init(meta_built(build, torch.float32),
-                             torch.Generator().manual_seed(SEED))
+                model = _seeded(meta_built(build, torch.float32))
                 ref = Trainer(model, ParallelConfig(batch_size=cfg.batch_size, image_size=SIZE),
                               learning_rate=PP_LR, device=device, grad_accum=cfg.parts)
                 for mod in counters.values():
@@ -3179,8 +3375,7 @@ def _q_full(rank, device, shapes_by_model):
         dist.barrier()
         if layout.p == 0:
             with whole_card(device, share=tiles / Q_RANKS):
-                model = init(meta_built(_q_full_model, name, n_sp, layout.grid),
-                             torch.Generator().manual_seed(SEED))
+                model = _seeded(meta_built(_q_full_model, name, n_sp, layout.grid))
                 ref = Trainer(model, spatial_cfg, learning_rate=PP_LR, device=device,
                               grad_accum=cfg.parts, num_spatial_cells=n_sp, grid=layout.grid)
                 res["spatial_loss"] = float(ref.train_step(x, y)["loss"])
@@ -3188,8 +3383,7 @@ def _q_full(rank, device, shapes_by_model):
                 close_rings(layout.grid)
                 del ref, model
         dist.barrier()
-        model = init(meta_built(_q_full_model, name, n_sp, layout.grid),
-                     torch.Generator().manual_seed(SEED))
+        model = _seeded(meta_built(_q_full_model, name, n_sp, layout.grid))
         tr = PipelineTrainer(model, cfg, learning_rate=PP_LR, device=device, layout=layout)
         res["setup_s"] = time.time() - t0
         back = collections.Counter()
@@ -3256,8 +3450,9 @@ def _q_back_probe(box, counters):
     return tick
 
 
-def _q_worker(rank, world):
-    """Phases q1 and q2 in one rank of the 4-rank world."""
+def _q_worker(rank, world, twins):
+    """Phases q1 and q2 in one rank of the 4-rank world, then q3's twin runs
+    ``twins`` (:func:`_launched_twins`)."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3269,25 +3464,41 @@ def _q_worker(rank, world):
     small_s = time.time() - t0
     shapes = {name: _new_calls() for name in full_builders()}
     full = _q_full(rank, device, shapes)
-    return {"small": small, "small_s": small_s, "full": full, "shapes": shapes}
+    return {"small": small, "small_s": small_s, "full": full, "shapes": shapes,
+            "twins": _launched_twins(rank, world, twins)}
 
 
-def phase_sp_lp_gates(calls):
-    """Phases q1 and q2: spawn the ranks, hold each layout to its CPU or
-    single-device reference, and count q2's call shapes (summed over the
-    ranks) into ``calls[Q_F32_PATHS[model]]``."""
+def phase_sp_lp(calls, launches, ips, cards):
+    """Phase q: spawn its 4-rank world (:func:`_q_worker`), then check q1
+    and q2 (:func:`phase_sp_lp_gates`) and q3 (:func:`phase_sp_lp_cli`)."""
     import torch
 
     from mpi4dl_tpu_torch.benchmarks.common import rank_layout
-    from mpi4dl_tpu_torch.config import ParallelConfig
     from mpi4dl_tpu_torch.parallel import multihost
 
     backend, desc, env = rank_layout(Q_RANKS, DEVICE)
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.time()
-    ranks = multihost.spawn(_q_worker, Q_RANKS, backend=backend, timeout=900, env=env)
-    log(f"[q] {desc}: q1 and q2 in {time.time() - t0:.1f} s (q1 {ranks[0]['small_s']:.1f} s)")
+    with tempfile.TemporaryDirectory(prefix="mpi4dl-q-") as tmp:
+        twins = _twin_specs(
+            [(path, f"spatial_parallelism.benchmark_{name}_sp", Q_RANKS,
+              _twin_argv(flags, name, Q_STEPS), {}) for path, (name, flags) in Q_CLI.items()],
+            tmp)
+        ranks = multihost.spawn(_q_worker, Q_RANKS, args=(_worker_twins(twins),),
+                                backend=backend, timeout=900, env=env)
+        log(f"[q] {desc}: q1, q2 and q3's {len(twins)} twin runs in {time.time() - t0:.1f} s "
+            f"(q1 {ranks[0]['small_s']:.1f} s)")
+        phase_sp_lp_gates(calls, ranks)
+        phase_sp_lp_cli(launches, ips, cards, twins, ranks[0]["twins"], desc)
+
+
+def phase_sp_lp_gates(calls, ranks):
+    """Phases q1 and q2: hold each layout to its CPU or single-device
+    reference from the ranks' records (:func:`_q_worker`), and count q2's
+    call shapes (summed over the ranks) into ``calls[Q_F32_PATHS[model]]``."""
+    from mpi4dl_tpu_torch.config import ParallelConfig
+
     for name, got, want in ranks[0]["small"]:
         worst = check_small(f"q1 {name}", got, want)
         log(f"[q1] {name}, ResNet-v2 depth 20 @32 f32: loss card {got[0]:.6f} CPU "
@@ -3348,44 +3559,16 @@ def phase_sp_lp_gates(calls):
             f" s; peak per rank {[round(r['peak_bytes'] / 2**30, 2) for r in per]} GiB")
 
 
-def phase_sp_lp_cli(launches, ips, cards):
-    """Phase q3: each SP twin through its own CLI in a subprocess (bf16,
-    ``--max-steps Q_STEPS``, ``MPI4DL_TPU_RUN_REPORT``): exit 0 and its
-    Mean/Median/MFU line; from the ranks' records the step (slowest rank),
-    img/s, per-rank launches and peak memory, and the transport."""
+def phase_sp_lp_cli(launches, ips, cards, twins, outs, desc):
+    """Phase q3: each SP twin run (bf16, ``--max-steps Q_STEPS``,
+    ``MPI4DL_TPU_RUN_REPORT``) through its entry point in phase q's world
+    (:func:`_launched_twins`; rank 0's ``outs``): its Mean/Median/MFU line;
+    from the ranks' records the step (slowest rank), img/s, per-rank
+    launches and peak memory, and the transport."""
     import torch
 
-    from mpi4dl_tpu_torch.benchmarks.common import rank_layout
-
-    here = os.path.dirname(os.path.abspath(__file__))
-    _, desc, _ = rank_layout(Q_RANKS, DEVICE)
-    for path, (name, flags) in Q_CLI.items():
-        extra = (["--num-layers", str(LAYERS), "--num-filters", str(FILTERS)]
-                 if name == "amoebanet" else [])
-        argv = [sys.executable, "-m",
-                f"mpi4dl_tpu_torch.benchmarks.spatial_parallelism.benchmark_{name}_sp",
-                *flags, "--image-size", str(SIZE), "--max-steps", str(Q_STEPS), "--verbose",
-                *extra]
-        with tempfile.TemporaryDirectory(prefix="mpi4dl-q-") as tmp:
-            env = dict(os.environ, MPI4DL_TPU_RUN_REPORT=tmp, MPI4DL_TPU_RESNET_N="12",
-                       PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
-            t0 = time.time()
-            out = subprocess.run(argv, cwd=here, env=env, capture_output=True, text=True,
-                                 timeout=600)
-            wall = time.time() - t0
-            if out.returncode != 0:
-                raise AssertionError(f"{path}: exit {out.returncode}: {out.stdout[-2000:]} "
-                                     f"{out.stderr[-3000:]}")
-            reports = []
-            for r in range(Q_RANKS):
-                with open(os.path.join(tmp, f"rank{r}.json")) as f:
-                    reports.append(json.load(f))
-        tag = f"benchmark_{name}_sp"
-        final = [ln for ln in out.stdout.splitlines() if ln.startswith(f"{tag}: Mean")]
-        if not final or "MFU" not in final[-1]:
-            raise AssertionError(f"{path}: no Mean/Median/MFU line: {out.stdout[-2000:]}")
-        for ln in out.stdout.splitlines():
-            log(f"[q3] {path}: {ln}")
+    for (path, twin, n_ranks, argv, _, _, report), (stdout, wall) in zip(twins, outs):
+        reports = _twin_reports("q3", path, twin, n_ranks, report, stdout)
         steps = reports[0]["counted_steps"]
         losses = reports[0]["losses"]
         if steps != Q_STEPS - 1 or not all(math.isfinite(v) for v in losses):
@@ -3402,19 +3585,384 @@ def phase_sp_lp_cli(launches, ips, cards):
         launches[path] = runs
         step_s = [max(r["step_s"][i] for r in reports) for i in range(1, Q_STEPS)]
         ms = sorted(step_s)[len(step_s) // 2] * 1e3
-        batch = int(flags[flags.index("--batch-size") + 1])
+        batch = int(argv[argv.index("--batch-size") + 1])
         ips[path] = batch / (ms / 1e3)
-        cards[path] = min(Q_RANKS, torch.cuda.device_count())
+        cards[path] = min(n_ranks, torch.cuda.device_count())
         per_rank = "; ".join(
             f"rank {r['rank']}: K1 {r['launches']['pool_kernel'] // steps}, K2 "
             f"{r['launches']['wgrad_kernel'] // steps}, K3 {r['launches']['dot1x1_kernel'] // steps}"
             f", K4 {r['launches']['halo_kernel'] // steps} a step, peak "
             f"{(r['peak_bytes'] or 0) / 2**30:.2f} GiB" for r in reports)
         log(f"[q3] {path} ({desc}, transport {reports[0]['transport']}): step {ms:.1f} ms "
-            f"(slowest rank; all {[round(t * 1e3, 1) for t in step_s]}), {ips[path]:.3f} img/s; "
+            f"(slowest rank; all {[round(t * 1e3, 1) for t in step_s]}; warm-up "
+            f"{max(r['step_s'][0] for r in reports) * 1e3:.1f} ms, after "
+            f"{max(r['setup_s'] for r in reports):.1f} s of rank set-up), {ips[path]:.3f} img/s; "
             f"analytic bubble {reports[0]['bubble']}; {per_rank}; losses "
-            f"{['%.4f' % v for v in losses]}; through the CLI, {wall:.1f} s with the process "
-            f"start")
+            f"{['%.4f' % v for v in losses]}; through the twin's main, {wall:.1f} s in the "
+            f"world")
+
+
+# -- phase g: GEMS-MASTER, the pipeline in both directions ----------------------
+
+# g1: small f32 layouts, (name, config fields, trainer kind), ResNet-v2
+# depth 20 @32 from the seed; the LP ones on G_RANKS ranks, the SP one on
+# Q_RANKS.
+G_RANKS = 2
+G_SMALL_LP = [
+    ("LP GEMS split 2, times 1", dict(batch_size=2, parts=2, split_size=2, times=1), "gems"),
+    # Four chunks of one image: the images of times 1. Of @32's first 8, one
+    # has a single-image BN gradient that f32 gets ~10% off float64 in a leaf
+    # of ResNet-v2's third stack (either layout, on the CPU), which a
+    # per-leaf gate cannot hold.
+    ("LP GEMS split 2, times 2", dict(batch_size=1, parts=1, split_size=2, times=2), "gems"),
+    ("the mirror placement alone, split 2", dict(batch_size=2, parts=2, split_size=2),
+     "mirror"),
+]
+# SP+GEMS twice: two chunks of one image (q1's two images) held per leaf,
+# and two chunks of 2 images in 2 micro-batches (4 images: g2 and g3's
+# shape) held per stage in relative L2 (``PP_GRAD_TOL``): through the tiles'
+# f32 sums a per-leaf gate does not hold there (an H100 read 0.0965 of a
+# leaf where the LP layouts on the same 4 images read 5.4e-6).
+_G_SP = dict(split_size=3, spatial_size=1, num_spatial_parts=2, slice_method="vertical",
+             times=1)
+G_SMALL_SP = [
+    ("SP+GEMS vertical 2 x split 3, 2 chunks of 1 image", dict(_G_SP, batch_size=1, parts=1),
+     "gems"),
+    ("SP+GEMS vertical 2 x split 3, 2 chunks of 2 images", dict(_G_SP, batch_size=2, parts=2),
+     "gems_stages"),
+]
+# g2 and g3's LP layout: split 2, ``times`` 1, a chunk of 2 images in 2
+# micro-batches, so 4 images a step: phase p's batch (``PP_BATCH``) in as
+# many micro-batches (``PP_PARTS``), on which g2's references, phase p's
+# ``PipelineTrainer(parts=4)`` and ``Trainer(grad_accum=4)``, run.
+G_CONFIG = dict(batch_size=2, parts=2, split_size=G_RANKS, times=1)
+G_CHUNKS = 2 * G_CONFIG["times"]
+if (G_RANKS, G_CHUNKS * G_CONFIG["batch_size"], G_CHUNKS * G_CONFIG["parts"]) != (
+        PP_RANKS, PP_BATCH, PP_PARTS):
+    raise AssertionError("g2's references take phase p's ranks, batch and micro-batches")
+# g2: GEMS's f32 loss against PipelineTrainer(parts=4)'s on the same 4 images,
+# relative (the same micro-batches, BN over each; the sums of the loss and of
+# the mirrored stages' gradients associate otherwise).
+G_PP_LOSS_RTOL = 1e-6
+G_STEPS = 3
+# g3: path -> (model, twin module, ranks, CLI flags beyond the image size).
+_G_SP_FLAGS = ["--batch-size", "2", "--parts", "2", "--split-size", "3", "--spatial-size", "1",
+               "--num-spatial-parts", "2", "--slice-method", "vertical", "--times", "1"]
+_G_LP_FLAGS = ["--batch-size", "2", "--parts", "2", "--split-size", str(G_RANKS),
+               "--times", "1"]
+G_CLI = {
+    "resnet_gems": ("resnet", "gems_master_model.benchmark_resnet_gems_master", G_RANKS,
+                    _G_LP_FLAGS),
+    "amoebanet_gems": ("amoebanet", "gems_master_model.benchmark_amoebanet_gems_master",
+                       G_RANKS, _G_LP_FLAGS),
+    "resnet_gems_sp": ("resnet", "gems_master_with_spatial_parallelism."
+                       "benchmark_resnet_gems_master_with_sp", Q_RANKS, _G_SP_FLAGS),
+    "amoebanet_gems_sp": ("amoebanet", "gems_master_with_spatial_parallelism."
+                          "benchmark_amoebanet_gems_master_with_sp", Q_RANKS, _G_SP_FLAGS),
+}
+PATH_KERNELS.update({path: _MODEL_KERNELS[m] + (("halo_swap",) if ranks == Q_RANKS else ())
+                     for path, (m, _, ranks, _) in G_CLI.items()})
+STEPS_IN_RUN.update(dict.fromkeys(G_CLI, G_STEPS - 1))
+# g2's f32 GEMS steps are recorded under these paths for phases d-g.
+G_F32_PATHS = {"resnet": "resnet_gems_f32", "amoebanet": "amoebanet_gems_f32"}
+PATH_KERNELS.update({path: _MODEL_KERNELS[m] for m, path in G_F32_PATHS.items()})
+
+
+def _g_small(rank, device, cases):
+    """Phase g1 in one rank: each small layout's f32 step on the card (rank
+    0 returns its (loss, per-cell gradients), the gradients a pipeline's
+    first-step SGD momentum gathered to rank 0), then rank 0 takes the
+    port's CPU ``Trainer(grad_accum=chunks·parts)`` step of the same weights
+    on the same ``chunks·batch`` rows while the other ranks wait."""
+    import torch
+    import torch.distributed as dist
+
+    from mpi4dl_tpu_torch.config import ParallelConfig
+    from mpi4dl_tpu_torch.ops.halo_kernel import close_rings
+    from mpi4dl_tpu_torch.parallel.multihost import RankLayout
+    from mpi4dl_tpu_torch.parallel.pipeline import GemsMasterTrainer, PipelineTrainer
+    from mpi4dl_tpu_torch.train import Trainer
+
+    out = []
+    for name, fields, kind in cases:
+        cfg = ParallelConfig(image_size=32, **fields)
+        chunks = 2 * cfg.times if kind.startswith("gems") else 1
+        n_sp = _q_spatial_cells(cfg, _q_small_model)
+        x, y = q_batch(chunks * cfg.batch_size, 32)
+        layout = RankLayout(cfg.mesh_shape)
+        model = _seeded(_q_small_model(n_sp, layout.grid))
+        if kind.startswith("gems"):
+            tr = GemsMasterTrainer(model, cfg, learning_rate=PP_LR, device=device,
+                                   layout=layout)
+        else:
+            tr = PipelineTrainer(model, cfg, learning_rate=PP_LR, device=device, layout=layout,
+                                 mirror=True)
+        stages = [list(range(tr.n_spatial_cells))] * bool(tr.n_spatial_cells) + tr.stages
+        dist.barrier()
+        loss = float(tr.train_step(x, y)["loss"])
+        got = _q_grads(tr)
+        close_rings(layout.grid)
+        del tr, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        if rank == 0:
+            plain = _seeded(_q_small_model(0, None))
+            ref = Trainer(plain, ParallelConfig(batch_size=chunks * cfg.batch_size,
+                                                image_size=32),
+                          learning_rate=PP_LR, device="cpu", grad_accum=chunks * cfg.parts)
+            want = (float(ref.train_step(x, y)["loss"]), _named_grads(ref.model))
+            out.append((name, kind, stages, (loss, got), want))
+        dist.barrier()
+    return out
+
+
+def _g_lp_worker(rank, world, twins):
+    """Phase g's 2-rank world in one rank. g1: the LP layouts
+    (:func:`_g_small`). g2: per model (phase c's, f32), the GEMS step
+    (``G_CONFIG``: 2 chunks of 2 of phase p's 4 images) from the seed's
+    weights with its call shapes recorded, and ``PipelineTrainer(parts=4)``'s
+    gpipe step on the same weights and batch; rank 0 then takes
+    ``Trainer(grad_accum=4)``'s step on them while the other ranks wait and
+    holds the GEMS step's stage gradients to it; last, rank 0 counts the
+    K1-K3 launches of such a Trainer step of AmoebaNet-D at ``PIPE_LAYERS``
+    (g3's LP twin is held to them). Then g3's LP twin runs ``twins``
+    (:func:`_launched_twins`)."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+
+    from mpi4dl_tpu_torch.config import ParallelConfig
+    from mpi4dl_tpu_torch.weights import meta_built
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = (torch.device("cuda", torch.cuda.current_device()) if DEVICE == "cuda"
+              else torch.device(DEVICE))
+    t0 = time.time()
+    out = {"g_small": _g_small(rank, device, G_SMALL_LP)}
+    out["g_small_s"] = time.time() - t0
+    pp_cfg = ParallelConfig(batch_size=PP_BATCH, parts=PP_PARTS, split_size=PP_RANKS,
+                            image_size=SIZE)
+    g_cfg = ParallelConfig(image_size=SIZE, **G_CONFIG)
+    one = ParallelConfig(batch_size=PP_BATCH, image_size=SIZE)
+    x, y = pp_batch(device)
+    x = x.float()
+    for name, build in full_builders().items():
+        t0 = time.time()
+        model = _seeded(meta_built(build, torch.float32))
+        start = copy.deepcopy(model.state_dict())
+        res = {"setup_s": time.time() - t0, "g_shapes": _new_calls()}
+        dist.barrier()
+        t0 = time.time()
+        loss, launches, g, stages = _pp_step(model, g_cfg, device, x, y, gems=True,
+                                             shapes=res["g_shapes"])
+        res["gems"] = (loss, launches, time.time() - t0)
+        model.load_state_dict(start)
+        dist.barrier()
+        res["gpipe"] = _pp_step(model, pp_cfg, device, x, y, schedule="gpipe")[:2]
+        dist.barrier()
+        if rank == 0:
+            model.load_state_dict(start)
+            with whole_card(device):
+                t_loss, t_launches, want, _ = _pp_step(model, one, device, x, y,
+                                                       accum=PP_PARTS)
+            res["trainer"] = (t_loss, t_launches)
+            res["gems_grad_err"] = _stage_errors(g, want, stages)
+            del want
+        del g
+        dist.barrier()
+        del model, start
+        gc.collect()  # trainers hold reference cycles
+        torch.cuda.empty_cache()
+        out[name] = res
+    if rank == 0:
+        with whole_card(device):
+            model = _seeded(meta_built(pp_builders()["amoebanet"], torch.float32))
+            out["trainer_pipe_layers"] = _pp_step(model, one, device, x, y,
+                                                  accum=PP_PARTS)[1]
+            del model
+    out["twins"] = _launched_twins(rank, world, twins)
+    return out
+
+
+def _g_sp_worker(rank, world, twins):
+    """Phase g's 4-rank world in one rank: g1's SP layouts
+    (:func:`_g_small`), then g3's SP+GEMS twin runs ``twins``
+    (:func:`_launched_twins`)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = (torch.device("cuda", torch.cuda.current_device()) if DEVICE == "cuda"
+              else torch.device(DEVICE))
+    t0 = time.time()
+    out = {"g_small": _g_small(rank, device, G_SMALL_SP)}
+    out["g_small_s"] = time.time() - t0
+    out["twins"] = _launched_twins(rank, world, twins)
+    return out
+
+
+def phase_gems(calls, launches, ips, cards):
+    """Phase g: spawn its 2-rank world (:func:`_g_lp_worker`) and its
+    4-rank world (:func:`_g_sp_worker`), then check g1 and g2
+    (:func:`phase_gems_gates`) and g3 (:func:`phase_gems_cli`)."""
+    import torch
+
+    from mpi4dl_tpu_torch.benchmarks.common import rank_layout
+    from mpi4dl_tpu_torch.parallel import multihost
+
+    with tempfile.TemporaryDirectory(prefix="mpi4dl-g-") as tmp:
+        twins = _twin_specs([(path, twin, n_ranks, _twin_argv(flags, name, G_STEPS), {})
+                             for path, (name, twin, n_ranks, flags) in G_CLI.items()], tmp)
+        worlds, outs, descs = {}, {}, {}
+        for n_ranks, worker, what in ((G_RANKS, _g_lp_worker, "g1's LP layouts, g2"),
+                                      (Q_RANKS, _g_sp_worker, "g1's SP layouts")):
+            backend, descs[n_ranks], env = rank_layout(n_ranks, DEVICE)
+            mine = [t for t in twins if t[2] == n_ranks]
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.time()
+            worlds[n_ranks] = multihost.spawn(worker, n_ranks, args=(_worker_twins(mine),),
+                                              backend=backend, timeout=900, env=env)
+            outs.update(zip([t[0] for t in mine], worlds[n_ranks][0]["twins"]))
+            log(f"[g] {descs[n_ranks]}: {what} and g3's {len(mine)} twin runs in "
+                f"{time.time() - t0:.1f} s (g1 {worlds[n_ranks][0]['g_small_s']:.1f} s)")
+        want = phase_gems_gates(calls, worlds[G_RANKS], worlds[Q_RANKS])
+        phase_gems_cli(launches, ips, cards, want, twins, outs, descs)
+
+
+def phase_gems_gates(calls, lp_ranks, sp_ranks):
+    """Phases g1 and g2: hold each layout to its reference from the records
+    of phase g's worlds (:func:`_g_lp_worker`, :func:`_g_sp_worker`), and
+    count g2's call shapes (summed over the ranks) into
+    ``calls[G_F32_PATHS[model]]``. Returns, per model, the K1-K3 launches of
+    ``Trainer(grad_accum=4)``'s step at g3's depth: g2's for ResNet-110,
+    AmoebaNet-D's at ``PIPE_LAYERS``."""
+    for name, kind, stages, got, want in lp_ranks[0]["g_small"] + sp_ranks[0]["g_small"]:
+        if kind == "gems_stages":
+            if not abs(got[0] - want[0]) <= 1e-4 * abs(want[0]):
+                raise AssertionError(f"g1 {name} loss: {got[0]} vs reference {want[0]}")
+            errs = _stage_errors(got[1], want[1], stages)
+            if not all(e <= PP_GRAD_TOL for e in errs):
+                raise AssertionError(f"g1 {name}: the front's and each stage's gradients {errs} "
+                                     f"(L2, relative; tolerance {PP_GRAD_TOL:g})")
+            worst, leaf = _worst_leaf(f"g1 {name}", got[1], want[1])
+            gate = (f"the front's and stages' gradients {['%.2e' % e for e in errs]}, relative "
+                    f"L2 (gate {PP_GRAD_TOL:g}); worst leaf {worst:.2e} at {leaf} (not gated)")
+        else:
+            worst = check_small(f"g1 {name}", got, want)
+            gate = f"gradients normalised max|err| {worst:.2e} (tolerance {SMALL_GRAD_TOL:g})"
+        log(f"[g1] {name}, ResNet-v2 depth 20 @32 f32: loss card {got[0]:.6f} CPU "
+            f"{want[0]:.6f}; {gate}; against the CPU Trainer(grad_accum=chunks x parts)")
+    trainer = {}
+    for name in full_builders():
+        per = [r[name] for r in lp_ranks]
+        path = G_F32_PATHS[name]
+        calls[path] = _new_calls()
+        for r in per:
+            for k, c in r["g_shapes"].items():
+                calls[path][k].update(c)
+        want_loss, want_launch = per[0]["trainer"]
+        loss, pp_loss = per[0]["gems"][0], per[0]["gpipe"][0]
+        for what, got_l in (("GEMS", [r["gems"][0] for r in per]),
+                            ("PipelineTrainer", [r["gpipe"][0] for r in per])):
+            if any(v != got_l[0] for v in got_l):
+                raise AssertionError(f"g2 {name} {what}: the ranks' losses differ: {got_l}")
+        if not abs(loss - want_loss) <= PP_LOSS_RTOL * abs(want_loss):
+            raise AssertionError(f"g2 {name}: GEMS f32 first-step loss {loss!r}, "
+                                 f"Trainer(grad_accum=4) {want_loss!r} (rtol {PP_LOSS_RTOL:g})")
+        if not abs(loss - pp_loss) <= G_PP_LOSS_RTOL * abs(pp_loss):
+            raise AssertionError(f"g2 {name}: GEMS f32 first-step loss {loss!r}, "
+                                 f"PipelineTrainer(parts=4) {pp_loss!r} (rtol "
+                                 f"{G_PP_LOSS_RTOL:g})")
+        grad_err = per[0]["gems_grad_err"]
+        if not all(e <= PP_GRAD_TOL for e in grad_err):
+            raise AssertionError(f"g2 {name}: each stage's gradients {grad_err} (L2, relative) "
+                                 f"from Trainer(grad_accum=4)'s (tolerance {PP_GRAD_TOL:g})")
+        got = {k: sum(r["gems"][1][k] for r in per) for k in want_launch}
+        if got != want_launch:
+            raise AssertionError(f"g2 {name}: GEMS K1-K3 summed over the ranks {got}, "
+                                 f"Trainer(grad_accum=4) {want_launch}")
+        for k in PATH_KERNELS[path]:
+            for rank, r in enumerate(per):
+                if not r["gems"][1][k]:
+                    raise AssertionError(f"g2 {name} rank {rank}: {k} did not launch")
+        trainer[name] = want_launch
+        log(f"[g2] {name} GEMS (split {G_RANKS}, 2 chunks of {G_CONFIG['batch_size']} images in "
+            f"{G_CONFIG['parts']} micro-batches) f32: first-step loss {loss:.7f} (Trainer(grad_"
+            f"accum=4) {want_loss:.7f}, rel {abs(loss - want_loss) / abs(want_loss):.2e}, gate "
+            f"{PP_LOSS_RTOL:g}; PipelineTrainer(parts=4) {pp_loss:.7f}, rel "
+            f"{abs(loss - pp_loss) / abs(pp_loss):.2e}, gate {G_PP_LOSS_RTOL:g}); stages' "
+            f"gradients {['%.2e' % e for e in grad_err]} from the Trainer's, relative L2 (gate "
+            f"{PP_GRAD_TOL:g}); K1-K3 per rank {[r['gems'][1] for r in per]}, summed {got} (the "
+            f"Trainer's {want_launch}); GEMS step {max(r['gems'][2] for r in per):.1f} s, "
+            f"set-up {max(r['setup_s'] for r in per):.1f} s")
+    trainer["amoebanet"] = lp_ranks[0]["trainer_pipe_layers"]  # g3's depth
+    return trainer
+
+
+def phase_gems_cli(launches, ips, cards, want, twins, outs, descs):
+    """Phase g3: each GEMS twin run (bf16, ``--times 1``, ``--max-steps
+    G_STEPS``, ``MPI4DL_TPU_RUN_REPORT``) through its entry point in phase
+    g's world of its rank count (:func:`_launched_twins`; rank 0's
+    ``outs[path]``): its Mean/Median/MFU line; every kernel of the path
+    launched on every rank; K1-K3 a step summed over the ranks equal to the
+    tile count (1 for an LP twin) times ``want[model]``, the launches of
+    ``Trainer(grad_accum=4)`` of the twin's model and depth (the front runs
+    on each tile, the back on each tile rank); the step (slowest rank),
+    img/s (``2·times·batch`` images a step), per-rank launches, peak memory
+    and mirror exchange bytes, and the transport."""
+    import torch
+
+    for path, twin, n_ranks, argv, _, _, report in twins:
+        name = G_CLI[path][0]
+        stdout, wall = outs[path]
+        reports = _twin_reports("g3", path, twin, n_ranks, report, stdout)
+        steps = reports[0]["counted_steps"]
+        losses = reports[0]["losses"]
+        if steps != G_STEPS - 1 or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{path}: {steps} counted steps, losses {losses}")
+        mods = (("pool_bwd", "pool_kernel"), ("wgrad", "wgrad_kernel"),
+                ("dot1x1_bwd", "dot1x1_kernel"), ("halo_swap", "halo_kernel"))
+        for r in reports:
+            for k, mod in mods:
+                if k in PATH_KERNELS[path] and (not r["launches"][mod]
+                                                or r["launches"][mod] % steps):
+                    raise AssertionError(f"{path} rank {r['rank']}: {k} launched "
+                                         f"{r['launches'][mod]} times in {steps} steps")
+        runs = {k: sum(r["launches"][mod] for r in reports) for k, mod in mods}
+
+        def flag(f, default=0):
+            return int(argv[argv.index(f) + 1]) if f in argv else default
+
+        tiles = n_ranks // (flag("--split-size") - flag("--spatial-size"))
+        per_step = {k: runs[k] // steps for k in want[name]}
+        if per_step != {k: tiles * v for k, v in want[name].items()}:
+            raise AssertionError(f"{path}: K1-K3 a step summed over the ranks {per_step}, want "
+                                 f"{tiles} x Trainer(grad_accum=4)'s {want[name]}")
+        images = reports[0]["images"]
+        if images != 2 * flag("--times") * flag("--batch-size"):
+            raise AssertionError(f"{path}: {images} images a step, want 2 x times x batch")
+        launches[path] = runs
+        step_s = [max(r["step_s"][i] for r in reports) for i in range(1, G_STEPS)]
+        ms = sorted(step_s)[len(step_s) // 2] * 1e3
+        ips[path] = images / (ms / 1e3)
+        cards[path] = min(n_ranks, torch.cuda.device_count())
+        per_rank = "; ".join(
+            f"rank {r['rank']}: K1 {r['launches']['pool_kernel'] // steps}, K2 "
+            f"{r['launches']['wgrad_kernel'] // steps}, K3 {r['launches']['dot1x1_kernel'] // steps}"
+            f", K4 {r['launches']['halo_kernel'] // steps} a step, peak "
+            f"{(r['peak_bytes'] or 0) / 2**30:.2f} GiB, mirror exchange {r['mirror_bytes']} bytes"
+            for r in reports)
+        log(f"[g3] {path} ({descs[n_ranks]}, transport {reports[0]['transport']}): step "
+            f"{ms:.1f} ms (slowest rank; all {[round(t * 1e3, 1) for t in step_s]}; warm-up "
+            f"{max(r['step_s'][0] for r in reports) * 1e3:.1f} ms, after "
+            f"{max(r['setup_s'] for r in reports):.1f} s of rank set-up), {ips[path]:.3f} img/s "
+            f"({images} images a step); analytic bubble {reports[0]['bubble']}; K1-K3 summed "
+            f"{per_step} = {tiles} x Trainer(grad_accum=4)'s; {per_rank}; losses "
+            f"{['%.4f' % v for v in losses]}; through the twin's main, {wall:.1f} s in the "
+            f"world")
 
 
 def phase_k1(gen, shapes):
@@ -3744,16 +4292,24 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="profile one extra step of each main path (torch.profiler; the "
                          "spatial path's on rank 0)")
-    ap.add_argument("--spatial-only", action="store_true",
-                    help="run only the build and the spatial phase s (for a 4-card host)")
-    ap.add_argument("--pipeline-only", action="store_true",
-                    help="run only the build and the pipeline phase p (one rank per card on "
-                         "a host with a card for each)")
-    ap.add_argument("--sp-lp-only", action="store_true",
-                    help="run only the build and phase q, the spatial front ahead of the "
-                         "pipeline (one rank per card on a host with 4 cards)")
+    only = ap.add_mutually_exclusive_group()
+    only.add_argument("--spatial-only", action="store_true",
+                      help="run only the build and the spatial phase s (for a 4-card host)")
+    only.add_argument("--pipeline-only", action="store_true",
+                      help="run only the build and the pipeline phase p (one rank per card on "
+                           "a host with a card for each)")
+    only.add_argument("--sp-lp-only", action="store_true",
+                      help="run only the build and phase q, the spatial front ahead of the "
+                           "pipeline (one rank per card on a host with 4 cards)")
+    only.add_argument("--gems-only", action="store_true",
+                      help="run only the build and phase g, GEMS-MASTER (one rank per card "
+                           "on a host with 4 cards)")
     args = ap.parse_args(argv)
-    only = args.spatial_only or args.pipeline_only or args.sp_lp_only
+    picked = [f for f in ("spatial", "pipeline", "sp_lp", "gems") if getattr(args, f"{f}_only")]
+    only = bool(picked)
+
+    def runs(phase):
+        return not only or phase in picked
 
     import torch
 
@@ -3788,23 +4344,19 @@ def main(argv=None) -> int:
         phase_convergence(calls, launches)
         phase_checkpoint(launches)
     k4_timing = None
-    if not (args.pipeline_only or args.sp_lp_only):
+    if runs("spatial"):
         for path in SP_PATHS:
             calls[path] = _new_calls()
         sp_launches, sp_ips, sp_cards, k4_timing = phase_spatial(calls, args.profile, first_loss)
         launches.update(sp_launches)
         ips.update(sp_ips)
         cards.update(dict.fromkeys(SP_PATHS, sp_cards))
-    if not (args.spatial_only or args.sp_lp_only):
-        t_p = time.time()
-        trainer_launches = phase_pipeline_gates(calls)
-        phase_pipeline_cli(launches, ips, cards, trainer_launches)
-        log(f"[p] phase p in {time.time() - t_p:.1f} s")
-    if not (args.spatial_only or args.pipeline_only):
-        t_q = time.time()
-        phase_sp_lp_gates(calls)
-        phase_sp_lp_cli(launches, ips, cards)
-        log(f"[q] phase q in {time.time() - t_q:.1f} s")
+    for phase, tag, run in (("pipeline", "p", phase_pipeline), ("sp_lp", "q", phase_sp_lp),
+                            ("gems", "g", phase_gems)):
+        if runs(phase):
+            t0 = time.time()
+            run(calls, launches, ips, cards)
+            log(f"[{tag}] phase {tag} in {time.time() - t0:.1f} s")
     if not only:
         shapes = {name: sorted(set().union(*(c[name] for c in calls.values())))
                   for name in KERNELS}
@@ -3848,13 +4400,15 @@ def phase_mfu(ips, cards, smi):
     from mpi4dl_tpu_torch.models.resnet import get_resnet_v2
 
     with torch.device("meta"):
-        models = {"amoebanet": amoebanetd(10, LAYERS, FILTERS),
-                  "resnet": get_resnet_v2(RESNET_DEPTH, 10, pool_kernel=SIZE // 4)}
-    per_image = {name: flops.train_flops_per_image(m, SIZE) for name, m in models.items()}
+        models = {("amoebanet", n): amoebanetd(10, n, FILTERS)
+                  for n in {LAYERS, *PATH_LAYERS.values()}}
+        models["resnet", None] = get_resnet_v2(RESNET_DEPTH, 10, pool_kernel=SIZE // 4)
+    per_image = {key: flops.train_flops_per_image(m, SIZE) for key, m in models.items()}
     peak = flops.peak_flops()
     parts = []
     for path, v in ips.items():
-        fpi = per_image[path.split("_")[0]]
+        name = path.split("_")[0]
+        fpi = per_image[name, PATH_LAYERS.get(path, LAYERS) if name == "amoebanet" else None]
         mfu = flops.mfu(v, fpi, cards[path])
         parts.append(f"{path} {'%.2f%%' % (100 * mfu) if mfu is not None else 'n/a'} "
                      f"({fpi / 1e12:.3f} TFLOP an image, {v:.3f} img/s, {cards[path]} card(s))")

@@ -14,7 +14,9 @@ over NCCL where the host has a card for each rank, else every rank on card
 wires then go through pinned host buffers); ``--device cpu`` runs the ranks
 on the CPU over gloo. Under ``torchrun`` (``RANK``/``WORLD_SIZE`` set)
 each process joins the launcher's world instead
-(:func:`~mpi4dl_tpu_torch.parallel.multihost.init_from_env`). Rank 0
+(:func:`~mpi4dl_tpu_torch.parallel.multihost.init_from_env`: gloo when
+the host's ranks outnumber its cards) and leaves it at the end, its K4
+rings closed, so that one process may run several twins in turn. Rank 0
 prints.
 
 **Ranks and trainers.** Every rank builds the
@@ -29,9 +31,15 @@ follows ``benchmarks/common.py:140-187``: ``split_size == 1`` or
 :class:`~mpi4dl_tpu_torch.parallel.pipeline.PipelineTrainer`, behind the
 spatial front when ``--spatial-size`` > 0 (the SP twins), with the schedule
 from ``MPI4DL_TPU_PIPELINE_SCHEDULE`` (``gpipe``, the default, or ``1f1b``
-with 2 virtual stages a rank). ``--halo-D2`` builds the D2 spatial models
-(``--fused-layers`` for ResNet). GEMS, ``--max-restarts > 0`` and
-``--trace-dir`` come with later slices and raise.
+with 2 virtual stages a rank). ``gems=True`` (the GEMS twins) takes
+:class:`~mpi4dl_tpu_torch.parallel.pipeline.GemsMasterTrainer` whatever the
+split (``benchmarks/common.py:150-161``): ``2·--times`` chunks of
+``--batch-size`` images a step, both pipeline directions over the same
+ranks (gpipe: ``MPI4DL_TPU_PIPELINE_SCHEDULE=1f1b`` is refused);
+``--enable-master-comm-opt`` only prints a note, the pairwise exchange being
+the port's one path. ``--halo-D2`` builds the D2 spatial models
+(``--fused-layers`` for ResNet). ``--max-restarts > 0`` and ``--trace-dir``
+come with a later slice and raise.
 
 Weights are random from seed 0 (``weights.init``), the same on every rank.
 ``MPI4DL_TPU_RESNET_N`` sets the ResNet block multiplier (default 12:
@@ -39,8 +47,11 @@ ResNet-110), as ``benchmarks/common.py:84`` does.
 
 ``MPI4DL_TPU_RUN_REPORT=<dir>`` makes every rank write ``rank<r>.json``
 there after training: its trainer's transport and analytic bubble (a
-pipeline's), each step's loss and host seconds, and, over the steps after
-the first, K1-K4's launches and the peak device memory allocated.
+pipeline's), the images a step and the bytes of GEMS's mirror exchanges a
+step, the seconds from the rank's start (this module's import in a
+spawned rank, the call of :func:`main` under a launcher) to its first
+step, each step's loss and host seconds, and, over the steps after the
+first, K1-K4's launches and the peak device memory allocated.
 """
 
 from __future__ import annotations
@@ -54,7 +65,7 @@ import torch
 import torch.distributed as dist
 
 RUN_TIMEOUT_S = 7 * 24 * 3600.0
-_GEMS = "the GEMS slice (ROADMAP queue 1 item 6)"
+_IMPORTED = time.monotonic()  # a rank imports this module as it starts
 _SUPERVISOR = "the slice that ports elastic.py and profiling.trace (after ROADMAP queue 1 item 5)"
 
 
@@ -149,21 +160,28 @@ def make_trainer(args, cfg, model, plain=None, gems: bool = False, n_spatial=Non
     """``(trainer, n_spatial)`` for the layout (``benchmarks/common.py:
     137-187``): ``n_spatial`` overrides the front's length (the D2 ResNet's
     cell count), else it follows the config's stage bounds; ``layout`` is
-    the :class:`RankLayout` whose grid built ``model``."""
-    from mpi4dl_tpu_torch.parallel.pipeline import PipelineTrainer
+    the :class:`RankLayout` whose grid built ``model``; ``gems`` takes
+    :class:`GemsMasterTrainer`."""
+    from mpi4dl_tpu_torch.parallel.pipeline import GemsMasterTrainer, PipelineTrainer
     from mpi4dl_tpu_torch.train import Trainer
 
-    if gems:
-        raise NotImplementedError(f"GemsMasterTrainer comes with {_GEMS}")
     override = n_spatial
     if n_spatial is None:
         n_spatial = (PipelineTrainer.spatial_cell_count(len(model), cfg)
                      if cfg.spatial_size else 0)
+    schedule = os.environ.get("MPI4DL_TPU_PIPELINE_SCHEDULE", "gpipe")
+    if gems:
+        if getattr(args, "enable_master_comm_opt", False):
+            # The reference's switch to pairwise flat parameter/gradient
+            # exchanges (train_spatial_master.py:229-455): the only path here.
+            say("note: --enable-master-comm-opt is implied (the mirror copy's pairwise "
+                "parameter and gradient exchange is the only path)")
+        return GemsMasterTrainer(model, cfg, device=args.device, schedule=schedule,
+                                 num_spatial_cells=override, layout=layout), n_spatial
     if cfg.split_size == 1 or cfg.spatial_size == cfg.split_size:
         grid = layout.grid if n_spatial else None
         return Trainer(model, cfg, device=args.device, num_spatial_cells=n_spatial,
                        grid=grid), n_spatial
-    schedule = os.environ.get("MPI4DL_TPU_PIPELINE_SCHEDULE", "gpipe")
     return PipelineTrainer(model, cfg, device=args.device, schedule=schedule,
                            num_spatial_cells=override, layout=layout), n_spatial
 
@@ -191,13 +209,14 @@ _KERNEL_MODULES = ("pool_kernel", "wgrad_kernel", "dot1x1_kernel", "halo_kernel"
 class _Report:
     """``MPI4DL_TPU_RUN_REPORT``'s record of this rank (module docstring)."""
 
-    def __init__(self, path, trainer):
+    def __init__(self, path, trainer, started):
         import importlib
 
         self.path, self.trainer = path, trainer
         self.mods = {m: importlib.import_module(f"mpi4dl_tpu_torch.ops.{m}")
                      for m in _KERNEL_MODULES}
         self.losses, self.step_s = [], []
+        self.setup_s = time.monotonic() - started
 
     def step(self, loss, dt):
         self.losses.append(loss)
@@ -216,6 +235,8 @@ class _Report:
             "rank": _rank(), "transport": getattr(tr, "transport", None),
             "bubble": (tr.analytic_bubble_fraction()
                        if getattr(tr, "is_pipeline", False) else None),
+            "images": getattr(tr, "chunks", 1) * tr.config.batch_size,
+            "mirror_bytes": getattr(tr, "mirror_bytes", None), "setup_s": self.setup_s,
             "losses": self.losses, "step_s": self.step_s,
             "counted_steps": max(len(self.losses) - 1, 0),
             "launches": {m: mod.launch_count for m, mod in self.mods.items()},
@@ -227,16 +248,19 @@ class _Report:
             json.dump(out, f)
 
 
-def run_training(args, trainer, tag: str, plain=None):
+def run_training(args, trainer, tag: str, plain=None, started: float = _IMPORTED):
     """The epoch loop with per-step host timing, checkpoints and resume, the
     closing Mean/Median/MFU line and ``--eval-batches``
     (``benchmarks/common.py:190-330``). A step's time ends on a read of
-    its loss; the first step trained is not kept."""
+    its loss; the first step trained is not kept. A step draws and counts
+    ``chunks · batch_size`` images (GEMS: ``2·times`` chunks). The run
+    report's set-up counts from ``started`` (``time.monotonic()``)."""
     from mpi4dl_tpu_torch import checkpoint as ckpt
     from mpi4dl_tpu_torch.data import get_dataset
 
     cfg = trainer.config
-    ds = get_dataset(args, cfg.batch_size, cfg.num_classes)
+    images = getattr(trainer, "chunks", 1) * cfg.batch_size
+    ds = get_dataset(args, images, cfg.num_classes)
     ckpt_dir = args.checkpoint_dir
     if ckpt_dir and args.resume:
         try:
@@ -249,7 +273,7 @@ def run_training(args, trainer, tag: str, plain=None):
     done = trainer.step
     seen = trained = 0
     perf = []
-    report = (_Report(os.environ["MPI4DL_TPU_RUN_REPORT"], trainer)
+    report = (_Report(os.environ["MPI4DL_TPU_RUN_REPORT"], trainer, started)
               if os.environ.get("MPI4DL_TPU_RUN_REPORT") else None)
     for epoch in range(args.num_epochs):
         for step, (x, y) in enumerate(ds):
@@ -266,10 +290,10 @@ def run_training(args, trainer, tag: str, plain=None):
                 report.step(loss, dt)
             trained += 1
             if trained > 1:
-                perf.append(cfg.batch_size / dt)
+                perf.append(images / dt)
             if args.verbose:
                 say(f"epoch {epoch} step {step}: loss {loss:.4f} "
-                    f"acc {float(metrics['accuracy']):.4f} ({cfg.batch_size / dt:.3f} img/s)")
+                    f"acc {float(metrics['accuracy']):.4f} ({images / dt:.3f} img/s)")
             if ckpt_dir and trainer.step % args.checkpoint_every == 0:
                 ckpt.save_checkpoint(ckpt_dir, trainer)
     if report is not None:
@@ -369,7 +393,9 @@ def rank_layout(n: int, device: str) -> tuple[str, str, dict]:
     return "gloo", f"{n} ranks sharing card 0 (gloo group)", {"CUDA_VISIBLE_DEVICES": first}
 
 
-def _run(args, model_name: str, tag: str, spatial: bool):
+def _run(args, model_name: str, tag: str, spatial: bool, gems: bool = False,
+         started: float = _IMPORTED):
+    from mpi4dl_tpu_torch.ops.halo_kernel import close_rings
     from mpi4dl_tpu_torch.parallel.multihost import RankLayout
     from mpi4dl_tpu_torch.parallel.pipeline import PipelineTrainer
     from mpi4dl_tpu_torch.weights import init, meta_built
@@ -385,23 +411,30 @@ def _run(args, model_name: str, tag: str, spatial: bool):
         build, args, cfg, spatial_cells=n_spatial,
         grid=layout.grid if n_spatial and layout is not None else None)
     init(model, torch.Generator().manual_seed(0))
-    trainer, _ = make_trainer(args, cfg, model, plain, n_spatial=override, layout=layout)
-    run_training(args, trainer, tag, plain)
+    trainer, _ = make_trainer(args, cfg, model, plain, gems=gems, n_spatial=override,
+                              layout=layout)
+    run_training(args, trainer, tag, plain, started)
+    if layout is not None and layout.grid is not None:
+        close_rings(layout.grid)  # collective over the tile group
 
 
-def _rank_main(rank, world, args, model_name, tag, spatial):
-    _run(args, model_name, tag, spatial)
+def _rank_main(rank, world, args, model_name, tag, spatial, gems):
+    _run(args, model_name, tag, spatial, gems)
 
 
-def main(argv, model_name: str, tag: str, spatial: bool = False) -> int:
+def main(argv, model_name: str, tag: str, spatial: bool = False, gems: bool = False) -> int:
     """Entry point of a benchmark twin: parse ``argv``, check the layout
     and the device, and run it on ``cfg.num_devices`` ranks (see the module
-    docstring)."""
+    docstring); ``gems`` for the GEMS twins."""
     from mpi4dl_tpu_torch.parallel import multihost
     from mpi4dl_tpu_torch.parser import get_parser
 
     args = get_parser().parse_args(argv)
     cfg = build_config(args, spatial)
+    if gems:  # refused before any rank starts
+        from mpi4dl_tpu_torch.parallel.pipeline import GemsMasterTrainer
+
+        GemsMasterTrainer.check_schedule(os.environ.get("MPI4DL_TPU_PIPELINE_SCHEDULE", "gpipe"))
     if args.device not in ("cuda", "cpu"):
         raise ValueError(f"--device must be cuda or cpu, got {args.device!r}")
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -410,20 +443,21 @@ def main(argv, model_name: str, tag: str, spatial: bool = False) -> int:
         return 2
     n = cfg.num_devices
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        started = time.monotonic()
         multihost.init_from_env(backend="gloo" if args.device == "cpu" else None)
         if dist.get_world_size() != n:
             raise ValueError(f"the layout needs {n} ranks, the launcher started "
                              f"{dist.get_world_size()}")
-        _run(args, model_name, tag, spatial)
+        _run(args, model_name, tag, spatial, gems, started)
         dist.destroy_process_group()
         return 0
     if n == 1:
-        _run(args, model_name, tag, spatial)
+        _run(args, model_name, tag, spatial, gems)
         return 0
     backend, desc, env = rank_layout(n, args.device)
     print(f"{tag}: {desc}", flush=True)
     # A wedged wire raises in its rank (``pipeline.WIRE_TIMEOUT_S``); the
     # spawn's own limit only bounds a run that keeps making progress.
-    multihost.spawn(_rank_main, n, args=(args, model_name, tag, spatial), backend=backend,
+    multihost.spawn(_rank_main, n, args=(args, model_name, tag, spatial, gems), backend=backend,
                     timeout=RUN_TIMEOUT_S, env=env)
     return 0

@@ -15,12 +15,15 @@ world ranks onto it):
   micro-batches a step, behind a spatial front when ``spatial_size > 0``
   (:class:`~mpi4dl_tpu_torch.parallel.pipeline.PipelineTrainer`), with the
   post-join stages batch-sharded over the tiles when ``local_dp > 1``
-  (LOCAL_DP_LP).
+  (LOCAL_DP_LP);
+- GEMS-MASTER: the pipeline in both directions over the same ranks,
+  ``2·times`` chunks of ``batch_size`` a step
+  (:class:`~mpi4dl_tpu_torch.parallel.pipeline.GemsMasterTrainer`; the
+  other trainers ignore ``times``, as in JAX).
 
 ``num_spatial_parts`` is one part count or a non-increasing list of powers
 of two, one per spatial stage (skewed SP); every spatial stage runs on the
-finest grid, ``spatial_parts = max(...)`` (``config.py:117-152``). GEMS
-(``times > 1``) comes with its own slice and is refused here.
+finest grid, ``spatial_parts = max(...)`` (``config.py:117-152``).
 """
 
 from __future__ import annotations
@@ -36,10 +39,6 @@ SLICE_VERTICAL = "vertical"
 SLICE_HORIZONTAL = "horizontal"
 SLICE_METHODS = (SLICE_SQUARE, SLICE_VERTICAL, SLICE_HORIZONTAL)
 PRECISIONS = ("bf16", "fp32")
-
-# The slice of the port that lifts the refusal below (ROADMAP queue 1).
-_GEMS = "the GEMS slice (ROADMAP queue 1 item 6)"
-
 
 def tile_grid(num_spatial_parts: int, slice_method: str) -> tuple[int, int]:
     """(tile_h, tile_w) grid extents for one spatial stage: square slices
@@ -134,8 +133,6 @@ class ParallelConfig:
             if self.local_dp != th * tw:
                 raise ValueError(f"local_dp must equal the spatial device count {th * tw} "
                                  "(the LP stages batch-shard over the tile axes)")
-        if self.times > 1:
-            raise NotImplementedError(f"GEMS (times > 1) comes with {_GEMS}")
 
     @property
     def spatial_part_list(self) -> tuple[int, ...]:

@@ -218,17 +218,25 @@ def init_from_env(backend: str | None = None) -> None:
     """Join the process group of a ``torchrun``-style launch (``RANK``,
     ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``),
     selecting card ``LOCAL_RANK % device_count`` before any other CUDA
-    call; ``backend`` defaults to NCCL with a card and gloo without. The
-    :class:`TileGrid` then comes from the config's tile shape and
-    ``dist.get_rank()``."""
+    call. ``backend`` defaults to NCCL when every rank of this host
+    (``LOCAL_WORLD_SIZE``, else ``WORLD_SIZE``) has a card of its own, else
+    to gloo, with the rank's allocator bounded to :func:`card_share` of its
+    card, as :func:`spawn` does. The :class:`TileGrid` then comes from the
+    config's tile shape and ``dist.get_rank()``."""
     for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
         if var not in os.environ:
             raise RuntimeError(f"{var} is not set: launch with torchrun or set it")
+    share = None
     if torch.cuda.is_available():
         local = int(os.environ.get("LOCAL_RANK", os.environ["RANK"]))
-        torch.cuda.set_device(local % torch.cuda.device_count())
+        cards = torch.cuda.device_count()
+        torch.cuda.set_device(local % cards)
+        share = card_share(int(os.environ.get("LOCAL_WORLD_SIZE", os.environ["WORLD_SIZE"])),
+                           cards)
+        if share is not None:
+            torch.cuda.set_per_process_memory_fraction(share)
     if backend is None:
-        backend = "nccl" if torch.cuda.is_available() else "gloo"
+        backend = "nccl" if torch.cuda.is_available() and share is None else "gloo"
     dist.init_process_group(backend, init_method="env://")
 
 
@@ -262,7 +270,8 @@ def _run_rank(rank, world_size, store_path, backend, fn, args, results, env):
         results.put((rank, False, traceback.format_exc()))
         raise
     results.put((rank, True, out))
-    dist.destroy_process_group()
+    if dist.is_initialized():  # ``fn`` may have ended it to run a launched entry point
+        dist.destroy_process_group()
 
 
 def spawn(fn, world_size: int, args: tuple = (), backend: str = "gloo",

@@ -60,9 +60,10 @@ its own rows:
   ``p`` runs micro-batches ``[p·parts/S, (p+1)·parts/S)`` of the front;
   otherwise pipe 0 runs all of them (JAX computes them on every pipe
   coordinate and uses pipe 0's). Only stage 0 needs the joined
-  micro-batches: each is sent to pipe 0 of its ``(d, i, j)``, and after the
-  back schedule its gradient goes back to the pipe coordinate that ran its
-  front, which then runs the front's backward.
+  micro-batches: each is sent to the pipe coordinate of its ``(d, i, j)``
+  that runs stage 0 (pipe 0; ``S-1`` on the mirror placement), and after
+  the back schedule its gradient goes back to the pipe coordinate that ran
+  its front, which then runs the front's backward.
 - **The back** (``pipeline.py:845-874``): redundant over the tiles (each
   tile rank's loss is divided by ``th·tw``), or, with LOCAL_DP_LP
   (``local_dp == th·tw``), tile ``i·tw + j`` runs slice ``i·tw + j`` of
@@ -70,6 +71,26 @@ its own rows:
 - **Gradients**: summed over the replica group of each pipe coordinate
   (every ``d, i, j``) for the back stages, over the world for the front;
   the loss and accuracy over the world.
+
+**The mirror placement** (``mirror=True``, gpipe only): back stage ``s``
+runs on pipe coordinate ``S-1-s`` and the wires flow ``S-1-k -> S-2-k``
+(JAX's ``dev_of``/``stage_of``, ``pipeline.py:578-627``, the reference's
+``GEMS_INVERSE``); the stacked layout's row ``d`` holds stage ``S-1-d``,
+the joined front goes to pipe ``S-1``. The step equals the normal
+placement's.
+
+**GEMS-MASTER** (:class:`GemsMasterTrainer`, ``pipeline.py:942-1058``): a
+step takes ``chunks = 2·times`` chunks of ``batch_size`` rows; chunk ``2k``
+runs the normal placement and chunk ``2k+1`` the mirrored one, each as a
+whole fill-drain with its backward, in order, their gradients added up.
+Pipe coordinate ``p`` owns stage ``p`` (its parameters and momentum) and
+holds a copy of stage ``S-1-p`` for the mirrored chunks: at the start of a
+step the owner sends the stage's parameters to ``S-1-p`` (one send over
+the pipe group), after the chunks the copy's gradients go back to the
+owner, which adds them to its own before the replica sum (JAX's mirror
+``ppermute`` and its transpose, ``pipeline.py:1012-1015``; the reference's
+comm-opt pairwise exchange). With ``S`` odd the middle coordinate mirrors
+itself and sends nothing. The copy is never stepped or saved.
 
 **Transport.** Chosen from the process group's backend and the device,
 and named in :attr:`PipelineTrainer.transport`:
@@ -89,6 +110,7 @@ from __future__ import annotations
 
 import contextlib
 import datetime
+import functools
 
 import numpy as np
 import torch
@@ -123,15 +145,27 @@ from mpi4dl_tpu_torch.weights import flatten_cells, pipeline_layout, unflatten_c
 SCHEDULES = ("gpipe", "1f1b")
 # How long a rank waits for one tick's transfers (gloo) before it raises.
 WIRE_TIMEOUT_S = 600.0
-_GEMS = "the GEMS slice (ROADMAP queue 1 item 6)"
 _ANALYZERS = "the analyzers' slice (ROADMAP queue 1 item 10)"
 
 
-def stages_of_device(d: int, S: int, v: int = 1) -> list[int]:
+def stages_of_device(d: int, S: int, v: int = 1, mirror: bool = False) -> list[int]:
     """Virtual stages hosted by rank ``d`` of ``S``: ``[d]`` under gpipe
-    (``v == 1``), the interleaved set ``d, S+d, ...`` under 1f1b
-    (``pipeline.py:279-285``)."""
+    (``v == 1``), ``[S-1-d]`` under gpipe's mirror placement, the
+    interleaved set ``d, S+d, ...`` under 1f1b (``pipeline.py:279-285``)."""
+    if v == 1 and mirror:
+        return [S - 1 - d]
     return [j * S + d for j in range(v)]
+
+
+def _pack_dtype(tensors) -> torch.dtype:
+    """The dtype :func:`_pack` gives ``tensors``: f32, float64 if one is."""
+    return functools.reduce(torch.promote_types, (t.dtype for t in tensors), torch.float32)
+
+
+def _pack(tensors) -> torch.Tensor:
+    """``tensors`` as one flat vector of :func:`_pack_dtype`."""
+    acc = _pack_dtype(tensors)
+    return torch.cat([t.detach().reshape(-1).to(acc) for t in tensors])
 
 
 def virtual_stage_cells(n_cells: int, S: int, v: int = 1, balance=None) -> list[list[int]]:
@@ -164,6 +198,8 @@ class PipelineTrainer:
         ``virtual_stages`` chunks ``d, S+d, ...``, micro-batches ring
         through ``v·S`` stages in ``parts + v·S - 1`` ticks, and the bubble
         shrinks to ``(S-1)/(parts + v·S - 1)``.
+    mirror: the GEMS mirror placement (gpipe only; see the module
+        docstring).
     remat: checkpoint each back stage body (see the module docstring).
     device: ``cuda`` (the rank's current card) unless given.
     num_spatial_cells: the front's length when it is not the config's
@@ -188,6 +224,7 @@ class PipelineTrainer:
     """
 
     is_pipeline = True
+    chunks = 1  # chunks of ``batch_size`` rows a step (GEMS: 2·times)
 
     def __init__(self, model: nn.Module, config: ParallelConfig,
                  learning_rate: float = 0.001, momentum: float = 0.9, remat: bool = True,
@@ -205,8 +242,6 @@ class PipelineTrainer:
                 raise ValueError("schedule='1f1b' needs virtual_stages >= 2 (v=1 is gpipe)")
             if config.lp_stages < 2:
                 raise ValueError("schedule='1f1b' needs >= 2 pipeline stages")
-        if mirror:
-            raise NotImplementedError(f"the GEMS mirror placement comes with {_GEMS}")
         if config.spatial_size:
             if config.spatial_size >= config.split_size:
                 raise ValueError("spatial stages must be followed by at least one LP stage "
@@ -215,6 +250,7 @@ class PipelineTrainer:
             raise ValueError("PipelineTrainer needs split_size >= 2 (use Trainer)")
         self.schedule = schedule
         self.v = int(virtual_stages) if schedule == "1f1b" else 1
+        self.mirror = bool(mirror)
         self.config = config
         self.remat = remat
         self.S = config.lp_stages
@@ -298,7 +334,16 @@ class PipelineTrainer:
     # -- placement and planning ---------------------------------------------
     def stages_of_device(self, d: int) -> list[int]:
         """Virtual stages hosted by pipe coordinate ``d`` (:func:`stages_of_device`)."""
-        return stages_of_device(d, self.S, self.v)
+        return stages_of_device(d, self.S, self.v, self.mirror)
+
+    def chunk_mirror(self, c: int) -> bool:
+        """Whether chunk ``c`` of a step runs the mirror placement."""
+        return self.mirror
+
+    def dev_of(self, k: int, mirror: bool) -> int:
+        """The pipe coordinate that runs virtual stage ``k`` in a chunk of
+        the normal (``k % S``) or the mirror placement (``S-1-k``)."""
+        return self.S - 1 - k if mirror else k % self.S
 
     @staticmethod
     def spatial_cell_count(num_cells: int, config: ParallelConfig) -> int:
@@ -358,11 +403,11 @@ class PipelineTrainer:
 
     def stage_permute_count(self) -> int:
         """Stage-boundary wire transfers of one step, over the ranks of one
-        pipe group: each micro-batch crosses ``v·S - 1`` boundaries forward
-        and as many backward. (The JAX count, ``2·(v·S - 1)`` at
-        ``pipeline.py:692-699``, is the ppermutes in the compiled scan body,
-        each run once a tick.)"""
-        return 2 * self.parts * (self.n_virtual - 1)
+        pipe group: each micro-batch of each chunk crosses ``v·S - 1``
+        boundaries forward and as many backward. (The JAX count, ``2·(v·S -
+        1)`` at ``pipeline.py:692-699``, is the ppermutes in the compiled
+        scan body, each run once a tick.)"""
+        return 2 * self.chunks * self.parts * (self.n_virtual - 1)
 
     def halo_shift_count(self, x_shape, dtype=torch.float32) -> int:
         """Forward halo shifts of the spatial front in one pass over one
@@ -382,9 +427,11 @@ class PipelineTrainer:
     def num_ticks(self) -> int:
         return self.parts + self.n_virtual - 1
 
-    def work(self, t: int) -> list[tuple[int, int]]:
-        """``(virtual stage, micro-batch)`` pairs this rank runs at tick ``t``."""
-        return [(k, t - k) for k in self.hosted if 0 <= t - k < self.parts]
+    def work(self, t: int, hosted=None) -> list[tuple[int, int]]:
+        """``(virtual stage, micro-batch)`` pairs this rank runs at tick ``t``
+        (of its ``hosted`` stages; default :attr:`hosted`)."""
+        hosted = self.hosted if hosted is None else hosted
+        return [(k, t - k) for k in hosted if 0 <= t - k < self.parts]
 
     # -- not in this slice ---------------------------------------------------
     def collective_deltas(self, *args, **kwargs):
@@ -482,15 +529,17 @@ class PipelineTrainer:
         if grid.rings is None:
             open_rings(grid, self.device, slot_bytes=need)
 
-    def _rows(self, m: int) -> slice:
-        """This replica's rows of micro-batch ``m`` of the global batch."""
-        mb = self.config.batch_size // self.parts
-        return self.config.replica_rows(self.layout.d, m * mb, mb)
+    def _rows(self, m: int, c: int = 0) -> slice:
+        """This replica's rows of micro-batch ``m`` of chunk ``c`` of the
+        global batch (chunk ``c`` is rows ``[c·B, (c+1)·B)``)."""
+        b = self.config.batch_size
+        mb = b // self.parts
+        return self.config.replica_rows(self.layout.d, c * b + m * mb, mb)
 
-    def _back_rows(self, m: int) -> slice:
-        """The rows of micro-batch ``m`` that this rank's back stages run:
-        :meth:`_rows`, or its tile's slice under LOCAL_DP_LP."""
-        rows = self._rows(m)
+    def _back_rows(self, m: int, c: int = 0) -> slice:
+        """The rows of micro-batch ``m`` of chunk ``c`` that this rank's back
+        stages run: :meth:`_rows`, or its tile's slice under LOCAL_DP_LP."""
+        rows = self._rows(m, c)
         if self.local_dp == 1:
             return rows
         start = rows.start + self._tile_index() * self.mb_back
@@ -508,14 +557,15 @@ class PipelineTrainer:
         k, idx = self.mb_back, self._tile_index()
         return _unflat([t[idx * k:(idx + 1) * k] for t in _flat(h)], isinstance(h, tuple))
 
-    def _front(self, x) -> dict:
-        """The front of this rank's micro-batches (:attr:`front_mbs`), one at
-        a time on its tile, joined over the tile group and cut by
-        :meth:`_back_inputs`: ``{m: state}`` with its autograd graph
-        (``_front``, ``pipeline.py:434-472``)."""
+    def _front(self, x, c: int = 0) -> dict:
+        """The front of this rank's micro-batches (:attr:`front_mbs`) of
+        chunk ``c``, one at a time on its tile, joined over the tile group
+        and cut by :meth:`_back_inputs`: ``{m: state}`` with its autograd
+        graph (``_front``, ``pipeline.py:434-472``)."""
         out = {}
         for m in self.front_mbs:
-            h = self.input_to_device(split_tiles(torch.as_tensor(x[self._rows(m)]), self.grid))
+            h = self.input_to_device(split_tiles(torch.as_tensor(x[self._rows(m, c)]),
+                                                 self.grid))
             if h.is_cuda:
                 self._size_rings(h)
             for i in self.front_cells:
@@ -524,18 +574,19 @@ class PipelineTrainer:
             out[m] = self._back_inputs(h)
         return out
 
-    def _ship_front(self, front_out) -> dict:
-        """Every micro-batch's front output to pipe 0 of this ``(d, i,
-        j)``: ``{m: leaf tensors}`` there (empty elsewhere), each a leaf
-        whose gradient stage 0's backward fills."""
+    def _ship_front(self, front_out, first: int) -> dict:
+        """Every micro-batch's front output to pipe coordinate ``first`` (the
+        one that runs stage 0 in this chunk) of this ``(d, i, j)``: ``{m:
+        leaf tensors}`` there (empty elsewhere), each a leaf whose gradient
+        stage 0's backward fills."""
         is_tuple, specs = self.front_wire
         for m, h in front_out.items():
             got = [(tuple(t.shape), t.dtype) for t in _flat(h)]
             if isinstance(h, tuple) != is_tuple or got != specs:
                 raise RuntimeError(f"the front sent {got}, the plan says {specs}")
         sends, recvs, leaves = [], [], {}
-        if self.pipe != 0:
-            sends = [(self._to_wire(t.detach()), 0) for m in self.front_mbs
+        if self.pipe != first:
+            sends = [(self._to_wire(t.detach()), first) for m in self.front_mbs
                      for t in _flat(front_out[m])]
         else:
             for m in range(self.parts):
@@ -548,22 +599,22 @@ class PipelineTrainer:
         return {m: [u.requires_grad_(u.is_floating_point()) for u in us]
                 for m, us in leaves.items()}
 
-    def _front_backward(self, front_out, leaves) -> None:
-        """Stage 0's input gradients back to the pipe coordinates that ran
-        each micro-batch's front, then the front's backward there, one
-        micro-batch at a time in order (every rank of a tile group makes
-        the same collectives)."""
+    def _front_backward(self, front_out, leaves, first: int) -> None:
+        """Stage 0's input gradients from pipe coordinate ``first`` back to
+        the pipe coordinates that ran each micro-batch's front, then the
+        front's backward there, one micro-batch at a time in order (every
+        rank of a tile group makes the same collectives)."""
         sends, recvs, grads = [], [], {}
         for m, us in leaves.items():
             g = [u.grad if u.grad is not None else torch.zeros_like(u) for u in us]
-            if self.front_owner(m) == 0:
+            if self.front_owner(m) == self.pipe:
                 grads[m] = g
             else:
                 sends += [(self._to_wire(t), self.front_owner(m)) for t in g]
-        if self.pipe != 0:
+        if self.pipe != first:
             for m in self.front_mbs:
                 grads[m] = self._buffers(self.front_wire[1])
-                recvs += [(u, 0) for u in grads[m]]
+                recvs += [(u, first) for u in grads[m]]
         self._exchange(sends, recvs)
         for m in self.front_mbs:
             outs = _flat(front_out.pop(m))
@@ -621,25 +672,62 @@ class PipelineTrainer:
                                  lambda t, g=group: dist.all_reduce(t, group=g))
 
     def train_step(self, x, y) -> dict:
-        b, s = self.config.batch_size, self.config.image_size
+        b, s = self.chunks * self.config.batch_size, self.config.image_size
         if tuple(x.shape[:3]) != (b, s, s) or tuple(y.shape) != (b,):
+            what = (f"{self.chunks} chunks of batch {self.config.batch_size}"
+                    if self.chunks > 1 else f"batch {b}")
             raise ValueError(
                 f"batch x{tuple(x.shape)} y{tuple(y.shape)} does not match the "
-                f"config (batch {b}, image {s}x{s}, NHWC)")
-        S, nv, pipe = self.S, self.n_virtual, self.pipe
-        hosts_first, hosts_last = 0 in self.hosted, nv - 1 in self.hosted
+                f"config ({what}, image {s}x{s}, NHWC)")
         th, tw = self.config.tile_shape
         # The psum of the contributions is the mean (``_reduce_metrics``).
-        n = self.parts * self.mb_local * self.dp * (1 if self.local_dp > 1 else th * tw)
+        n = (self.chunks * self.parts * self.mb_local * self.dp
+             * (1 if self.local_dp > 1 else th * tw))
         self.opt.zero_grad(set_to_none=True)
         self.transfers = 0
-        front_out, leaves = {}, {}
         if self.n_spatial_cells:
             dist.barrier()  # every rank enters the step's swaps together
-            front_out = self._front(x)
-            leaves = self._ship_front(front_out)
+        self._begin_step()
+        ce_sum = torch.zeros((), dtype=self.loss_dtype, device=self.device)
+        cc_sum = torch.zeros((), dtype=self.loss_dtype, device=self.device)
+        for c in range(self.chunks):
+            ce, cc = self._chunk(x, y, c, self.chunk_mirror(c), n)
+            ce_sum, cc_sum = ce_sum + ce, cc_sum + cc
+        self._end_chunks()
+        self._reduce_grads()
+        self.opt.step()
+        self.step += 1
+        metrics = torch.stack([ce_sum / n, cc_sum / n])
+        dist.all_reduce(metrics)  # over the world; the other ranks contribute zeros
+        if self.grid is not None and self.grid.rings is not None:
+            # A K4 wait that ran out raises here, at the step's sync.
+            torch.cuda.current_stream(self.device).synchronize()
+            self.grid.rings.check()
+        return {"loss": metrics[0], "accuracy": metrics[1]}
+
+    def _begin_step(self) -> None:
+        """Work before a step's chunks (GEMS: the mirror copy's parameters)."""
+
+    def _end_chunks(self) -> None:
+        """Work after a step's chunks, before the gradient sums (GEMS: the
+        mirror copy's gradients back to their owner)."""
+
+    def _chunk(self, x, y, c: int, mirror: bool, n: int):
+        """Chunk ``c`` of the step (rows ``[c·B, (c+1)·B)``) in the normal
+        or the ``mirror`` placement: the front, the fill-drain forward and
+        backward, the front's backward; the parameter gradients add up.
+        Returns this rank's summed cross-entropy and correct count of the
+        chunk (zero off the last stage)."""
+        S, nv, pipe = self.S, self.n_virtual, self.pipe
+        hosted = stages_of_device(pipe, S, self.v, mirror)
+        hosts_first, hosts_last = 0 in hosted, nv - 1 in hosted
+        dev = functools.partial(self.dev_of, mirror=mirror)
+        front_out, leaves = {}, {}
+        if self.n_spatial_cells:
+            front_out = self._front(x, c)
+            leaves = self._ship_front(front_out, dev(0))
         elif hosts_first:
-            leaves = {m: [self.input_to_device(x[self._back_rows(m)])]
+            leaves = {m: [self.input_to_device(x[self._back_rows(m, c)])]
                       for m in range(self.parts)}
         ys = torch.as_tensor(y).to(self.device, torch.long) if hosts_last else None
         inbox, stage_in, stage_out, terms = {}, {}, {}, {}
@@ -648,7 +736,7 @@ class PipelineTrainer:
 
         # Forward: tick t runs (k, t - k) for each hosted k in range.
         for t in range(self.num_ticks()):
-            work = self.work(t)
+            work = self.work(t, hosted)
             sends = []
             with self._tick("fwd", t, work):
                 for k, m in work:
@@ -660,7 +748,7 @@ class PipelineTrainer:
                     stage_in[(k, m)] = h
                     out = self._run_stage(k, h)
                     if k == nv - 1:
-                        yc = ys[self._back_rows(m)]
+                        yc = ys[self._back_rows(m, c)]
                         ce = cross_entropy_sum(out, yc)
                         terms[(k, m)] = ce / n
                         ce_sum = ce_sum + ce.detach()
@@ -670,16 +758,16 @@ class PipelineTrainer:
                         out = _unflat([self._to_wire(u) for u in _flat(out)],
                                       isinstance(out, tuple))
                         stage_out[(k, m)] = out
-                        sends += [(u.detach(), (k + 1) % S) for u in _flat(out)]
+                        sends += [(u.detach(), dev(k + 1)) for u in _flat(out)]
                         self.transfers += 1
-            # Wires k' that pipe coordinate (k' % S) sends this tick to this one.
+            # Wires k' that pipe coordinate dev(k') sends this tick to this one.
             recvs, keys = [], []
             for k2 in range(nv - 1):
                 m2 = t - k2
-                if (k2 + 1) % S == pipe and 0 <= m2 < self.parts:
+                if dev(k2 + 1) == pipe and 0 <= m2 < self.parts:
                     bufs = self._recv_buffers(k2)
                     keys.append(((k2, m2), bufs))
-                    recvs += [(u, k2 % S) for u in bufs]
+                    recvs += [(u, dev(k2)) for u in bufs]
             self._exchange(sends, recvs)
             for key, bufs in keys:
                 inbox[key] = bufs
@@ -687,7 +775,7 @@ class PipelineTrainer:
         # Backward: the ticks in reverse.
         grad_inbox = {}
         for t in reversed(range(self.num_ticks())):
-            work = self.work(t)
+            work = self.work(t, hosted)
             sends = []
             with self._tick("bwd", t, work):
                 for k, m in work:
@@ -704,34 +792,24 @@ class PipelineTrainer:
                     if k > 0:
                         gin = [u.grad if u.grad is not None else torch.zeros_like(u)
                                for u in _flat(h)]
-                        sends += [(self._to_wire(g), (k - 1) % S) for g in gin]
+                        sends += [(self._to_wire(g), dev(k - 1)) for g in gin]
                         self.transfers += 1
             # Gradients of wire k' (stage k' on this rank) that stage k' + 1
             # sends back this reverse tick.
             recvs, keys = [], []
             for k2 in range(nv - 1):
                 m2 = t - (k2 + 1)
-                if k2 % S == pipe and 0 <= m2 < self.parts:
+                if dev(k2) == pipe and 0 <= m2 < self.parts:
                     bufs = self._recv_buffers(k2)
                     keys.append(((k2, m2), bufs))
-                    recvs += [(u, (k2 + 1) % S) for u in bufs]
+                    recvs += [(u, dev(k2 + 1)) for u in bufs]
             self._exchange(sends, recvs)
             for key, bufs in keys:
                 grad_inbox[key] = bufs
 
         if self.n_spatial_cells:
-            self._front_backward(front_out, leaves)
-        del leaves
-        self._reduce_grads()
-        self.opt.step()
-        self.step += 1
-        metrics = torch.stack([ce_sum / n, cc_sum / n])
-        dist.all_reduce(metrics)  # over the world; the other ranks contribute zeros
-        if self.grid is not None and self.grid.rings is not None:
-            # A K4 wait that ran out raises here, at the step's sync.
-            torch.cuda.current_stream(self.device).synchronize()
-            self.grid.rings.check()
-        return {"loss": metrics[0], "accuracy": metrics[1]}
+            self._front_backward(front_out, leaves, dev(0))
+        return ce_sum, cc_sum
 
     # -- state: params, momentum, step ---------------------------------------
     def _cells(self) -> list:
@@ -836,7 +914,105 @@ class PipelineTrainer:
 
 
 class GemsMasterTrainer(PipelineTrainer):
-    """GEMS-MASTER (``pipeline.py:942``): not in this slice."""
+    """GEMS-MASTER (``pipeline.py:942-1058``): bidirectional pipeline pairs
+    with one parameter copy (see the module docstring).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"GemsMasterTrainer comes with {_GEMS}")
+    Takes :class:`PipelineTrainer`'s arguments (gpipe only, no ``mirror``:
+    the trainer places both directions itself). ``train_step(x, y)`` takes
+    the whole ``[2·times·batch_size, H, W, C]`` batch (JAX ``shard_batch``,
+    ``pipeline.py:1045-1058``): chunk ``c`` is rows ``[c·B, (c+1)·B)``, the
+    even chunks run the normal placement and the odd ones the mirrored. The
+    step equals ``Trainer(grad_accum=chunks·parts)``'s on the same rows.
+
+    :attr:`partner` is the pipe coordinate ``S-1-p`` whose stage this rank
+    copies; :attr:`mirror_bytes` the bytes this rank sent in the last step's
+    two mirror exchanges; :attr:`transfers` counts them beside the stage
+    wires (:meth:`mirror_exchange_count`).
+    """
+
+    def __init__(self, model: nn.Module, config: ParallelConfig, *, schedule: str = "gpipe",
+                 mirror: bool = False, **kwargs):
+        self.check_schedule(schedule)
+        if mirror:
+            raise ValueError("GemsMasterTrainer places both directions itself: it takes no "
+                             "mirror=True")
+        super().__init__(model, config, schedule=schedule, **kwargs)
+        self.partner = self.S - 1 - self.pipe
+        # The cells of the copy of stage S-1-p (none on a middle coordinate).
+        self.copy_cells = [] if self.partner == self.pipe else list(self.stages[self.partner])
+        for i in self.copy_cells:
+            model[i].to(device=self.device, memory_format=self.memory_format)
+        self.mirror_bytes = 0
+
+    @staticmethod
+    def check_schedule(schedule: str) -> None:
+        """Refuse any schedule but gpipe (JAX's message, ``pipeline.py:974-981``)."""
+        if schedule != "gpipe":
+            raise ValueError(
+                "GemsMasterTrainer runs the gpipe schedule: the GEMS pair fills bubbles with "
+                "the mirrored direction, not by interleaving virtual stages")
+
+    @property
+    def chunks(self) -> int:
+        return 2 * self.config.times
+
+    def chunk_mirror(self, c: int) -> bool:
+        return c % 2 == 1
+
+    def mirror_exchange_count(self) -> int:
+        """Mirror transfers of one step over the ranks of one pipe group:
+        every coordinate but a middle one sends its stage's parameters and
+        its copy's gradients."""
+        return 4 * (self.S // 2)
+
+    def _own_params(self) -> list:
+        return [p for k in self.hosted for i in self.stages[k]
+                for p in self.model[i].parameters()]
+
+    def _copy_params(self) -> list:
+        return [p for i in self.copy_cells for p in self.model[i].parameters()]
+
+    def _swap(self, tensors, into) -> torch.Tensor:
+        """Send ``tensors`` packed to :attr:`partner`; returns the packed
+        vector it sends back, as many values as ``into`` holds."""
+        buf = torch.empty(sum(t.numel() for t in into), dtype=_pack_dtype(into),
+                          device=self.device)
+        flat = _pack(tensors)
+        self._exchange([(flat, self.partner)], [(buf, self.partner)])
+        self.transfers += 1
+        self.mirror_bytes += flat.numel() * flat.element_size()
+        return buf
+
+    def _begin_step(self) -> None:
+        """The owner's parameters of stage ``p`` to ``S-1-p``; this rank's
+        copy of stage ``S-1-p`` takes its owner's."""
+        self.mirror_bytes = 0
+        if not self.copy_cells:
+            return
+        own, copy = self._own_params(), self._copy_params()
+        buf = self._swap(own, copy)
+        off = 0
+        with torch.no_grad():
+            for p in copy:
+                p.copy_(buf[off:off + p.numel()].view(p.shape))
+                p.grad = None
+                off += p.numel()
+
+    def _end_chunks(self) -> None:
+        """The copy's gradients (the mirrored chunks') back to their owner,
+        added to the owner's own."""
+        if not self.copy_cells:
+            return
+        own, copy = self._own_params(), self._copy_params()
+        buf = self._swap([p.grad if p.grad is not None else torch.zeros_like(p)
+                          for p in copy], own)
+        off = 0
+        for p in own:
+            g = buf[off:off + p.numel()].view(p.shape).to(p.dtype)
+            if p.grad is None:
+                p.grad = torch.empty_like(p).copy_(g)
+            else:
+                p.grad.add_(g)
+            off += p.numel()
+        for p in copy:
+            p.grad = None

@@ -264,7 +264,9 @@ def pipeline_layout(model: nn.Module, stages, placement):
     """``(offsets, max_p)`` of the stacked layout: ``offsets[d]`` lists
     ``(virtual stage, offset, size)`` of each stage device ``d`` hosts,
     in its row (``pipeline.py:397-407``); ``stages`` lists each virtual
-    stage's cell indices, ``placement[d]`` the stages of device ``d``."""
+    stage's cell indices, ``placement[d]`` the stages of device ``d``
+    (``[S-1-d]`` on the mirror placement; a GEMS trainer's is the normal
+    one: the copy of the mirrored stage is not in the layout)."""
     cells = list(model)
     sizes = [cells_size(cells[i] for i in st) for st in stages]
     offsets, rows = [], []

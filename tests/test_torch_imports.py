@@ -25,6 +25,11 @@ LP_TWINS = ("benchmarks.layer_parallelism.benchmark_resnet_lp",
             "benchmarks.layer_parallelism.benchmark_amoebanet_lp")
 SP_TWINS = ("benchmarks.spatial_parallelism.benchmark_resnet_sp",
             "benchmarks.spatial_parallelism.benchmark_amoebanet_sp")
+GEMS_TWINS = ("benchmarks.gems_master_model.benchmark_resnet_gems_master",
+              "benchmarks.gems_master_model.benchmark_amoebanet_gems_master",
+              "benchmarks.gems_master_with_spatial_parallelism.benchmark_resnet_gems_master_with_sp",
+              "benchmarks.gems_master_with_spatial_parallelism."
+              "benchmark_amoebanet_gems_master_with_sp")
 PORT_MODULES = sorted(
     _module_name(p) for p in (REPO / "mpi4dl_tpu_torch").rglob("*.py")
 )
@@ -42,7 +47,7 @@ def test_port_modules_listed():
     assert "mpi4dl_tpu_torch.flops" in PORT_MODULES
     for name in ("evaluate", "checkpoint", "serialization", "data", "native",
                  "convergence_run", "parser", "parallel.partition", "parallel.pipeline",
-                 "benchmarks.common", *LP_TWINS, *SP_TWINS):
+                 "benchmarks.common", *LP_TWINS, *SP_TWINS, *GEMS_TWINS):
         assert f"mpi4dl_tpu_torch.{name}" in PORT_MODULES
 
 
@@ -98,4 +103,10 @@ def test_lp_twins_without_device_refuse_without_cuda(twin):
 @pytest.mark.parametrize("twin", SP_TWINS)
 def test_sp_twins_without_device_refuse_without_cuda(twin):
     """The SP twins, likewise."""
+    _refuses_without_cuda(twin)
+
+
+@pytest.mark.parametrize("twin", GEMS_TWINS)
+def test_gems_twins_without_device_refuse_without_cuda(twin):
+    """The GEMS twins, likewise."""
     _refuses_without_cuda(twin)

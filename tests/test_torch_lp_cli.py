@@ -7,8 +7,10 @@ Median ... img/s`` line (no MFU on the CPU, as the JAX runner). Also: a
 ResNet checkpoint resumes (``--resume`` passes over the restored step and
 trains on from it), the 1F1B schedule runs through
 ``MPI4DL_TPU_PIPELINE_SCHEDULE``, ``--split-size 1`` takes the
-single-device ``Trainer``, and the flags not ported yet (``--max-restarts
-1``, ``--trace-dir``) and a GEMS ``--times 2`` raise."""
+single-device ``Trainer``, the flags not ported yet (``--max-restarts 1``,
+``--trace-dir``) raise, and so does the GEMS twin's ``--times 2`` under
+``MPI4DL_TPU_PIPELINE_SCHEDULE=1f1b`` (GEMS runs gpipe only), before any
+rank starts."""
 
 import os
 import re
@@ -30,12 +32,12 @@ MEAN = re.compile(r"^benchmark_(resnet|amoebanet)_lp: Mean [0-9.]+ img/s Median 
                   re.M)
 
 
-def _run(model, argv, timeout=240, **env):
+def _run(model, argv, timeout=240, twin="layer_parallelism.benchmark_{}_lp", **env):
     full_env = dict(os.environ, PYTHONPATH=REPO, MPI4DL_TPU_RESNET_N="2", OMP_NUM_THREADS="1",
                     **env)
     return subprocess.run(
-        [sys.executable, "-m", f"mpi4dl_tpu_torch.benchmarks.layer_parallelism.benchmark_{model}_lp",
-         *argv], cwd=REPO, env=full_env, capture_output=True, text=True, timeout=timeout)
+        [sys.executable, "-m", f"mpi4dl_tpu_torch.benchmarks.{twin.format(model)}", *argv],
+        cwd=REPO, env=full_env, capture_output=True, text=True, timeout=timeout)
 
 
 @pytest.mark.parametrize("model", sorted(CASES))
@@ -75,18 +77,23 @@ def test_split_size_one_takes_the_trainer():
     assert "ranks" not in out.stdout and MEAN.search(out.stdout)
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--max-restarts", "1"], "--max-restarts"),
-    (["--trace-dir", "tr"], "--trace-dir"),
-    (["--times", "2"], "GEMS"),
-    (["--spatial-size", "1"], None),  # the LP twins run no spatial front: ignored, as JAX's
+_GEMS_1F1B = dict(twin="gems_master_model.benchmark_{}_gems_master",
+                  MPI4DL_TPU_PIPELINE_SCHEDULE="1f1b")
+
+
+@pytest.mark.parametrize("flags,match,exc,run_kw", [
+    (["--max-restarts", "1"], "--max-restarts", "NotImplementedError", {}),
+    (["--trace-dir", "tr"], "--trace-dir", "NotImplementedError", {}),
+    (["--times", "2"], "gpipe schedule", "ValueError", _GEMS_1F1B),  # GEMS under 1F1B
+    (["--spatial-size", "1"], None, None, {}),  # the LP twins run no spatial front: ignored, as JAX's
 ], ids=["max_restarts", "trace_dir", "gems_times", "spatial_size_ignored"])
-def test_unported_flags_raise(flags, match):
+def test_unported_flags_raise(flags, match, exc, run_kw):
     out = _run("amoebanet", ["--device", "cpu", "--max-steps", "0", "--num-layers", "3",
-                             "--num-filters", "32", "--batch-size", "2", "--parts", "2", *flags])
+                             "--num-filters", "32", "--batch-size", "2", "--parts", "2", *flags],
+               **run_kw)
     if match is None:
         assert out.returncode == 0, out.stderr[-3000:]
         return
     assert out.returncode != 0
-    assert "NotImplementedError" in out.stderr and match in out.stderr
+    assert exc in out.stderr and match in out.stderr
     assert "ranks" not in out.stdout  # refused before any rank starts

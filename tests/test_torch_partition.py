@@ -139,12 +139,12 @@ def test_config_pipeline_fields_match_jax(kwargs):
     (dict(batch_size=4, split_size=0), ValueError),
     (dict(batch_size=4, parts=2, split_size=2, balance=(1, 2, 3)), ValueError),
     # What stays refused since the SP+LP slice lifted the front, DP and
-    # local DP: local DP without a front or off the tile count, an
-    # increasing skewed list, and GEMS.
+    # local DP, and the GEMS slice ``times > 1``: local DP without a front
+    # or off the tile count, an increasing skewed list, and ``times < 1``.
     (dict(batch_size=4, split_size=2, spatial_size=1, num_spatial_parts=(2, 4)), ValueError),
     (dict(batch_size=4, split_size=2, spatial_size=1, local_dp=2), ValueError),
     (dict(batch_size=4, split_size=2, local_dp=4), ValueError),
-    (dict(batch_size=4, split_size=2, times=2), NotImplementedError),
+    pytest.param(dict(batch_size=4, split_size=2, times=0), ValueError, id="times_below_one"),
     (dict(batch_size=4, split_size=2, precision="fp16"), ValueError),
 ])
 def test_config_refusals(kwargs, exc):

@@ -441,12 +441,12 @@ def _refused(kwargs, trainer_kwargs, exc, match):
 @pytest.mark.parametrize("kwargs,trainer_kwargs,exc,match", [
     (dict(split_size=2, spatial_size=2), {}, ValueError, "at least one LP stage"),
     (dict(split_size=2), dict(num_spatial_cells=2), ValueError, "needs a spatial front"),
-    (dict(split_size=2), dict(mirror=True), NotImplementedError, "mirror"),
+    (dict(split_size=2), dict(mirror=True, gems=True), ValueError, "mirror"),
     (dict(split_size=2), dict(mirror=True, schedule="1f1b"), ValueError, "mirror"),
     (dict(split_size=2, data_parallel=3), {}, ValueError, "data_parallel"),
     (dict(split_size=2, local_dp=4), {}, ValueError, "local_dp"),
-    (dict(split_size=2, times=2), {}, NotImplementedError, "GEMS"),
-    (dict(split_size=2), dict(gems=True), NotImplementedError, "GemsMasterTrainer"),
+    (dict(split_size=2, times=2), dict(gems=True, schedule="1f1b"), ValueError, "gpipe"),
+    (dict(split_size=2), dict(gems=True, schedule="1f1b"), ValueError, "GemsMasterTrainer"),
     (dict(split_size=4), dict(schedule="1f1b"), ValueError, "virtual stages"),
     (dict(split_size=2), dict(schedule="1f1b", virtual_stages=3), ValueError, "virtual stages"),
     (dict(split_size=2), dict(schedule="1f1b", virtual_stages=1), ValueError, "virtual_stages"),

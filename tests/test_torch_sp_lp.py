@@ -28,8 +28,9 @@ the spatial ``Trainer(grad_accum=parts)`` on pipe coordinate 0's tile grid
 alone (a group inside the 4-rank world, as ``chip_smoke.py``'s q2 runs
 it) against the JAX pipeline's first step; the layout's coordinates and
 groups against the JAX mesh's device order.
-``tests/test_torch_sp_dp.py`` and ``tests/test_torch_sp_models.py`` hold the
-other layouts with this file's helpers.
+``tests/test_torch_sp_dp.py``, ``tests/test_torch_sp_models.py`` and the
+GEMS files (``tests/test_torch_gems*.py``, trainer kinds ``gems`` and
+``mirror``) hold the other layouts with this file's helpers.
 """
 
 import itertools
@@ -172,15 +173,23 @@ def replicated(state, mesh):
                       step=jax.device_put(state.step, rep))
 
 
+def chunks_of(spec) -> int:
+    """Chunks of ``batch_size`` rows a step: ``2·times`` for GEMS, else 1."""
+    return 2 * spec[2].get("times", 1) if spec[4] == "gems" else 1
+
+
 def jax_run(case, spec, ckpt_dir=None):
     """One JAX run: init params, per step loss / accuracy / params, the
     trainer, its halo shift count; with ``ckpt_dir`` a checkpoint after
-    step 0 and the state it holds."""
+    step 0 and the state it holds. The trainer kinds: ``trainer``,
+    ``pipeline``, ``mirror`` (the pipeline's mirror placement) and ``gems``
+    (``GemsMasterTrainer``, ``chunks_of(spec)`` chunks of the batch)."""
     import jax
     import jax.numpy as jnp
 
     from mpi4dl_tpu import checkpoint as jax_ckpt
     from mpi4dl_tpu.ops import layers as jax_layers
+    from mpi4dl_tpu.parallel.pipeline import GemsMasterTrainer as JaxGems
     from mpi4dl_tpu.parallel.pipeline import PipelineTrainer as JaxPipeline
     from mpi4dl_tpu.train import Trainer as JaxTrainer, TrainState
 
@@ -196,8 +205,10 @@ def jax_run(case, spec, ckpt_dir=None):
             state = tr.init(jax.random.PRNGKey(0), (1, size, size, 3))
             params = state.params
         else:
-            tr = JaxPipeline(cells, jcfg, plain_cells=plain, learning_rate=LR,
-                             schedule=schedule, num_spatial_cells=override)
+            cls, kw = ((JaxGems, {}) if kind == "gems"
+                       else (JaxPipeline, {"mirror": kind == "mirror", "schedule": schedule}))
+            tr = cls(cells, jcfg, plain_cells=plain, learning_rate=LR,
+                     num_spatial_cells=override, **kw)
             params = jax.jit(tr.init_params)(jax.random.PRNGKey(0))
             state = replicated(TrainState(params=params, opt_state=tr.tx.init(params),
                                           step=jnp.zeros((), jnp.int32)), tr.mesh)
@@ -205,7 +216,7 @@ def jax_run(case, spec, ckpt_dir=None):
                "trainer": tr}
         if kind == "pipeline":
             out["halo_shifts"] = tr.halo_shift_count(state, (cfg["batch_size"], size, size, 3))
-        for i, (x, y) in enumerate(batches(cfg["batch_size"], size)):
+        for i, (x, y) in enumerate(batches(chunks_of(spec) * cfg["batch_size"], size)):
             state, m = tr.train_step(state, *tr.shard_batch(jnp.asarray(x), jnp.asarray(y)))
             out["loss"].append(float(m["loss"]))
             out["acc"].append(float(m["accuracy"]))
@@ -235,7 +246,7 @@ def run_case(rank, case, spec, init, ckpt_from=None, ckpt_to=None, eval_params=N
 
     from mpi4dl_tpu_torch import checkpoint
     from mpi4dl_tpu_torch.parallel.multihost import RankLayout
-    from mpi4dl_tpu_torch.parallel.pipeline import PipelineTrainer
+    from mpi4dl_tpu_torch.parallel.pipeline import GemsMasterTrainer, PipelineTrainer
     from mpi4dl_tpu_torch.train import Trainer
     from mpi4dl_tpu_torch.weights import flatten_cells, from_jax_params, from_jax_pipeline_params
 
@@ -249,8 +260,12 @@ def run_case(rank, case, spec, init, ckpt_from=None, ckpt_to=None, eval_params=N
         if kind == "trainer":
             return Trainer(model, cfg, learning_rate=LR, device="cpu",
                            num_spatial_cells=override or n_sp, grid=layout.grid)
+        if kind == "gems":
+            return GemsMasterTrainer(model, cfg, learning_rate=LR, device="cpu",
+                                     num_spatial_cells=override, layout=layout)
         return PipelineTrainer(model, cfg, learning_rate=LR, device="cpu", schedule=schedule,
-                               num_spatial_cells=override, layout=layout)
+                               num_spatial_cells=override, layout=layout,
+                               mirror=kind == "mirror")
 
     if kind == "pipe0_trainer":
         return pipe0_trainer(rank, spec, init, cfg, layout, build(), n_sp)
@@ -259,20 +274,26 @@ def run_case(rank, case, spec, init, ckpt_from=None, ckpt_to=None, eval_params=N
         from_jax_params(init, tr.model)
     else:
         from_jax_pipeline_params(init, tr.model, tr.stages, tr.placement)
-    out = {"loss": [], "acc": [], "params": [],
+    out = {"loss": [], "acc": [], "params": [], "transfers": [],
            "groups": (layout.grid.ranks, layout.pipe_ranks(), layout.replica_ranks())}
-    if kind == "pipeline":
+    if kind != "trainer":
         out["halo_shifts"] = tr.halo_shift_count((cfg.batch_size, size, size, 3))
         out["front_wire"] = [s for s, _ in tr.front_wire[1]]
         out["wires"] = [[s for s, _ in specs] for _, specs in tr.wires]
-    for i, (x, y) in enumerate(batches(cfg.batch_size, size)):
+        out["permute_count"] = (tr.stage_permute_count()
+                                + getattr(tr, "mirror_exchange_count", lambda: 0)())
+    for i, (x, y) in enumerate(batches(chunks_of(spec) * cfg.batch_size, size)):
         m = tr.train_step(x, y)
         out["loss"].append(float(m["loss"]))
         out["acc"].append(float(m["accuracy"]))
         if kind == "trainer":
             out["params"].append(flatten_cells(list(tr.model)).numpy())
         else:
+            total = torch.tensor([tr.transfers])
+            dist.all_reduce(total)  # over the world: every pipe group's
+            out["transfers"].append(int(total))
             out["params"].append((tr.front_flat(), tr.stacked_rows()))
+            out["mirror_bytes"] = getattr(tr, "mirror_bytes", None)
         if ckpt_to and i == 0:
             checkpoint.save_checkpoint(ckpt_to, tr)
             out["saved_momentum"] = (tr.front_flat("momentum"), tr.stacked_rows("momentum"))
@@ -283,7 +304,8 @@ def run_case(rank, case, spec, init, ckpt_from=None, ckpt_to=None, eval_params=N
         checkpoint.restore_checkpoint(ckpt_from, fresh)
         out["restored"] = (fresh.front_flat(), fresh.stacked_rows(), fresh.front_flat("momentum"),
                            fresh.stacked_rows("momentum"), fresh.step)
-        out["restored_loss"] = float(fresh.train_step(*batches(cfg.batch_size, size)[1])["loss"])
+        out["restored_loss"] = float(
+            fresh.train_step(*batches(chunks_of(spec) * cfg.batch_size, size)[1])["loss"])
     dist.barrier()
     return out if rank == 0 else None
 
@@ -366,10 +388,10 @@ def world(rank, world_size, jobs):
     return {case: run_case(rank, case, *args) for case, args in jobs}
 
 
-def run_world(jobs):
+def run_world(jobs, size=WORLD):
     """Every job ``(case, (spec, init, ckpt_from, ckpt_to[, eval_params]))``
-    in one 4-rank gloo world; rank 0's records by case."""
-    return multihost.spawn(world, WORLD, args=(jobs,), timeout=600)[0]
+    in one gloo world of ``size`` ranks; rank 0's records by case."""
+    return multihost.spawn(world, size, args=(jobs,), timeout=600)[0]
 
 
 def assert_params_close(got, want, tol, what):

@@ -122,10 +122,12 @@ def test_config_matches_jax(kwargs):
 
 
 # A spatial front ahead of the pipeline and data parallelism run since the
-# SP+LP slice (tests/test_torch_sp_lp.py, test_torch_sp_dp.py); GEMS
-# (times > 1) is still refused, and local DP needs a front.
-@pytest.mark.parametrize("kwargs,exc", [(dict(split_size=2, times=2), NotImplementedError),
-                                        (dict(local_dp=4), ValueError)])
+# SP+LP slice (tests/test_torch_sp_lp.py, test_torch_sp_dp.py), GEMS
+# (times > 1) since the GEMS slice (tests/test_torch_gems*.py); times < 1
+# is refused, and local DP needs a front.
+@pytest.mark.parametrize("kwargs,exc", [
+    pytest.param(dict(split_size=2, times=0), ValueError, id="times_below_one"),
+    (dict(local_dp=4), ValueError)])
 def test_config_refuses_unported_layouts(kwargs, exc):
     with pytest.raises(exc):
         ParallelConfig(batch_size=4, image_size=SIZE, **kwargs)
@@ -144,6 +146,28 @@ def test_init_from_env_joins_a_torchrun_world(monkeypatch):
         assert (dist.get_rank(), dist.get_world_size(), dist.get_backend()) == (0, 1, "gloo")
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("cards,backend,share", [(1, "gloo", 0.5), (2, "nccl", None)])
+def test_init_from_env_shares_a_card_over_gloo(monkeypatch, cards, backend, share):
+    """Under a launcher whose host has fewer cards than ranks, a rank joins
+    over gloo with its allocator bounded to its share of the card (NCCL
+    refuses two ranks on one device); with a card each, over NCCL."""
+    seen = {}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda d: seen.setdefault("card", d))
+    monkeypatch.setattr(torch.cuda, "set_per_process_memory_fraction",
+                        lambda f: seen.setdefault("share", f))
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda b, init_method: seen.setdefault("backend", b))
+    env = dict(RANK="1", LOCAL_RANK="1", WORLD_SIZE="2", LOCAL_WORLD_SIZE="2",
+               MASTER_ADDR="localhost", MASTER_PORT="1")
+    for var, value in env.items():
+        monkeypatch.setenv(var, value)
+    multihost.init_from_env()
+    assert seen == dict(card=1 % cards, backend=backend,
+                        **({} if share is None else {"share": share}))
 
 
 def test_init_from_env_needs_the_variables(monkeypatch):
