@@ -7,6 +7,7 @@
     python3 chip_smoke.py --pipeline-only # only the build and phase p
     python3 chip_smoke.py --sp-lp-only    # only the build and phase q
     python3 chip_smoke.py --gems-only     # only the build and phase g (for a 4-card host)
+    python3 chip_smoke.py --tools-only    # only the build and the run tooling (t, e, s9)
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -25,6 +26,23 @@ Phases (any failure exits non-zero; nothing is caught):
      0, the timed steps run, and the counts are read (each kernel of the
      path must be > 0); then the first step once more with f32 compute
      (TF32 off), the spatial paths' reference;
+  t. ``mpi4dl_tpu_torch.profile_step.main`` on ResNet-110 v2 @1024 bs2 (its
+     default ``cell_save``, 2 warm-up and 2 traced steps) in this process,
+     K1-K4's counts set to 0 just before and read after: its two
+     ``mpi4dl_capture`` windows each hold one ``mpi4dl_train_step``; K2's
+     and K3's kernel events in its trace are the traced steps' share of
+     their launches, the same a step as on phase c's ResNet-110 path; the
+     report's tables printed;
+  e. the supervisor: the ResNet LP twin as a subprocess (ResNet-11 v2 @64,
+     batch 4 in 2 micro-batches, 2 ranks, bf16, ``--max-steps 4``, a
+     checkpoint every step), ``--max-restarts 1``, every rank exiting at
+     step 2 of the fresh run (``MPI4DL_TPU_CRASH_AT_STEP=2``) and
+     ``--trace-dir``: exit 0, "restarting (1/1)" and "resumed from step 2"
+     printed, the newest checkpoint at step 4, one Chrome trace a rank, each
+     with CUDA kernel events. It times nothing, and in the full run it goes
+     on beside phase v1 (whose printed seconds then include its company).
+     Its lines read ``[e] supervised`` and ``[e]`` and the twin's output;
+     phase e of d-g below, K2's checks, is another;
   m. the bench's slice, in this process:
      m1. ``python -m mpi4dl_tpu_torch.bench``'s 2048 px training points
          through the functions it calls (``bench.measure_amoeba``,
@@ -167,6 +185,15 @@ Phases (any failure exits non-zero; nothing is caught):
      s6. three exchanges, forward and backward, captured in one CUDA graph
          on every rank and replayed 3 times on new inputs, each replay
          exactly equal to the plain version;
+     s9. (last in the ranks, as p1 runs its twins) the four halo twins'
+         ``main`` (``mpi4dl_tpu_torch.benchmarks.communication.halo``) at
+         their JAX scripts' defaults with ``--impl kernel`` (the timed two
+         at ``--iterations 20 --warmup 3``), and the raw exchange's
+         ``--impl plain`` at the reference's documented configuration
+         (1024 px, halo 3, vertical 4): every validation passes and K4
+         launches on every rank of each kernel run; each median (slowest
+         rank, CUDA events) printed beside K4's row; with ``--tools-only``
+         in a 4-rank world of their own;
   p. the LP/PP pipeline (``parallel.pipeline.PipelineTrainer``), 2 stages
      on 2 rank processes: one rank per card with 2 or more cards (NCCL),
      else both on card 0 over a gloo group with the wires staged through
@@ -288,7 +315,8 @@ Phases (any failure exits non-zero; nothing is caught):
      library call, bound, launches per step of each path there) and each
      path's launch-weighted sum per step, and the layout copies that
      ``MaxPool.backward`` makes in front of K1 on the main path;
-  h. the card's name and power limit from nvidia-smi, and each path's MFU
+  h. the card's name and power limit from nvidia-smi, the run tooling's
+     seconds (t, e and s9), and each path's MFU
      (``mpi4dl_tpu_torch.flops``: 3x the forward's conv and dense FLOPs an
      image, over the card's bf16 peak).
 
@@ -904,6 +932,8 @@ def profile_step(trainer, x, y, top=15, tag="c", emit=log):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from mpi4dl_tpu_torch.profile_step import kernel_of
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
@@ -922,14 +952,15 @@ def profile_step(trainer, x, y, top=15, tag="c", emit=log):
     def total(*names):
         return sum(e.device_time_total for e in kernels if any(n in e.key for n in names)) / 1e3
 
-    # The port's kernels sit in an anonymous namespace; the "::" keeps
-    # library kernels of similar names out of the sums.
+    def port(kernel):  # by profile_step's kernel symbols
+        return sum(e.device_time_total for e in kernels if kernel_of(e.key) == kernel) / 1e3
+
     busy = total("")
     emit(f"[{tag}] profiled step: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
-         f"(idle {100 * (1 - busy / wall_ms):.1f}%), K1 {total('::pool_bwd_'):.1f} ms, "
-         f"K2 {total('::wgrad_halo_bf16<', '::wgrad_f32('):.1f} ms, "
-         f"K3 {total('::dot1x1_onepass<', '::gemm_wgmma<', '::gemm_f32<'):.1f} ms, "
-         f"K4 {total('::halo_phase_kernel<'):.1f} ms, "
+         f"(idle {100 * (1 - busy / wall_ms):.1f}%), K1 {port('K1 pool_bwd'):.1f} ms, "
+         f"K2 {port('K2 wgrad'):.1f} ms, "
+         f"K3 {port('K3 dot1x1_bwd'):.1f} ms, "
+         f"K4 {port('K4 halo_swap'):.1f} ms, "
          f"NCCL {total('ncclDevKernel'):.1f} ms, slice sums {total('::sum_splits('):.1f} ms, head pool {head_pool:.3f} ms, "
          f"{sum(e.count for e in kernels)} kernel launches")
     for e in kernels[:top]:
@@ -2343,8 +2374,10 @@ def _flat_leaves(stats):
     return out
 
 
-def _sp_worker(rank, world, backend, profile, ckpt_dir):
-    """Every spatial phase in one rank of the 4-rank world."""
+def _sp_worker(rank, world, backend, profile, ckpt_dir, twins):
+    """Every spatial phase in one rank of the 4-rank world, then phase s9's
+    halo twins ``twins`` (:func:`_launched_twins`, which ends the world's
+    group)."""
     import torch
     import torch.distributed as dist
 
@@ -2379,6 +2412,7 @@ def _sp_worker(rank, world, backend, profile, ckpt_dir):
     out["graph"] = _sp_graph(rank, grid, device, exchanges)
     halo_kernel.close_rings(grid)
     out["k4_timeout"] = _sp_k4_timeout(rank, device)
+    out["twins"] = _launched_twins(rank, world, twins)
     return out
 
 
@@ -2398,9 +2432,12 @@ def phase_spatial(calls, profile, first_loss):
     torch.cuda.empty_cache()
     t0 = time.time()
     with tempfile.TemporaryDirectory(prefix="mpi4dl-sp-ckpt-") as ckpt_dir:
-        ranks = multihost.spawn(_sp_worker, SP_RANKS, args=(backend, profile, ckpt_dir),
+        twins = _twin_specs(_halo_runs(), ckpt_dir)
+        ranks = multihost.spawn(_sp_worker, SP_RANKS,
+                                args=(backend, profile, ckpt_dir, _worker_twins(twins)),
                                 backend=backend, timeout=900, env=env)
-    log(f"[s] 4 ranks ran phases s1-s8 and v3 in {time.time() - t0:.1f} s")
+        log(f"[s] 4 ranks ran phases s1-s8, v3 and s9 in {time.time() - t0:.1f} s")
+        halo_twins = phase_halo_twins(twins, [out["twins"] for out in ranks])
 
     for i, (name, size, _, build) in enumerate(sp_small_models()):
         want = small_step(lambda: build(None), size, "cpu")
@@ -2549,6 +2586,8 @@ def phase_spatial(calls, profile, first_loss):
     timing["swap"] = swap
     timing["layout"] = desc
     timing["backend"] = backend
+    timing["halo_twins"] = halo_twins
+    timing["halo_twins_s"] = sum(wall for _, wall, _ in ranks[0]["twins"])
     cards = 1 if backend == "gloo" else SP_RANKS
     return launches, ips, cards, timing
 
@@ -2646,7 +2685,7 @@ def halo_row(timing, launches):
         "shape": f"{timed['shape']} bf16 (one exchange: 4 phase launches)",
         "layout": timing["layout"], "round_trip_ms": timing["round_trip_ms"],
         "exchanges": timing["exchanges"], "exchange_per_step": timing["exchange_per_step"],
-        "swap": swap,
+        "swap": swap, "halo_twins_median_ms": timing["halo_twins"],
     }
     lib = row["library_ms"]
     log(f"[s4] K4 at its timed exchange, {row['shape']}: kernel {row['ms']:.3f} ms, plain (CPU, "
@@ -2654,6 +2693,8 @@ def halo_row(timing, launches):
         f"{'%.3f ms' % lib if lib is not None else 'n/a (ranks share a card)'}, bound "
         f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}); launches per step "
         f"{row['launches_per_step']}")
+    log(f"[s9] beside K4's row, the halo twins' medians (ms): " + ", ".join(
+        f"{path} {ms:.4f}" for path, ms in timing["halo_twins"].items()))
     slib = swap["library_ms"]
     log(f"[s4] halo_swap a, b [{','.join(map(str, swap['shape']))}] bf16 along {swap['axis']}, "
         f"{swap['nbytes']} bytes a rank: kernel {swap['ms']:.3f} ms, library (NCCL "
@@ -3032,7 +3073,8 @@ def _launched_twins(rank, world, twins) -> list:
     ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``): it joins a process
     group of its own and ends it. The world's group ends first. The ranks
     share the start of their processes, not the twin's set-up. Returns per
-    run (this rank's standard output, the seconds of its ``main``)."""
+    run (this rank's standard output, the seconds of its ``main``, and
+    K1-K4's launches in it: every count is set to 0 just before the run)."""
     import importlib
     import io
 
@@ -3048,6 +3090,9 @@ def _launched_twins(rank, world, twins) -> list:
                           LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
                           MASTER_PORT=str(port))
         buf = io.StringIO()
+        counters = _counters()
+        for mod in counters.values():
+            mod.launch_count = 0
         t0 = time.time()
         try:
             with contextlib.redirect_stdout(buf):
@@ -3057,7 +3102,8 @@ def _launched_twins(rank, world, twins) -> list:
             os.environ.update(saved)
         if rc != 0:
             raise AssertionError(f"{twin}: main returned {rc}: {buf.getvalue()[-2000:]}")
-        out.append((buf.getvalue(), time.time() - t0))
+        out.append((buf.getvalue(), time.time() - t0,
+                    {name: mod.launch_count for name, mod in counters.items()}))
         gc.collect()  # trainers hold reference cycles
         torch.cuda.empty_cache()
     return out
@@ -3135,7 +3181,7 @@ def phase_pipeline_cli(launches, ips, cards, want, twins, outs, desc):
     rank 0's ``outs``). Each run's ranks report through
     ``MPI4DL_TPU_RUN_REPORT`` (:func:`_pp_path_report`); ``want[model]`` is
     the Trainer's K1-K3 a step (phase p2)."""
-    for (path, twin, n_ranks, _, _, _, report), (stdout, wall) in zip(twins, outs):
+    for (path, twin, n_ranks, _, _, _, report), (stdout, wall, _) in zip(twins, outs):
         reports = _twin_reports("p1", path, twin, n_ranks, report, stdout)
         _pp_path_report(path, reports, desc, want[PP_PATHS[path][0]], launches, ips, cards,
                         note=f"; through the twin's main, {wall:.1f} s in the world")
@@ -3567,7 +3613,7 @@ def phase_sp_lp_cli(launches, ips, cards, twins, outs, desc):
     launches and peak memory, and the transport."""
     import torch
 
-    for (path, twin, n_ranks, argv, _, _, report), (stdout, wall) in zip(twins, outs):
+    for (path, twin, n_ranks, argv, _, _, report), (stdout, wall, _) in zip(twins, outs):
         reports = _twin_reports("q3", path, twin, n_ranks, report, stdout)
         steps = reports[0]["counted_steps"]
         losses = reports[0]["losses"]
@@ -3917,7 +3963,7 @@ def phase_gems_cli(launches, ips, cards, want, twins, outs, descs):
 
     for path, twin, n_ranks, argv, _, _, report in twins:
         name = G_CLI[path][0]
-        stdout, wall = outs[path]
+        stdout, wall, _ = outs[path]
         reports = _twin_reports("g3", path, twin, n_ranks, report, stdout)
         steps = reports[0]["counted_steps"]
         losses = reports[0]["losses"]
@@ -3963,6 +4009,247 @@ def phase_gems_cli(launches, ips, cards, want, twins, outs, descs):
             f"{per_step} = {tiles} x Trainer(grad_accum=4)'s; {per_rank}; losses "
             f"{['%.4f' % v for v in losses]}; through the twin's main, {wall:.1f} s in the "
             f"world")
+
+
+# -- the run tooling: the halo twins (s9), the supervisor (e), profile_step (t) --
+
+HALO = "communication.halo.benchmark_sp_halo_exchange"
+_HALO_TIMED = ["--iterations", "20", "--warmup", "3"]
+# Phase s9: (path, twin module under ``mpi4dl_tpu_torch.benchmarks``, argv),
+# each at its JAX script's defaults (K4: ``--impl kernel``); the plain arm
+# at the reference's documented configuration.
+HALO_RUNS = [
+    ("halo_exchange", HALO, _HALO_TIMED),
+    ("halo_with_compute", f"{HALO}_with_compute", _HALO_TIMED),
+    ("halo_with_compute_val", f"{HALO}_with_compute_val", []),
+    ("halo_conv", f"{HALO}_conv", []),
+    ("halo_exchange_plain", HALO,
+     ["--impl", "plain", "--image-size", "1024", "--halo-len", "3", "--slice-method",
+      "vertical", "--num-spatial-parts", "4", *_HALO_TIMED]),
+]
+# The lines each twin prints when every validation passed (and its timing).
+HALO_PASSED = {
+    HALO: ("validation: PASSED", "halo exchange["),
+    f"{HALO}_with_compute": ("validation (weights=1, ref parity trick): EXACT", "halo+conv[",
+                             "sequential full-image conv: mean"),
+    f"{HALO}_with_compute_val": ("recv-halo validation: PASSED",
+                                 "conv validation (weights=bias=1.0): EXACT",
+                                 "ALL VALIDATIONS PASSED"),
+    f"{HALO}_conv": ("val-recv (kernel 3x3, halo (1,1)): PASSED", "val-conv: max|err|",
+                     "val-small-conv: PASSED", "ALL VALIDATIONS PASSED"),
+}
+
+
+def _halo_runs() -> list:
+    """Phase s9's runs for :func:`_twin_specs` (``SP_RANKS`` ranks each)."""
+    return [(path, twin, SP_RANKS, argv, {}) for path, twin, argv in HALO_RUNS]
+
+
+def phase_halo_twins(twins, outs) -> dict:
+    """Phase s9: the four halo twins (and the raw exchange's plain arm) run
+    through their ``main`` in phase s's 4-rank world (:func:`_launched_twins`;
+    ``outs`` by rank). Gates: each printed its passed validations, and K4
+    launched on every rank of each ``--impl kernel`` run. Returns each run's
+    printed median ms (the slowest rank's, CUDA events) by path."""
+    medians = {}
+    for i, (path, twin, _, argv, _, _, _) in enumerate(twins):
+        stdout, wall, _ = outs[0][i]
+        for ln in stdout.splitlines():
+            log(f"[s9] {path}: {ln}")
+        missing = [want for want in HALO_PASSED[twin] if want not in stdout]
+        if missing:
+            raise AssertionError(f"{path}: no {missing} in {stdout[-2000:]}")
+        k4 = [out[i][2]["halo_swap"] for out in outs]
+        if "plain" not in argv and not all(k4):
+            raise AssertionError(f"{path}: K4 launched {k4} times by rank")
+        timed = [ln for ln in stdout.splitlines() if ln.startswith(("halo exchange[", "halo+conv["))]
+        if timed:
+            medians[path] = float(timed[0].split("median ")[1].split(" ms")[0])
+        log(f"[s9] {path}: {wall:.1f} s in the world; K4 launches by rank {k4}")
+    smi = card()
+    log(f"[s9] halo twins' medians (slowest rank, CUDA events, ms) on {smi}: "
+        + ", ".join(f"{path} {ms:.4f}" for path, ms in medians.items()))
+    return medians
+
+
+def phase_halo_world():
+    """Phase s9 in a 4-rank world of its own (``--tools-only``: phase s
+    does not run)."""
+    from mpi4dl_tpu_torch.benchmarks.common import rank_layout
+    from mpi4dl_tpu_torch.parallel import multihost
+
+    backend, desc, env = rank_layout(SP_RANKS, DEVICE)
+    with tempfile.TemporaryDirectory(prefix="mpi4dl-halo-") as tmp:
+        twins = _twin_specs(_halo_runs(), tmp)
+        outs = multihost.spawn(_launched_twins, SP_RANKS, args=(_worker_twins(twins),),
+                               backend=backend, timeout=900, env=env)
+        log(f"[s9] {desc}")
+        return phase_halo_twins(twins, outs)
+
+
+LP_RESNET = "mpi4dl_tpu_torch.benchmarks.layer_parallelism.benchmark_resnet_lp"
+E_ARGV = ["--batch-size", "4", "--parts", "2", "--split-size", "2", "--image-size", "64",
+          "--max-steps", "4", "--checkpoint-every", "1", "--max-restarts", "1", "--verbose"]
+E_ENV = {"MPI4DL_TPU_RESNET_N": "1", "MPI4DL_TPU_CRASH_AT_STEP": "2"}
+E_RANKS = 2
+
+
+def start_supervised():
+    """Phase e, started: the ResNet LP twin (ResNet-11 v2 @64, 2 ranks)
+    supervised on the card as a user starts it, a subprocess:
+    ``--max-restarts 1``, every rank exiting at step 2 of the fresh run
+    (``MPI4DL_TPU_CRASH_AT_STEP``), a checkpoint every step, ``--trace-dir``.
+    Returns what :func:`finish_supervised` reads. Its processes start and
+    end in 60-80 s on an H100 80GB HBM3 at 700 W and time nothing: in the
+    full run it goes on beside phase v1, another subprocess whose gates time
+    nothing (v1's printed seconds then include the company)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.TemporaryDirectory(prefix="mpi4dl-e-")
+    ckpt, traces = os.path.join(tmp.name, "ckpt"), os.path.join(tmp.name, "trace")
+    env = dict(os.environ, **E_ENV, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", LP_RESNET, *E_ARGV, "--checkpoint-dir", ckpt,
+           "--trace-dir", traces, *([] if DEVICE == "cuda" else ["--device", DEVICE])]
+    proc = subprocess.Popen(cmd, cwd=here, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, tmp, time.time()
+
+
+def _end_supervisor(proc) -> None:
+    """End phase e's supervisor if it still runs: an interrupt, on which it
+    kills its child and the child's ranks (``elastic.supervise``), then a
+    kill."""
+    import signal
+
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+
+
+def stop_supervised(started) -> None:
+    """Phase e abandoned (another phase failed): its processes ended, its
+    folder removed."""
+    proc, tmp, _ = started
+    _end_supervisor(proc)
+    tmp.cleanup()
+
+
+def finish_supervised(started):
+    """Phase e, waited for and checked: exit 0; "restarting (1/1)" and
+    "resumed from step 2" printed; the newest checkpoint at step 4; one
+    Chrome trace a rank (the crashed run's ranks wrote none), each with
+    CUDA kernel events. Returns the seconds it waited."""
+    from mpi4dl_tpu_torch.checkpoint import all_checkpoints
+    from mpi4dl_tpu_torch.profile_step import kernel_of, summarize, trace_events
+
+    proc, tmp, t0 = started
+    t_wait = time.time()
+    with tmp:
+        try:
+            stdout, stderr = proc.communicate(timeout=600)
+        finally:
+            _end_supervisor(proc)
+        wall = time.time() - t0
+        ckpt, traces = os.path.join(tmp.name, "ckpt"), os.path.join(tmp.name, "trace")
+        for ln in stdout.splitlines():
+            log(f"[e] {ln}")
+        if proc.returncode != 0:
+            raise AssertionError(f"phase e exited {proc.returncode}: {stderr[-3000:]}")
+        for want in ("restarting (1/1)", "resumed from step 2"):
+            if want not in stdout:
+                raise AssertionError(f"phase e: no {want!r} in {stdout[-2000:]}")
+        steps = [step for step, _ in all_checkpoints(ckpt)]
+        if not steps or steps[-1] != 4:
+            raise AssertionError(f"phase e: checkpoints at steps {steps}, the newest not 4")
+        files = sorted(os.listdir(traces))
+        ranks = sorted(f.split("-")[1] for f in files)
+        if ranks != [f"rank{r}" for r in range(E_RANKS)]:
+            raise AssertionError(f"phase e: traces {files}, not one a rank")
+        parts = []
+        for f in files:
+            path = os.path.join(traces, f)
+            events = trace_events(path)
+            kernels = sum(1 for e in events if e.get("cat") == "kernel")
+            if DEVICE == "cuda" and not kernels:
+                raise AssertionError(f"phase e: no CUDA kernel events in {f}")
+            s = summarize(events)
+            mine = collections.Counter()
+            for name, (_, count) in s["by_name"].items():
+                mine[kernel_of(name)] += count
+            parts.append(f"{f.split('-')[1]} {os.path.getsize(path) / 2**20:.1f} MiB, "
+                         f"{kernels} kernel events, {s['total_ms']:.1f} ms device self time, "
+                         f"K2 {mine['K2 wgrad']} / K3 {mine['K3 dot1x1_bwd']} launches")
+    waited = time.time() - t_wait
+    log(f"[e] supervised ResNet-11 v2 LP twin @64 (2 ranks, crash at step 2, --max-restarts 1): "
+        f"exit 0 in {wall:.1f} s ({waited:.1f} s of it waited for), restarted once, resumed "
+        f"from step 2, checkpoints at steps {steps}; traces: {'; '.join(parts)}")
+    return waited
+
+
+T_ARGV = ["--model", "resnet", "--image-size", str(SIZE), "--batch", str(BATCH), "--steps", "2"]
+T_WARM = 2  # profile_step's warm-up steps before the traced ones
+T_KERNELS = ("wgrad", "dot1x1_bwd")  # launch on ResNet-110's path, in the trace too
+_T_SYMBOLS = {"wgrad": "K2 wgrad", "dot1x1_bwd": "K3 dot1x1_bwd"}
+
+
+def phase_profile_step(launches):
+    """Phase t: ``profile_step.main`` on ResNet-110 v2 @1024 bs2 (its
+    default ``cell_save``) in this process, K1-K4's counts set to 0 just
+    before and read after. Gates: its two ``mpi4dl_capture`` windows each
+    hold one ``mpi4dl_train_step``; K2's and K3's kernel events in the trace
+    are the traced steps' share of their launches (2 of the 4 steps), the
+    same a step as on phase c's ResNet-110 path (``launches``, when phase c
+    ran). Prints the report's tables."""
+    import io
+
+    from mpi4dl_tpu_torch import profile_step
+
+    steps = int(T_ARGV[T_ARGV.index("--steps") + 1])
+    counters = _counters()
+    for mod in counters.values():
+        mod.launch_count = 0
+    with tempfile.TemporaryDirectory(prefix="mpi4dl-t-") as out_dir:
+        buf = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            rc = profile_step.main([*T_ARGV, "--out", out_dir,
+                                    *([] if DEVICE == "cuda" else ["--device", DEVICE])])
+        wall = time.time() - t0
+        counts = {name: mod.launch_count for name, mod in counters.items()}
+        if rc != 0:
+            raise AssertionError(f"profile_step returned {rc}: {buf.getvalue()[-2000:]}")
+        for ln in buf.getvalue().splitlines():
+            log(f"[t] {ln}")
+        path = profile_step.newest_trace(out_dir)
+        events = profile_step.trace_events(path)
+        caps = profile_step.step_windows(events, "mpi4dl_capture")
+        train = profile_step.step_windows(events, "mpi4dl_train_step")
+        inside = [sum(1 for t in train if c[0] <= t[0] and t[1] <= c[1]) for c in caps]
+        if [c[2] for c in caps] != list(range(steps)) or inside != [1] * steps:
+            raise AssertionError(f"profile_step: capture windows {caps}, train-step windows "
+                                 f"{train} inside each {inside}")
+        s = profile_step.summarize(events)
+        size = os.path.getsize(path)
+        del events
+    in_trace = collections.Counter()
+    for name, (_, count) in s["by_name"].items():
+        in_trace[profile_step.kernel_of(name)] += count
+    for k in T_KERNELS:
+        per_step, rest = divmod(counts[k], T_WARM + steps)
+        traced = in_trace[_T_SYMBOLS[k]]
+        if not per_step or rest or traced != steps * per_step:
+            raise AssertionError(f"profile_step: {k} launched {counts[k]} times in "
+                                 f"{T_WARM + steps} steps, {traced} kernel events in the trace")
+        if "resnet" in launches and per_step != launches["resnet"][k] // STEPS:
+            raise AssertionError(f"profile_step: {k} {per_step} a step, phase c "
+                                 f"{launches['resnet'][k] // STEPS}")
+    log(f"[t] profile_step {' '.join(T_ARGV)}: {wall:.1f} s; trace {size / 2**20:.1f} MiB, "
+        f"{len(caps)} mpi4dl_capture windows each holding one mpi4dl_train_step; kernel events "
+        f"in the trace: K2 {in_trace['K2 wgrad']}, K3 {in_trace['K3 dot1x1_bwd']} "
+        f"(= {steps} x the launches a step)")
 
 
 def phase_k1(gen, shapes):
@@ -4304,8 +4591,12 @@ def main(argv=None) -> int:
     only.add_argument("--gems-only", action="store_true",
                       help="run only the build and phase g, GEMS-MASTER (one rank per card "
                            "on a host with 4 cards)")
+    only.add_argument("--tools-only", action="store_true",
+                      help="run only the build and the run tooling: phases t, e and s9 (the "
+                           "halo twins in a 4-rank world of their own)")
     args = ap.parse_args(argv)
-    picked = [f for f in ("spatial", "pipeline", "sp_lp", "gems") if getattr(args, f"{f}_only")]
+    picked = [f for f in ("spatial", "pipeline", "sp_lp", "gems", "tools")
+              if getattr(args, f"{f}_only")]
     only = bool(picked)
 
     def runs(phase):
@@ -4335,22 +4626,43 @@ def main(argv=None) -> int:
             calls[path] = _new_calls()
             launches[path], first_loss[path], k1_copies[path], ips[path] = phase_main(
                 path, desc, build, calls[path], args.profile)
+    tools_s = 0.0
+    if runs("tools"):
+        t0 = time.time()
+        phase_profile_step(launches)
+        tools_s += time.time() - t0
+        log(f"[t] phase t in {time.time() - t0:.1f} s")
+    if only and runs("tools"):
+        tools_s += finish_supervised(start_supervised())
+    if not only:
         phase_bench_points(calls, launches)
         bases = phase_remat([p for p in REMAT_POLICIES
                              if p is not False and p not in PEAK_PIXEL_POLICIES])
         phase_bench_cli()
         phase_walk_policies(bases["resnet"])
         phase_walk_steps(calls, launches)
-        phase_convergence(calls, launches)
+        supervised = start_supervised()  # phase e, beside v1
+        try:
+            phase_convergence(calls, launches)
+        except BaseException:
+            stop_supervised(supervised)
+            raise
+        tools_s += finish_supervised(supervised)
         phase_checkpoint(launches)
     k4_timing = None
     if runs("spatial"):
         for path in SP_PATHS:
             calls[path] = _new_calls()
         sp_launches, sp_ips, sp_cards, k4_timing = phase_spatial(calls, args.profile, first_loss)
+        tools_s += k4_timing["halo_twins_s"]
         launches.update(sp_launches)
         ips.update(sp_ips)
         cards.update(dict.fromkeys(SP_PATHS, sp_cards))
+    elif runs("tools"):
+        t0 = time.time()
+        phase_halo_world()
+        log(f"[s9] phase s9 in {time.time() - t0:.1f} s")
+        tools_s += time.time() - t0
     for phase, tag, run in (("pipeline", "p", phase_pipeline), ("sp_lp", "q", phase_sp_lp),
                             ("gems", "g", phase_gems)):
         if runs(phase):
@@ -4378,6 +4690,9 @@ def main(argv=None) -> int:
     if k4_timing is not None:
         rows.append(halo_row(k4_timing, launches))
     smi = card()
+    if runs("tools"):
+        log(f"[h] the run tooling (phases t, e and s9) added {tools_s:.1f} s (e: the part "
+            "not spent beside phase v1)")
     log(f"[h] {time.time() - t_start:.1f} s in all")
     log(smi)
     log(phase_mfu(ips, cards, smi))

@@ -38,8 +38,24 @@ split (``benchmarks/common.py:150-161``): ``2·--times`` chunks of
 ranks (gpipe: ``MPI4DL_TPU_PIPELINE_SCHEDULE=1f1b`` is refused);
 ``--enable-master-comm-opt`` only prints a note, the pairwise exchange being
 the port's one path. ``--halo-D2`` builds the D2 spatial models
-(``--fused-layers`` for ResNet). ``--max-restarts > 0`` and ``--trace-dir``
-come with a later slice and raise.
+(``--fused-layers`` for ResNet).
+
+**Supervision and traces** (``benchmarks/common.py:35-46``, ``:235-292``).
+``--max-restarts N`` re-execs the run under
+:func:`mpi4dl_tpu_torch.elastic.supervise` in :func:`build_config`, before
+any rank starts and before any CUDA call: a crash (a rank that dies makes
+``multihost.spawn`` raise and stop its peers) or a stale heartbeat
+(``--hang-timeout``) restarts the whole run with ``--resume``, a fresh
+world each time. Rank 0 touches the heartbeat once a step, also while the
+resume passes over restored steps. ``MPI4DL_TPU_CRASH_AT_STEP`` /
+``MPI4DL_TPU_HANG_AT_STEP`` make every rank exit (``os._exit(3)``) or hang
+when it reaches that step on a fresh, non-resumed run: the supervisor's two
+detectors end to end. Under ``torchrun`` ``--max-restarts`` is refused (its
+own ``--max-restarts`` restarts the world). ``--trace-dir`` (or
+``MPI4DL_TPU_TRACE_DIR``) runs the epoch loop inside
+:func:`mpi4dl_tpu_torch.profiling.trace` on every rank: a Chrome trace a
+rank, each step marked ``mpi4dl_train_step`` by the single-device
+``Trainer``.
 
 Weights are random from seed 0 (``weights.init``), the same on every rank.
 ``MPI4DL_TPU_RESNET_N`` sets the ResNet block multiplier (default 12:
@@ -66,7 +82,6 @@ import torch.distributed as dist
 
 RUN_TIMEOUT_S = 7 * 24 * 3600.0
 _IMPORTED = time.monotonic()  # a rank imports this module as it starts
-_SUPERVISOR = "the slice that ports elastic.py and profiling.trace (after ROADMAP queue 1 item 5)"
 
 
 def parse_csv_ints(s):
@@ -77,14 +92,14 @@ def parse_csv_ints(s):
 
 def build_config(args, spatial: bool):
     """The ``ParallelConfig`` of ``args`` (``benchmarks/common.py:35-69``);
-    ``--num-spatial-parts`` is a csv list (skewed SP). Refuses what the port
-    does not run yet."""
+    ``--num-spatial-parts`` is a csv list (skewed SP). With
+    ``--max-restarts`` it first re-execs the run under the supervisor
+    (:func:`~mpi4dl_tpu_torch.elastic.maybe_supervise`), which never
+    returns; call it before the ranks start and before any CUDA call."""
     from mpi4dl_tpu_torch.config import ParallelConfig
+    from mpi4dl_tpu_torch.elastic import maybe_supervise
 
-    if args.max_restarts > 0:
-        raise NotImplementedError(f"--max-restarts > 0 (the supervisor) comes with {_SUPERVISOR}")
-    if args.trace_dir:
-        raise NotImplementedError(f"--trace-dir comes with {_SUPERVISOR}")
+    maybe_supervise(args)
     return ParallelConfig(
         batch_size=args.batch_size,
         parts=args.parts,
@@ -250,6 +265,7 @@ class _Report:
 
 def run_training(args, trainer, tag: str, plain=None, started: float = _IMPORTED):
     """The epoch loop with per-step host timing, checkpoints and resume, the
+    heartbeat, the injected faults and the trace (module docstring), the
     closing Mean/Median/MFU line and ``--eval-batches``
     (``benchmarks/common.py:190-330``). A step's time ends on a read of
     its loss; the first step trained is not kept. A step draws and counts
@@ -257,6 +273,8 @@ def run_training(args, trainer, tag: str, plain=None, started: float = _IMPORTED
     report's set-up counts from ``started`` (``time.monotonic()``)."""
     from mpi4dl_tpu_torch import checkpoint as ckpt
     from mpi4dl_tpu_torch.data import get_dataset
+    from mpi4dl_tpu_torch.elastic import heartbeat_path_from_env, touch
+    from mpi4dl_tpu_torch.profiling import trace
 
     cfg = trainer.config
     images = getattr(trainer, "chunks", 1) * cfg.batch_size
@@ -275,27 +293,43 @@ def run_training(args, trainer, tag: str, plain=None, started: float = _IMPORTED
     perf = []
     report = (_Report(os.environ["MPI4DL_TPU_RUN_REPORT"], trainer, started)
               if os.environ.get("MPI4DL_TPU_RUN_REPORT") else None)
-    for epoch in range(args.num_epochs):
-        for step, (x, y) in enumerate(ds):
-            if args.max_steps is not None and step >= args.max_steps:
-                break
-            seen += 1
-            if seen <= done:
-                continue
-            t0 = time.perf_counter()
-            metrics = trainer.train_step(x, y)
-            loss = float(metrics["loss"])  # waits for the step
-            dt = time.perf_counter() - t0
-            if report is not None:
-                report.step(loss, dt)
-            trained += 1
-            if trained > 1:
-                perf.append(images / dt)
-            if args.verbose:
-                say(f"epoch {epoch} step {step}: loss {loss:.4f} "
-                    f"acc {float(metrics['accuracy']):.4f} ({images / dt:.3f} img/s)")
-            if ckpt_dir and trainer.step % args.checkpoint_every == 0:
-                ckpt.save_checkpoint(ckpt_dir, trainer)
+    hb = heartbeat_path_from_env() if _rank() == 0 else None  # a supervised run's
+    # Faults on a fresh run, for the supervisor's two detectors.
+    crash_at = int(os.environ.get("MPI4DL_TPU_CRASH_AT_STEP", "-1"))
+    hang_at = int(os.environ.get("MPI4DL_TPU_HANG_AT_STEP", "-1"))
+    with trace(args.trace_dir):
+        for epoch in range(args.num_epochs):
+            for step, (x, y) in enumerate(ds):
+                if args.max_steps is not None and step >= args.max_steps:
+                    break
+                seen += 1
+                if seen <= done:
+                    if hb:  # passing over restored steps is progress too
+                        touch(hb)
+                    continue
+                if not args.resume:
+                    if trainer.step == crash_at:
+                        os._exit(3)
+                    if trainer.step == hang_at:
+                        time.sleep(3600)
+                t0 = time.perf_counter()
+                metrics = trainer.train_step(x, y)
+                loss = float(metrics["loss"])  # waits for the step
+                dt = time.perf_counter() - t0
+                if hb:
+                    touch(hb)
+                if report is not None:
+                    report.step(loss, dt)
+                trained += 1
+                if trained > 1:
+                    perf.append(images / dt)
+                if args.verbose:
+                    say(f"epoch {epoch} step {step}: loss {loss:.4f} "
+                        f"acc {float(metrics['accuracy']):.4f} ({images / dt:.3f} img/s)")
+                if ckpt_dir and trainer.step % args.checkpoint_every == 0:
+                    ckpt.save_checkpoint(ckpt_dir, trainer)
+    if hb:
+        touch(hb)  # what follows the loop must not read as a wedge
     if report is not None:
         report.write()
     if ckpt_dir:

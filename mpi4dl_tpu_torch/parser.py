@@ -1,10 +1,6 @@
 """The benchmark CLI (twin of ``mpi4dl_tpu/parser.py``, itself flag for
 flag with the reference's ``torchgems/parser.py:21-143``): the same flags,
 defaults and choices, plus ``--device`` (``cuda`` unless asked otherwise).
-
-Flags the port does not run yet are parsed all the same and refused where
-they would take effect (``benchmarks/common.py``'s twin): ``--max-restarts``
-above 0 and ``--trace-dir``.
 """
 
 import argparse
@@ -150,7 +146,8 @@ def get_parser() -> argparse.ArgumentParser:
         "--trace-dir",
         type=str,
         default=None,
-        help="Write a profiler trace here (not ported yet: refused)",
+        help="Write a torch.profiler Chrome trace of the training loop here, one "
+        "file a rank",
     )
     parser.add_argument(
         "--eval-batches",
@@ -164,8 +161,7 @@ def get_parser() -> argparse.ArgumentParser:
         type=int,
         default=0,
         help="Supervise the run: on crash or hang, restart up to N times, "
-        "resuming from the newest checkpoint (not ported yet: above 0 it "
-        "is refused)",
+        "resuming from the newest checkpoint",
     )
     parser.add_argument(
         "--hang-timeout",

@@ -1,5 +1,6 @@
-"""Step timing (twin of :class:`mpi4dl_tpu.profiling.StepTimer` and
-:func:`~mpi4dl_tpu.profiling.percentiles`).
+"""Step timing and trace capture (twin of ``mpi4dl_tpu/profiling.py``:
+:class:`StepTimer`, :func:`percentiles`, :func:`trace`,
+:func:`annotate_step` and :func:`capture`).
 
 :class:`StepTimer` times each step on the host clock. A launch on the card
 returns before the card has run it, so a step ends on a device read: the
@@ -7,16 +8,35 @@ caller reads a value that depends on the whole step inside ``step()``
 (``bench`` reads the loss, as ``bench.py:326-331`` does), or hands a result
 to the context's setter, which reads every tensor in it to the host before
 the clock stops.
+
+:func:`trace` runs ``torch.profiler`` (CPU, and CUDA in a process that has
+used its card) around a block and writes a Chrome trace JSON, one file a
+rank. :func:`annotate_step` marks one step on the host timeline (and,
+through it, on the device timeline) with the JAX package's step names and
+ids: torch's trace keeps no arguments of a ``record_function``, so the id
+rides in the name as ``<name>#step_num=<id>#`` (the TraceMe encoding the
+JAX annotation uses) and :func:`trace` rewrites such an event into the name
+and an ``args.step_num``, the form of a JAX Chrome trace.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import json
+import numbers
+import os
+import re
 import statistics
+import tempfile
 import time
 from typing import Any
 
 import torch
+import torch.distributed as dist
+
+TRACE_DIR_ENV = "MPI4DL_TPU_TRACE_DIR"
+_STEP_LABEL = re.compile(r"^(.*)#step_num=(\d+)#$")
 
 
 def percentiles(values, pcts=(50, 90, 99)) -> dict:
@@ -98,3 +118,120 @@ class StepTimer:
         for k, v in percentiles(self.times).items():
             out[f"step_time_{k}_s"] = v
         return out
+
+
+def _uses_card() -> bool:
+    return torch.cuda.is_available() and torch.cuda.is_initialized()
+
+
+def trace_file(logdir: str) -> str:
+    """Where :func:`trace` writes in ``logdir``: ``trace-rank<r>-<pid>.json``
+    in a rank of an initialized process group, else ``trace-<pid>.json``."""
+    rank = f"rank{dist.get_rank()}-" if dist.is_initialized() else ""
+    return os.path.join(logdir, f"trace-{rank}{os.getpid()}.json")
+
+
+def _decode_step_labels(path: str) -> None:
+    """Rewrite the :func:`annotate_step` labels of the Chrome trace at
+    ``path`` into a name and ``args.step_num``."""
+    with open(path) as f:
+        doc = json.load(f)
+    for e in doc.get("traceEvents", []):
+        m = _STEP_LABEL.match(str(e.get("name", "")))
+        if m:
+            e["name"] = m.group(1)
+            e.setdefault("args", {})["step_num"] = int(m.group(2))
+    with open(path, "w") as f:
+        json.dump(doc, f)
+
+
+@contextlib.contextmanager
+def trace(logdir: str | None = None):
+    """``torch.profiler`` over the block, written as a Chrome trace JSON to
+    :func:`trace_file` of ``logdir`` (or ``MPI4DL_TPU_TRACE_DIR``) when the
+    block ends, also by an exception. Neither set: a no-op. Yields the
+    directory (or None)."""
+    logdir = logdir or os.environ.get(TRACE_DIR_ENV)
+    if not logdir:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if _uses_card():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield logdir
+    finally:
+        prof.stop()
+        path = trace_file(logdir)
+        prof.export_chrome_trace(path)
+        _decode_step_labels(path)
+
+
+@contextlib.contextmanager
+def annotate_step(name: str, step: "int | None" = None):
+    """A ``record_function`` range named ``name`` (step ``step``) around
+    one step, so :func:`trace`'s file slices the host and device timelines
+    at the same step ids the JAX package's XProf traces carry. ``step`` is
+    a host counter: a tensor would make the host wait for the card, and is
+    refused."""
+    if step is not None and not isinstance(step, numbers.Integral):
+        raise TypeError(f"annotate_step: step must be a host integer, got {type(step).__name__}")
+    label = name if step is None else f"{name}#step_num={int(step)}#"
+    with torch.profiler.record_function(label):
+        yield
+
+
+#: Annotation name :func:`capture` wraps around each step. Distinct from
+#: the dispatch-path name ("mpi4dl_train_step") so a capture window
+#: strictly CONTAINS each step's device work (the wait happens inside the
+#: annotation), even when the step function annotates its own launches.
+CAPTURE_STEP_NAME = "mpi4dl_capture"
+
+
+@dataclasses.dataclass
+class Capture:
+    """One finished :func:`capture`: where the trace landed, plus the
+    host-measured wall time of each annotated step."""
+
+    trace_dir: str
+    step_name: str
+    n_steps: int
+    step_times_s: list
+
+    def attribution(self, registry=None, program: str = "capture") -> dict:
+        """The per-step compute/collective/transfer/host-gap report of the
+        JAX package reads the trace through ``mpi4dl_tpu/analysis/trace.py``,
+        which the port has not yet (ROADMAP queue 1 item 10)."""
+        raise NotImplementedError(
+            "Capture.attribution reads the trace through analysis/trace.py, "
+            "which comes with ROADMAP queue 1 item 10")
+
+
+def capture(step_fn, steps: int = 3, logdir: "str | None" = None,
+            name: str = CAPTURE_STEP_NAME) -> Capture:
+    """Trace ``steps`` calls of ``step_fn(i)`` under :func:`trace`, each in
+    an :func:`annotate_step` window ``name`` with its result read to the
+    host INSIDE the window (and, in a process that uses its card, the card
+    synchronized: a step's last kernels, the optimizer's, need not feed the
+    result), so every step's device work falls within its window.
+    ``logdir=None`` captures into a fresh temporary directory (reported on
+    :attr:`Capture.trace_dir`)."""
+    if logdir is None:
+        logdir = tempfile.mkdtemp(prefix="mpi4dl-capture-")
+    times: list[float] = []
+    with trace(logdir):
+        for i in range(int(steps)):
+            t0 = time.perf_counter()
+            with annotate_step(name, i):
+                out = step_fn(i)
+                if out is not None:
+                    _read(out)
+                if _uses_card():
+                    torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    return Capture(trace_dir=logdir, step_name=name, n_steps=int(steps), step_times_s=times)

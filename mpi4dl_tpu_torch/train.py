@@ -64,6 +64,7 @@ from mpi4dl_tpu_torch.parallel.halo import (
 )
 from mpi4dl_tpu_torch.parallel.multihost import TileGrid
 from mpi4dl_tpu_torch.parallel.partition import joined_state
+from mpi4dl_tpu_torch.profiling import annotate_step
 from mpi4dl_tpu_torch.utils import resolve_device, same_config
 
 
@@ -511,6 +512,7 @@ class Trainer:
         self.model = model.to(device=self.device, memory_format=self.memory_format)
         self.opt = make_optimizer(self.model.parameters(), learning_rate, momentum)
         self.step = 0
+        self._host_steps = 0  # train_step calls of this object: the trace's step ids
         if self.distributed:
             with torch.no_grad():  # over the group: every replica and tile
                 _flat_all_reduce(list(self.model.parameters()),
@@ -841,6 +843,14 @@ class Trainer:
                           for i in range(k)])
 
     def train_step(self, x, y) -> dict:
+        # A profiler range with this object's host step id, as
+        # ``mpi4dl_tpu/train.py:1105-1118`` marks each step.
+        step_id = self._host_steps
+        self._host_steps += 1
+        with annotate_step("mpi4dl_train_step", step_id):
+            return self._train_step(x, y)
+
+    def _train_step(self, x, y) -> dict:
         b, s = self.config.batch_size, self.config.image_size
         if tuple(x.shape[:3]) != (b, s, s) or tuple(y.shape) != (b,):
             raise ValueError(

@@ -30,6 +30,8 @@ GEMS_TWINS = ("benchmarks.gems_master_model.benchmark_resnet_gems_master",
               "benchmarks.gems_master_with_spatial_parallelism.benchmark_resnet_gems_master_with_sp",
               "benchmarks.gems_master_with_spatial_parallelism."
               "benchmark_amoebanet_gems_master_with_sp")
+HALO_TWINS = tuple(f"benchmarks.communication.halo.benchmark_sp_halo_exchange{s}"
+                   for s in ("", "_with_compute", "_with_compute_val", "_conv"))
 PORT_MODULES = sorted(
     _module_name(p) for p in (REPO / "mpi4dl_tpu_torch").rglob("*.py")
 )
@@ -47,7 +49,9 @@ def test_port_modules_listed():
     assert "mpi4dl_tpu_torch.flops" in PORT_MODULES
     for name in ("evaluate", "checkpoint", "serialization", "data", "native",
                  "convergence_run", "parser", "parallel.partition", "parallel.pipeline",
-                 "benchmarks.common", *LP_TWINS, *SP_TWINS, *GEMS_TWINS):
+                 "benchmarks.common", *LP_TWINS, *SP_TWINS, *GEMS_TWINS, *HALO_TWINS,
+                 "benchmarks.communication.halo.halo_common", "elastic", "profile_step",
+                 "profiling", "telemetry.jsonl", "telemetry.health", "telemetry.flight"):
         assert f"mpi4dl_tpu_torch.{name}" in PORT_MODULES
 
 
@@ -110,3 +114,15 @@ def test_sp_twins_without_device_refuse_without_cuda(twin):
 def test_gems_twins_without_device_refuse_without_cuda(twin):
     """The GEMS twins, likewise."""
     _refuses_without_cuda(twin)
+
+
+@pytest.mark.parametrize("twin", HALO_TWINS)
+def test_halo_twins_without_device_refuse_without_cuda(twin):
+    """The halo twins, likewise: without a card and without ``--device cpu``
+    they exit 2 before any rank starts."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-m", f"mpi4dl_tpu_torch.{twin}"], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 2, out.stderr[-2000:]
+    assert "CUDA is not available; pass --device cpu --impl plain" in out.stderr
+    assert "ranks" not in out.stdout and "PASSED" not in out.stdout

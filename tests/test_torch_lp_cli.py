@@ -7,10 +7,10 @@ Median ... img/s`` line (no MFU on the CPU, as the JAX runner). Also: a
 ResNet checkpoint resumes (``--resume`` passes over the restored step and
 trains on from it), the 1F1B schedule runs through
 ``MPI4DL_TPU_PIPELINE_SCHEDULE``, ``--split-size 1`` takes the
-single-device ``Trainer``, the flags not ported yet (``--max-restarts 1``,
-``--trace-dir``) raise, and so does the GEMS twin's ``--times 2`` under
-``MPI4DL_TPU_PIPELINE_SCHEDULE=1f1b`` (GEMS runs gpipe only), before any
-rank starts."""
+single-device ``Trainer``, ``--max-restarts 1`` runs under the supervisor,
+``--trace-dir`` writes a trace a rank, and the GEMS twin's ``--times 2``
+under ``MPI4DL_TPU_PIPELINE_SCHEDULE=1f1b`` (GEMS runs gpipe only) raises
+before any rank starts."""
 
 import os
 import re
@@ -82,17 +82,26 @@ _GEMS_1F1B = dict(twin="gems_master_model.benchmark_{}_gems_master",
 
 
 @pytest.mark.parametrize("flags,match,exc,run_kw", [
-    (["--max-restarts", "1"], "--max-restarts", "NotImplementedError", {}),
-    (["--trace-dir", "tr"], "--trace-dir", "NotImplementedError", {}),
+    (["--max-restarts", "1"], None, None, {}),  # supervised; nothing fails, nothing restarts
+    (["--trace-dir", "{tmp}"], None, None, {}),  # a trace a rank
     (["--times", "2"], "gpipe schedule", "ValueError", _GEMS_1F1B),  # GEMS under 1F1B
     (["--spatial-size", "1"], None, None, {}),  # the LP twins run no spatial front: ignored, as JAX's
 ], ids=["max_restarts", "trace_dir", "gems_times", "spatial_size_ignored"])
-def test_unported_flags_raise(flags, match, exc, run_kw):
+def test_unported_flags_raise(flags, match, exc, run_kw, tmp_path):
+    """The flags that once were refused run; GEMS under 1F1B raises before
+    any rank starts."""
+    flags = [f.format(tmp=tmp_path) for f in flags]
     out = _run("amoebanet", ["--device", "cpu", "--max-steps", "0", "--num-layers", "3",
                              "--num-filters", "32", "--batch-size", "2", "--parts", "2", *flags],
                **run_kw)
     if match is None:
         assert out.returncode == 0, out.stderr[-3000:]
+        if "--max-restarts" in flags:
+            assert "elastic: --max-restarts without --checkpoint-dir" in out.stdout
+            assert "restarting" not in out.stdout
+        if "--trace-dir" in flags:
+            assert sorted(p.name.split("-")[1] for p in tmp_path.glob("trace-rank*.json")) == \
+                ["rank0", "rank1"]
         return
     assert out.returncode != 0
     assert exc in out.stderr and match in out.stderr
