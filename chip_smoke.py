@@ -8,6 +8,7 @@
     python3 chip_smoke.py --sp-lp-only    # only the build and phase q
     python3 chip_smoke.py --gems-only     # only the build and phase g (for a 4-card host)
     python3 chip_smoke.py --tools-only    # only the build and the run tooling (t, e, s9)
+    python3 chip_smoke.py --serve-only    # only the build and the serving phase r
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -17,7 +18,10 @@ Phases (any failure exits non-zero; nothing is caught):
   b. small-input references, one f32 training step each on the card (TF32
      off) against the same step on the CPU (plain versions): loss and
      per-leaf-normalised gradients. AmoebaNet-D 3L/32F @64 bs2 and
-     ResNet-v2 depth 20 @32 bs2;
+     ResNet-v2 depth 20 @32 bs2. Then each step once more on the card under
+     ``MPI4DL_TPU_BN_BWD=fused`` (the BN-moments backward in the input
+     dtype) against the default: the loss bit-equal, each gradient within
+     ``BN_BWD_ATOL + BN_BWD_RTOL`` x its leaf's max;
   c. the main paths, each through ``Trainer.train_step`` with bf16
      compute / f32 params, SGD momentum 0.9, random weights from a seed,
      no recomputation: AmoebaNet-D 18L/416F @1024 bs2, then ResNet-110 v2
@@ -25,7 +29,39 @@ Phases (any failure exits non-zero; nothing is caught):
      kernels are called with; then every kernel's launch count is set to
      0, the timed steps run, and the counts are read (each kernel of the
      path must be > 0); then the first step once more with f32 compute
-     (TF32 off), the spatial paths' reference;
+     (TF32 off), the spatial paths' reference; then a fresh trainer's first
+     two steps under ``MPI4DL_TPU_BN_BWD=fused``: the first loss bit-equal
+     to the default backward's, the first step's gradients at most
+     ``GRAD_DIST_RATIO`` times as far from the f32 step's as the default's,
+     K1-K3 launched as often, ResNet-110's second loss within
+     ``BN_BWD_LOSS_RTOL`` (AmoebaNet-D's printed), peak memory printed;
+  r. serving (``mpi4dl_tpu_torch.serve``):
+     r1. phase b's small f32 models (TF32 off), statistics from
+         ``collect_batch_stats`` on the card, a ``SingleChipPredictor``'s
+         buckets ``R_BUCKETS`` captured (a CUDA graph each): each replay
+         within ``R_CPU_TOL`` of max |logit| of the CPU predict (plain
+         versions) and bit-equal to the eager forward of the same bucket on
+         the card (else within ``R_EAGER_TOL``, and the line says so);
+     r2. AmoebaNet-D 18L/416F @1024 bf16 (phase c's seed), statistics over
+         ``R_CAL_BATCHES`` batches, a ``ServingEngine`` with buckets
+         ``R_BUCKETS``: per bucket the warm-up and capture s, the graph
+         pool's bytes, the peak memory, and a replay beside the eager
+         forward (ms, CUDA events, median of ``R_TIMED``); then
+         ``R_BURST`` requests at once and ``R_SINGLES`` one by one through
+         ``submit``: every response bit-equal to its row of the eager
+         forward of the padded batch it rode in, ``assert_warm`` passes and
+         no graph is captured after warm-up; served count, batches and
+         p50/p90/p99 printed;
+     r3. (in phase s's ranks, after v3; with ``--serve-only`` in a 4-rank
+         world of its own) s1's small f32 spatial ResNet-v2 @32 through a
+         ``ShardedPredictor`` (buckets ``R_SP_BUCKETS``) against the
+         single-device CPU predict (``R_CPU_TOL``); then ``resnet_sp`` with
+         v3's statistics behind a ``ServingEngine`` on rank 0 (the other
+         ranks follow its broadcasts; each bucket two graphs, the join
+         between them eager): K4 launched in each bucket's capture on every
+         rank, a replay's host wall per bucket (median of ``R_SP_TIMED``),
+         ``R_SP_REQUESTS`` requests, each bit-equal to its row of the eager
+         spatial predict of its padded batch;
   t. ``mpi4dl_tpu_torch.profile_step.main`` on ResNet-110 v2 @1024 bs2 (its
      default ``cell_save``, 2 warm-up and 2 traced steps) in this process,
      K1-K4's counts set to 0 just before and read after: its two
@@ -125,7 +161,8 @@ Phases (any failure exits non-zero; nothing is caught):
          on the CPU with the same weights and batch (loss and per-leaf
          gradients, 1e-3);
      s2. the spatial main paths: ResNet-110 v2 (``resnet_sp``) and then
-         AmoebaNet-D 18L/416F (``amoebanet_sp``) @1024 bs2, every cell but
+         AmoebaNet-D ``SP_LAYERS``L/416F (``amoebanet_sp``; 6L, 18L before
+         phase r came) @1024 bs2, every cell but
          the head on the tiles, bf16 compute / f32 params, SGD momentum
          0.9, random weights from the seed of phase c, remat=False,
          ``SP_WARMUP`` warm-up and ``SP_STEPS`` timed steps each. The first
@@ -137,13 +174,14 @@ Phases (any failure exits non-zero; nothing is caught):
          and every cached avg-pool divisor must be exact after the timed
          steps. Then the first step once more with f32 compute (TF32
          off), whose loss must be within ``F32_LOSS_RTOL`` of the
-         single-device path's f32 first step (phase c runs one too), and
+         single-device f32 first step of the same depth, weights and batch
+         (phase c's for ResNet-110, one at ``SP_LAYERS`` for AmoebaNet-D), and
          whose gradients give the bf16 first step's distance from f32
          (the median leaf's max |err| / max |ref|);
      s7. the D2 fused-halo paths, as s2: ResNet-110 v2 D2
          (``resnet_sp_d2``, ``get_resnet_v2_d2`` with ``fused_layers=2``:
-         23 exchanges a forward against D1's 73) and AmoebaNet-D 18L/416F
-         D2 (``amoebanet_sp_d2``, ``halo_d2=True``); K1 (AmoebaNet), K2, K3
+         23 exchanges a forward against D1's 73) and AmoebaNet-D
+         ``SP_LAYERS``L/416F D2 (``amoebanet_sp_d2``, ``halo_d2=True``); K1 (AmoebaNet), K2, K3
          and K4 must launch in every rank's steps, the f32 first step must
          be within ``F32_LOSS_RTOL`` of the single-device one, and K4's
          phase launches a step are printed beside the D1 twin's. Against
@@ -364,6 +402,19 @@ ZERO_GRAD = 1e-4  # of the cell's largest gradient, as tests/test_torch_resnet.p
 
 DEVICE = "cuda"
 SEED = 0
+# Phases b and c under MPI4DL_TPU_BN_BWD=fused (the BN-moments backward in
+# the input dtype) against the default one. Phase b: f32 gradients within
+# the JAX test's tolerance (tests/test_spatial_layers.py:205) of each leaf's
+# max. Phase c (bf16): the first step's loss bit-equal (the same forward),
+# its gradients' distance from the f32 step's (the median leaf's max |err| /
+# max |ref|) at most GRAD_DIST_RATIO times the default backward's, and
+# ResNet-110's second loss within BN_BWD_LOSS_RTOL. AmoebaNet-D's losses
+# after an update move by rounding alone (see BF16_LOSS_RTOL): its second
+# loss under fused read 2.95e-2 from the default's on an H100, so it is
+# printed, not gated.
+BN_FUSED = {"MPI4DL_TPU_BN_BWD": "fused"}
+BN_BWD_RTOL, BN_BWD_ATOL = 1e-5, 1e-6
+BN_BWD_LOSS_RTOL = {"resnet": 1e-2}
 SIZE, BATCH = 1024, 2
 WARMUP, STEPS = 2, 5
 # The main paths: AmoebaNet-D 18L/416F (bench.py's headline) and ResNet-110
@@ -391,6 +442,11 @@ SP_PATHS = tuple(SP_SPECS)
 # every step, such as ResNet's bf16 losses against the D1 twin, now see 3
 # steps, not 5, and a path's median step is the larger of its 2).
 SP_WARMUP, SP_STEPS = 1, 2
+# AmoebaNet-D's depth on the spatial paths (amoebanet_sp, _d2, _dec; 18L
+# before phase r came, cut to keep the whole script inside its time limit).
+# Their f32 first step is held to a single-device f32 first step of the
+# same depth, weights and batch, run before phase s.
+SP_LAYERS = 6
 D2_FUSED = 2  # the D2 ResNet's fused_layers
 # s8: the decomposed arm's f32 first-step loss against the monolithic arm's,
 # relative (the same math; cuDNN may pick other algorithms for the interior
@@ -528,6 +584,8 @@ PIPE_LAYERS = 6
 PATH_LAYERS = {path: PIPE_LAYERS for path in (
     "amoebanet_pp_gpipe", "amoebanet_pp_1f1b", "amoebanet_sp_lp", "amoebanet_gems",
     "amoebanet_gems_sp")}
+PATH_LAYERS.update(dict.fromkeys(("amoebanet_sp", "amoebanet_sp_d2", "amoebanet_sp_dec"),
+                                 SP_LAYERS))
 # The path whose slice ported each kernel: a kernels row's ``launches`` is
 # that path's count per step (``launches_per_step`` gives every path's).
 HOME_PATH = {"pool_bwd": "amoebanet", "dot1x1_bwd": "amoebanet", "wgrad": "resnet",
@@ -697,11 +755,34 @@ def _worst_leaf(name, g_got, g_want):
 
 
 def phase_small_reference(name, build, size):
-    """One f32 training step of a small model on the card vs the CPU."""
+    """One f32 training step of a small model on the card vs the CPU; then
+    the same step on the card under ``MPI4DL_TPU_BN_BWD=fused`` against the
+    default (``xla``) one: loss bit-equal, each gradient within
+    ``BN_BWD_ATOL + BN_BWD_RTOL`` x its leaf's max."""
+    import numpy as np
+
     got, want = small_step(build, size, DEVICE), small_step(build, size, "cpu")
     worst = check_small(name, got, want)
     log(f"[b] small reference {name} f32: loss card {got[0]:.6f} CPU {want[0]:.6f}; "
         f"gradients normalised max|err| {worst:.2e} (tolerance {SMALL_GRAD_TOL:g})")
+    with _env(BN_FUSED):
+        fused = small_step(build, size, DEVICE)
+    if fused[0] != got[0]:
+        raise AssertionError(f"{name} under {BN_FUSED}: loss {fused[0]!r} against the default "
+                             f"backward's {got[0]!r} (must be bit-equal: the same forward)")
+    worst = 0.0
+    for i, (gf, gx) in enumerate(zip(fused[1], got[1])):
+        for k in gx:
+            scale = float(np.abs(gx[k]).max())
+            err = float(np.abs(gf[k] - gx[k]).max())
+            if err > BN_BWD_ATOL + BN_BWD_RTOL * scale:
+                raise AssertionError(f"{name} under {BN_FUSED}: cell {i} {k} gradient max|err| "
+                                     f"{err:.3g} against the default backward's (leaf max "
+                                     f"{scale:.3g}; rtol {BN_BWD_RTOL:g}, atol {BN_BWD_ATOL:g})")
+            worst = max(worst, err / (BN_BWD_ATOL + BN_BWD_RTOL * scale))
+    log(f"[b] {name} f32 under MPI4DL_TPU_BN_BWD=fused: loss {fused[0]:.6f} bit-equal to the "
+        f"default backward's; gradients' worst leaf at {worst:.3f} of its tolerance "
+        f"(atol {BN_BWD_ATOL:g} + rtol {BN_BWD_RTOL:g} x the leaf's max)")
 
 
 def _on_meta(args) -> bool:
@@ -875,6 +956,7 @@ def phase_main(path, desc, build, shapes, profile=False):
     log(f"[c] {desc} bf16 compute, f32 params ({n_params} params), remat=False; "
         f"set-up {time.time() - t0:.1f} s")
     first_loss = None
+    warm_losses = []
     k1_layout, k1_copies = collections.Counter(), collections.Counter()
     for i in range(WARMUP):
         restore = []
@@ -885,6 +967,10 @@ def phase_main(path, desc, build, shapes, profile=False):
         for undo in restore:
             undo()
         first_loss = loss if first_loss is None else first_loss
+        warm_losses.append(loss)
+        if i == 0:  # the first step's gradients, against the f32 step's (phase_bn_fused),
+            # held on the host so that the device's peak memory stays the step's own
+            first_grads = {n: p.grad.cpu() for n, p in trainer.model.named_parameters()}
         log(f"[c] warm-up step {i}: loss {loss:.4f} ({time.time() - t:.2f} s)")
     if k1_layout:
         log(f"[c] K1 inputs in warm-up step 0 (channels_last in place, or copied first): "
@@ -918,10 +1004,80 @@ def phase_main(path, desc, build, shapes, profile=False):
     del trainer, model, x, y
     gc.collect()  # trainers hold reference cycles
     torch.cuda.empty_cache()
-    f32_loss = f32_first_loss(meta_built(build, torch.float32), DEVICE)
+    f32_loss, f32_grads = f32_first_loss(meta_built(build, torch.float32), DEVICE, grads=True)
+    f32_grads = {n: g.cpu() for n, g in f32_grads.items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_bn_fused(path, desc, build, warm_losses, _median_leaf_error(first_grads, f32_grads),
+                   f32_grads, launches, peak)
+    del first_grads, f32_grads
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"[c] first step loss with f32 compute (TF32 off, same weights and batch): "
         f"{f32_loss:.6f} (bf16 {first_loss:.6f})")
     return launches, (first_loss, f32_loss), k1_copies, BATCH / (ms / 1e3)
+
+
+def phase_bn_fused(path, desc, build, xla_losses, xla_dist, f32_grads, xla_launches, xla_peak):
+    """A main path under ``MPI4DL_TPU_BN_BWD=fused``: a fresh trainer from
+    the seed takes the first two steps. The first loss must be bit-equal to
+    the default backward's warm-up step 0, the first step's gradients no
+    farther from the f32 step's (``f32_grads``) than ``GRAD_DIST_RATIO``
+    times the default backward's distance ``xla_dist``, K1-K3 must launch as
+    often a step, and ResNet-110's second loss must be within
+    ``BN_BWD_LOSS_RTOL`` of the default's. Peak memory over the second step
+    is printed beside the default backward's over its timed steps."""
+    import torch
+
+    from mpi4dl_tpu_torch.config import ParallelConfig
+    from mpi4dl_tpu_torch.train import Trainer
+    from mpi4dl_tpu_torch.weights import meta_built
+
+    t0 = time.time()
+    with _env(BN_FUSED):
+        model = _seeded(meta_built(build, torch.bfloat16))
+        trainer = Trainer(model, ParallelConfig(batch_size=BATCH, image_size=SIZE),
+                          learning_rate=0.001, momentum=0.9, device=DEVICE)
+        x, y = main_batch(DEVICE)
+        counters = _counters()
+        for mod in counters.values():
+            mod.launch_count = 0
+        losses = [float(trainer.train_step(x, y)["loss"])]
+        dist = _median_leaf_error({n: p.grad.cpu() for n, p in trainer.model.named_parameters()},
+                                  f32_grads)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses.append(float(trainer.train_step(x, y)["loss"]))
+        peak = torch.cuda.max_memory_allocated()
+        launches = {name: mod.launch_count for name, mod in counters.items()}
+    del trainer, model, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    if losses[0] != xla_losses[0]:
+        raise AssertionError(f"{desc} under {BN_FUSED}: first loss {losses[0]!r} against the "
+                             f"default backward's {xla_losses[0]!r} (must be bit-equal)")
+    if not dist <= GRAD_DIST_RATIO * xla_dist:
+        raise AssertionError(f"{desc} under {BN_FUSED}: first-step gradients {dist} from the "
+                             f"f32 step's, the default backward's {xla_dist} (at most "
+                             f"{GRAD_DIST_RATIO:g}x)")
+    rel = abs(losses[1] - xla_losses[1]) / abs(xla_losses[1])
+    rtol = BN_BWD_LOSS_RTOL.get(path)
+    if rtol is not None and not rel <= rtol:
+        raise AssertionError(f"{desc} under {BN_FUSED}: second loss {losses[1]} against "
+                             f"{xla_losses[1]} (rtol {rtol:g})")
+    for name in PATH_KERNELS[path]:
+        if launches[name] != 2 * (xla_launches[name] // STEPS):
+            raise AssertionError(f"{desc} under {BN_FUSED}: {name} launched {launches[name]} "
+                                 f"times in 2 steps, {xla_launches[name] // STEPS} a step by "
+                                 "default")
+    log(f"[c] {desc} under MPI4DL_TPU_BN_BWD=fused: first loss {losses[0]:.6f} bit-equal to "
+        f"the default backward's; first-step gradients from the f32 step's: median leaf "
+        f"{dist:.4f} against the default's {xla_dist:.4f} (at most {GRAD_DIST_RATIO:g}x); "
+        f"second loss {losses[1]:.6f} against {xla_losses[1]:.6f}, relative {rel:.2e}"
+        + (f" (rtol {rtol:g})" if rtol is not None else " (not gated: see BN_BWD_LOSS_RTOL)")
+        + f"; K1-K3 launches a step as the default's; peak memory allocated "
+        f"{peak / 2**30:.2f} GiB in its second step against the default backward's "
+        f"{xla_peak / 2**30:.2f} GiB in its timed steps; {time.time() - t0:.1f} s")
 
 
 def profile_step(trainer, x, y, top=15, tag="c", emit=log):
@@ -1897,14 +2053,14 @@ def sp_models():
         "resnet": (f"ResNet-{RESNET_DEPTH} v2", lambda grid, dtype: all_but_head(get_resnet_v2(
             RESNET_DEPTH, 10, spatial_cells=10**6, pool_kernel=SIZE // 4, dtype=dtype,
             grid=grid))),
-        "amoebanet": (f"AmoebaNet-D {LAYERS}L/{FILTERS}F", lambda grid, dtype: all_but_head(
-            amoebanetd(10, LAYERS, FILTERS, spatial_cells=10**6, dtype=dtype, grid=grid))),
+        "amoebanet": (f"AmoebaNet-D {SP_LAYERS}L/{FILTERS}F", lambda grid, dtype: all_but_head(
+            amoebanetd(10, SP_LAYERS, FILTERS, spatial_cells=10**6, dtype=dtype, grid=grid))),
         "resnet_d2": (f"ResNet-{RESNET_DEPTH} v2 D2 (fused_layers {D2_FUSED})",
                       lambda grid, dtype: get_resnet_v2_d2(
                           RESNET_DEPTH, 10, spatial_cells=10**6, fused_layers=D2_FUSED,
                           pool_kernel=SIZE // 4, dtype=dtype, grid=grid)[::2]),
-        "amoebanet_d2": (f"AmoebaNet-D {LAYERS}L/{FILTERS}F D2", lambda grid, dtype: all_but_head(
-            amoebanetd(10, LAYERS, FILTERS, spatial_cells=10**6, halo_d2=True, dtype=dtype,
+        "amoebanet_d2": (f"AmoebaNet-D {SP_LAYERS}L/{FILTERS}F D2", lambda grid, dtype: all_but_head(
+            amoebanetd(10, SP_LAYERS, FILTERS, spatial_cells=10**6, halo_d2=True, dtype=dtype,
                        grid=grid))),
     }
     out = {}
@@ -2301,7 +2457,7 @@ def _sp_k4_timeout(rank, device):
     return out
 
 
-def _sp_eval(rank, grid, device, ckpt_dir):
+def _sp_eval(rank, grid, device, ckpt_dir, keep):
     """Phase v3 in one rank: spatial ResNet-110 v2 @1024 bs2 (phase s2's
     model and seed, bf16 compute) calibrated over 2 ``ClassPatternImages``
     batches and evaluated over 2 more on the tiles (K4's phase launches of
@@ -2352,6 +2508,7 @@ def _sp_eval(rank, grid, device, ckpt_dir):
     out["stats_equal"] = all(
         (a == b).all() for a, b in zip(_flat_leaves([_numpy_stats(s) for s in stats]),
                                        _flat_leaves(stats2)))
+    keep["stats"] = stats  # phase r3 serves with them
     del trainer, rebuilt, model, stats, stats2
     gc.collect()  # trainers hold reference cycles
     torch.cuda.empty_cache()
@@ -2403,7 +2560,10 @@ def _sp_worker(rank, world, backend, profile, ckpt_dir, twins):
             exchanges.setdefault(key, dict.fromkeys(SP_PATHS, 0))[path] = n
     exchanges = sorted(exchanges.items())
     dist.barrier()
-    out["eval"] = _sp_eval(rank, grid, device, ckpt_dir)
+    keep = {}
+    out["eval"] = _sp_eval(rank, grid, device, ckpt_dir, keep)
+    dist.barrier()
+    out["serve"] = _sp_serve(rank, grid, device, keep.pop("stats"))
     dist.barrier()
     out["k4_lines"], out["k4_err"] = _sp_k4_check(rank, grid, device, exchanges)
     dist.barrier()
@@ -2436,7 +2596,7 @@ def phase_spatial(calls, profile, first_loss):
         ranks = multihost.spawn(_sp_worker, SP_RANKS,
                                 args=(backend, profile, ckpt_dir, _worker_twins(twins)),
                                 backend=backend, timeout=900, env=env)
-        log(f"[s] 4 ranks ran phases s1-s8, v3 and s9 in {time.time() - t0:.1f} s")
+        log(f"[s] 4 ranks ran phases s1-s8, v3, r3 and s9 in {time.time() - t0:.1f} s")
         halo_twins = phase_halo_twins(twins, [out["twins"] for out in ranks])
 
     for i, (name, size, _, build) in enumerate(sp_small_models()):
@@ -2463,6 +2623,7 @@ def phase_spatial(calls, profile, first_loss):
 
     launches, ips = {}, {}
     launches["resnet_sp_eval"] = phase_spatial_eval([out["eval"] for out in ranks])
+    phase_serve_sharded([out["serve"] for out in ranks])
     for path in SP_PATHS:
         name = sp_models()[path][0]
         model, env = SP_SPECS[path]
@@ -2495,15 +2656,14 @@ def phase_spatial(calls, profile, first_loss):
             f"steps {[f'{loss:.4f} ({t:.2f} s)' for loss, t in m0['warm']]}; K4 receive slot "
             f"{m0['slot_bytes']} bytes; {m0['exchanges_per_forward']} exchanges a forward")
         single = model.split("_")[0]
-        first = ("bf16 %.6f, f32 %.6f" % first_loss[single] if single in first_loss
-                 else "not run")
+        first = ("f32 %.6f" % first_loss[single][1] if single in first_loss else "not run")
         if single in first_loss:
             want = first_loss[single][1]
             if not abs(m0["f32_loss"] - want) <= F32_LOSS_RTOL * abs(want):
                 raise AssertionError(f"{path}: f32 first-step loss {m0['f32_loss']} against the "
                                      f"single-device {want} (rtol {F32_LOSS_RTOL})")
         log(f"{tag} {path} first step loss: spatial bf16 {m0['warm'][0][0]:.6f}, f32 "
-            f"{m0['f32_loss']:.6f} (TF32 off); single-device (phase c, same weights "
+            f"{m0['f32_loss']:.6f} (TF32 off); single-device (same depth, weights "
             f"and batch) {first} (f32 within {F32_LOSS_RTOL:g})")
         if env:
             mono = ranks[0][f"{single}_sp"]
@@ -4574,6 +4734,418 @@ def phase_kernel_times(gen, launches, errs):
     return rows
 
 
+# Phase r: serving. r1 and r2 in this process, r3 in phase s's ranks (or,
+# with --serve-only, in a 4-rank world of its own).
+R_BUCKETS = (1, 2, 4)  # r1's and r2's engine buckets
+R_SP_BUCKETS = (1, 2)  # r3's
+R_CPU_TOL = 1e-4  # r1 and r3 f32: a replay against the CPU predict, of max |logit|
+# r1: a replay against the eager forward of the same bucket on the card is
+# held bit-equal; only if cuDNN picks another algorithm under capture is it
+# held to this, of max |logit|, and the line says so.
+R_EAGER_TOL = 1e-6
+R_TIMED = 10  # replays and eager forwards timed a bucket (median, CUDA events)
+R_SP_TIMED = 3  # r3's replays timed a bucket (4 ranks time-slice one card)
+R_BURST, R_SINGLES = 12, 20  # r2's requests: a burst, then one by one
+R_SP_REQUESTS = 8  # r3's
+R_CAL_BATCHES = 2  # r2's calibration batches
+
+
+def _median_ms(fn, n=R_TIMED):
+    """Median device time of ``n`` calls of ``fn``, each between CUDA events."""
+    import torch
+
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[n // 2]
+
+
+def _row_key(row) -> bytes:
+    import hashlib
+
+    return hashlib.sha1(row.tobytes()).digest()
+
+
+def phase_serve_small():
+    """Phase r1: phase b's small f32 models, calibrated on the card; a
+    ``SingleChipPredictor``'s buckets captured; each replay against the CPU
+    predict (plain versions) and against the eager forward on the card."""
+    import numpy as np
+    import torch
+
+    from mpi4dl_tpu_torch import evaluate
+    from mpi4dl_tpu_torch.serve import SingleChipPredictor
+
+    rng = np.random.default_rng(SEED + 5)
+    exact = True
+    for name, build, size in small_models():
+        cpu = _seeded(build())
+        model = copy.deepcopy(cpu).to(DEVICE, memory_format=torch.channels_last)
+        cal, _ = eval_batches(size)
+        stats = evaluate.collect_batch_stats(model, cal)
+        stats_np = [_numpy_stats(s) for s in stats]
+        pred = SingleChipPredictor(model, stats, (size, size, 3), torch.float32)
+        parts = []
+        for b in R_BUCKETS:
+            captured = pred.compile_bucket(b)
+            x = rng.standard_normal((b, size, size, 3)).astype(np.float32)
+            got = pred.run(captured, x)
+            eager = evaluate.make_predict(model)(stats, x)
+            want = evaluate.make_predict(cpu)(stats_np, x)
+            cpu_err = rel_err(got.cpu(), want)
+            if not cpu_err <= R_CPU_TOL:
+                raise AssertionError(f"r1 {name} bucket {b}: replay against the CPU predict "
+                                     f"{cpu_err:.3g} of max |logit| (tolerance {R_CPU_TOL:g})")
+            same = torch.equal(got, eager)
+            if not same:
+                exact = False
+                err = rel_err(got, eager)
+                if not err <= R_EAGER_TOL:
+                    raise AssertionError(f"r1 {name} bucket {b}: replay against the eager "
+                                         f"forward {err:.3g} of max |logit| (not bit-equal; "
+                                         f"tolerance {R_EAGER_TOL:g})")
+            t = pred.compile_timings[b]
+            parts.append(f"bucket {b}: CPU {cpu_err:.2e}, eager "
+                         + ("bit-equal" if same else f"NOT bit-equal, {rel_err(got, eager):.2e}")
+                         + f" (warm-up {t['trace_s']:.3f} s, capture {t['compile_s']:.3f} s)")
+        log(f"[r1] {name} f32 (TF32 off), statistics from collect_batch_stats on the card, "
+            f"SingleChipPredictor buckets {R_BUCKETS} captured: " + "; ".join(parts)
+            + f" (CPU tolerance {R_CPU_TOL:g} of max |logit|)")
+        del pred, model, stats
+    gc.collect()
+    torch.cuda.empty_cache()
+    return exact
+
+
+def phase_serve_main():
+    """Phase r2: AmoebaNet-D 18L/416F @1024 bf16 (phase c's seed) behind a
+    ``ServingEngine`` with buckets ``R_BUCKETS``: per bucket the warm-up,
+    the capture, the pool and the replay beside the eager forward; then
+    ``R_BURST`` requests at once and ``R_SINGLES`` one by one, each response
+    bit-equal to its row of the eager forward of the padded batch it rode
+    in, and no capture after warm-up."""
+    import numpy as np
+    import torch
+
+    from mpi4dl_tpu_torch import evaluate
+    from mpi4dl_tpu_torch.models.amoebanet import amoebanetd
+    from mpi4dl_tpu_torch.serve import ServingEngine
+    from mpi4dl_tpu_torch.serve.engine import to_host
+    from mpi4dl_tpu_torch.weights import meta_built
+
+    t0 = time.time()
+    model = _seeded(meta_built(lambda: amoebanetd(10, LAYERS, FILTERS, dtype=torch.bfloat16)))
+    model = model.to(DEVICE, memory_format=torch.channels_last)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    cal = [torch.randn((BATCH, SIZE, SIZE, 3), generator=gen, device=DEVICE).to(torch.bfloat16)
+           for _ in range(R_CAL_BATCHES)]
+    stats = evaluate.collect_batch_stats(model, cal)
+    del cal
+    setup_s = time.time() - t0
+    captures = [0]
+    begin = torch.cuda.CUDAGraph.capture_begin
+
+    def counted(self, *args, **kwargs):
+        captures[0] += 1
+        return begin(self, *args, **kwargs)
+
+    torch.cuda.CUDAGraph.capture_begin = counted
+    try:
+        t0 = time.time()
+        eng = ServingEngine(model, stats, (SIZE, SIZE, 3), dtype=torch.bfloat16,
+                            buckets=R_BUCKETS, default_deadline_s=300.0)
+        warm_wall = time.time() - t0
+        warm_captures = captures[0]
+        pred = eng._predictor
+        predict = evaluate.make_predict(model)
+        rng = np.random.default_rng(SEED + 7)
+        rows = []
+        for b in eng.buckets:
+            x = torch.as_tensor(rng.standard_normal((b, SIZE, SIZE, 3)).astype(np.float32))
+            x = x.to(DEVICE)
+            captured = eng._compiled[b]
+            replay = _median_ms(lambda: captured(x))
+            xb = x.to(torch.bfloat16)
+            eager = _median_ms(lambda: predict(stats, xb))
+            e = eng.memory_ledger.get(pred.program, bucket=b)
+            rows.append(f"bucket {b}: warm-up {e['trace_s']:.3f} s, capture {e['compile_s']:.3f} "
+                        f"s, first replay {e['warm_s']:.3f} s, pool {e['pool_bytes']} bytes, peak "
+                        f"{e['peak_bytes'] / 2**30:.2f} GiB; replay {replay:.3f} ms against the "
+                        f"eager forward's {eager:.3f} ms")
+        staged = []
+        stage = pred.stage
+
+        def recording(batch):
+            staged.append(np.array(batch))
+            return stage(batch)
+
+        pred.stage = recording
+        xs = [rng.standard_normal((SIZE, SIZE, 3)).astype(np.float32)
+              for _ in range(R_BURST + R_SINGLES)]
+        t0 = time.time()
+        eng.start()
+        try:
+            futures = [eng.submit(x) for x in xs[:R_BURST]]
+            res = [f.result(timeout=300) for f in futures]
+            for x in xs[R_BURST:]:
+                res.append(eng.submit(x).result(timeout=300))
+        finally:
+            eng.stop()
+        serve_s = time.time() - t0
+        eng.assert_warm()
+        after = captures[0] - warm_captures
+    finally:
+        torch.cuda.CUDAGraph.capture_begin = begin
+    if after or warm_captures != len(R_BUCKETS):
+        raise AssertionError(f"r2: {warm_captures} captures in warm-up, {after} after it")
+    index = {_row_key(x): i for i, x in enumerate(xs)}
+    matched = 0
+    for batch in staged:
+        want = to_host(predict(stats, torch.as_tensor(batch).to(DEVICE, torch.bfloat16)))
+        for r, row in enumerate(batch):
+            i = index.get(_row_key(row))
+            if i is None:
+                continue  # a pad row
+            if not (res[i].shape == want[r].shape and np.array_equal(res[i], want[r])):
+                raise AssertionError(f"r2: request {i}'s response differs from row {r} of the "
+                                     f"eager forward of its padded bucket-{len(batch)} batch")
+            matched += 1
+    if matched != len(xs) or not all(np.isfinite(v).all() for v in res):
+        raise AssertionError(f"r2: {matched} of {len(xs)} responses matched eager rows")
+    st = eng.stats()
+    if st["served"] != len(xs):
+        raise AssertionError(f"r2: served {st['served']} of {len(xs)}: {st}")
+    lat = st["latency_s"]
+    log(f"[r2] AmoebaNet-D {LAYERS}L/{FILTERS}F @{SIZE} bf16 (phase c's seed), statistics over "
+        f"{R_CAL_BATCHES} calibration batches of {BATCH}; set-up {setup_s:.1f} s; ServingEngine "
+        f"buckets {eng.buckets} warm in {warm_wall:.1f} s ({warm_captures} captures, the load "
+        f"checksum and canary references included); {card()}")
+    for row in rows:
+        log(f"[r2] {row} (median of {R_TIMED}, CUDA events; a replay copies the batch in and "
+            "the logits out)")
+    log(f"[r2] {len(xs)} requests ({R_BURST} at once, then {R_SINGLES} one by one) in "
+        f"{serve_s:.2f} s: served {st['served']} in {st['batches']} batches (mean "
+        f"{st.get('mean_batch_size', 0):.2f}, by bucket {st['bucket_dispatches']}), latency p50 "
+        f"{lat['p50'] * 1e3:.1f} ms, p90 {lat['p90'] * 1e3:.1f} ms, p99 {lat['p99'] * 1e3:.1f} ms; "
+        f"every response bit-equal to its row of the eager forward of its padded batch; "
+        f"assert_warm passed, no capture after warm-up")
+    del eng, pred, model, stats
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _sp_serve(rank, grid, device, sp_stats):
+    """Phase r3 in one rank: s1's small f32 spatial ResNet-v2 @32 through a
+    ``ShardedPredictor`` against the single-device CPU predict; then
+    ``resnet_sp`` (bf16) with ``sp_stats`` behind a ``ServingEngine`` on rank
+    0 (buckets ``R_SP_BUCKETS``): replay ms a bucket, ``R_SP_REQUESTS``
+    requests, then every rank's eager spatial predict of the batches they
+    rode in. Returns what rank 0 checks."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from mpi4dl_tpu_torch import evaluate
+    from mpi4dl_tpu_torch.parallel.halo import split_tiles
+    from mpi4dl_tpu_torch.serve.batching import pad_batch
+    from mpi4dl_tpu_torch.serve.engine import to_host
+    from mpi4dl_tpu_torch.serve.sharded import (
+        ShardedPredictor,
+        serve_or_follow,
+        serving_mesh_config,
+    )
+    from mpi4dl_tpu_torch.train import Trainer
+
+    t0 = time.time()
+    out = {}
+    name, size, cells, build = sp_small_models()[0]
+    plain = _seeded(build(None))
+    cal, _ = eval_batches(size)
+    stats = [_numpy_stats(s) for s in evaluate.collect_batch_stats(plain, cal)]
+    trainer = Trainer(_seeded(build(grid)), serving_mesh_config(SP_GRID, size), learning_rate=0.0,
+                      device=device, num_spatial_cells=cells, grid=grid)
+    pred = ShardedPredictor(trainer, stats, (size, size, 3))
+    if rank == 0:
+        rng = np.random.default_rng(SEED + 8)
+        errs = []
+        for b in R_SP_BUCKETS:
+            captured = pred.compile_bucket(b)
+            x = rng.standard_normal((b, size, size, 3)).astype(np.float32)
+            errs.append(rel_err(pred.run(captured, x).cpu(),
+                                evaluate.make_predict(plain)(stats, x)))
+        pred.stop()
+        out["small"] = (name, errs)
+    else:
+        pred.follow()
+    out["small_k4"] = dict(pred.capture_halo_launches)
+    del trainer, pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    model, cells = sp_models()["resnet_sp"][1](grid, torch.bfloat16)
+    _seeded(model)
+    trainer = Trainer(model, serving_mesh_config(SP_GRID, SIZE), learning_rate=0.0,
+                      device=device, num_spatial_cells=cells, grid=grid)
+    pred = ShardedPredictor(trainer, sp_stats, (SIZE, SIZE, 3), dtype=torch.bfloat16)
+    rng = np.random.default_rng(SEED + 9)
+    xs = [rng.standard_normal((SIZE, SIZE, 3)).astype(np.float32) for _ in range(R_SP_REQUESTS)]
+    t1 = time.time()
+    eng = serve_or_follow(pred, buckets=R_SP_BUCKETS, default_deadline_s=300.0)
+    plan = None
+    if eng is not None:
+        out["warm_s"] = time.time() - t1
+        out["warmup"] = eng.warmup_stats()
+        out["replay_ms"] = {}
+        for b in eng.buckets:
+            x = rng.standard_normal((b, SIZE, SIZE, 3)).astype(np.float32)
+            times = []
+            for _ in range(R_SP_TIMED):
+                t = time.perf_counter()
+                pred.run(eng._compiled[b], x)
+                times.append((time.perf_counter() - t) * 1e3)
+            out["replay_ms"][b] = sorted(times)[R_SP_TIMED // 2]
+        index = {_row_key(x): i for i, x in enumerate(xs)}
+        plan = []  # per staged batch, its request index per row (None: a pad row)
+        stage = pred.stage
+
+        def recording(batch):
+            plan.append([index.get(_row_key(row)) for row in batch])
+            return stage(batch)
+
+        pred.stage = recording
+        t = time.time()
+        eng.start()
+        try:
+            futures = [eng.submit(x) for x in xs]
+            out["responses"] = [f.result(timeout=300) for f in futures]
+        finally:
+            eng.stop()  # releases the followers
+        out["serve_s"] = time.time() - t
+        out["stats"] = eng.stats()
+        out["mean_batch"] = out["stats"].get("mean_batch_size")
+        del eng
+    out["k4"] = dict(pred.capture_halo_launches)
+    box = [plan]
+    dist.broadcast_object_list(box, src=0)
+    stats_dev = evaluate._device_stats(sp_stats, device)
+    eager = []
+    for rows in box[0]:
+        batch = pad_batch([xs[i] for i in rows if i is not None], len(rows), np.float32)
+        dist.barrier()
+        with evaluate._running(trainer.model, stats_dev):
+            logits = trainer.forward(trainer.input_to_device(
+                split_tiles(torch.as_tensor(batch).to(torch.bfloat16), grid)))
+        eager.append(to_host(logits))
+    evaluate._check_rings(trainer)
+    if rank == 0:
+        out["plan"], out["eager"] = box[0], eager
+    out["s"] = time.time() - t0
+    del trainer, pred, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_sharded(outs):
+    """Phase r3's gates and lines from every rank's :func:`_sp_serve`."""
+    import numpy as np
+
+    o = outs[0]
+    name, errs = o["small"]
+    if not max(errs) <= R_CPU_TOL:
+        raise AssertionError(f"r3 {name}: sharded replays against the CPU predict {errs} of max "
+                             f"|logit| (tolerance {R_CPU_TOL:g})")
+    for r, out in enumerate(outs):
+        if sorted(out["k4"]) != list(R_SP_BUCKETS) or min(out["k4"].values()) <= 0:
+            raise AssertionError(f"r3 rank {r}: K4 launches recorded in the captures {out['k4']}")
+        if sorted(out["small_k4"]) != list(R_SP_BUCKETS) or min(out["small_k4"].values()) <= 0:
+            raise AssertionError(f"r3 rank {r}: small model's K4 launches in the captures "
+                                 f"{out['small_k4']}")
+    seen = 0
+    for rows, want in zip(o["plan"], o["eager"]):
+        for r, i in enumerate(rows):
+            if i is None:
+                continue
+            got = o["responses"][i]
+            if not (got.shape == want[r].shape and np.array_equal(got, want[r])):
+                raise AssertionError(f"r3: request {i}'s response differs from row {r} of the "
+                                     f"eager spatial predict of its padded batch")
+            seen += 1
+    if seen != R_SP_REQUESTS or o["stats"]["served"] != R_SP_REQUESTS:
+        raise AssertionError(f"r3: {seen} rows matched, {o['stats']['served']} served of "
+                             f"{R_SP_REQUESTS}")
+    log(f"[r3] {name} f32 (TF32 off), 2x2 tiles, ShardedPredictor buckets {R_SP_BUCKETS}: "
+        f"against the single-device CPU predict {['%.2e' % e for e in errs]} of max |logit| "
+        f"(tolerance {R_CPU_TOL:g}); K4 phase launches in each bucket's capture "
+        f"{o['small_k4']} (rank 0)")
+    w = o["warmup"]["buckets"]
+    log(f"[r3] resnet_sp: ResNet-{RESNET_DEPTH} v2 @{SIZE} bf16 on 2x2 tiles with v3's "
+        f"statistics behind a ServingEngine on rank 0 (the others follow), buckets "
+        f"{R_SP_BUCKETS} warm in {o['warm_s']:.1f} s: "
+        + "; ".join(f"bucket {b}: warm-up {w[str(b)]['trace_s']:.2f} s, capture "
+                    f"{w[str(b)]['compile_s']:.2f} s, replay {o['replay_ms'][b]:.1f} ms (host "
+                    f"wall with the broadcast, the eager join and the rings' check, median of "
+                    f"{R_SP_TIMED})" for b in R_SP_BUCKETS)
+        + f"; K4 phase launches in each bucket's capture by rank "
+        f"{[out['k4'] for out in outs]}; {card()}")
+    lat = o["stats"]["latency_s"]
+    log(f"[r3] {R_SP_REQUESTS} requests at once in {o['serve_s']:.2f} s: served "
+        f"{o['stats']['served']} in {o['stats']['batches']} batches, latency p50 "
+        f"{lat['p50'] * 1e3:.1f} ms, p99 {lat['p99'] * 1e3:.1f} ms; every response bit-equal to its "
+        f"row of the eager spatial predict of its padded batch; phase r3 "
+        f"{max(out['s'] for out in outs):.1f} s in the ranks")
+
+
+def _serve_world(rank, world):
+    """Phase r3 in a 4-rank world of its own (``--serve-only``): v3's
+    statistics (``spatial_collect_batch_stats`` of ``resnet_sp`` over
+    ``V_BATCHES`` ClassPatternImages batches), then :func:`_sp_serve`."""
+    import torch
+
+    from mpi4dl_tpu_torch import evaluate
+    from mpi4dl_tpu_torch.config import ParallelConfig
+    from mpi4dl_tpu_torch.data import ClassPatternImages
+    from mpi4dl_tpu_torch.ops import halo_kernel
+    from mpi4dl_tpu_torch.parallel.multihost import TileGrid
+    from mpi4dl_tpu_torch.train import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", torch.cuda.current_device())
+    grid = TileGrid(SP_GRID, rank)
+    halo_kernel.open_rings(grid, device)
+    model, cells = sp_models()["resnet_sp"][1](grid, torch.bfloat16)
+    _seeded(model)
+    cfg = ParallelConfig(batch_size=BATCH, image_size=SIZE, spatial_size=1,
+                         num_spatial_parts=SP_RANKS)
+    trainer = Trainer(model, cfg, device=device, num_spatial_cells=cells, grid=grid)
+    ds = ClassPatternImages(BATCH, SIZE, 10, seed=SEED)
+    stats = evaluate.spatial_collect_batch_stats(trainer, [ds.batch(i)[0]
+                                                           for i in range(V_BATCHES)])
+    del trainer, model
+    gc.collect()
+    out = _sp_serve(rank, grid, device, stats)
+    halo_kernel.close_rings(grid)
+    return out
+
+
+def phase_serve_world():
+    from mpi4dl_tpu_torch.benchmarks.common import rank_layout
+    from mpi4dl_tpu_torch.parallel import multihost
+
+    backend, desc, env = rank_layout(SP_RANKS, DEVICE)
+    log(f"[r3] {desc}, 2x2 tile grid")
+    outs = multihost.spawn(_serve_world, SP_RANKS, backend=backend, timeout=600, env=env)
+    phase_serve_sharded(outs)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4594,8 +5166,11 @@ def main(argv=None) -> int:
     only.add_argument("--tools-only", action="store_true",
                       help="run only the build and the run tooling: phases t, e and s9 (the "
                            "halo twins in a 4-rank world of their own)")
+    only.add_argument("--serve-only", action="store_true",
+                      help="run only the build and the serving phase r (r3 in a 4-rank world "
+                           "of its own)")
     args = ap.parse_args(argv)
-    picked = [f for f in ("spatial", "pipeline", "sp_lp", "gems", "tools")
+    picked = [f for f in ("spatial", "pipeline", "sp_lp", "gems", "tools", "serve")
               if getattr(args, f"{f}_only")]
     only = bool(picked)
 
@@ -4626,6 +5201,13 @@ def main(argv=None) -> int:
             calls[path] = _new_calls()
             launches[path], first_loss[path], k1_copies[path], ips[path] = phase_main(
                 path, desc, build, calls[path], args.profile)
+    if runs("serve"):
+        t0 = time.time()
+        r1_exact = phase_serve_small()
+        phase_serve_main()
+        log(f"[r] phases r1 and r2 in {time.time() - t0:.1f} s; r1's replays "
+            + ("bit-equal to eager" if r1_exact else
+               f"NOT all bit-equal to eager (held to {R_EAGER_TOL:g} of max |logit|)"))
     tools_s = 0.0
     if runs("tools"):
         t0 = time.time()
@@ -4651,6 +5233,13 @@ def main(argv=None) -> int:
         phase_checkpoint(launches)
     k4_timing = None
     if runs("spatial"):
+        if "amoebanet" in first_loss:  # the single-device reference at the SP depth
+            from mpi4dl_tpu_torch.models.amoebanet import amoebanetd
+            from mpi4dl_tpu_torch.weights import meta_built
+
+            first_loss = dict(first_loss, amoebanet=(None, f32_first_loss(meta_built(
+                lambda dtype: amoebanetd(10, SP_LAYERS, FILTERS, dtype=dtype), torch.float32),
+                DEVICE)))
         for path in SP_PATHS:
             calls[path] = _new_calls()
         sp_launches, sp_ips, sp_cards, k4_timing = phase_spatial(calls, args.profile, first_loss)
@@ -4663,6 +5252,10 @@ def main(argv=None) -> int:
         phase_halo_world()
         log(f"[s9] phase s9 in {time.time() - t0:.1f} s")
         tools_s += time.time() - t0
+    elif runs("serve"):
+        t0 = time.time()
+        phase_serve_world()
+        log(f"[r3] phase r3 in {time.time() - t0:.1f} s")
     for phase, tag, run in (("pipeline", "p", phase_pipeline), ("sp_lp", "q", phase_sp_lp),
                             ("gems", "g", phase_gems)):
         if runs(phase):

@@ -29,11 +29,28 @@ tile_w)``). The tile-local moments are averaged over the trainer's group
 (``Trainer.group``: every replica's tiles) in one all-reduce (the JAX
 ``pmean`` over ``(data, tile_h, tile_w)``); the loss and the correct count
 are summed over it, each rank contributing ``1/tiles``.
+
+Serving's warm-up (:func:`aot_compile_predict`,
+:func:`aot_compile_spatial_predict`; ``evaluate.py:156-204``, ``:407-486``)
+gives one :class:`CapturedPredict` per batch bucket. The JAX package
+AOT-compiles an executable that can never trace or compile again; on the
+card the port captures the bucket's frozen-statistics forward as a
+``torch.cuda.CUDAGraph`` on a static input buffer, after one eager warm-up
+on a side stream. A call copies the batch into the buffer, replays and
+returns a clone of the static logits; it refuses any other shape or dtype
+and never captures again. Every bucket of one predictor captures into one
+graph memory pool: the engine replays one batch at a time and each call
+copies its logits out before the next replay. The statistics, parameters
+and buffers a graph reads stay where they were at capture
+(:meth:`CapturedPredict.keep` holds them), so a parameter reload must copy
+into the same tensors. On a CPU device, which only tests ask for, a
+:class:`CapturedPredict` runs the eager forward.
 """
 
 from __future__ import annotations
 
 import contextlib
+import time
 
 import numpy as np
 import torch
@@ -287,3 +304,243 @@ def spatial_evaluate(trainer, batch_stats, batches) -> dict:
     if total == 0:
         raise ValueError("spatial_evaluate needs at least one batch")
     return {"loss": loss_sum / total, "accuracy": correct / total, "count": total}
+
+
+# -- serving: one captured forward per batch bucket ---------------------------
+
+def host_dtype(dtype):
+    """The host dtype of requests for inputs of ``dtype``: numpy holds no
+    bf16 or f16, so those arrive as float32 and are cast on the device."""
+    return torch.float32 if dtype in (torch.bfloat16, torch.float16) else dtype
+
+
+def _pool_bytes(pool) -> "int | None":
+    """Bytes the caching allocator holds reserved for the graph memory pool
+    ``pool`` (its segments in ``torch.cuda.memory_snapshot``)."""
+    try:
+        return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                   if tuple(s.get("segment_pool_id", ())) == tuple(pool))
+    except (KeyError, TypeError):
+        return None
+
+
+def _states(h) -> tuple:
+    return h if isinstance(h, tuple) else (h,)
+
+
+class CapturedPredict:
+    """One bucket's frozen-statistics forward (see the module docstring).
+
+    ``predictor(x)``: ``x`` (numpy or a tensor, on any device) of shape
+    ``(bucket, *example_shape)`` and dtype :attr:`dtype` or its host dtype
+    (float32 for bf16) -> the logits, a tensor on :attr:`device` that no
+    later call overwrites. :attr:`graphs` holds the captured graphs (none
+    on the CPU), :attr:`memory` the measured ``{"peak_bytes",
+    "pool_bytes"}`` of its warm-up and capture (None on the CPU),
+    :attr:`pool` the graph memory pool and :attr:`halo_launches` K4's phase
+    launches recorded in the capture."""
+
+    def __init__(self, bucket, example_shape, dtype, device, run, graphs=(), pool=None,
+                 memory=None, keep=(), halo_launches=0):
+        self.bucket = int(bucket)
+        self.example_shape = tuple(int(d) for d in example_shape)
+        self.shape = (self.bucket, *self.example_shape)
+        self.dtype = dtype
+        self.device = device
+        self._run = run
+        self.graphs = tuple(graphs)
+        self.pool = pool
+        self.memory = memory
+        self.keep = keep
+        self.halo_launches = int(halo_launches)
+
+    def check(self, x) -> torch.Tensor:
+        """``x`` as a tensor, refused unless of this bucket's shape and of
+        :attr:`dtype` or its host dtype."""
+        x = torch.as_tensor(x)
+        if tuple(x.shape) != self.shape or x.dtype not in (self.dtype, host_dtype(self.dtype)):
+            raise ValueError(f"bucket {self.bucket} takes {self.shape} {self.dtype}, got "
+                             f"{tuple(x.shape)} {x.dtype}")
+        return x
+
+    def __call__(self, x) -> torch.Tensor:
+        x = self.check(x)
+        with torch.no_grad():
+            return self._run(x)
+
+
+def _capture(device, fn, pool):
+    """``fn()`` once eagerly on a side stream (what ``torch.cuda.graph``
+    asks of a warm-up), then captured into a ``CUDAGraph`` in ``pool``:
+    ``(graph, static output, warm-up s, capture s, K4 phase launches
+    recorded in the capture)``."""
+    from mpi4dl_tpu_torch.ops import halo_kernel
+
+    t0 = time.perf_counter()
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    torch.cuda.synchronize(device)
+    t1 = time.perf_counter()
+    graph = torch.cuda.CUDAGraph()
+    k4 = halo_kernel.launch_count
+    with torch.cuda.graph(graph, pool=pool):
+        out = fn()
+    torch.cuda.synchronize(device)
+    return graph, out, t1 - t0, time.perf_counter() - t1, halo_kernel.launch_count - k4
+
+
+def aot_compile_predict(runner, batch_stats, example_shape, buckets, dtype=torch.float32,
+                        timings: "dict | None" = None, pool=None) -> dict:
+    """``{bucket: CapturedPredict}``: the frozen-statistics forward of
+    ``runner`` (a Trainer or a cell sequence) on ``batch_stats``, one per
+    bucket, for inputs ``(bucket, *example_shape)`` NHWC of ``dtype``
+    (``evaluate.py:156``). On the card each bucket is one eager warm-up and
+    one captured graph, all in ``pool`` (a new one unless given). With
+    ``timings``, each bucket's ``{"trace_s"`` (the warm-up), ``"compile_s"``
+    (the capture), ``"fingerprint"}`` land in it."""
+    from mpi4dl_tpu_torch.telemetry.coldstart import fingerprint_of
+
+    model, forward, to_device = _runner(runner)
+    device = next(model.parameters()).device
+    stats = _device_stats(batch_stats, device)
+    cuda = device.type == "cuda"
+    if cuda and pool is None:
+        pool = torch.cuda.graph_pool_handle()
+    out = {}
+    for b in sorted({int(b) for b in buckets}):
+        if b < 1:
+            raise ValueError(f"bucket sizes must be >= 1, got {b}")
+        shape = (b, *tuple(example_shape))
+        if not cuda:
+            def run(x):
+                with _running(model, stats):
+                    return forward(to_device(x.to(dtype)))
+
+            out[b] = CapturedPredict(b, example_shape, dtype, device, run, keep=(stats,))
+            warm_s = capture_s = 0.0
+        else:
+            static = torch.zeros(shape, dtype=dtype, device=device)
+
+            def fwd(static=static):
+                with _running(model, stats):
+                    return forward(to_device(static))
+
+            torch.cuda.reset_peak_memory_stats(device)
+            graph, logits, warm_s, capture_s, _ = _capture(device, fwd, pool)
+            memory = {"peak_bytes": int(torch.cuda.max_memory_allocated(device)),
+                      "pool_bytes": _pool_bytes(pool)}
+
+            def run(x, graph=graph, static=static, logits=logits):
+                static.copy_(x)
+                graph.replay()
+                return logits.clone()
+
+            out[b] = CapturedPredict(b, example_shape, dtype, device, run, graphs=(graph,),
+                                     pool=pool, memory=memory, keep=(stats, static, logits))
+        if timings is not None:
+            timings[b] = {"trace_s": round(warm_s, 6), "compile_s": round(capture_s, 6),
+                          "fingerprint": fingerprint_of(model, shape, dtype)}
+    return out
+
+
+def aot_compile_spatial_predict(trainer, batch_stats, example_shape, buckets,
+                                dtype=torch.float32, timings: "dict | None" = None,
+                                pool=None) -> dict:
+    """Sharded counterpart of :func:`aot_compile_predict`
+    (``evaluate.py:407``), on every rank of a spatial trainer's grid:
+    ``{bucket: CapturedPredict}`` whose call takes the whole bucket on
+    every rank, runs this rank's tile through the spatial cells (their K4
+    exchanges included), the SP -> plain join and the head, and returns
+    the logits of the whole bucket (the same on every rank). Collective:
+    every rank calls it, and every call, together.
+
+    On the card each bucket is two graphs in ``pool``: the tile-local
+    spatial section, then the head. The join between them runs eagerly:
+    on ranks that share a card over gloo it is a gloo all-gather, which a
+    graph cannot hold, and four cards take the same split so the code has
+    one path. A call ends with the rings' check
+    (:func:`_check_rings`)."""
+    from mpi4dl_tpu_torch.telemetry.coldstart import fingerprint_of
+
+    _spatial_trainer(trainer)
+    model, device, n = trainer.model, trainer.device, trainer.n_spatial
+    stats = _device_stats(batch_stats, device)
+    grid = trainer.grid
+    cuda = device.type == "cuda"
+    if cuda and pool is None:
+        pool = torch.cuda.graph_pool_handle()
+
+    def front(x):  # the tile-local spatial section
+        for i in range(n):
+            x = model[i](x)
+        return x
+
+    def head(h):
+        for i in range(n, len(model)):
+            h = model[i](h)
+        return h
+
+    out = {}
+    for b in sorted({int(b) for b in buckets}):
+        if b < 1:
+            raise ValueError(f"bucket sizes must be >= 1, got {b}")
+        shape = (b, *tuple(example_shape))
+        tile = tuple(split_tiles(torch.empty(shape, device="meta"), grid).shape)
+        if not cuda:
+            def run(x):
+                dist.barrier(group=trainer.group)
+                with _running(model, stats):
+                    return trainer.forward(trainer.input_to_device(
+                        split_tiles(x.to(dtype), grid)))
+
+            out[b] = CapturedPredict(b, example_shape, dtype, device, run, keep=(stats,))
+            warm_s = capture_s = 0.0
+        else:
+            static = torch.zeros(tile, dtype=dtype, device=device)
+            dist.barrier(group=trainer.group)
+            with _running(model, stats):
+                trainer.forward(trainer.input_to_device(static))  # sizes the K4 rings
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+
+            def fwd_front(static=static):
+                with _running(model, stats):
+                    return front(trainer.input_to_device(static))
+
+            dist.barrier(group=trainer.group)
+            g1, h, warm1, cap1, k4 = _capture(device, fwd_front, pool)
+            joined = tuple(t.clone() for t in _states(trainer._gather(h)))
+            torch.cuda.synchronize(device)
+            tuple_state = isinstance(h, tuple)
+
+            def fwd_head(joined=joined, tuple_state=tuple_state):
+                with _running(model, stats):
+                    return head(joined if tuple_state else joined[0])
+
+            g2, logits, warm2, cap2, _ = _capture(device, fwd_head, pool)
+            warm_s, capture_s = warm1 + warm2, cap1 + cap2
+            _check_rings(trainer)
+            memory = {"peak_bytes": int(torch.cuda.max_memory_allocated(device)),
+                      "pool_bytes": _pool_bytes(pool)}
+
+            def run(x, g1=g1, g2=g2, static=static, h=h, joined=joined, logits=logits):
+                static.copy_(split_tiles(x, grid))
+                g1.replay()
+                for dst, src in zip(joined, _states(trainer._gather(h))):
+                    dst.copy_(src)
+                g2.replay()
+                y = logits.clone()
+                _check_rings(trainer)
+                return y
+
+            out[b] = CapturedPredict(b, example_shape, dtype, device, run, graphs=(g1, g2),
+                                     pool=pool, memory=memory,
+                                     keep=(stats, static, h, joined, logits), halo_launches=k4)
+        if timings is not None:
+            timings[b] = {"trace_s": round(warm_s, 6), "compile_s": round(capture_s, 6),
+                          "fingerprint": fingerprint_of(model, shape, dtype,
+                                                        mesh_shape=grid.shape)}
+    return out

@@ -232,6 +232,41 @@ class _BnMoments(torch.autograd.Function):
         return dx.to(x.dtype)
 
 
+class _BnMomentsFused(_BnMoments):
+    """:class:`_BnMoments` with the backward of ``_bn_moments_fused``
+    (``layers.py:297-303``, ``MPI4DL_TPU_BN_BWD=fused``): the per-channel
+    scale ``2·ct_sq/n`` and shift ``ct_mean/n`` are cast to ``x``'s dtype
+    first and ``dx = x·scale + shift`` is computed in it, so no tensor of
+    ``x``'s size is made in f32. Same forward."""
+
+    @staticmethod
+    def backward(ctx, ct_mean, ct_sq):
+        (x,) = ctx.saved_tensors
+        n = x.numel() // x.shape[1]
+        scale = ((2.0 / n) * ct_sq).to(x.dtype).view(1, -1, 1, 1)
+        shift = (ct_mean / n).to(x.dtype).view(1, -1, 1, 1)
+        return x * scale + shift
+
+
+def bn_bwd_impl() -> str:
+    """The BN-moments backward selected by ``MPI4DL_TPU_BN_BWD`` (read at
+    each call, as JAX reads it at each trace; ``layers.py:250-262``):
+    ``"xla"`` (the default, :class:`_BnMoments`) or ``"fused"``
+    (:class:`_BnMomentsFused`)."""
+    impl = os.environ.get("MPI4DL_TPU_BN_BWD", "xla")
+    if impl not in ("fused", "xla"):
+        raise ValueError(f"MPI4DL_TPU_BN_BWD must be fused|xla, got {impl!r}")
+    return impl
+
+
+def bn_moments(x):
+    """Per-channel ``(E[x], E[x²])`` of an NCHW ``x`` through the backward
+    :func:`bn_bwd_impl` selects (``layers.py:265``)."""
+    if bn_bwd_impl() == "fused":
+        return _BnMomentsFused.apply(x)
+    return _BnMoments.apply(x)
+
+
 class _GridMean(torch.autograd.Function):
     """Mean of a tensor over the ranks of ``grid`` (one all-reduce over its
     group); its backward is the same mean of the cotangent, as pmean's
@@ -316,7 +351,7 @@ class TrainBatchNorm(nn.Module):
             stat = stat[:, :, ih:-ih]
         if iw:
             stat = stat[:, :, :, iw:-iw]
-        mean, mean_sq = _BnMoments.apply(stat)
+        mean, mean_sq = bn_moments(stat)
         if self.grid is not None:
             moments = _GridMean.apply(torch.cat([mean, mean_sq]), self.grid)
             mean, mean_sq = moments[:x.shape[1]], moments[x.shape[1]:]

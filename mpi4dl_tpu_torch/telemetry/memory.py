@@ -15,14 +15,26 @@
 - :func:`device_memory_stats` and :func:`device_memory_limit` read
   ``torch.cuda.mem_get_info`` and ``torch.cuda.memory_stats``.
 
-Not ported yet: the ``oom.report`` JSONL event, its registry counter,
-``MemoryMonitor`` and ``FootprintLedger`` (they need the port's telemetry
-registry and event log).
+- :func:`oom_report` and :func:`emit_oom_report`: the schema-valid
+  ``oom.report`` event (its ``parsed`` from :func:`parse_cuda_oom`) into
+  the event log, the flight ring and ``oom_reports_total``.
+- :class:`MemoryMonitor` samples :func:`device_memory_stats` of each CUDA
+  device into the ``device_hbm_*`` gauges; without a card it publishes
+  nothing and its thread retires (absent, not zero).
+- :class:`FootprintLedger` records each captured program's memory. The
+  JAX ledger predicts a program's peak from ``memory_analysis()`` before
+  it runs; eager PyTorch has no such plan, so the port records what was
+  **measured**: ``max_memory_allocated`` over a bucket's warm-up and
+  capture (``peak_bytes``) and the graph pool's reserved bytes
+  (``pool_bytes``), each entry with ``"source": "measured"``.
 """
 
 from __future__ import annotations
 
+import json
 import re
+import threading
+import time
 
 import torch
 
@@ -186,3 +198,223 @@ def device_memory_limit(device=None) -> "int | None":
     read (a CPU device, or no card)."""
     stats = device_memory_stats(device)
     return None if stats is None else stats.get("limit_bytes")
+
+
+# -- the oom.report event -------------------------------------------------------
+
+
+def oom_report(exc_or_msg, program: str, bucket: "int | None" = None,
+               attrs: "dict | None" = None) -> dict:
+    """One schema-valid ``oom.report`` event (``memory.py:230``): the
+    parsed CUDA OOM beside the raw message (truncated), naming the program,
+    bucket and failed request."""
+    from mpi4dl_tpu_torch.telemetry.jsonl import validate_event
+
+    raw = exception_chain_text(exc_or_msg)
+    parsed = parse_cuda_oom(raw)
+    ev_attrs = {
+        "program": program,
+        "parsed": parsed,
+        "largest_buffer": largest_buffer(parsed),
+        "raw": raw[:4000],
+    }
+    if bucket is not None:
+        ev_attrs["bucket"] = int(bucket)
+    if attrs:
+        ev_attrs.update(attrs)
+    return validate_event({"ts": time.time(), "kind": "event", "name": "oom.report",
+                           "attrs": ev_attrs})
+
+
+def emit_oom_report(exc_or_msg, program: str, bucket: "int | None" = None, registry=None,
+                    events=None, flight=None, dump: bool = False,
+                    attrs: "dict | None" = None) -> dict:
+    """Build and fan out one ``oom.report`` (``memory.py:255``): the event
+    log when enabled, the flight ring (and a ``reason="oom"`` dump when
+    asked), ``oom_reports_total{program=}``. Returns the event; never
+    raises."""
+    ev = oom_report(exc_or_msg, program, bucket=bucket, attrs=attrs)
+    try:
+        if registry is not None:
+            from mpi4dl_tpu_torch import telemetry
+
+            telemetry.declare(registry, "oom_reports_total").inc(program=program)
+        if flight is not None and getattr(flight, "enabled", False):
+            flight.record(ev)
+            if dump:
+                flight.dump(reason="oom")
+        if events is not None and getattr(events, "enabled", False):
+            events.write(ev)
+    except Exception:  # noqa: BLE001 — postmortem is best-effort
+        pass
+    return ev
+
+
+# -- the live monitor -------------------------------------------------------------
+
+
+class MemoryMonitor:
+    """Samples per-device memory into the cataloged gauges (``memory.py:
+    320``).
+
+    registry: the gauges are declared at construction and set only when a
+        device reports.
+    devices: CUDA devices (tests pass stubs: anything
+        :func:`device_memory_stats` or ``stats_fn`` reads); None is the
+        process's current card, resolved at the first sample (none without
+        a card). The port runs one process per card, and reading another
+        card's memory would make a CUDA context on it.
+    interval_s: the daemon thread's cadence.
+    stats_fn: the reader, :func:`device_memory_stats` unless given.
+    """
+
+    def __init__(self, registry, devices=None, interval_s: float = 1.0, stats_fn=None):
+        from mpi4dl_tpu_torch import telemetry
+
+        self._m_used = telemetry.declare(registry, "device_hbm_used_bytes")
+        self._m_limit = telemetry.declare(registry, "device_hbm_limit_bytes")
+        self._m_headroom = telemetry.declare(registry, "device_hbm_headroom_ratio")
+        self._devices = list(devices) if devices is not None else None
+        self._stats = stats_fn or device_memory_stats
+        self.interval_s = float(interval_s)
+        self.supported: "bool | None" = None  # unknown until the first sample
+        self.last: "dict | None" = None
+        self._stop_evt = threading.Event()
+        self._thread: "threading.Thread | None" = None
+
+    def sample_once(self) -> "dict | None":
+        """One sample over every device; None when none reports."""
+        if self._devices is None:
+            self._devices = ([torch.device("cuda", torch.cuda.current_device())]
+                             if torch.cuda.is_available() else [])
+        out = {}
+        for d in self._devices:
+            stats = self._stats(d)
+            if stats is None:
+                continue
+            label = f"{getattr(d, 'type', 'dev')}:{getattr(d, 'index', 0) or 0}"
+            used, limit = stats.get("used_bytes"), stats.get("limit_bytes")
+            if used is not None:
+                self._m_used.set(used, device=label)
+            if limit:
+                self._m_limit.set(limit, device=label)
+                if used is not None:
+                    stats["headroom_ratio"] = (limit - used) / limit
+                    self._m_headroom.set(stats["headroom_ratio"], device=label)
+            out[label] = stats
+        self.supported = bool(out)
+        self.last = out or None
+        return out or None
+
+    def start(self) -> None:
+        if self._thread is not None and self._thread.is_alive():
+            return
+        self._stop_evt.clear()
+        self._thread = threading.Thread(target=self._run, name="mpi4dl-memory-monitor",
+                                        daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop_evt.is_set():
+            try:
+                if self.sample_once() is None:
+                    return  # nothing reports: retire
+            except Exception:  # noqa: BLE001 — sampling must never kill the host
+                return
+            if self._stop_evt.wait(self.interval_s):
+                return
+
+    def close(self) -> None:
+        self._stop_evt.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None
+
+    def state(self) -> dict:
+        """The ``/debugz`` payload."""
+        return {"supported": self.supported, "devices": self.last}
+
+
+# -- the footprint ledger -------------------------------------------------------
+
+
+class FootprintLedger:
+    """Per-program ledger of measured memory (``memory.py:387``; see the
+    module docstring). Bucket entries publish
+    ``serve_bucket_peak_hbm_bytes{bucket=}``, others
+    ``program_peak_hbm_bytes{program=}``; entries with ``trace_s`` /
+    ``compile_s`` / ``warm_s`` accumulate into ``compile_seconds{program,
+    phase}``."""
+
+    def __init__(self, registry=None):
+        self._entries: "dict[str, dict]" = {}
+        self._lock = threading.Lock()
+        self._m_bucket = self._m_program = self._m_compile = None
+        if registry is not None:
+            from mpi4dl_tpu_torch import telemetry
+
+            self._m_bucket = telemetry.declare(registry, "serve_bucket_peak_hbm_bytes")
+            self._m_program = telemetry.declare(registry, "program_peak_hbm_bytes")
+            self._m_compile = telemetry.declare(registry, "compile_seconds")
+
+    def record_compiled(self, program: str, captured, bucket: "int | None" = None,
+                        **extra) -> dict:
+        """Record one captured program's measured memory (its ``memory``
+        dict, ``{"peak_bytes", "pool_bytes"}``, None off the card); returns
+        the entry (``peak_bytes`` None when nothing was measured)."""
+        entry: dict = {"program": program, "ts": time.time(), "source": "measured",
+                       "peak_bytes": None, "pool_bytes": None, **extra}
+        if bucket is not None:
+            entry["bucket"] = int(bucket)
+        entry.update(getattr(captured, "memory", None) or {})
+        key = program if bucket is None else f"{program}[{int(bucket)}]"
+        with self._lock:
+            self._entries[key] = entry
+        peak = entry.get("peak_bytes")
+        if peak is not None:
+            if bucket is not None and self._m_bucket is not None:
+                self._m_bucket.set(peak, bucket=int(bucket))
+            elif bucket is None and self._m_program is not None:
+                self._m_program.set(peak, program=program)
+        self._publish_phases(program, entry)
+        return entry
+
+    def annotate(self, program: str, bucket: "int | None" = None, **extra) -> "dict | None":
+        """Merge later facts (the first execute's ``warm_s``) into an entry;
+        no-op on an unknown key."""
+        key = program if bucket is None else f"{program}[{int(bucket)}]"
+        with self._lock:
+            entry = self._entries.get(key)
+            if entry is None:
+                return None
+            entry.update(extra)
+            entry = dict(entry)
+        self._publish_phases(program, extra)
+        return entry
+
+    def _publish_phases(self, program: str, fields: dict) -> None:
+        if self._m_compile is None or fields.get("rollup"):
+            return
+        for phase in ("trace", "compile", "warm"):
+            v = fields.get(f"{phase}_s")
+            if isinstance(v, (int, float)):
+                self._m_compile.inc(float(v), program=program, phase=phase)
+
+    def entries(self) -> "list[dict]":
+        with self._lock:
+            return [dict(v) for _, v in sorted(self._entries.items())]
+
+    def get(self, program: str, bucket: "int | None" = None) -> "dict | None":
+        key = program if bucket is None else f"{program}[{int(bucket)}]"
+        with self._lock:
+            e = self._entries.get(key)
+        return dict(e) if e else None
+
+    def summary(self) -> dict:
+        return {"entries": self.entries()}
+
+    def dump(self, path: str) -> str:
+        with open(path, "w") as f:
+            json.dump(self.summary(), f, indent=2)
+            f.write("\n")
+        return path

@@ -32,6 +32,10 @@ GEMS_TWINS = ("benchmarks.gems_master_model.benchmark_resnet_gems_master",
               "benchmark_amoebanet_gems_master_with_sp")
 HALO_TWINS = tuple(f"benchmarks.communication.halo.benchmark_sp_halo_exchange{s}"
                    for s in ("", "_with_compute", "_with_compute_val", "_conv"))
+SERVE_MODULES = ("serve", "serve.batching", "serve.scheduler", "serve.engine", "serve.sharded",
+                 "tenancy", "tenancy.model", "telemetry", "telemetry.registry",
+                 "telemetry.catalog", "telemetry.spans", "telemetry.slo", "telemetry.canary",
+                 "telemetry.tail", "telemetry.coldstart", "telemetry.memory")
 PORT_MODULES = sorted(
     _module_name(p) for p in (REPO / "mpi4dl_tpu_torch").rglob("*.py")
 )
@@ -51,7 +55,8 @@ def test_port_modules_listed():
                  "convergence_run", "parser", "parallel.partition", "parallel.pipeline",
                  "benchmarks.common", *LP_TWINS, *SP_TWINS, *GEMS_TWINS, *HALO_TWINS,
                  "benchmarks.communication.halo.halo_common", "elastic", "profile_step",
-                 "profiling", "telemetry.jsonl", "telemetry.health", "telemetry.flight"):
+                 "profiling", "telemetry.jsonl", "telemetry.health", "telemetry.flight",
+                 *SERVE_MODULES):
         assert f"mpi4dl_tpu_torch.{name}" in PORT_MODULES
 
 
@@ -126,3 +131,21 @@ def test_halo_twins_without_device_refuse_without_cuda(twin):
     assert out.returncode == 2, out.stderr[-2000:]
     assert "CUDA is not available; pass --device cpu --impl plain" in out.stderr
     assert "ranks" not in out.stdout and "PASSED" not in out.stdout
+
+
+def test_serving_from_a_checkpoint_refuses_without_cuda(monkeypatch, tmp_path):
+    """``ServingEngine.from_checkpoint`` builds on the card unless asked for
+    the CPU: without a card it raises before it captures anything."""
+    from mpi4dl_tpu_torch.checkpoint import model_metadata, save_checkpoint
+    from mpi4dl_tpu_torch.config import ParallelConfig
+    from mpi4dl_tpu_torch.models.resnet import get_resnet_v2
+    from mpi4dl_tpu_torch.serve import ServingEngine
+    from mpi4dl_tpu_torch.train import Trainer
+
+    trainer = Trainer(get_resnet_v2(11, 10, pool_kernel=2), ParallelConfig(
+        batch_size=1, image_size=8), device="cpu")
+    save_checkpoint(str(tmp_path), trainer, metadata=model_metadata(
+        "resnet_v2", 8, depth=11, num_classes=10, pool_kernel=2))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServingEngine.from_checkpoint(str(tmp_path))
