@@ -62,6 +62,28 @@ Phases (any failure exits non-zero; nothing is caught):
          rank, a replay's host wall per bucket (median of ``R_SP_TIMED``),
          ``R_SP_REQUESTS`` requests, each bit-equal to its row of the eager
          spatial predict of its padded batch;
+     r4. r2's model and statistics saved as a checkpoint, then
+         ``mpi4dl_tpu_torch.serve.__main__.main`` in this process on it
+         (``R4_FLAGS``: open loop at 20 req/s for 5 s, a serial baseline,
+         availability and latency SLOs, ``--metrics-port 0``) while a thread
+         scrapes ``/metrics``, ``/healthz`` and ``/alertz`` once under load:
+         exit 0, the last line with the JAX report's keys (``R4_KEYS``),
+         ``/metrics`` 200 with ``serve_requests_total``, ``/healthz`` 200,
+         ``/alertz`` parses, an SLO verdict, no capture after warm-up;
+     r5. tiled serving of ResNet-110 v2: a. f32 @1024 (TF32 off), tile
+         ``R5_TILE`` (ragged edge tiles), the tiled logits within ``R5_TOL``
+         of max |logit| of the monolithic eager forward; b. bf16 @``R5_SIZE``
+         with the default tile behind a ``tiled_engine``, ``R5_REQUESTS``
+         requests and one monolithic forward: the tiled request's peak
+         (``max_memory_allocated`` plus the graph pool) under half of the
+         monolithic forward's; tiles, stitch and stream s, latency and the
+         bf16 difference printed;
+     r6. (beside r5) ``python -m mpi4dl_tpu_torch.serve --mesh 2x2
+         --requests 8 --serial 0`` as a subprocess (4 rank processes, K4
+         inside each bucket's graphs): exit 0, one report line, mesh [2, 2];
+     r7. the bench's ``serving_amoebanet3_32px`` extra
+         (``bench.measure_serving``) in this process: throughput above 0 and
+         an SLO verdict;
   t. ``mpi4dl_tpu_torch.profile_step.main`` on ResNet-110 v2 @1024 bs2 (its
      default ``cell_save``, 2 warm-up and 2 traced steps) in this process,
      K1-K4's counts set to 0 just before and read after: its two
@@ -95,7 +117,8 @@ Phases (any failure exits non-zero; nothing is caught):
          small f32 models under each policy on the card against remat=False
          (loss equal, gradients within ``REMAT_GRAD_TOL``);
      m3. ``python -m mpi4dl_tpu_torch.bench`` as a subprocess
-         (BENCH_MODEL=amoebanet BENCH_STEPS=3 BENCH_TIME_BUDGET=1): every
+         (BENCH_MODEL=amoebanet BENCH_STEPS=3 BENCH_TIME_BUDGET=1
+         BENCH_SERVING=0 BENCH_TILED=0, the serving extra is r7's): every
          JSON line parses, the last is ``amoebanetd_1024px_bs2_train_gpu``
          with a value and an MFU, exit 0;
   w. the peak-pixel walk's slice, in this process:
@@ -277,8 +300,8 @@ Phases (any failure exits non-zero; nothing is caught):
          ``Trainer(grad_accum=parts·replicas)``, or LOCAL_DP_LP's grouping,
          the front over each micro-batch and the back over each slice):
          loss and per-leaf gradients, 1e-3;
-     q2. (in the ranks) phase c's models in f32 (TF32 off), ResNet-110 v2 and
-         AmoebaNet-D 18L/416F @1024, vertical 2 tiles x split 3, batch 2 in 2
+     q2. (in the ranks) phase p's models in f32 (TF32 off), ResNet-110 v2 and
+         AmoebaNet-D 6L/416F @1024, vertical 2 tiles x split 3, batch 2 in 2
          micro-batches: the first step's loss within ``PP_LOSS_RTOL`` of
          ``Trainer(grad_accum=2)``'s on the same weights, both the spatial
          one on pipe coordinate 0's tile grid (its 2 ranks) and the one on
@@ -314,8 +337,8 @@ Phases (any failure exits non-zero; nothing is caught):
          same ``chunks·batch`` rows: loss and per-leaf gradients, 1e-3; and
          SP+GEMS on 2 chunks of 2 images, its loss and the front's and each
          stage's gradients in relative L2 (``PP_GRAD_TOL``);
-     g2. phase c's models in f32 (TF32 off),
-         ResNet-110 v2 and AmoebaNet-D 18L/416F @1024, GEMS ``times`` 1
+     g2. phase p's models in f32 (TF32 off),
+         ResNet-110 v2 and AmoebaNet-D 6L/416F @1024, GEMS ``times`` 1
          on split 2, 2 chunks of 2 images in 2 micro-batches (4 images): the
          first step's loss within ``PP_LOSS_RTOL`` of
          ``Trainer(grad_accum=4)``'s on one device (rank 0) and within
@@ -324,8 +347,7 @@ Phases (any failure exits non-zero; nothing is caught):
          step's SGD momentum, gathered) within ``PP_GRAD_TOL`` of the
          Trainer's (relative L2), K1-K3 launched on every rank and their sum
          over the ranks equal to the Trainer's; the call shapes are
-         recorded for phases d-g. Rank 0 also counts the K1-K3 launches of
-         ``Trainer(grad_accum=4)``'s step of AmoebaNet-D at g3's depth;
+         recorded for phases d-g;
      g3. (as p1 runs its twins) each GEMS twin's ``main`` (bf16,
          ``--times 1``, ``--max-steps 3``, ``MPI4DL_TPU_RUN_REPORT``): LP
          GEMS ResNet-110 and AmoebaNet-D 6L/416F (split 2, batch 2, parts 2,
@@ -372,6 +394,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -578,7 +601,9 @@ STEPS_IN_RUN.update(dict.fromkeys(PP_PATHS, PP_STEPS - 1))
 # AmoebaNet-D's depth in phase p, in q3's SP+LP twin and in g3's GEMS twins
 # (18L before phase g came; cut to keep the whole script inside its time
 # limit). A twin run's rank draws the whole model on the host, which took
-# 9-23 s of its set-up at 18L on an H100's host. q2 and g2 keep 18L in f32.
+# 9-23 s of its set-up at 18L on an H100's host. q2's and g2's f32 gates
+# take it too (18L before the serving phases r4-r7 came: the whole script
+# took 1109.2 s of its 1200 on a slow card with them at 18L).
 PIPE_LAYERS = 6
 # The AmoebaNet-D depth of a path where it is not ``LAYERS`` (phase h's MFU).
 PATH_LAYERS = {path: PIPE_LAYERS for path in (
@@ -1287,11 +1312,13 @@ def phase_remat(policies):
 
 def phase_bench_cli():
     """Phase m3: ``python -m mpi4dl_tpu_torch.bench`` as a subprocess with
-    BENCH_MODEL=amoebanet BENCH_STEPS=3 BENCH_TIME_BUDGET=1: every JSON line
+    BENCH_MODEL=amoebanet BENCH_STEPS=3 BENCH_TIME_BUDGET=1 BENCH_SERVING=0
+    BENCH_TILED=0 (phase r7 runs the serving extra): every JSON line
     parses, the last is the headline with a value and an MFU, exit 0."""
     here = os.path.dirname(os.path.abspath(__file__))
     env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
     env.update(BENCH_MODEL="amoebanet", BENCH_STEPS="3", BENCH_TIME_BUDGET="1",
+               BENCH_SERVING="0", BENCH_TILED="0",
                PYTHONPATH=here + os.pathsep + env.get("PYTHONPATH", ""))
     t0 = time.time()
     out = subprocess.run([sys.executable, "-m", "mpi4dl_tpu_torch.bench"], cwd=here, env=env,
@@ -1309,7 +1336,7 @@ def phase_bench_cli():
         if not line.startswith("{"):
             log(f"[m3] bench: {line}")
     log(f"[m3] python -m mpi4dl_tpu_torch.bench (BENCH_MODEL=amoebanet BENCH_STEPS=3 "
-        f"BENCH_TIME_BUDGET=1): exit 0, {len(records)} JSON line(s) in {time.time() - t0:.1f} s, "
+        f"BENCH_TIME_BUDGET=1 BENCH_SERVING=0 BENCH_TILED=0): exit 0, {len(records)} JSON line(s) in {time.time() - t0:.1f} s, "
         f"the last: {json.dumps(last)}")
 
 
@@ -3561,7 +3588,7 @@ def _q_full(rank, device, shapes_by_model):
     y = torch.randint(0, 10, (cfg.batch_size,), generator=gen, device=device)
     counters = _counters()
     out = {}
-    for name, build in full_builders().items():
+    for name, build in pp_builders().items():
         res = {}
         t0 = time.time()
         with torch.device("meta"):
@@ -3626,7 +3653,7 @@ def _q_full(rank, device, shapes_by_model):
 
 
 def _q_full_model(name, spatial_cells, grid):
-    """Phase c's model ``name`` in f32 with its first ``spatial_cells`` cells
+    """Phase p's model ``name`` in f32 with its first ``spatial_cells`` cells
     on ``grid``."""
     import torch
 
@@ -3634,7 +3661,7 @@ def _q_full_model(name, spatial_cells, grid):
     from mpi4dl_tpu_torch.models.resnet import get_resnet_v2
 
     if name == "amoebanet":
-        return amoebanetd(10, LAYERS, FILTERS, spatial_cells=spatial_cells, grid=grid,
+        return amoebanetd(10, PIPE_LAYERS, FILTERS, spatial_cells=spatial_cells, grid=grid,
                           dtype=torch.float32)
     return get_resnet_v2(RESNET_DEPTH, 10, pool_kernel=SIZE // 4, spatial_cells=spatial_cells,
                          grid=grid, dtype=torch.float32)
@@ -3668,7 +3695,7 @@ def _q_worker(rank, world, twins):
     t0 = time.time()
     small = _q_small(rank, device)
     small_s = time.time() - t0
-    shapes = {name: _new_calls() for name in full_builders()}
+    shapes = {name: _new_calls() for name in pp_builders()}
     full = _q_full(rank, device, shapes)
     return {"small": small, "small_s": small_s, "full": full, "shapes": shapes,
             "twins": _launched_twins(rank, world, twins)}
@@ -3712,7 +3739,7 @@ def phase_sp_lp_gates(calls, ranks):
             f"{SMALL_GRAD_TOL:g})")
     th, tw = ParallelConfig(image_size=SIZE, **Q_CONFIG).tile_shape
     tiles = th * tw
-    for name in full_builders():
+    for name in pp_builders():
         per = [r["full"][name] for r in ranks]
         path = Q_F32_PATHS[name]
         calls[path] = _new_calls()
@@ -3954,7 +3981,7 @@ def _g_lp_worker(rank, world, twins):
     one = ParallelConfig(batch_size=PP_BATCH, image_size=SIZE)
     x, y = pp_batch(device)
     x = x.float()
-    for name, build in full_builders().items():
+    for name, build in pp_builders().items():
         t0 = time.time()
         model = _seeded(meta_built(build, torch.float32))
         start = copy.deepcopy(model.state_dict())
@@ -3982,12 +4009,6 @@ def _g_lp_worker(rank, world, twins):
         gc.collect()  # trainers hold reference cycles
         torch.cuda.empty_cache()
         out[name] = res
-    if rank == 0:
-        with whole_card(device):
-            model = _seeded(meta_built(pp_builders()["amoebanet"], torch.float32))
-            out["trainer_pipe_layers"] = _pp_step(model, one, device, x, y,
-                                                  accum=PP_PARTS)[1]
-            del model
     out["twins"] = _launched_twins(rank, world, twins)
     return out
 
@@ -4043,8 +4064,7 @@ def phase_gems_gates(calls, lp_ranks, sp_ranks):
     of phase g's worlds (:func:`_g_lp_worker`, :func:`_g_sp_worker`), and
     count g2's call shapes (summed over the ranks) into
     ``calls[G_F32_PATHS[model]]``. Returns, per model, the K1-K3 launches of
-    ``Trainer(grad_accum=4)``'s step at g3's depth: g2's for ResNet-110,
-    AmoebaNet-D's at ``PIPE_LAYERS``."""
+    ``Trainer(grad_accum=4)``'s step at g3's depth (g2's)."""
     for name, kind, stages, got, want in lp_ranks[0]["g_small"] + sp_ranks[0]["g_small"]:
         if kind == "gems_stages":
             if not abs(got[0] - want[0]) <= 1e-4 * abs(want[0]):
@@ -4062,7 +4082,7 @@ def phase_gems_gates(calls, lp_ranks, sp_ranks):
         log(f"[g1] {name}, ResNet-v2 depth 20 @32 f32: loss card {got[0]:.6f} CPU "
             f"{want[0]:.6f}; {gate}; against the CPU Trainer(grad_accum=chunks x parts)")
     trainer = {}
-    for name in full_builders():
+    for name in pp_builders():
         per = [r[name] for r in lp_ranks]
         path = G_F32_PATHS[name]
         calls[path] = _new_calls()
@@ -4104,7 +4124,6 @@ def phase_gems_gates(calls, lp_ranks, sp_ranks):
             f"{PP_GRAD_TOL:g}); K1-K3 per rank {[r['gems'][1] for r in per]}, summed {got} (the "
             f"Trainer's {want_launch}); GEMS step {max(r['gems'][2] for r in per):.1f} s, "
             f"set-up {max(r['setup_s'] for r in per):.1f} s")
-    trainer["amoebanet"] = lp_ranks[0]["trainer_pipe_layers"]  # g3's depth
     return trainer
 
 
@@ -4935,9 +4954,328 @@ def phase_serve_main():
         f"{lat['p50'] * 1e3:.1f} ms, p90 {lat['p90'] * 1e3:.1f} ms, p99 {lat['p99'] * 1e3:.1f} ms; "
         f"every response bit-equal to its row of the eager forward of its padded batch; "
         f"assert_warm passed, no capture after warm-up")
-    del eng, pred, model, stats
+    del eng, pred
+    # r4 serves this model and its statistics again, from a checkpoint.
+    from mpi4dl_tpu_torch.checkpoint import model_metadata, save_checkpoint
+    from mpi4dl_tpu_torch.config import ParallelConfig
+    from mpi4dl_tpu_torch.train import Trainer
+
+    t0 = time.time()
+    ckpt = tempfile.mkdtemp(prefix="mpi4dl-serve-ckpt-")
+    trainer = Trainer(model, ParallelConfig(batch_size=1, image_size=SIZE), device=DEVICE)
+    save_checkpoint(ckpt, trainer, batch_stats=stats, metadata=model_metadata(
+        "amoebanet", SIZE, num_classes=10, num_layers=LAYERS, num_filters=FILTERS,
+        dtype=torch.bfloat16))
+    log(f"[r2] saved the model and its statistics as a checkpoint in {time.time() - t0:.1f} s "
+        f"(for r4)")
+    del trainer, model, stats
     gc.collect()
     torch.cuda.empty_cache()
+    return ckpt
+
+
+# r4-r7: the serving entry points of the port, after r2.
+R4_FLAGS = ["--max-batch", "4", "--mode", "open", "--rate", "20", "--duration", "5",
+            "--serial", "8", "--slo-availability", "99.9", "--slo-latency-ms", "500",
+            "--slo-interval", "0.5", "--metrics-port", "0"]
+# The report keys of the JAX CLI (``mpi4dl_tpu/serve/__main__.py:471-545``) with
+# a serial baseline, a metrics port and an SLO, as r4 runs it.
+R4_KEYS = {"model", "buckets", "mesh", "metrics_port", "serial", "loadgen", "slo",
+           "speedup_vs_serial"}
+R5_TILE = 384  # r5a's core: 1024 = 384 + 384 + 256, ragged edge tiles
+R5_TOL = 5e-6  # r5a f32: the tiled logits against the monolithic forward, of max |logit|
+R5_SIZE = 8192  # r5b
+R5_REQUESTS = 2
+
+
+class _Tee:
+    """A text stream that writes through to ``stream`` and keeps a copy."""
+
+    def __init__(self, stream):
+        self.stream, self.parts = stream, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def _scrape_once(tee_err, got, done):
+    """r4's scraper: wait for the CLI's metrics URL on stderr, then for the
+    load (the first served request on ``/metrics``), then read ``/metrics``,
+    ``/healthz`` and ``/alertz`` once into ``got``."""
+    import re
+    import urllib.error
+    import urllib.request
+
+    def fetch(url):
+        try:
+            with urllib.request.urlopen(url, timeout=10) as r:
+                return r.status, r.read().decode()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read().decode()
+
+    base = None
+    while not done.is_set() and base is None:
+        m = re.search(r"# metrics: (http://127\.0\.0\.1:\d+)/metrics", tee_err.text())
+        base = m.group(1) if m else None
+        time.sleep(0.05)
+    while base is not None and not done.is_set():
+        status, body = fetch(base + "/metrics")
+        if status == 200 and 'serve_requests_total{outcome="served"}' in body:
+            got["metrics"] = (status, body)
+            got["healthz"] = fetch(base + "/healthz")
+            got["alertz"] = fetch(base + "/alertz")
+            return
+        time.sleep(0.1)
+
+
+def phase_serve_cli(ckpt):
+    """Phase r4: ``python -m mpi4dl_tpu_torch.serve``'s ``main`` in this
+    process on r2's checkpoint (AmoebaNet-D 18L/416F @1024 bf16), open loop
+    under an availability and a latency SLO with a live ``/metrics``; a
+    thread scrapes ``/metrics``, ``/healthz`` and ``/alertz`` once while the
+    load runs."""
+    import threading
+
+    import torch
+
+    from mpi4dl_tpu_torch.serve.__main__ import main as serve_main
+
+    captures = [0]
+    begin = torch.cuda.CUDAGraph.capture_begin
+
+    def counted(self, *args, **kwargs):
+        captures[0] += 1
+        return begin(self, *args, **kwargs)
+
+    tee_out, tee_err = _Tee(sys.stdout), _Tee(sys.stderr)
+    got, done = {}, threading.Event()
+    scraper = threading.Thread(target=_scrape_once, args=(tee_err, got, done), daemon=True)
+    torch.cuda.CUDAGraph.capture_begin = counted
+    t0 = time.time()
+    try:
+        scraper.start()
+        with contextlib.redirect_stdout(tee_out), contextlib.redirect_stderr(tee_err):
+            rc = serve_main(["--ckpt", ckpt, *R4_FLAGS])
+    finally:
+        done.set()
+        torch.cuda.CUDAGraph.capture_begin = begin
+        scraper.join(timeout=30)
+    wall = time.time() - t0
+    lines = [ln for ln in tee_out.text().splitlines() if ln.strip()]
+    rep = json.loads(lines[-1]) if lines and lines[-1].startswith("{") else None
+    if rc != 0 or rep is None or set(rep) != R4_KEYS:
+        raise AssertionError(f"r4: exit {rc}, last line keys "
+                             f"{sorted(rep) if rep else None} (want {sorted(R4_KEYS)})")
+    if captures[0] != len(rep["buckets"]):
+        raise AssertionError(f"r4: {captures[0]} graphs captured for buckets {rep['buckets']}: "
+                             "a capture after warm-up")
+    status, body = got.get("metrics", (None, ""))
+    if status != 200 or "serve_requests_total" not in body:
+        raise AssertionError(f"r4: /metrics answered {status} ({len(body)} bytes)")
+    if got["healthz"][0] != 200:
+        raise AssertionError(f"r4: /healthz answered {got['healthz']}")
+    alertz = json.loads(got["alertz"][1])
+    if got["alertz"][0] != 200 or "alerts" not in alertz:
+        raise AssertionError(f"r4: /alertz answered {got['alertz'][0]}")
+    lg = rep["loadgen"]
+    if not (rep.get("slo") and "ok" in rep["slo"]) or lg["served"] <= 0:
+        raise AssertionError(f"r4: slo {rep.get('slo')}, served {lg['served']}")
+    lat = lg["latency_s"]
+    log(f"[r4] python -m mpi4dl_tpu_torch.serve --ckpt <r2's AmoebaNet-D {LAYERS}L/{FILTERS}F "
+        f"@{SIZE} bf16> {' '.join(R4_FLAGS)} in this process: exit 0 in {wall:.1f} s, buckets "
+        f"{rep['buckets']} ({captures[0]} captures, none after warm-up); offered "
+        f"{lg['offered']}, served {lg['served']} ({lg['rejected_queue_full']} rejected, "
+        f"{lg['deadline_misses']} late, {lg['errors']} errors), latency p50 "
+        f"{lat['p50'] * 1e3:.1f} ms, p90 {lat['p90'] * 1e3:.1f} ms, p99 {lat['p99'] * 1e3:.1f} ms; "
+        f"serial bs1 {rep['serial']['throughput_rps']:.2f} req/s, speedup_vs_serial "
+        f"{rep['speedup_vs_serial']:.2f} (an offered 20 req/s bounds the open loop); "
+        f"slo {json.dumps(rep['slo'])}; {card()}")
+    log(f"[r4] scraped while the load ran: /metrics 200 ({len(body)} bytes, "
+        f"serve_requests_total present), /healthz {got['healthz'][0]}, /alertz "
+        f"{got['alertz'][0]} ({len(alertz['alerts'])} alerts, states "
+        f"{sorted({a['state'] for a in alertz['alerts']})})")
+
+
+def phase_serve_tiled():
+    """Phase r5: tiled serving of ResNet-110 v2. a: f32 @1024 (TF32 off) with
+    a ragged tile, the tiled logits against the monolithic eager forward
+    (``R5_TOL``); b: bf16 @8192 with the default tile behind a
+    ``tiled_engine``, ``R5_REQUESTS`` requests, then one monolithic forward;
+    the tiled request's peak memory under half of the monolithic one's."""
+    import numpy as np
+    import torch
+
+    from mpi4dl_tpu_torch import evaluate
+    from mpi4dl_tpu_torch.evaluate import _pool_bytes
+    from mpi4dl_tpu_torch.models.resnet import get_resnet_v2
+    from mpi4dl_tpu_torch.serve.tiled import TiledPredictor, tiled_engine
+    from mpi4dl_tpu_torch.weights import meta_built
+
+    def build(size, dtype):
+        model = _seeded(meta_built(lambda: get_resnet_v2(
+            RESNET_DEPTH, 10, pool_kernel=size // 4, dtype=dtype)))
+        return model.to(DEVICE, memory_format=torch.channels_last)
+
+    rng = np.random.default_rng(SEED + 8)
+    t0 = time.time()
+    model = build(SIZE, torch.float32)
+    stats = evaluate.collect_batch_stats(
+        model, [rng.standard_normal((BATCH, SIZE, SIZE, 3)).astype(np.float32)])
+    pred = TiledPredictor(model, stats, (SIZE, SIZE, 3), R5_TILE)
+    handle = pred.compile_bucket(1)
+    g = pred.geometry
+    x = rng.standard_normal((1, SIZE, SIZE, 3)).astype(np.float32)
+    got = torch.as_tensor(pred.run(handle, x)[0])
+    want = evaluate.make_predict(model)(stats, x)[0].float().cpu()
+    err = rel_err(got, want)
+    if not (torch.isfinite(got).all() and err <= R5_TOL):
+        raise AssertionError(f"r5a: tiled against monolithic {err:.3g} of max |logit| "
+                             f"(tolerance {R5_TOL:g})")
+    log(f"[r5a] ResNet-{RESNET_DEPTH} v2 @{SIZE} f32 (TF32 off), tile {R5_TILE}: grid "
+        f"{list(g.grid)}, cores {[t[1] for t in g.tiles_h]}, margin {list(g.margin_hw)}, window "
+        f"{list(g.window_hw)}, {len(g.ops)} recorded ops; tiled logits against the monolithic "
+        f"forward {err:.2e} of max |logit| (tolerance {R5_TOL:g}) in {time.time() - t0:.1f} s; "
+        f"{card()}")
+    del pred, handle, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # b: bf16 at 8192, statistics from a 1024 px twin with the same weights.
+    t0 = time.time()
+    twin = build(SIZE, torch.bfloat16)
+    stats = evaluate.collect_batch_stats(
+        twin, [torch.randn((BATCH, SIZE, SIZE, 3), generator=torch.Generator(DEVICE).manual_seed(
+            SEED + 9), device=DEVICE).to(torch.bfloat16)])
+    model = build(R5_SIZE, torch.bfloat16)
+    del twin
+    eng = tiled_engine(model, stats, (R5_SIZE, R5_SIZE, 3), tile=None, dtype=torch.bfloat16,
+                       max_queue=4, default_deadline_s=600.0, watchdog_factor=None)
+    warm_s = time.time() - t0
+    g = eng._predictor.geometry
+    tile_e = eng.memory_ledger.get("serve_tiled_tile", bucket=1)
+    head_e = eng.memory_ledger.get("serve_tiled_head")
+    pool = _pool_bytes(eng._predictor._pool) or 0
+    xs = [rng.standard_normal((R5_SIZE, R5_SIZE, 3), dtype=np.float32)
+          for _ in range(R5_REQUESTS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng.start()
+    try:
+        t1 = time.time()
+        outs = [eng.submit(x).result(timeout=600) for x in xs]
+        serve_s = time.time() - t1
+    finally:
+        eng.stop()
+    torch.cuda.synchronize()
+    tiled_alloc = int(torch.cuda.max_memory_allocated())
+    # Replays allocate nothing: the captures' intermediates live in the pool.
+    tiled_peak = tiled_alloc + pool
+    st = eng.stats()
+    t = st["tiled"]
+    lat = st["latency_s"]
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.time()
+    mono = evaluate.make_predict(model)(stats, torch.as_tensor(xs[-1][None]).to(
+        DEVICE, torch.bfloat16))[0].float().cpu()
+    torch.cuda.synchronize()
+    mono_s = time.time() - t1
+    mono_peak = int(torch.cuda.max_memory_allocated())
+    err = rel_err(torch.as_tensor(outs[-1]), mono)
+    if not (all(np.isfinite(o).all() for o in outs) and t["requests"] == R5_REQUESTS):
+        raise AssertionError(f"r5b: {t['requests']} tiled requests, finite "
+                             f"{[bool(np.isfinite(o).all()) for o in outs]}")
+    if not tiled_peak < 0.5 * mono_peak:
+        raise AssertionError(f"r5b: tiled peak {tiled_peak} bytes is not under half of the "
+                             f"monolithic forward's {mono_peak}")
+    log(f"[r5b] ResNet-{RESNET_DEPTH} v2 @{R5_SIZE} bf16, default tile {list(g.tile_hw)}: "
+        f"{t['tiles_per_request']} tiles a request (grid {t['grid']}, window {t['window']}, "
+        f"margin {t['margin']}, feature map {t['feature_hw']}x{t['feature_channels']}); engine "
+        f"built and warm in {warm_s:.1f} s (tile capture peak "
+        f"{tile_e['peak_bytes'] / 2**30:.2f} GiB, head capture peak "
+        f"{head_e['peak_bytes'] / 2**30:.2f} GiB, graph pool {pool} bytes); {R5_REQUESTS} "
+        f"requests in {serve_s:.1f} s, latency p50 {lat['p50']:.2f} s, stitch p50 "
+        f"{t['stitch_s']['p50']:.3f} s, tile stream p50 {t['tile_stream_s']['p50']:.3f} s; "
+        f"{card()}")
+    log(f"[r5b] peak memory: tiled {tiled_peak / 2**30:.2f} GiB (max_memory_allocated "
+        f"{tiled_alloc / 2**30:.2f} GiB + the graph pool) against the monolithic forward's "
+        f"{mono_peak / 2**30:.2f} GiB ({mono_s:.1f} s), under half; bf16 tiled logits against "
+        f"the monolithic forward {err:.2e} of max |logit|")
+    del model, stats, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def start_serve_mesh_cli():
+    """Phase r6, started: ``python -m mpi4dl_tpu_torch.serve --mesh 2x2
+    --requests 8 --serial 0`` as a subprocess in a session of its own
+    (synthetic ResNet-v1 @32, 4 rank processes). Most of its wall is its
+    ranks reaching the card, so it runs beside r5."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, "-m", "mpi4dl_tpu_torch.serve", "--mesh", "2x2",
+                             "--requests", "8", "--serial", "0"], cwd=here, env=env,
+                            stdout=out, stderr=err, text=True, start_new_session=True)
+    return proc, out, err, time.time()
+
+
+def stop_serve_mesh_cli(started):
+    """Kill r6's session (its ranks too) after a failure elsewhere."""
+    proc = started[0]
+    if proc.poll() is None:
+        os.killpg(proc.pid, 9)
+    proc.wait()
+
+
+def finish_serve_mesh_cli(started):
+    """Phase r6's gates: exit 0, one report line (rank 0's), mesh [2, 2]."""
+    proc, out, err, t0 = started
+    try:
+        rc = proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        stop_serve_mesh_cli(started)
+        raise
+    out.seek(0)
+    err.seek(0)
+    stdout, stderr = out.read(), err.read()
+    records = [json.loads(ln) for ln in stdout.splitlines() if ln.startswith("{")]
+    if rc != 0 or len(records) != 1 or records[0]["mesh"] != [2, 2]:
+        raise AssertionError(f"r6: exit {rc}, {len(records)} report lines: "
+                             f"{stdout[-2000:]} {stderr[-3000:]}")
+    rep = records[0]
+    lg = rep["loadgen"]
+    log(f"[r6] python -m mpi4dl_tpu_torch.serve --mesh 2x2 --requests 8 --serial 0 "
+        f"(synthetic ResNet-v1 @32, beside r5): exit 0 in {time.time() - t0:.1f} s, one "
+        f"report line, mesh {rep['mesh']}, buckets {rep['buckets']}, served {lg['served']} of "
+        f"{lg['offered']}, p50 {lg['latency_s']['p50'] * 1e3:.1f} ms; "
+        f"{[ln for ln in stderr.splitlines() if ln.startswith('# mesh')]}; {card()}")
+
+
+def phase_serve_bench():
+    """Phase r7: the bench's ``serving_amoebanet3_32px`` extra in this
+    process: throughput above 0 and an SLO verdict."""
+    import torch
+
+    from mpi4dl_tpu_torch import bench
+
+    t0 = time.time()
+    out = bench.measure_serving(torch.device(DEVICE))
+    if not ((out.get("value") or 0) > 0 and "ok" in (out.get("slo") or {})):
+        raise AssertionError(f"r7: serving extra {out}")
+    log(f"[r7] bench.measure_serving (serving_amoebanet3_32px): {out['value']} req/s against "
+        f"serial bs1 {out['serial_bs1_rps']} req/s ({out['speedup_vs_serial']}x), latency ms "
+        f"{out['latency_ms']}, mean batch {out['mean_batch_size']}, slo ok "
+        f"{out['slo']['ok']}, in {time.time() - t0:.1f} s; {card()}")
 
 
 def _sp_serve(rank, grid, device, sp_stats):
@@ -5204,10 +5542,28 @@ def main(argv=None) -> int:
     if runs("serve"):
         t0 = time.time()
         r1_exact = phase_serve_small()
-        phase_serve_main()
+        ckpt = phase_serve_main()
         log(f"[r] phases r1 and r2 in {time.time() - t0:.1f} s; r1's replays "
             + ("bit-equal to eager" if r1_exact else
                f"NOT all bit-equal to eager (held to {R_EAGER_TOL:g} of max |logit|)"))
+        t0 = time.time()
+        try:
+            phase_serve_cli(ckpt)
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        t1 = time.time()
+        mesh = start_serve_mesh_cli()
+        try:
+            phase_serve_tiled()
+        except BaseException:
+            stop_serve_mesh_cli(mesh)
+            raise
+        t2 = time.time()
+        finish_serve_mesh_cli(mesh)
+        t3 = time.time()
+        phase_serve_bench()
+        log(f"[r] phases r4-r7 in {time.time() - t0:.1f} s (r4 {t1 - t0:.1f}, r5 {t2 - t1:.1f} "
+            f"with r6 beside it, r6's wait after r5 {t3 - t2:.1f}, r7 {time.time() - t3:.1f})")
     tools_s = 0.0
     if runs("tools"):
         t0 = time.time()

@@ -18,6 +18,15 @@ card, with ``BENCH_MODEL=resnet`` or ``all``, the last extra is
 capability metric): the largest square image whose whole ResNet-110 v2
 training step fits the card at bs1.
 
+Two serving extras run on any device, before the peak-pixel walk, as
+``bench.py``'s do (``bench.py:1870``, ``:1929``): ``serving_amoebanet3_32px``
+(:func:`measure_serving`: dynamic micro-batching against the batch-size-1
+serial baseline, with an SLO verdict) and ``tiled_gigapixel``
+(:func:`measure_tiled_gigapixel`: the largest square image one device
+serves through the tile stream, and the latency at a fixed large size).
+``BENCH_SERVING=0`` and ``BENCH_TILED=0`` turn them off. Neither carries an
+``attribution`` or ``lint_ok`` key yet (ROADMAP queue 1 item 10).
+
 Protocol (``bench.py``'s): one complete JSON line is printed and flushed
 when the headline lands and again after each extra; the last line is the
 one to keep. SIGTERM/SIGINT re-emit the latest line. Extras start only
@@ -28,6 +37,8 @@ failure after a value re-emits the value with a ``note`` and exits 0.
 Lines starting with ``#`` are comments (the policy tried, its peak memory).
 
 Environment: ``BENCH_IMAGE_SIZE`` (1024), ``BENCH_BATCH`` (2),
+``BENCH_SERVING`` / ``BENCH_TILED`` (``1``; ``BENCH_TILED_PX``,
+``BENCH_TILED_TILE``, ``BENCH_TILED_WALK``),
 ``BENCH_STEPS`` (10), ``BENCH_MODEL`` (``all|amoebanet|resnet``),
 ``BENCH_REMAT`` (pins one remat policy; ``false`` pins False),
 ``BENCH_NO_ACCUM`` (run AmoebaNet-D @2048 bs2 unchunked) and
@@ -337,6 +348,140 @@ def resnet_peak_pixels(device, prior_ips=None, record=None, remats=None, sizes=W
     return entry
 
 
+def measure_serving(device) -> dict:
+    """Online-serving extra (``bench.py:350``): dynamic micro-batching
+    throughput against the batch-size-1 serial baseline on a small
+    calibrated AmoebaNet-D 3L/16F @32 (many small ops a cell: the
+    launch-bound shape where batching pays), with the tail percentiles and
+    an SLO verdict."""
+    from mpi4dl_tpu_torch.evaluate import collect_batch_stats
+    from mpi4dl_tpu_torch.serve import ServingEngine
+    from mpi4dl_tpu_torch.serve.loadgen import run_closed_loop, serial_throughput
+    from mpi4dl_tpu_torch.telemetry import SLOConfig
+
+    size = 32
+    model = init(amoebanetd(10, 3, 16), torch.Generator().manual_seed(SEED))
+    fmt = torch.channels_last if device.type == "cuda" else torch.contiguous_format
+    model = model.to(device, memory_format=fmt)
+    rng = np.random.default_rng(0)
+    stats = collect_batch_stats(model, [rng.standard_normal((4, size, size, 3)).astype(np.float32)])
+    engine = ServingEngine(
+        model, stats, (size, size, 3), buckets=(1, 32), max_wait_s=0.003, max_queue=512,
+        default_deadline_s=30.0,
+        # A tight availability objective with a loose latency threshold:
+        # the run must flag dropped or rejected requests, not page on a
+        # slow shared host.
+        slo=SLOConfig(availability=0.999, latency_threshold_s=2.5, latency_target=0.99,
+                      interval_s=0.25),
+    )
+    serial = serial_throughput(engine, 32)
+    engine.start()
+    try:
+        rep = run_closed_loop(engine, 384, concurrency=96, deadline_s=30.0)
+    finally:
+        engine.stop()
+    entry = {
+        "value": round(rep["throughput_rps"], 1),
+        "serial_bs1_rps": round(serial["throughput_rps"], 1),
+        "speedup_vs_serial": round(rep["throughput_rps"] / serial["throughput_rps"], 2),
+        "latency_ms": {k: round(v * 1e3, 2) for k, v in rep["latency_s"].items()
+                       if v is not None},
+        "mean_batch_size": round(rep["engine"]["mean_batch_size"], 1),
+        "deadline_misses": rep["deadline_misses"],
+        "rejected": rep["rejected_queue_full"],
+        "slo": engine.slo.verdict(),
+        # Each warmed bucket's measured capture peak (None off the card).
+        "peak_hbm_bytes_by_bucket": {
+            str(b): e["peak_bytes"]
+            for b in engine.buckets
+            for e in [engine.memory_ledger.get("serve_predict", bucket=b)]
+            if e is not None and e.get("peak_bytes") is not None
+        },
+    }
+    if rep.get("client_overhead_s"):
+        entry["client_overhead_ms"] = {k: round(v * 1e3, 3)
+                                       for k, v in rep["client_overhead_s"].items()}
+    lat_p = rep.get("latency_s") or {}
+    if lat_p.get("p50") and lat_p.get("p99"):
+        entry["tail"] = {
+            "p99_p50_ratio": round(lat_p["p99"] / lat_p["p50"], 3),
+            "samples": engine.tail.captured,
+            "threshold_ms": round(engine.tail.threshold() * 1e3, 3),
+        }
+    shares = engine.registry.get("serve_phase_share")
+    if shares is not None:
+        entry["phase_shares"] = {s["labels"]["phase"]: round(s["value"], 4)
+                                 for s in shares.snapshot_series()}
+    return entry
+
+
+def measure_tiled_gigapixel(device) -> dict:
+    """Gigapixel tiled-inference extra (``bench.py:1307``): (a) a walk of
+    the largest square image one device serves through the tile stream,
+    each success recorded with the tile section's and the head's measured
+    capture peaks; (b) per-request latency at a fixed large size under a
+    small closed loop, with the tile-count/stitch breakdown. Sizes scale by
+    device: the CPU walks 256 -> 512, the card starts at 8192.
+    ``BENCH_TILED_PX`` / ``BENCH_TILED_TILE`` / ``BENCH_TILED_WALK``
+    override."""
+    from mpi4dl_tpu_torch.serve.loadgen import run_closed_loop
+    from mpi4dl_tpu_torch.serve.tiled import synthetic_tiled_engine
+
+    on_cpu = device.type == "cpu"
+    fixed_px = int(os.environ.get("BENCH_TILED_PX", "256" if on_cpu else "8192"))
+    tile = int(os.environ.get("BENCH_TILED_TILE", str(max(64, fixed_px // 4))))
+    walk_steps = int(os.environ.get("BENCH_TILED_WALK", "1"))
+    engine_kw = dict(tile=tile, max_queue=8, calib_batches=1, default_deadline_s=1200.0,
+                     device=device)
+    entry = {"unit": "square image side, one device, tiled stream", "tile": tile, "walk": [],
+             "peak_px": None}
+    px = fixed_px
+    for _ in range(walk_steps + 1):
+        t0 = time.time()
+        step = {"px": px}
+        try:
+            eng = synthetic_tiled_engine(px, **engine_kw)
+            try:
+                eng.start()
+                eng.submit(np.zeros((px, px, 3), np.float32), deadline_s=1200.0).result(
+                    timeout=1200.0)
+                tile_e = eng.memory_ledger.get("serve_tiled", bucket=1)
+                head_e = eng.memory_ledger.get("serve_tiled_head")
+                step.update(
+                    serve_s=round(time.time() - t0, 2),
+                    tile_peak_hbm_bytes=tile_e.get("peak_bytes") if tile_e else None,
+                    head_peak_hbm_bytes=head_e.get("peak_bytes") if head_e else None,
+                )
+                entry["peak_px"] = px
+            finally:
+                eng.stop()
+        except Exception as e:  # noqa: BLE001 — the walk looks for the failure edge
+            step["error"] = f"{type(e).__name__}: {str(e)[:160]}"
+            entry["walk"].append(step)
+            break
+        finally:
+            gc.collect()
+            if not on_cpu:
+                torch.cuda.empty_cache()
+        entry["walk"].append(step)
+        px *= 2
+    eng = synthetic_tiled_engine(fixed_px, **engine_kw)
+    try:
+        eng.start()
+        rep = run_closed_loop(eng, 6 if on_cpu else 4, concurrency=2, deadline_s=1200.0)
+    finally:
+        eng.stop()
+    entry.update(
+        image_px=fixed_px,
+        latency_ms={k: round(v * 1e3, 1) for k, v in rep["latency_s"].items() if v is not None},
+        served=rep["served"],
+        errors=rep["errors"],
+        deadline_misses=rep["deadline_misses"],
+        tiled=rep["engine"].get("tiled"),
+    )
+    return entry
+
+
 def main(argv=None):
     signal.signal(signal.SIGTERM, _on_signal)
     signal.signal(signal.SIGINT, _on_signal)
@@ -421,6 +566,12 @@ def main(argv=None):
             run_extra(f"amoebanetd_{size}px_bs{b}",
                       functools.partial(measure_amoeba, size, b, no_accum=no_accum, **point),
                       est_seconds=300.0)
+    # The serving extras run on any device, before the peak-pixel walk
+    # (which is expected to end in a failure and may eat the budget).
+    if os.environ.get("BENCH_SERVING", "1") != "0":
+        run_extra("serving_amoebanet3_32px", lambda: measure_serving(device), est_seconds=180.0)
+    if os.environ.get("BENCH_TILED", "1") != "0":
+        run_extra("tiled_gigapixel", lambda: measure_tiled_gigapixel(device), est_seconds=240.0)
     if which in ("resnet", "all") and not on_cpu:
         def record(entry):
             # Each size lands on a line at once: a later attempt may not end.

@@ -31,8 +31,9 @@ tile_w)``). The tile-local moments are averaged over the trainer's group
 are summed over it, each rank contributing ``1/tiles``.
 
 Serving's warm-up (:func:`aot_compile_predict`,
-:func:`aot_compile_spatial_predict`; ``evaluate.py:156-204``, ``:407-486``)
-gives one :class:`CapturedPredict` per batch bucket. The JAX package
+:func:`aot_compile_tiled_predict`, :func:`aot_compile_spatial_predict`;
+``evaluate.py:156-282``, ``:407-486``) gives one :class:`CapturedPredict`
+per batch bucket (the tiled one a section per tile bucket and a head). The JAX package
 AOT-compiles an executable that can never trace or compile again; on the
 card the port captures the bucket's frozen-statistics forward as a
 ``torch.cuda.CUDAGraph`` on a static input buffer, after one eager warm-up
@@ -337,11 +338,14 @@ class CapturedPredict:
     later call overwrites. :attr:`graphs` holds the captured graphs (none
     on the CPU), :attr:`memory` the measured ``{"peak_bytes",
     "pool_bytes"}`` of its warm-up and capture (None on the CPU),
-    :attr:`pool` the graph memory pool and :attr:`halo_launches` K4's phase
-    launches recorded in the capture."""
+    :attr:`pool` the graph memory pool, :attr:`halo_launches` K4's phase
+    launches recorded in the capture and :attr:`static` the graph's input
+    buffer (None on the CPU): a caller that writes a batch into it in place
+    saves the copy a call makes (``copy_`` of a tensor onto itself is
+    free)."""
 
     def __init__(self, bucket, example_shape, dtype, device, run, graphs=(), pool=None,
-                 memory=None, keep=(), halo_launches=0):
+                 memory=None, keep=(), halo_launches=0, static=None):
         self.bucket = int(bucket)
         self.example_shape = tuple(int(d) for d in example_shape)
         self.shape = (self.bucket, *self.example_shape)
@@ -353,6 +357,7 @@ class CapturedPredict:
         self.memory = memory
         self.keep = keep
         self.halo_launches = int(halo_launches)
+        self.static = static
 
     def check(self, x) -> torch.Tensor:
         """``x`` as a tensor, refused unless of this bucket's shape and of
@@ -401,49 +406,108 @@ def aot_compile_predict(runner, batch_stats, example_shape, buckets, dtype=torch
     one captured graph, all in ``pool`` (a new one unless given). With
     ``timings``, each bucket's ``{"trace_s"`` (the warm-up), ``"compile_s"``
     (the capture), ``"fingerprint"}`` land in it."""
-    from mpi4dl_tpu_torch.telemetry.coldstart import fingerprint_of
-
     model, forward, to_device = _runner(runner)
     device = next(model.parameters()).device
     stats = _device_stats(batch_stats, device)
-    cuda = device.type == "cuda"
-    if cuda and pool is None:
+    if device.type == "cuda" and pool is None:
         pool = torch.cuda.graph_pool_handle()
     out = {}
     for b in sorted({int(b) for b in buckets}):
-        if b < 1:
-            raise ValueError(f"bucket sizes must be >= 1, got {b}")
-        shape = (b, *tuple(example_shape))
-        if not cuda:
-            def run(x):
-                with _running(model, stats):
-                    return forward(to_device(x.to(dtype)))
-
-            out[b] = CapturedPredict(b, example_shape, dtype, device, run, keep=(stats,))
-            warm_s = capture_s = 0.0
-        else:
-            static = torch.zeros(shape, dtype=dtype, device=device)
-
-            def fwd(static=static):
-                with _running(model, stats):
-                    return forward(to_device(static))
-
-            torch.cuda.reset_peak_memory_stats(device)
-            graph, logits, warm_s, capture_s, _ = _capture(device, fwd, pool)
-            memory = {"peak_bytes": int(torch.cuda.max_memory_allocated(device)),
-                      "pool_bytes": _pool_bytes(pool)}
-
-            def run(x, graph=graph, static=static, logits=logits):
-                static.copy_(x)
-                graph.replay()
-                return logits.clone()
-
-            out[b] = CapturedPredict(b, example_shape, dtype, device, run, graphs=(graph,),
-                                     pool=pool, memory=memory, keep=(stats, static, logits))
+        out[b], t = _captured_forward(model, forward, to_device, stats, example_shape, b, dtype,
+                                      device, pool)
         if timings is not None:
-            timings[b] = {"trace_s": round(warm_s, 6), "compile_s": round(capture_s, 6),
-                          "fingerprint": fingerprint_of(model, shape, dtype)}
+            timings[b] = t
     return out
+
+
+def _captured_forward(model, forward, to_device, stats, example_shape, b, dtype, device, pool):
+    """One bucket's :class:`CapturedPredict` of ``forward`` (``model``'s, on
+    ``stats``) for NHWC inputs ``(b, *example_shape)`` of ``dtype``, and its
+    ``{"trace_s", "compile_s", "fingerprint"}``: on the card one eager
+    warm-up and one graph captured in ``pool``, on the CPU the eager
+    forward."""
+    from mpi4dl_tpu_torch.telemetry.coldstart import fingerprint_of
+
+    if b < 1:
+        raise ValueError(f"bucket sizes must be >= 1, got {b}")
+    shape = (b, *tuple(example_shape))
+    if device.type != "cuda":
+        def run(x):
+            with _running(model, stats):
+                return forward(to_device(x.to(dtype)))
+
+        out = CapturedPredict(b, example_shape, dtype, device, run, keep=(stats,))
+        warm_s = capture_s = 0.0
+    else:
+        static = torch.zeros(shape, dtype=dtype, device=device)
+
+        def fwd(static=static):
+            with _running(model, stats):
+                return forward(to_device(static))
+
+        torch.cuda.reset_peak_memory_stats(device)
+        graph, logits, warm_s, capture_s, _ = _capture(device, fwd, pool)
+        memory = {"peak_bytes": int(torch.cuda.max_memory_allocated(device)),
+                  "pool_bytes": _pool_bytes(pool)}
+
+        def run(x, graph=graph, static=static, logits=logits):
+            static.copy_(x)
+            graph.replay()
+            return logits.clone()
+
+        out = CapturedPredict(b, example_shape, dtype, device, run, graphs=(graph,),
+                              pool=pool, memory=memory, keep=(stats, static, logits),
+                              static=static)
+    return out, {"trace_s": round(warm_s, 6), "compile_s": round(capture_s, 6),
+                 "fingerprint": fingerprint_of(model, shape, dtype)}
+
+
+def aot_compile_tiled_predict(runner, batch_stats, split: int, window_shape, feature_shape,
+                              tile_buckets, dtype=torch.float32, feature_dtype=None,
+                              timings: "dict | None" = None, pool=None) -> dict:
+    """The two halves of the tile-streaming forward
+    (:mod:`mpi4dl_tpu_torch.serve.tiled`; ``evaluate.py:207``): the spatial
+    section ``cells[:split]`` once per tile bucket at the fixed NHWC
+    ``window_shape`` and the head ``cells[split:]`` once at the stitched
+    NHWC ``feature_shape`` (of ``feature_dtype``, by default ``dtype``).
+    ``runner`` is a cell sequence on its device. Returns ``{"tile": {bucket:
+    CapturedPredict}, "head": CapturedPredict}``: each a captured graph on
+    the card, all in ``pool`` (the one graph pool of
+    :func:`aot_compile_predict`; a new one unless given), so a request's
+    peak memory is bounded by the window and the feature map, never the
+    image. A tile call returns a copy of the section's output (NCHW), so the
+    next replay cannot overwrite a batch that is still being stitched. With
+    ``timings``, each tile bucket's and ``"head"``'s ``{"trace_s",
+    "compile_s", "fingerprint"}`` land in it."""
+    model, _, _ = _runner(runner)
+    cells = list(model)
+    split = int(split)
+    if not 0 < split < len(cells):
+        raise ValueError(
+            f"split must cut the cell list in two, got {split} of "
+            f"{len(cells)} cells"
+        )
+    device = next(model.parameters()).device
+    stats = _device_stats(batch_stats, device)
+    if device.type == "cuda" and pool is None:
+        pool = torch.cuda.graph_pool_handle()
+
+    def half(part_cells, part_stats):  # (model, forward, to_device, stats) of a cell range
+        part = torch.nn.Sequential(*part_cells)
+        return (part, *_runner(part)[1:], part_stats)
+
+    sec, head = half(cells[:split], stats[:split]), half(cells[split:], stats[split:])
+    tile = {}
+    for b in sorted({int(b) for b in tile_buckets}):
+        tile[b], t = _captured_forward(*sec, window_shape, b, dtype, device, pool)
+        if timings is not None:
+            timings[b] = t
+    head_c, t = _captured_forward(*head, feature_shape, 1,
+                                  feature_dtype if feature_dtype is not None else dtype,
+                                  device, pool)
+    if timings is not None:
+        timings["head"] = t
+    return {"tile": tile, "head": head_c}
 
 
 def aot_compile_spatial_predict(trainer, batch_stats, example_shape, buckets,

@@ -36,6 +36,7 @@ from mpi4dl_tpu_torch.ops.layers import (
     Identity,
     Pool,
     TrainBatchNorm,
+    _refuse_recording,
     linear,
     reset_linear,
     window_sum,
@@ -327,6 +328,7 @@ class PoolD2(nn.Module):
         self._divisors = {}  # (shape, dtype, device) -> divisor
 
     def forward(self, x):
+        _refuse_recording("PoolD2")
         h = self.halo_in
         if self.kind == "max":
             return MaxPool.apply(halo.fill_boundary_halo(x, h, h, self.grid, float("-inf")),

@@ -17,6 +17,10 @@ interior on the un-exchanged tile while K4 runs on its exchange stream,
 then the boundary strips), chosen per layer by ``overlap=`` or for the
 process by ``MPI4DL_TPU_CONV_OVERLAP`` (:func:`conv_overlap_impl`).
 
+:func:`record_windowed_ops` records the geometry of every plain conv and
+pool a forward issues (``layers.py:81-117``), for tiled serving's margin;
+under it the spatial forms refuse.
+
 ``TrainBatchNorm`` has the JAX package's three statistics modes
 (``layers.py:219-237``), set per model by :func:`bn_stats_mode`:
 ``"batch"`` (the default, training), ``"collect"`` (a calibration pass
@@ -77,6 +81,52 @@ def _overlap(overlap) -> str:
     if impl not in OVERLAP_IMPLS:
         raise ValueError(f"overlap must be monolithic|decomposed, got {impl!r}")
     return impl
+
+
+# Recorders of PLAIN windowed-op geometry (``layers.py:81-117``): a forward
+# of a model section under record_windowed_ops() — on meta tensors
+# (``train.meta_cell``, the port's ``jax.eval_shape``: no device work) —
+# yields every conv's and pool's kernel/stride/padding and input extent in
+# call order, the partition-math input of tiled serving's margin
+# (``serve/tiled.py``). A spatial form has no plain geometry: it refuses.
+_WINDOWED_OP_RECORDERS: "list[list]" = []
+
+
+@contextlib.contextmanager
+def record_windowed_ops():
+    """Record plain windowed-op geometry issued by forwards in the block.
+    Yields a list of dicts (``kind``, ``kernel``, ``strides``,
+    ``padding``, ``input_hw``; pools add ``pool_kind`` and
+    ``count_include_pad``) in call order, the JAX dict schema. A spatial
+    conv, pool or halo exchange in the block raises ``ValueError``: its
+    geometry is a tile's, not the image's."""
+    box: list = []
+    _WINDOWED_OP_RECORDERS.append(box)
+    try:
+        yield box
+    finally:
+        _WINDOWED_OP_RECORDERS.remove(box)
+
+
+def _record_windowed_op(kind, x, kh, kw, sh, sw, ph, pw, **extra) -> None:
+    if not _WINDOWED_OP_RECORDERS:
+        return
+    rec = {
+        "kind": kind,
+        "kernel": (int(kh), int(kw)),
+        "strides": (int(sh), int(sw)),
+        "padding": (int(ph), int(pw)),
+        "input_hw": (int(x.shape[2]), int(x.shape[3])),  # NCHW
+        **extra,
+    }
+    for box in _WINDOWED_OP_RECORDERS:
+        box.append(rec)
+
+
+def _refuse_recording(what: str) -> None:
+    if _WINDOWED_OP_RECORDERS:
+        raise ValueError(f"record_windowed_ops: a {what} has no plain geometry (it runs on a "
+                         "tile of a grid); tiled serving needs the plain model")
 
 
 def _strip_bounds(n: int, k: int, s: int, p: int) -> tuple[int, int, int]:
@@ -194,7 +244,11 @@ class Conv2d(nn.Module):
         )
 
     def forward(self, x):
-        if not (self.spatial and self.exchange):
+        if not self.spatial:
+            _record_windowed_op("conv", x, *self.kernel, *self.strides, *self.halo)
+            return self.conv(x)
+        _refuse_recording("spatial Conv2d")
+        if not self.exchange:
             return self.conv(x)
         h, w = x.shape[2], x.shape[3]
         (sh, sw), (ph, pw) = self.strides, self.halo
@@ -439,7 +493,12 @@ class Pool(nn.Module):
     def forward(self, x):
         (sh, sw), (ph, pw) = self.strides, self.padding
         if not (self.spatial and (ph or pw)):
+            # An unpadded spatial pool exchanges nothing: its geometry is
+            # the plain one, as the JAX Pool records it (``layers.py:755``).
+            _record_windowed_op("pool", x, *self.kernel, sh, sw, ph, pw, pool_kind=self.kind,
+                                count_include_pad=self.count_include_pad)
             return self._pool(x, ph, pw)
+        _refuse_recording("spatial Pool")
         h, w = x.shape[2], x.shape[3]
         fill = float("-inf") if self.kind == "max" else 0.0
         if ((self.kind == "max" or self.count_include_pad)
@@ -522,6 +581,7 @@ class HaloExchange(nn.Module):
         self.grid = grid
 
     def forward(self, x):
+        _refuse_recording("HaloExchange")
         return halo.halo_exchange(x, *self.halo, self.grid)
 
 

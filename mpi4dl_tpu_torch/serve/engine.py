@@ -26,14 +26,17 @@ outcomes, queue depth, bucket occupancy and pad waste in a registry, the
 JSONL log (``telemetry_dir=`` or ``MPI4DL_TPU_TELEMETRY_DIR``), the
 footprint ledger (each bucket's measured peak and graph pool bytes), the
 memory monitor, the watchdog and flight recorder, the tail watcher and the
-numerics canary.
+numerics canary. ``slo=`` and the SLO classes' latency objectives run the
+SLO evaluator (:class:`~mpi4dl_tpu_torch.telemetry.SLOEvaluator`: burn-rate
+alerts, the advisory autoscaler, the burn-rate feedback into the
+scheduler); ``metrics_port=`` serves ``/metrics``, ``/snapshotz``,
+``/healthz``, ``/debugz`` and ``/alertz``
+(:class:`~mpi4dl_tpu_torch.telemetry.MetricsServer`).
 
-Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
-item when asked for: ``metrics_port`` (the Prometheus exporter,
-``export.py``), ``slo=`` and SLO classes with a latency threshold (the SLO
-evaluator chain ``alerts.py``, ``windows.py``, ``autoscale.py``), and
-``attribution_every``, :meth:`ServingEngine.lint_report` and the
-predictors' ``expectations`` / ``collective_deltas`` (the analyzers).
+Not ported yet, and refused with ``NotImplementedError`` naming ROADMAP
+queue 1 item 10 (the analyzers) when asked for: ``attribution_every``,
+:meth:`ServingEngine.lint_report` and the predictors' ``expectations`` /
+``collective_deltas``.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ from mpi4dl_tpu_torch.profiling import annotate_step, percentiles
 from mpi4dl_tpu_torch.telemetry import coldstart
 from mpi4dl_tpu_torch.serve.batching import bucket_for, pad_batch, power_of_two_buckets
 from mpi4dl_tpu_torch.serve.scheduler import (
+    ClassFeedback,
     ClassScheduler,
     SchedulerFull,
     normalize_classes,
@@ -125,6 +129,10 @@ class _Request:
     # resolve into, and this row's index in it.
     join: "_Join | None" = None
     row: int = 0
+    # Tiled-forward facts of the dispatch that served this request
+    # (tile count, stitch/stream seconds — serve/tiled.py), riding the
+    # serve.request span event so tail samples and traces see them.
+    tiled: "dict | None" = None
     # Numerics-sentinel probe (telemetry/canary.py): rides the real
     # queue/batch/dispatch path but is excluded from availability/SLO/
     # tenant accounting (outcome "canary", like "drained") and its
@@ -169,10 +177,7 @@ class _Join:
         self.future.set_exception(exc)
 
 
-#: The ROADMAP items that hold what this slice leaves out.
-ITEM_EXPORT = "ROADMAP queue 1 item 9 (telemetry: the Prometheus exporter, export.py)"
-ITEM_SLO = ("ROADMAP queue 1 item 9 (telemetry: the SLO evaluator chain, alerts.py, "
-            "windows.py, autoscale.py)")
+#: The ROADMAP item that holds what the port leaves out of serving.
 ITEM_ANALYSIS = "ROADMAP queue 1 item 10 (the analyzers)"
 
 
@@ -330,8 +335,11 @@ class ServingEngine:
     default_deadline_s: per-request deadline when ``submit`` gives none.
     registry: a shared :class:`telemetry.MetricsRegistry`; None creates a
         private one (exposed as :attr:`registry`).
-    metrics_port: not ported yet (raises ``NotImplementedError``; None,
-        the default, starts no server).
+    metrics_port: serve the registry as a Prometheus ``/metrics`` endpoint
+        on this port (0 = ephemeral; bound port on :attr:`metrics_port`),
+        plus ``/snapshotz``, ``/healthz`` (200/503 from :attr:`health`),
+        ``/debugz`` (stats, watchdog, flight tail, latest attribution) and,
+        with an evaluator, ``/alertz``. None (default) starts no server.
     telemetry_dir: JSONL span-event log directory; None falls back to
         ``MPI4DL_TPU_TELEMETRY_DIR``, unset disables.
     watchdog_factor: trip the stalled-loop watchdog when no request
@@ -342,10 +350,17 @@ class ServingEngine:
     flight_dir: where watchdog/crash dumps land; defaults to the
         telemetry dir, then ``MPI4DL_TPU_TELEMETRY_DIR``, then the
         system temp dir.
-    slo: not ported yet (raises ``NotImplementedError``; None, the
-        default, runs no evaluator).
+    slo: a :class:`telemetry.SLOConfig` — declarative availability /
+        latency objectives. When set (with at least one objective), a
+        daemon :class:`telemetry.SLOEvaluator` snapshots the registry
+        every ``interval_s``, computes multi-window burn rates, runs the
+        ``pending → firing → resolved`` alert machines (transitions land
+        in the JSONL log and the flight ring), drives the advisory
+        autoscaler, and serves it all on ``/alertz`` (:attr:`slo`). None
+        (default) runs no evaluator, unless an SLO class declares a
+        latency objective.
     attribution_every: not ported yet (raises ``NotImplementedError``
-        when set).
+        naming ROADMAP queue 1 item 10 when set).
     memory_monitor: sample the card's memory into the
         ``device_hbm_*`` gauges at the SLO-evaluator cadence
         (:class:`telemetry.MemoryMonitor`; docs/OBSERVABILITY.md
@@ -375,11 +390,12 @@ class ServingEngine:
         (:mod:`mpi4dl_tpu_torch.serve.scheduler`): a spec string
         (``"tight=none@200ms,bulk=none"``), a sequence of
         :class:`~mpi4dl_tpu_torch.serve.SLOClass`, or None for the implicit
-        single ``default`` class. A class with a latency threshold (a
-        latency objective, and the burn-rate feedback that reads it) is
-        not ported yet and raises ``NotImplementedError``. Unclassed
-        submissions land in the class named ``default`` when present,
-        else the LAST configured class.
+        single ``default`` class. A class with a latency threshold is a
+        real per-class latency objective, evaluated even without
+        ``slo=``, and its published burn rate steers the scheduler's
+        deprioritize/shed feedback. Unclassed submissions land in the
+        class named ``default`` when present, else the LAST configured
+        class.
     predictor: the compile/stage/run backend for the serving forward.
         None (default) builds a :class:`SingleChipPredictor` from
         cells/params/batch_stats; a
@@ -451,11 +467,6 @@ class ServingEngine:
     ):
         from mpi4dl_tpu_torch.telemetry import memory as memobs
 
-        if metrics_port is not None:
-            raise _not_ported("metrics_port (the /metrics, /healthz, /debugz server)",
-                              ITEM_EXPORT)
-        if slo is not None:
-            raise _not_ported("slo= (the SLO evaluator)", ITEM_SLO)
         if attribution_every:
             raise _not_ported("attribution_every (sampled trace attribution)", ITEM_ANALYSIS)
         dtype = torch_dtype(dtype)
@@ -469,15 +480,25 @@ class ServingEngine:
         self._max_wait_s = float(max_wait_s)
         self._default_deadline_s = float(default_deadline_s)
         self._classes = normalize_classes(slo_classes)
-        if any(c.latency_threshold_s is not None for c in self._classes):
-            raise _not_ported("an SLO class with a latency threshold (its latency objective)",
-                              ITEM_SLO)
         # Tenancy (mpi4dl_tpu/tenancy): None = OFF (everything runs as
         # the implicit "default" tenant — identical label values and
         # behavior to the pre-tenancy engine). ON = token-bucket quota
         # admission in submit(), deficit-weighted-round-robin fill in
         # the scheduler, and a `tenant` label on every per-class series.
         self._tenants = normalize_tenants(tenants)
+        # Per-class latency objectives, per tenant allowed on the class
+        # when tenancy is ON (windows match label sets exactly, so each
+        # (class, tenant) series needs its own fully-selected objective;
+        # burn protection is then scoped to the burning tenant alone).
+        _obj_tenants = list(self._tenants) if self._tenants is not None else [None]
+        self._class_objectives = []
+        for c in self._classes:
+            for t in _obj_tenants:
+                if t is not None and t.classes and c.name not in t.classes:
+                    continue
+                o = c.objective(tenant=t.name if t is not None else "default")
+                if o is not None:
+                    self._class_objectives.append(o)
         # The compile/stage/run backend: single-chip by default, or an
         # injected mesh-aware predictor (serve/sharded.py) — the batcher,
         # scheduler, and telemetry above never see the difference.
@@ -501,6 +522,11 @@ class ServingEngine:
                     [self._predictor.limit_device()]
                     if self._predictor.limit_device().type == "cuda" else []
                 ),
+                interval_s=(
+                    slo.interval_s
+                    if slo is not None and getattr(slo, "interval_s", None)
+                    else 1.0
+                ),
             )
             if memory_monitor
             else None
@@ -512,6 +538,13 @@ class ServingEngine:
         )
         self.refused_buckets: "dict[int, dict]" = {}
         telemetry.declare(self.registry, "oom_reports_total")
+        # Predictor observability seam: a predictor that wants the
+        # engine's ledger/registry/event log (the tiled predictor records
+        # its tile + head captures and publishes tiled_* series) binds
+        # them here, BEFORE warm-up captures anything.
+        bind = getattr(self._predictor, "bind_telemetry", None)
+        if bind is not None:
+            bind(registry=self.registry, ledger=self.memory_ledger, events=self._events)
         # Numerics sentinel (telemetry/canary.py): state exists BEFORE
         # warm-up so the zeros loop below can record each bucket's
         # golden-probe reference digest right after its first execute.
@@ -584,6 +617,10 @@ class ServingEngine:
             )
         self._buckets = tuple(sorted(self._compiled))
         self._max_batch = max(self._buckets)
+        # Predictors that publish per-run stats (tiled) must not count
+        # the warm-up zeros runs as served traffic.
+        if hasattr(self._predictor, "warming"):
+            self._predictor.warming = True
         for b in self._buckets:
             z = np.zeros((b, *self.example_shape), self._np_dtype)
             t0 = time.perf_counter()
@@ -618,6 +655,8 @@ class ServingEngine:
                 canary_digest=rec["digest"],
                 canary_qdigest=rec["qdigest"],
             )
+        if hasattr(self._predictor, "warming"):
+            self._predictor.warming = False
         self.warmup_wall_s = time.perf_counter() - _warmup_t0
         self.assert_warm()
         # Load-time parameter-integrity baseline: every later checksum
@@ -626,9 +665,15 @@ class ServingEngine:
         self.canary.record_checksum(self.params_checksum(), load=True)
 
         # The continuous scheduler (or the fifo baseline): per-class
-        # bounded EDF queues + the batch former. Burn-rate feedback needs
-        # a class with a latency objective, which waits for the SLO
-        # evaluator (refused above), so it is off.
+        # bounded EDF queues + the batch former. Burn-rate feedback only
+        # exists when there is more than one class AND at least one
+        # class declares an objective — otherwise there is nothing to
+        # protect and nothing to read.
+        feedback = (
+            ClassFeedback(self.registry, self._classes)
+            if len(self._classes) > 1 and self._class_objectives
+            else None
+        )
         # Quota admission (tenancy ON): token buckets refilled at each
         # tenant's configured rate, consulted in submit() BEFORE any
         # queue slot is occupied — an over-quota flood is shed with a
@@ -641,7 +686,7 @@ class ServingEngine:
         )
         self._sched = ClassScheduler(
             self._classes, max_queue=max_queue, registry=self.registry,
-            mode=scheduler, feedback=None, shed_ratio=shed_ratio,
+            mode=scheduler, feedback=feedback, shed_ratio=shed_ratio,
             tenants=self._tenants,
         )
         self._poll_s = 0.02
@@ -711,9 +756,10 @@ class ServingEngine:
         decl("serve_halo_shifts").set(self._predictor.halo_shifts())
 
         # -- liveness + postmortem ------------------------------------------
-        self.health = telemetry.HealthState()
+        self.health = telemetry.HealthState(registry=self.registry)
         self.flight = telemetry.FlightRecorder(
             capacity=flight_capacity,
+            registry=self.registry,
             directory=flight_dir or telemetry_dir,
         )
         # canary.failure forensics join the postmortem ring alongside the
@@ -729,11 +775,13 @@ class ServingEngine:
             if self._canary_interval_s is not None
             else None
         )
+        self.last_attribution: "dict | None" = None
         self.watchdog: "telemetry.Watchdog | None" = None
         if watchdog_factor:
             self.watchdog = telemetry.Watchdog(
                 factor=watchdog_factor,
                 min_timeout_s=watchdog_min_timeout_s,
+                registry=self.registry,
                 health=self.health,
                 on_trip=(self._on_watchdog_trip,),
             )
@@ -742,11 +790,19 @@ class ServingEngine:
             self.watchdog.seed(max(self.warm_latency_s.values()))
 
         # -- slow-request capture (telemetry/tail.py) -----------------------
-        # Seeded with the warm latency (like the watchdog). No latency
-        # objective floors it until the SLO evaluator is ported.
+        # Seeded with the warm latency (like the watchdog) and floored at
+        # the TIGHTEST declared latency threshold (the slo= config's or
+        # any SLO class's): under an objective, "slow" never means less
+        # than the strictest objective.
+        _thresholds = [
+            c.latency_threshold_s for c in self._classes
+            if c.latency_threshold_s is not None
+        ]
+        if slo is not None and getattr(slo, "latency_threshold_s", None):
+            _thresholds.append(slo.latency_threshold_s)
         self.tail = telemetry.TailWatcher(
             registry=self.registry,
-            slo_threshold_s=None,
+            slo_threshold_s=min(_thresholds) if _thresholds else None,
             factor=tail_factor,
             seed_s=max(self.warm_latency_s.values()),
             min_interval_s=tail_min_interval_s,
@@ -754,6 +810,47 @@ class ServingEngine:
             events=self._events,
             flight=self.flight,
         )
+
+        # -- SLO evaluation (telemetry/slo.py, alerts.py, autoscale.py) -----
+        # Per-class latency objectives are appended to the configured
+        # ones, and the evaluator runs whenever ANY objective exists —
+        # including classes declared without an slo= config, because the
+        # scheduler's burn-rate feedback reads the evaluator's gauges.
+        self.slo: "telemetry.SLOEvaluator | None" = None
+        slo_cfg = slo
+        if slo_cfg is None and self._class_objectives:
+            slo_cfg = telemetry.SLOConfig()
+        if slo_cfg is not None:
+            objectives = slo_cfg.objectives() + self._class_objectives
+            # The evaluator also runs for a headroom-only config (no
+            # availability/latency objective): the memory_headroom_low
+            # alert rides the same tick.
+            if objectives or getattr(slo_cfg, "headroom_alert_ratio", None) is not None:
+                autoscaler = telemetry.Autoscaler(
+                    registry=self.registry,
+                    config=slo_cfg.autoscale,
+                    queue_capacity=max_queue,
+                )
+                self.slo = telemetry.SLOEvaluator(
+                    registry=self.registry,
+                    objectives=objectives,
+                    config=slo_cfg,
+                    autoscaler=autoscaler,
+                    events=self._events,
+                    flight=self.flight,
+                )
+
+        self._server = (
+            telemetry.MetricsServer(
+                self.registry, port=metrics_port,
+                health=self.health.snapshot, debug=self._debugz,
+                alerts=self.slo.state if self.slo is not None else None,
+                numerics=self.canary.view,
+            )
+            if metrics_port is not None
+            else None
+        )
+        self.metrics_port = self._server.port if self._server else None
 
     # -- construction helpers ------------------------------------------------
 
@@ -855,6 +952,8 @@ class ServingEngine:
         self._record_marker("serve.start")
         if self.memory_monitor is not None:
             self.memory_monitor.start()
+        if self.slo is not None:
+            self.slo.start()
         self._thread = threading.Thread(
             target=self._loop, name="mpi4dl-serve-batcher", daemon=True
         )
@@ -890,6 +989,17 @@ class ServingEngine:
             self.watchdog.close()
         if self.memory_monitor is not None:
             self.memory_monitor.close()
+        if self.slo is not None:
+            # Final evaluation so the last requests' outcomes reach the
+            # gauges/verdict before the evaluator thread stops.
+            self.slo.close()
+            try:
+                self.slo.evaluate_once()
+            except Exception:  # noqa: BLE001 — the verdict is advisory
+                pass
+        if self._server is not None:
+            self._server.close()
+            self._server = None
         self._events.close()
 
     def submit(
@@ -1144,6 +1254,11 @@ class ServingEngine:
         out["healthy"] = self.health.healthy
         out["memory"] = self.memory_view()
         out["numerics"] = self.canary.view()
+        run_stats = getattr(self._predictor, "run_stats", None)
+        if run_stats is not None:
+            # Tiled predictor: geometry + per-request tile/stitch facts
+            # (the loadgen report's `tiled` block reads this).
+            out["tiled"] = run_stats()
         return out
 
     def warmup_stats(self) -> dict:
@@ -1207,6 +1322,27 @@ class ServingEngine:
         flip and trip counter already happened inside the watchdog."""
         self._record_marker("serve.watchdog_trip", reason=reason)
         self.flight.dump(reason="watchdog")
+
+    def set_attribution(self, summary: dict) -> None:
+        """Attach the latest trace-attribution summary so ``/debugz``
+        serves it (the analyzer that makes one is ROADMAP queue 1 item
+        10)."""
+        self.last_attribution = summary
+
+    def _debugz(self) -> dict:
+        return {
+            "stats": self.stats(),
+            "health": self.health.snapshot(),
+            "watchdog": self.watchdog.state() if self.watchdog else None,
+            "slo": self.slo.state() if self.slo is not None else None,
+            "phase_attribution": (
+                self.slo.last_phase_attribution
+                if self.slo is not None else None
+            ),
+            "tail": self.tail.state(),
+            "flight_tail": self.flight.tail(50),
+            "attribution": self.last_attribution,
+        }
 
     def _publish_phase_shares(self) -> None:
         """Refresh ``serve_phase_share{phase=}`` from the cumulative
@@ -1339,9 +1475,14 @@ class ServingEngine:
             staged = self._predictor.stage(batch)
             out = self._predictor.run(self._compiled[bucket], staged)
         staged_t = time.monotonic()
+        # Tiled predictors record per-run facts (tile count, stitch/
+        # stream seconds) — attach them so this batch's requests carry
+        # them into their span events and tail samples.
+        tiled_facts = getattr(self._predictor, "last_run", None)
         for r in reqs:
             r.staged_t = staged_t
             r.dispatch_seq = seq
+            r.tiled = tiled_facts
         with self._lock:
             self._bucket_dispatches[bucket] = (
                 self._bucket_dispatches.get(bucket, 0) + 1
@@ -1471,6 +1612,8 @@ class ServingEngine:
                      "e2e_latency_s": end_t - r.submit_t,
                      "slo_class": r.slo_class, "tenant": r.tenant,
                      "pid": os.getpid(), "role": "engine"}
+            if r.tiled is not None:
+                attrs["tiled"] = dict(r.tiled)
             ev = telemetry.span_event(
                 "serve.request", r.trace_id, spans, attrs=attrs,
             )

@@ -2,7 +2,10 @@
 
 Ported: the metrics registry (:mod:`.registry`), the metric catalog
 (:mod:`.catalog`, held equal to the JAX one by a test), request spans
-(:mod:`.spans`), SLO objectives (:mod:`.slo`), the numerics sentinel
+(:mod:`.spans`), SLO objectives (:mod:`.slo`), the snapshot window
+(:mod:`.windows`), the alert state machine and the SLO evaluator
+(:mod:`.alerts`), the advisory autoscaler (:mod:`.autoscale`), the
+Prometheus exporter and its routes (:mod:`.export`), the numerics sentinel
 (:mod:`.canary`), the slow-request watcher (:mod:`.tail`), capture
 fingerprints and the cache status (:mod:`.coldstart`), memory reads, the
 footprint ledger, the monitor and OOM forensics (:mod:`.memory`), the JSONL
@@ -10,14 +13,20 @@ event log (:mod:`.jsonl`), the liveness flag and watchdog (:mod:`.health`)
 and the flight recorder (:mod:`.flight`). The serving engine
 (:mod:`mpi4dl_tpu_torch.serve`) is built on them.
 
-Not ported yet (ROADMAP queue 1 item 9): the SLO evaluator chain
-(``alerts.py``, ``windows.py``, ``autoscale.py``), the Prometheus exporter
-(``export.py``), federation and incidents, ``jsonl.metrics_event`` and the
-registry hooks of ``health.py`` and ``flight.py``.
+Not ported yet (ROADMAP queue 1 item 9): federation and incidents.
 """
 
 import threading
 
+from mpi4dl_tpu_torch.telemetry.alerts import (  # noqa: F401
+    AlertState,
+    SLOEvaluator,
+    phase_attribution,
+)
+from mpi4dl_tpu_torch.telemetry.autoscale import (  # noqa: F401
+    AutoscaleConfig,
+    Autoscaler,
+)
 from mpi4dl_tpu_torch.telemetry.canary import (  # noqa: F401
     CANARY_ATOL,
     CanarySentinel,
@@ -34,6 +43,12 @@ from mpi4dl_tpu_torch.telemetry.catalog import (  # noqa: F401
     MetricSpec,
     declare,
 )
+from mpi4dl_tpu_torch.telemetry.export import (  # noqa: F401
+    MetricsServer,
+    render_prometheus,
+    unescape_help,
+    unescape_label_value,
+)
 from mpi4dl_tpu_torch.telemetry.flight import FlightRecorder  # noqa: F401
 from mpi4dl_tpu_torch.telemetry.health import (  # noqa: F401
     HealthState,
@@ -42,6 +57,7 @@ from mpi4dl_tpu_torch.telemetry.health import (  # noqa: F401
 from mpi4dl_tpu_torch.telemetry.jsonl import (  # noqa: F401
     ENV_DIR,
     JsonlWriter,
+    metrics_event,
     read_events,
     validate_event,
 )
@@ -68,6 +84,7 @@ from mpi4dl_tpu_torch.telemetry.slo import (  # noqa: F401
     latency_objective,
 )
 from mpi4dl_tpu_torch.telemetry.tail import TailWatcher  # noqa: F401
+from mpi4dl_tpu_torch.telemetry.windows import SnapshotWindow  # noqa: F401
 from mpi4dl_tpu_torch.telemetry.spans import (  # noqa: F401
     chrome_trace,
     group_spans_by_trace,

@@ -1,21 +1,22 @@
 """Flight recorder: an always-on bounded ring of recent telemetry events
-(twin of ``mpi4dl_tpu/telemetry/flight.py``).
+(twin of ``mpi4dl_tpu/telemetry/flight.py``, copied).
 
-The JSONL log (:mod:`mpi4dl_tpu_torch.telemetry.jsonl`) is opt-in and
-grows without bound — the wrong tool for "what were the last 500 requests
-doing when the process died". The flight recorder is the postmortem tool:
-a ``deque(maxlen=capacity)`` of already-built span/marker events, costing
-one lock-guarded append per event until something goes wrong. On a
-watchdog trip, a crash, SIGTERM, or an explicit call,
+The JSONL log (:mod:`mpi4dl_tpu_torch.telemetry.jsonl`) is opt-in and grows
+without bound — the wrong tool for "what were the last 500 requests doing
+when the process died". The flight recorder is the postmortem tool: a
+``deque(maxlen=capacity)`` of already-built span/marker events (plus a
+rate-limited registry snapshot at most once per ``snapshot_interval_s``),
+costing one lock-guarded append per request until something goes wrong.
+On a watchdog trip, a batcher crash, SIGTERM, or an explicit call,
 :meth:`FlightRecorder.dump` writes the ring — every line checked through
-the same :func:`~mpi4dl_tpu_torch.telemetry.jsonl.validate_event` schema
-the live log promises, with a dump marker appended — to a timestamped
-JSONL file.
+the same :func:`mpi4dl_tpu_torch.telemetry.jsonl.validate_event` schema the
+live log promises, with a fresh final metrics snapshot and a dump marker
+appended — to a timestamped JSONL file, and counts it in the cataloged
+``flight_recorder_dumps_total{reason=}``.
 
-The JAX recorder also takes a telemetry registry (rate-limited metric
-snapshots in the ring, a final one at dump, a dump counter); the registry
-is ROADMAP queue 1 item 9, so this one takes none. ``capacity=0``
-disables recording entirely (``record`` returns before taking the lock).
+``capacity=0`` disables recording entirely (``record`` returns before
+taking the lock), which is how the overhead claim in
+docs/OBSERVABILITY.md is A/B-measured.
 """
 
 from __future__ import annotations
@@ -29,13 +30,15 @@ import tempfile
 import threading
 import time
 
-from mpi4dl_tpu_torch.telemetry.jsonl import ENV_DIR, validate_event
+from mpi4dl_tpu_torch.telemetry.jsonl import ENV_DIR, metrics_event, validate_event
 
 
 class FlightRecorder:
     """Bounded in-memory ring of telemetry events, dumpable as JSONL.
 
     capacity: ring size in events; 0 disables the recorder.
+    registry: source for the rate-limited in-ring metric snapshots, the
+        final at-dump snapshot, and the dump counter.
     directory: where dumps land; falls back to ``MPI4DL_TPU_TELEMETRY_DIR``
         then the system temp dir, resolved at dump time.
     incident: optional zero-arg callable returning the currently open
@@ -49,7 +52,9 @@ class FlightRecorder:
     def __init__(
         self,
         capacity: int = 512,
+        registry=None,
         directory: "str | None" = None,
+        snapshot_interval_s: float = 1.0,
         incident=None,
     ):
         self.incident = incident
@@ -58,9 +63,19 @@ class FlightRecorder:
             maxlen=max(1, self.capacity)
         )
         self._lock = threading.Lock()
+        self._registry = registry
         self._directory = directory
+        self._interval = float(snapshot_interval_s)
+        self._last_snap = 0.0
         self._seq = itertools.count()
         self._installed: dict = {}
+        self._m_dumps = None
+        if registry is not None:
+            from mpi4dl_tpu_torch import telemetry
+
+            self._m_dumps = telemetry.declare(
+                registry, "flight_recorder_dumps_total"
+            )
 
     @property
     def enabled(self) -> bool:
@@ -73,6 +88,13 @@ class FlightRecorder:
             return
         with self._lock:
             self._ring.append(event)
+        if self._registry is not None:
+            now = time.monotonic()
+            if now - self._last_snap >= self._interval:
+                self._last_snap = now
+                snap = metrics_event(self._registry)
+                with self._lock:
+                    self._ring.append(snap)
 
     def tail(self, n: int = 50) -> "list[dict]":
         """Most recent ``n`` events, oldest first — the ``/debugz``
@@ -82,13 +104,16 @@ class FlightRecorder:
         return ring[-int(n):]
 
     def dump(self, path: "str | None" = None, reason: str = "manual") -> "str | None":
-        """Write the ring (+ a dump marker) as schema-valid JSONL; returns the path, or None when disabled.
+        """Write the ring (+ a final metrics snapshot + a dump marker) as
+        schema-valid JSONL; returns the path, or None when disabled.
         Events that fail validation are dropped and counted in the dump
         marker rather than aborting the postmortem."""
         if self.capacity <= 0:
             return None
         with self._lock:
             events = list(self._ring)
+        if self._registry is not None:
+            events.append(metrics_event(self._registry))
         good, dropped = [], 0
         for ev in events:
             try:
@@ -133,6 +158,8 @@ class FlightRecorder:
                 f.write(json.dumps(ev) + "\n")
             f.flush()
             os.fsync(f.fileno())
+        if self._m_dumps is not None:
+            self._m_dumps.inc(reason=reason)
         return path
 
     # -- signal integration ---------------------------------------------------

@@ -1,13 +1,14 @@
 """Liveness: health state + a progress watchdog for serving/training loops
-(twin of ``mpi4dl_tpu/telemetry/health.py``).
+(twin of ``mpi4dl_tpu/telemetry/health.py``, copied).
 
 A serving process that hangs is worse than one that crashes — the crash
 restarts, the hang serves 503s-by-silence until a human notices. Two
 pieces close that gap:
 
 - :class:`HealthState` — a threadsafe healthy/unhealthy flag with a
-  reason, the source of a ``/healthz`` probe: healthy until a watchdog
-  trip or a loop crash.
+  reason, mirrored into the cataloged ``serve_healthy`` gauge and served
+  by the ``/healthz`` endpoint (:class:`mpi4dl_tpu_torch.telemetry.MetricsServer`):
+  200 while healthy, 503 after a watchdog trip or loop crash.
 - :class:`Watchdog` — hung-step / stalled-loop detection. Publishers call
   :meth:`Watchdog.begin` when work is admitted (a request enqueued, a
   train step started) and :meth:`Watchdog.done` when it completes; a
@@ -15,17 +16,15 @@ pieces close that gap:
   within ``max(min_timeout_s, factor × rolling-p99(completion
   durations))``. The threshold adapts to the workload (a 2048px step and
   a 32px serve batch need very different patience) instead of a hard pin.
-  A trip flips the health state and runs the registered callbacks (a
-  flight recorder's dump goes there); the next completed work item
-  auto-recovers the health state — the process may have merely been
-  starved, and flapping back to healthy on real progress is the correct
-  load-balancer signal.
+  A trip flips the health state, bumps ``watchdog_trips_total``, and runs
+  the registered callbacks (the serving engine dumps its flight recorder
+  there); the next completed work item auto-recovers the health state —
+  the process may have merely been starved, and flapping back to healthy
+  on real progress is the correct load-balancer signal.
 
-The JAX classes also mirror their state into a telemetry registry
-(``serve_healthy``, ``watchdog_trips_total``); that registry is ROADMAP
-queue 1 item 9, so these take none. The clock is injectable so trip logic
-is unit-testable without real waits; the monitor thread is optional
-(``start=False``) for the same reason.
+The clock is injectable so trip logic is unit-testable without real
+waits; the monitor thread is optional (``start=False``) for the same
+reason.
 """
 
 from __future__ import annotations
@@ -39,13 +38,20 @@ from mpi4dl_tpu_torch.profiling import percentiles
 
 class HealthState:
     """Threadsafe healthy/unhealthy + reason; the ``/healthz`` source of
-    truth."""
+    truth. With a ``registry``, mirrors into the ``serve_healthy`` gauge
+    so fleet controllers can scrape what the probe endpoint serves."""
 
-    def __init__(self):
+    def __init__(self, registry=None):
         self._lock = threading.Lock()
         self._healthy = True
         self._reason = "ok"
         self._since = time.time()
+        self._gauge = None
+        if registry is not None:
+            from mpi4dl_tpu_torch import telemetry
+
+            self._gauge = telemetry.declare(registry, "serve_healthy")
+            self._gauge.set(1.0)
 
     def _set(self, healthy: bool, reason: str) -> None:
         with self._lock:
@@ -54,6 +60,8 @@ class HealthState:
             self._reason = reason
             if changed:
                 self._since = time.time()
+        if self._gauge is not None:
+            self._gauge.set(1.0 if healthy else 0.0)
 
     def set_healthy(self, reason: str = "ok") -> None:
         self._set(True, reason)
@@ -87,6 +95,7 @@ class Watchdog:
         the next completion.
     on_trip: callbacks ``cb(reason: str)`` run (outside the lock) once
         per trip — the flight-recorder dump hook.
+    registry: counts trips in the cataloged ``watchdog_trips_total``.
     start: start the daemon monitor thread (poll every ``poll_s``,
         default ``min(0.25, min_timeout_s / 4)``); ``start=False`` for
         deterministic tests driving :meth:`check` with a fake ``clock``.
@@ -98,6 +107,7 @@ class Watchdog:
         min_timeout_s: float = 2.0,
         poll_s: "float | None" = None,
         history: int = 256,
+        registry=None,
         health: "HealthState | None" = None,
         on_trip=(),
         clock=time.monotonic,
@@ -120,6 +130,14 @@ class Watchdog:
         self._last_progress = self._clock()
         self._tripped = False
         self.trips = 0
+        self._m_trips = None
+        if registry is not None:
+            from mpi4dl_tpu_torch import telemetry
+
+            self._m_trips = telemetry.declare(registry, "watchdog_trips_total")
+            # Materialize the zero series: rate()/increase() alerts need
+            # an explicit 0 before the first trip, not an absent metric.
+            self._m_trips.inc(0)
         self._stop_evt = threading.Event()
         self._thread = None
         if start:
@@ -196,6 +214,8 @@ class Watchdog:
             f"{self.factor:g} x rolling p99)) with {outstanding} "
             "work item(s) outstanding"
         )
+        if self._m_trips is not None:
+            self._m_trips.inc()
         if self._health is not None:
             self._health.set_unhealthy(reason)
         for cb in self._on_trip:

@@ -14,9 +14,8 @@ attribute check. Every write validates against :func:`validate_event`
 first — a malformed event fails at the publisher, where the bug is, not
 in whatever later reads the log.
 
-:func:`validate_event`, :class:`JsonlWriter` and :func:`read_events` are
-copies of the JAX module's. ``metrics_event`` (a registry snapshot as an
-event) comes with the port's telemetry registry, ROADMAP queue 1 item 9.
+:func:`validate_event`, :func:`metrics_event`, :class:`JsonlWriter` and
+:func:`read_events` are copies of the JAX module's.
 """
 
 from __future__ import annotations
@@ -25,6 +24,7 @@ import atexit
 import json
 import os
 import threading
+import time
 
 ENV_DIR = "MPI4DL_TPU_TELEMETRY_DIR"
 
@@ -112,6 +112,15 @@ def validate_event(event: dict) -> dict:
         if "attrs" in event and not isinstance(event["attrs"], dict):
             raise ValueError("event['attrs'] must be a dict")
     return event
+
+
+def metrics_event(registry, ts: "float | None" = None) -> dict:
+    """Registry snapshot as one schema-valid JSONL event."""
+    return validate_event({
+        "ts": time.time() if ts is None else float(ts),
+        "kind": "metrics",
+        "metrics": registry.snapshot(),
+    })
 
 
 class JsonlWriter:

@@ -33,9 +33,13 @@ GEMS_TWINS = ("benchmarks.gems_master_model.benchmark_resnet_gems_master",
 HALO_TWINS = tuple(f"benchmarks.communication.halo.benchmark_sp_halo_exchange{s}"
                    for s in ("", "_with_compute", "_with_compute_val", "_conv"))
 SERVE_MODULES = ("serve", "serve.batching", "serve.scheduler", "serve.engine", "serve.sharded",
+                 "serve.loadgen", "serve.tiled", "serve.__main__", "benchmarks.serving",
+                 "benchmarks.serving.loadgen", "fleet", "fleet.errors",
                  "tenancy", "tenancy.model", "telemetry", "telemetry.registry",
                  "telemetry.catalog", "telemetry.spans", "telemetry.slo", "telemetry.canary",
-                 "telemetry.tail", "telemetry.coldstart", "telemetry.memory")
+                 "telemetry.tail", "telemetry.coldstart", "telemetry.memory",
+                 "telemetry.windows", "telemetry.alerts", "telemetry.autoscale",
+                 "telemetry.export")
 PORT_MODULES = sorted(
     _module_name(p) for p in (REPO / "mpi4dl_tpu_torch").rglob("*.py")
 )

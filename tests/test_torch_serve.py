@@ -19,8 +19,9 @@ would add the known f32 BN drift, ROADMAP queue 3). Checked:
 - every bucket warmed, a missing bucket refused, a bucket's predictor
   refusing other shapes and dtypes;
 - ``from_checkpoint`` from a path alone;
-- each option this slice does not port raises ``NotImplementedError``
-  naming its ROADMAP item.
+- the options of ROADMAP queue 1 item 10 raise ``NotImplementedError``
+  naming it; those of item 9 (ported since) build the engine with the
+  surface they ask for.
 
 Every ``future.result`` has a timeout and every engine stops in a
 ``finally``.
@@ -302,8 +303,19 @@ def test_from_checkpoint_from_a_path_alone(models, tmp_path):
     ({"attribution_every": 4}, "item 10"),
 ])
 def test_options_not_ported_raise(models, option, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
-        _engine(models, **option)
+    if item == "item 10":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
+            _engine(models, **option)
+        return
+    # Item 9's options are ported: the exporter and the SLO evaluator run.
+    eng = _engine(models, **option)
+    try:
+        if "metrics_port" in option:
+            assert isinstance(eng.metrics_port, int) and eng.metrics_port > 0
+        else:
+            assert eng.slo is not None and eng.slo.alerts
+    finally:
+        eng.stop()
 
 
 def test_lint_and_expectations_not_ported(models):

@@ -103,7 +103,7 @@ def _rank(rank, world, shape, params, stats, xs):
     # The leader's engine fails before any capture: the followers are released.
     try:
         res = sharded.sharded_engine(_spatial(params, grid), N_SP, stats, (SIZE, SIZE, 3),
-                                     grid, device="cpu", metrics_port=0)
+                                     grid, device="cpu", attribution_every=4)
         out["failed"] = "followed" if res is None else "built"
     except NotImplementedError as e:
         out["failed"] = str(e)
@@ -144,7 +144,7 @@ def test_followers_stop_cleanly(world):
     for r, out in enumerate(ranks[1:], start=1):
         assert [out["monolithic"], out["decomposed"]] == ["followed"] * 2, r
         assert out["failed"] == "followed", r
-    assert "ROADMAP queue 1 item 9" in ranks[0]["failed"]
+    assert "ROADMAP queue 1 item 10" in ranks[0]["failed"]
 
 
 @pytest.mark.parametrize("spec", ["2x2", "1x4", "4X1", "four", "2x", "0x2", "2x-1", "1x1x1"])
