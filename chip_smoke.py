@@ -9,6 +9,7 @@
     python3 chip_smoke.py --gems-only     # only the build and phase g (for a 4-card host)
     python3 chip_smoke.py --tools-only    # only the build and the run tooling (t, e, s9)
     python3 chip_smoke.py --serve-only    # only the build and the serving phase r
+    python3 chip_smoke.py --fleet-only    # only the build and the fleet phase f (f1-f3)
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -171,6 +172,42 @@ Phases (any failure exits non-zero; nothing is caught):
          from the checkpoint (bit-equal on every rank); then s1's small f32
          spatial models, calibration and eval on the tiles against
          single-device eval on the CPU (``SP_EVAL_TOL``);
+  f. the replica fleet (``mpi4dl_tpu_torch.fleet``): two supervised
+     replicas (``python -m mpi4dl_tpu_torch.fleet.worker``, each a
+     ``ServingEngine`` of ResNet-110 v2 @1024 f32, TF32 off, weights from
+     seed 0, a captured graph for buckets 1 and 2) on the card, one router
+     process with its journal, federation on; in the full run they start
+     beside phase v1 and f1-f2 run after phase e ends:
+     f1. ``F1_REQUESTS`` requests, ``F_CONCURRENCY`` at a time, of
+         ``F_IMAGES`` seeded images through ``RouterSetClient``: every
+         answer within ``R_EAGER_TOL`` of max |logit| of this process's own
+         predict of the same image with the same model on the card; the
+         federated ``/metrics`` of an aggregator over the replicas counts
+         ``F_REPLICAS`` up and as many served as the client; each
+         replica's cold-start phases (import, construct, compile, warm,
+         ready) and capture peak printed;
+     f2. ``F2_REQUESTS`` more, ``kill:1`` (SIGKILL replica 1) once a
+         quarter is answered and replica 1 holds requests in the router's
+         in-flight ledger: every request answered once (distinct trace
+         ids; none served twice in the replicas' span logs), the router
+         requeued at least one, the supervisor records one restart and the
+         replacement reaches ready, ``/incidentz`` opened one incident whose
+         first cause is the kill and closed it after recovery; then
+         ``F1_REQUESTS`` on the restored fleet; answers as f1's; the
+         recovery s and its phases, req/s before, during and after, p50,
+         p90 and p99 printed;
+     f3. (``--fleet-only`` alone) the wedge drill (replica 0's batcher
+         blocked: its watchdog trips, its heartbeat goes stale, the
+         supervisor replaces it; every request answered), the corrupt drill
+         (bits flipped in replica 1's live parameters: its fence trips
+         within the canary interval and ``/predict`` answers 503, the
+         federation's numerics page names it, it is replaced), and one
+         ``--mesh 2x2`` replica (4 rank processes) of the synthetic
+         ResNet-v1 depth 8 @``F_MESH_SIZE`` behind a router: K4 launched in
+         its captures, its answers within ``R_CPU_TOL`` of max |logit| of
+         the single-device predict on the card. Phase f's lines read
+         ``[f]``, ``[f1]``-``[f3]``; phase f of d-g below, K3's checks, is
+         another;
   s. the spatial slice in 4 rank processes (``parallel.multihost.spawn``)
      on a 2x2 tile grid. With 4 or more cards, one rank per card and
      NCCL; with fewer, the ranks share card 0 over a gloo group, and K4's
@@ -5484,6 +5521,559 @@ def phase_serve_world():
     phase_serve_sharded(outs)
 
 
+# Phase f: the replica fleet (``mpi4dl_tpu_torch.fleet``). In the full run its
+# replicas start beside phase v1 (which, like phase e beside it, times
+# nothing) and f1-f2 run after phase e ends; ``--fleet-only`` adds f3.
+F_REPLICAS = 2
+F_MAX_BATCH = 2
+F_CANARY_S = 2.0  # the replicas' numerics-sentinel interval
+F_IMAGES = 6  # distinct seeded images the loads cycle through
+F_CONCURRENCY = 4
+F1_REQUESTS = 12  # the steady load before the fault, and again after recovery
+F2_REQUESTS = 24  # the kill drill's load: kill:1 after a quarter of it is answered
+F_TIMEOUT = 300.0  # every wait on a replica, a router, a future
+F_HEARTBEAT_S = 5.0  # the supervisor's heartbeat staleness limit
+# /healthz 503s in a row before the supervisor replaces a replica (10 s at its
+# 0.25 s tick): longer than the heartbeat limit, so a wedge takes the
+# heartbeat path.
+F_UNHEALTHY_PROBES = 40
+F_WEDGE_REQUESTS = 16
+F_FENCE_SLACK_S = 3.0  # a canary probe's own forward and the scrape, past the interval
+F_MESH_SIZE = 32  # f3's mesh replica: the synthetic ResNet-v1 depth 8, 2 spatial cells
+F_MESH_REQUESTS = 6
+
+
+def _f_env():
+    here = os.path.dirname(os.path.abspath(__file__))
+    return dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""),
+                OMP_NUM_THREADS="1")
+
+
+def _f_worker_args(tele, size, depth, extra=()):
+    return ["--image-size", str(size), "--depth", str(depth), "--max-batch", str(F_MAX_BATCH),
+            "--no-tf32", "--canary-interval", str(F_CANARY_S), "--watchdog-min-timeout", "2",
+            "--default-deadline-s", str(F_TIMEOUT), "--telemetry-dir", tele,
+            *([] if DEVICE == "cuda" else ["--device", DEVICE]), *extra]
+
+
+def _f_get(url):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=30) as r:
+        return r.read().decode()
+
+
+def _f_wait(cond, what, timeout_s=F_TIMEOUT, poll_s=0.05):
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if cond():
+            return
+        time.sleep(poll_s)
+    if not cond():
+        raise AssertionError(f"f: {what} not within {timeout_s:.0f} s")
+
+
+def start_fleet():
+    """Phase f, started: two supervised ResNet-110 v2 @1024 f32 replicas
+    (``python -m mpi4dl_tpu_torch.fleet.worker``, a captured graph per
+    bucket 1 and 2) and one router process with its journal, federation
+    and its autoscale gauge on. Returns what :func:`finish_fleet` reads."""
+    import types
+
+    from mpi4dl_tpu_torch import telemetry
+    from mpi4dl_tpu_torch.fleet.supervisor import FleetSupervisor
+    from mpi4dl_tpu_torch.telemetry.autoscale import AutoscaleConfig
+
+    tmp = tempfile.TemporaryDirectory(prefix="mpi4dl-f-")
+    tele = os.path.join(tmp.name, "tele")
+    events = telemetry.JsonlWriter(tele, filename="fleet-events.jsonl")
+    sup = FleetSupervisor(
+        _f_worker_args(tele, SIZE, RESNET_DEPTH), routers=1,
+        router_args=["--image-size", str(SIZE), "--max-attempts", "4",
+                     "--inflight-per-replica", "2", "--health-interval", "0.1",
+                     "--default-deadline-s", str(F_TIMEOUT), "--telemetry-dir", tele],
+        replicas=F_REPLICAS, max_replicas=F_REPLICAS,
+        federation=telemetry.SLOConfig(availability=0.999, interval_s=0.5, autoscale=(
+            AutoscaleConfig(min_replicas=F_REPLICAS, max_replicas=F_REPLICAS))),
+        env=_f_env(), events=events, base_dir=os.path.join(tmp.name, "fleet"),
+        reconcile_interval_s=0.25, heartbeat_timeout_s=F_HEARTBEAT_S,
+        unhealthy_after=F_UNHEALTHY_PROBES, backoff_base_s=0.1, backoff_max_s=0.5,
+        spawn_timeout_s=F_TIMEOUT)
+    t0 = time.time()
+    sup.start()
+    return types.SimpleNamespace(sup=sup, tmp=tmp, tele=tele, events=events, t0=t0)
+
+
+def stop_fleet(started) -> None:
+    """Phase f's processes ended (SIGTERM, then SIGKILL) and its folder removed."""
+    try:
+        started.sup.close()
+    finally:
+        started.events.close()
+        started.tmp.cleanup()
+
+
+def _f_reference(images):
+    """The parent's own predict of each image with the replicas' model: the
+    ResNet-110 v2 @1024 of ``fleet/worker.py``, weights from seed 0,
+    calibrated on ``default_rng(0)``'s batch of 4, on the card (TF32 off)."""
+    import numpy as np
+    import torch
+
+    from mpi4dl_tpu_torch import evaluate
+    from mpi4dl_tpu_torch.models.resnet import get_resnet_v2
+    from mpi4dl_tpu_torch.serve.engine import to_host
+    from mpi4dl_tpu_torch.weights import init
+
+    model = get_resnet_v2(RESNET_DEPTH, 10, pool_kernel=SIZE // 4)
+    init(model, torch.Generator().manual_seed(0))
+    model = model.to(DEVICE, memory_format=torch.channels_last if DEVICE == "cuda"
+                     else torch.contiguous_format)
+    rng = np.random.default_rng(0)
+    stats = evaluate.collect_batch_stats(
+        model, [rng.standard_normal((4, SIZE, SIZE, 3)).astype(np.float32)])
+    predict = evaluate.make_predict(model)
+    out = [to_host(predict(stats, x[None]))[0] for x in images]
+    del model, stats
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _f_load(client, images, n, tag, on_answer=None):
+    """A closed loop of ``n`` requests through ``client``, ``F_CONCURRENCY``
+    at a time, each its own trace id ``f-<tag>-<i>``: returns the answers
+    ``(i, trace_id, logits, latency_s, done_at)`` and the wall seconds."""
+    import threading
+
+    answers, errors = [], []
+    lock = threading.Lock()
+
+    def worker(w):
+        for i in range(w, n, F_CONCURRENCY):
+            tid = f"f-{tag}-{i}"
+            t = time.perf_counter()
+            try:
+                out = client.submit(images[i % len(images)], deadline_s=F_TIMEOUT,
+                                    trace_id=tid).result(timeout=F_TIMEOUT)
+            except Exception as e:  # noqa: BLE001 — every failure fails the phase below
+                errors.append(f"{tid}: {type(e).__name__}: {e}")
+                continue
+            done = time.perf_counter()
+            with lock:
+                answers.append((i, tid, out, done - t, done))
+                k = len(answers)
+            if on_answer is not None:
+                on_answer(k)
+
+    threads = [threading.Thread(target=worker, args=(w,), name=f"f-load-{w}")
+               for w in range(F_CONCURRENCY)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=2 * F_TIMEOUT)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError(f"f {tag}: the load did not end")
+    if errors or len(answers) != n:
+        raise AssertionError(f"f {tag}: {len(answers)} of {n} answered; {errors[:4]}")
+    return answers, time.perf_counter() - t0
+
+
+def _f_check_answers(answers, want, tag):
+    """Every answer within ``R_EAGER_TOL`` of max |logit| of the parent's
+    predict of its image (a row rides in bucket 1 or 2)."""
+    import numpy as np
+
+    worst = 0.0
+    for i, tid, got, _, _ in answers:
+        ref = want[i % len(want)]
+        err = float(np.max(np.abs(np.asarray(got) - ref)) / np.max(np.abs(ref)))
+        worst = max(worst, err)
+        if not err <= R_EAGER_TOL:
+            raise AssertionError(f"f {tag}: {tid} is {err:.3e} of max |logit| from the "
+                                 f"parent's predict (tolerance {R_EAGER_TOL:g})")
+    return worst
+
+
+def _f_metric(text, line_start):
+    """The value of the Prometheus sample whose line starts with ``line_start``."""
+    for ln in text.splitlines():
+        if ln.startswith(line_start + " "):
+            return float(ln.rsplit(" ", 1)[1])
+    return None
+
+
+def _f_peak(slot):
+    """A replica's largest bucket capture peak and graph pool, from the
+    footprint ledger its ready handshake names."""
+    path = (slot.ports or {}).get("ledger")
+    entries = json.load(open(path))["entries"] if path and os.path.exists(path) else []
+    peaks = [e.get("peak_bytes") or 0 for e in entries]
+    pools = [e.get("pool_bytes") or 0 for e in entries]
+    return (max(peaks) / 2**30 if peaks else 0.0), (max(pools) / 2**30 if pools else 0.0)
+
+
+def _f_snapshot_value(url, metric, **labels):
+    snap = json.loads(_f_get(url + "/snapshotz"))
+    total = 0.0
+    for s in snap.get("metrics", {}).get(metric, {}).get("series", ()):
+        if all(s.get("labels", {}).get(k) == v for k, v in labels.items()):
+            total += s.get("value", 0)
+    return total
+
+
+def _f_log_tails(folder, max_bytes=3000):
+    """Print the end of each replica's and router's log in ``folder``."""
+    for name in sorted(os.listdir(folder)) if os.path.isdir(folder) else ():
+        if name.endswith(".log"):
+            with open(os.path.join(folder, name), "rb") as f:
+                f.seek(0, os.SEEK_END)
+                f.seek(max(0, f.tell() - max_bytes))
+                tail = f.read().decode("utf-8", "replace")
+            log(f"[f] {name}, its end:\n{tail}")
+
+
+def _f_served_twice(tele):
+    """Trace ids served more than once across the replicas' span logs (the
+    flight recorder's dumps repeat spans of the log, and are left out)."""
+    from mpi4dl_tpu_torch.telemetry.incident import collect_events
+
+    logs = [os.path.join(tele, f) for f in sorted(os.listdir(tele))
+            if f.endswith(".jsonl") and not f.startswith("flight-")]
+    served = collections.Counter(
+        e["trace_id"] for e in collect_events(logs)
+        if e.get("kind") == "span" and e.get("name") == "serve.request"
+        and e["attrs"].get("outcome") == "served")
+    return {t: n for t, n in served.items() if n > 1}, len(served)
+
+
+def finish_fleet(started, drills=False):
+    """Phase f's f1-f2 (and f3 with ``drills``) on the fleet
+    :func:`start_fleet` started; the fleet is closed in every case.
+    Returns the seconds spent here."""
+    import numpy as np
+    import torch
+
+    from mpi4dl_tpu_torch import telemetry
+    from mpi4dl_tpu_torch.fleet.chaos import inject, parse_chaos_spec
+    from mpi4dl_tpu_torch.fleet.frontdoor import RouterSetClient
+    from mpi4dl_tpu_torch.profiling import percentiles
+    from mpi4dl_tpu_torch.telemetry.federation import FederatedAggregator
+
+    sup, tele = started.sup, started.tele
+    t_here = time.time()
+    agg = client = mesh = None
+    try:
+        if drills:
+            mesh = _f_start_mesh()  # f3's mesh replica starts beside f1-f2
+        rng = np.random.default_rng(SEED + 11)
+        images = [rng.standard_normal((SIZE, SIZE, 3)).astype(np.float32)
+                  for _ in range(F_IMAGES)]
+        want = _f_reference(images)
+        sup.wait_ready(timeout_s=F_TIMEOUT)
+        up_s = time.time() - started.t0
+        slots = [sup.slot_by_index(i) for i in range(F_REPLICAS)]
+        first = {s.name: (s.pid, dict(s.ports.get("phases") or {}), _f_peak(s)) for s in slots}
+        log(f"[f] fleet up {up_s:.1f} s after its start ({time.time() - t_here:.1f} s waited "
+            f"here, the parent's reference predicts included): {F_REPLICAS} replicas of "
+            f"ResNet-{RESNET_DEPTH} v2 @{SIZE} f32 (TF32 off, buckets 1 and {F_MAX_BATCH}, a "
+            f"captured graph each), 1 router process with its journal; cold start (worker "
+            "phases, s): " + "; ".join(
+                f"{n} " + ", ".join(f"{k} {v:.2f}" for k, v in ph.items())
+                + f", capture peak {pk:.2f} GiB, graph pool {pl:.2f} GB"
+                for n, (_, ph, (pk, pl)) in first.items()))
+        # The drill's scorer: its own aggregator over the serving replicas (a
+        # fast scrape; the supervisor's deregisters a dead slot at once).
+        agg = FederatedAggregator(replicas={
+            s.name: f"http://127.0.0.1:{s.ports['metrics_port']}" for s in slots},
+            events=telemetry.JsonlWriter(tele, filename="incidents-f.jsonl"),
+            interval_s=0.05, timeout_s=2.0)
+        agg.incidents.telemetry_dir = tele
+        agg.start()
+        fed = agg.serve(port=0)
+        client = RouterSetClient(sup.router_submit_urls(), example_shape=(SIZE, SIZE, 3),
+                                 default_deadline_s=F_TIMEOUT, telemetry_dir=tele)
+
+        # f1: steady load; the federated /metrics counts both replicas and
+        # the requests they served.
+        a1, wall1 = _f_load(client, images, F1_REQUESTS, "f1")
+        err1 = _f_check_answers(a1, want, "f1")
+
+        def fed_served():
+            text = _f_get(f"http://127.0.0.1:{fed.port}/metrics")
+            return (_f_metric(text, 'federation_replicas{state="up"}'),
+                    _f_metric(text, 'serve_requests_total{outcome="served"}'))
+
+        _f_wait(lambda: fed_served() == (F_REPLICAS, F1_REQUESTS),
+                f"the federated /metrics at {F_REPLICAS} replicas up and {F1_REQUESTS} served "
+                f"(last {fed_served()})", timeout_s=30)
+        log(f"[f1] {F1_REQUESTS} requests ({F_CONCURRENCY} at a time, {F_IMAGES} seeded images) "
+            f"through RouterSetClient in {wall1:.2f} s, {F1_REQUESTS / wall1:.2f} req/s; every "
+            f"answer within {err1:.2e} of max |logit| of the parent's predict (tolerance "
+            f"{R_EAGER_TOL:g}); the federated /metrics: {F_REPLICAS} replicas up, "
+            f"{F1_REQUESTS} served, as the client counted")
+
+        # f2: kill -9 replica 1 once a quarter of the load is answered and
+        # the router has requests in its in-flight ledger.
+        import threading
+
+        router_url = next(iter(sup.router_metrics_urls().values()))
+        requeued0 = _f_snapshot_value(router_url, "fleet_requeues_total")
+        victim = slots[1].pid
+        killed, kill_lock = {}, threading.Lock()
+
+        def kill_once(k):
+            with kill_lock:
+                if (k >= F2_REQUESTS // 4 and not killed and _f_snapshot_value(
+                        router_url, "fleet_inflight", replica="r1") > 0):
+                    killed["t"] = time.perf_counter()
+                    killed["k"] = k
+                    killed["record"] = inject(parse_chaos_spec("kill:1"), sup)
+
+        a2, wall2 = _f_load(client, images, F2_REQUESTS, "f2", on_answer=kill_once)
+        if not killed or killed["record"]["pid"] != victim:
+            raise AssertionError(f"f2: the kill did not land on r1 ({killed})")
+        err2 = _f_check_answers(a2, want, "f2")
+        t_kill = killed["t"]
+        before = [a for a in a2 if a[4] <= t_kill]
+        during = [a for a in a2 if a[4] > t_kill]
+        t_first = min(a[4] - a[3] for a in a2)
+        end2 = max(a[4] for a in a2)
+        requeued = _f_snapshot_value(router_url, "fleet_requeues_total") - requeued0
+        if requeued < 1:
+            raise AssertionError(f"f2: the router requeued {requeued} requests, not >= 1")
+        _f_wait(lambda: sup.running_count() == F_REPLICAS and sup.slot_by_index(1).pid != victim
+                and sup.last_recovery_s is not None, "the replacement of r1 ready")
+        if sup.restarts != 1:
+            raise AssertionError(f"f2: the supervisor recorded {sup.restarts} restarts, not 1")
+        recovery_s, phases = sup.last_recovery_s, dict(sup.last_recovery_phases or {})
+        new = sup.slot_by_index(1)
+        # The incident: the availability page opened it; the replacement
+        # joins the scrape, the page resolves and the incident closes.
+        _f_wait(lambda: agg.incidents.opened_total >= 1, "an incident open", timeout_s=60)
+        agg.add_replica("r1", f"http://127.0.0.1:{new.ports['metrics_port']}")
+        _f_wait(lambda: agg.incidents.closed_total >= 1, "the incident closed", timeout_s=60)
+        incidentz = json.loads(_f_get(f"http://127.0.0.1:{fed.port}/incidentz"))
+        pm = incidentz["closed"][-1]
+        cause = pm.get("first_cause") or {}
+        if (incidentz["counts"] != {"opened": 1, "closed": 1}
+                or cause.get("event") != "chaos.injected"
+                or not str(cause.get("attrs", {}).get("op", "")).startswith("kill:r1")):
+            raise AssertionError(f"f2: /incidentz {incidentz['counts']}, first cause {cause}")
+        # After: the same steady load on the restored fleet.
+        a3, wall3 = _f_load(client, images, F1_REQUESTS, "f2-after")
+        err3 = _f_check_answers(a3, want, "f2 after")
+        lat = percentiles([a[3] for a in a1 + a2 + a3])
+        log(f"[f2] kill:1 (SIGKILL r1, pid {victim}, requests in its in-flight ledger) after "
+            f"{killed['k']} of {F2_REQUESTS} answers: every request answered once ({F2_REQUESTS} distinct trace ids), "
+            f"{int(requeued)} requeued by the router, answers within {max(err2, err3):.2e} of "
+            f"max |logit|; 1 restart, the replacement (pid {new.pid}) ready {recovery_s:.2f} s "
+            "after the death (" + ", ".join(f"{k} {v:.2f}" for k, v in phases.items())
+            + f" s); req/s before {F1_REQUESTS / wall1:.2f}, during "
+            f"{len(during) / max(end2 - t_kill, 1e-9):.2f} (the {len(during)} answers after the "
+            f"kill over {end2 - t_kill:.2f} s; the load's first quarter "
+            f"{len(before) / max(t_kill - t_first, 1e-9):.2f}), after {F1_REQUESTS / wall3:.2f}; "
+            f"latency p50 {lat['p50'] * 1e3:.0f}, p90 {lat['p90'] * 1e3:.0f}, p99 "
+            f"{lat['p99'] * 1e3:.0f} ms; incident {pm['incident']['id']} opened by "
+            f"{pm['incident']['opened_by']}, first cause {cause.get('label')!r}, MTTA "
+            f"{pm['incident'].get('mtta_s')} s, MTTR {pm['incident'].get('mttr_s')} s; "
+            f"replacement capture peak {_f_peak(new)[0]:.2f} GiB; {card()}")
+        if drills:
+            _f_wedge(sup, client, images, want, agg)
+            _f_corrupt(sup, agg)
+            _f_finish_mesh(mesh)
+            mesh = None
+        client.close()
+        client = None
+        agg.close()
+        agg = None
+        sup.close()  # every replica's span log flushed
+        twice, n_spans = _f_served_twice(tele)
+        twice = {t: n for t, n in twice.items() if t.startswith(("f-f1-", "f-f2-"))}
+        if twice:
+            raise AssertionError(f"f: trace ids served more than once: {twice}")
+        log(f"[f] no trace id of f1-f2 served twice in the replicas' span logs ({n_spans} "
+            "served spans; a killed replica's unflushed spans die with it)")
+        stop_fleet(started)
+        started = None
+    finally:
+        if client is not None:
+            client.close()
+        if agg is not None:
+            agg.close()
+        if mesh is not None:
+            _f_stop_mesh(mesh)
+        if started is not None:  # a gate failed: show the processes' own logs
+            _f_log_tails(os.path.join(started.tmp.name, "fleet"))
+            stop_fleet(started)
+    torch.cuda.empty_cache()
+    return time.time() - t_here
+
+
+def _f_wedge(sup, client, images, want, agg):
+    """f3, the wedge drill: replica 0's batcher blocks mid-dispatch (its HTTP
+    and heartbeat threads alive); its watchdog trips with work outstanding,
+    the health-gated heartbeat goes stale and the supervisor kills and
+    replaces it; the requests it held are requeued and answered."""
+    from mpi4dl_tpu_torch.fleet.chaos import inject, parse_chaos_spec
+
+    victim = sup.slot_by_index(0)
+    pid = victim.pid
+    hb0 = sup.registry.get("fleet_replica_restarts_total").value(replica="r0",
+                                                                  reason="heartbeat") or 0
+    t0 = time.perf_counter()
+    inject(parse_chaos_spec("wedge:0"), sup)
+    answers, wall = _f_load(client, images, F_WEDGE_REQUESTS, "f3-wedge")
+    worst = _f_check_answers(answers, want, "f3 wedge")
+    _f_wait(lambda: (sup.registry.get("fleet_replica_restarts_total").value(
+        replica="r0", reason="heartbeat") or 0) > hb0, "r0 replaced on a stale heartbeat")
+    t_kill = time.perf_counter() - t0
+    _f_wait(lambda: sup.running_count() == F_REPLICAS and sup.slot_by_index(0).pid != pid,
+            "r0's replacement ready")
+    new = sup.slot_by_index(0)
+    agg.add_replica("r0", f"http://127.0.0.1:{new.ports['metrics_port']}")
+    log(f"[f3] wedge:0 (r0's batcher blocked, pid {pid}): {F_WEDGE_REQUESTS} requests all "
+        f"answered in {wall:.2f} s (within {worst:.2e} of max |logit|); the watchdog tripped, "
+        f"the heartbeat went stale (limit {F_HEARTBEAT_S:g} s) and the supervisor killed r0 "
+        f"{t_kill:.2f} s after the wedge (reason heartbeat); its replacement (pid {new.pid}) "
+        f"ready {sup.last_recovery_s:.2f} s after the death: the hang detector end to end")
+
+
+def _f_corrupt(sup, agg):
+    """f3, the corrupt drill: bits flipped in replica 1's live parameters,
+    which its captured graphs read; its numerics fence trips within the
+    canary interval (``/healthz`` fenced, ``/predict`` 503), the federation's
+    numerics-skew page names it and the supervisor replaces it."""
+    import numpy as np
+
+    from mpi4dl_tpu_torch.fleet.chaos import inject, parse_chaos_spec
+    from mpi4dl_tpu_torch.fleet.replica import ReplicaUnreachable
+
+    slot = sup.slot_by_index(1)
+    pid, client = slot.pid, slot.client
+    health = f"http://127.0.0.1:{slot.ports['metrics_port']}/healthz"
+    t0 = time.perf_counter()
+    record = inject(parse_chaos_spec("corrupt:1"), sup)
+    fenced = {}
+
+    def fence_seen():
+        import urllib.error
+
+        try:
+            payload = json.loads(_f_get(health))
+        except urllib.error.HTTPError as e:  # 503: unhealthy, the payload says why
+            payload = json.loads(e.read().decode())
+        except OSError:
+            return False
+        if payload.get("fenced"):
+            fenced["t"] = time.perf_counter() - t0
+            return True
+        return False
+
+    try:
+        _f_wait(fence_seen, "r1's numerics fence", timeout_s=F_CANARY_S + F_FENCE_SLACK_S,
+                poll_s=0.02)
+    except AssertionError as e:
+        raise AssertionError(f"{e}; r1's numerics view {_f_get(health)[-1500:]}") from None
+    try:
+        client.predict(np.zeros((SIZE, SIZE, 3), np.float32), "f3-corrupt-probe", 30.0, 60.0)
+        answer = "an answer"
+    except ReplicaUnreachable as e:
+        answer = str(e)
+    reasons = sup.registry.get("fleet_replica_restarts_total")
+    if "numerics_fenced" not in answer and not reasons.value(replica="r1", reason="numerics"):
+        raise AssertionError(f"f3 corrupt: /predict gave {answer!r} after the fence")
+    _f_wait(lambda: agg.numerics_alert.state == "firing" or any(
+        t["attrs"]["to"] == "firing" for t in agg.numerics_transitions),
+        "the numerics_divergence page", timeout_s=30)
+    firing = [t for t in agg.numerics_transitions if t["attrs"]["to"] == "firing"]
+    if not firing or firing[0]["attrs"]["replica"] != "r1":
+        raise AssertionError(f"f3 corrupt: the numerics page named "
+                             f"{[t['attrs']['replica'] for t in firing]}, not r1")
+    _f_wait(lambda: (reasons.value(replica="r1", reason="numerics") or 0) >= 1
+            and sup.running_count() == F_REPLICAS and sup.slot_by_index(1).pid != pid,
+            "r1 quarantined and replaced")
+    log(f"[f3] corrupt:1 ({record['forensics']['bits']} bits of "
+        f"{record['forensics']['leaf']} in r1's live parameters, which its graphs read): the "
+        f"fence tripped {fenced['t']:.2f} s after (canary interval {F_CANARY_S:g} s), /predict "
+        f"then {answer.split(': ', 1)[-1]!r}; the numerics_divergence page named r1 "
+        f"({firing[0]['attrs']['evidence']}); replaced under reason numerics")
+
+
+def _f_start_mesh():
+    """f3's mesh replica, started: one ``--mesh 2x2`` replica (four rank
+    processes on the card, K4 in its graphs) of the synthetic ResNet-v1
+    depth 8 @``F_MESH_SIZE`` behind an in-process router."""
+    import types
+
+    from mpi4dl_tpu_torch.fleet import Router
+    from mpi4dl_tpu_torch.fleet.supervisor import FleetSupervisor
+
+    tmp = tempfile.TemporaryDirectory(prefix="mpi4dl-f3-")
+    router = Router(example_shape=(F_MESH_SIZE, F_MESH_SIZE, 3), max_attempts=2,
+                    default_deadline_s=F_TIMEOUT, health_interval_s=0.2)
+    sup = FleetSupervisor(
+        _f_worker_args(tmp.name, F_MESH_SIZE, 8, ["--mesh", "2x2"]), router=router,
+        replicas=1, max_replicas=1, env=_f_env(), base_dir=tmp.name,
+        reconcile_interval_s=0.25, heartbeat_timeout_s=30.0, spawn_timeout_s=F_TIMEOUT)
+    sup.start()
+    return types.SimpleNamespace(sup=sup, router=router, tmp=tmp, t0=time.time())
+
+
+def _f_stop_mesh(mesh):
+    try:
+        mesh.sup.close()
+        mesh.router.stop(drain=False)
+    finally:
+        mesh.tmp.cleanup()
+
+
+def _f_finish_mesh(mesh):
+    """f3's mesh replica, checked: K4 launched in its bucket captures, and
+    its answers within ``R_CPU_TOL`` of max |logit| of the single-device
+    predict of the same seeded model on the card, as phase r3 holds them."""
+    import numpy as np
+    import torch
+
+    from mpi4dl_tpu_torch import evaluate
+    from mpi4dl_tpu_torch.models.resnet import get_resnet_v1
+    from mpi4dl_tpu_torch.serve.engine import to_host
+    from mpi4dl_tpu_torch.weights import init
+
+    try:
+        mesh.sup.wait_ready(timeout_s=F_TIMEOUT)
+        up_s = time.time() - mesh.t0
+        slot = mesh.sup.slot_by_index(0)
+        h = json.loads(_f_get(f"http://127.0.0.1:{slot.ports['metrics_port']}/healthz"))
+        rng = np.random.default_rng(SEED + 12)
+        xs = [rng.standard_normal((F_MESH_SIZE, F_MESH_SIZE, 3)).astype(np.float32)
+              for _ in range(F_MESH_REQUESTS)]
+        futs = [mesh.router.submit(x, deadline_s=F_TIMEOUT) for x in xs]
+        got = [f.result(timeout=F_TIMEOUT) for f in futs]
+    finally:
+        _f_stop_mesh(mesh)
+    plain = get_resnet_v1(8, 10, pool_kernel=F_MESH_SIZE // 4)
+    init(plain, torch.Generator().manual_seed(0))
+    plain = plain.to(DEVICE, memory_format=torch.channels_last if DEVICE == "cuda"
+                     else torch.contiguous_format)
+    cal = np.random.default_rng(0).standard_normal((4, F_MESH_SIZE, F_MESH_SIZE, 3))
+    stats = evaluate.collect_batch_stats(plain, [cal.astype(np.float32)])
+    want = to_host(evaluate.make_predict(plain)(stats, np.stack(xs)))
+    errs = [float(np.max(np.abs(g - w)) / np.max(np.abs(w))) for g, w in zip(got, want)]
+    if h.get("mesh") != [2, 2] or not h.get("halo_shifts"):
+        raise AssertionError(f"f3 mesh: /healthz mesh {h.get('mesh')}, K4 launches in the "
+                             f"captures {h.get('halo_shifts')}")
+    if not max(errs) <= R_CPU_TOL:
+        raise AssertionError(f"f3 mesh: answers {max(errs):.3e} of max |logit| from the "
+                             f"single-device predict (tolerance {R_CPU_TOL:g})")
+    log(f"[f3] one --mesh 2x2 replica (4 rank processes on the card) of the synthetic "
+        f"ResNet-v1 depth 8 @{F_MESH_SIZE} f32 behind a router, ready {up_s:.1f} s after its "
+        f"start: K4 launched {h['halo_shifts']} times in its largest bucket's capture; "
+        f"{F_MESH_REQUESTS} answers within {max(errs):.2e} of max |logit| of the "
+        f"single-device predict (tolerance {R_CPU_TOL:g})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -5507,8 +6097,10 @@ def main(argv=None) -> int:
     only.add_argument("--serve-only", action="store_true",
                       help="run only the build and the serving phase r (r3 in a 4-rank world "
                            "of its own)")
+    only.add_argument("--fleet-only", action="store_true",
+                      help="run only the build and the fleet phase f, f3's drills included")
     args = ap.parse_args(argv)
-    picked = [f for f in ("spatial", "pipeline", "sp_lp", "gems", "tools", "serve")
+    picked = [f for f in ("spatial", "pipeline", "sp_lp", "gems", "tools", "serve", "fleet")
               if getattr(args, f"{f}_only")]
     only = bool(picked)
 
@@ -5580,13 +6172,24 @@ def main(argv=None) -> int:
         phase_walk_policies(bases["resnet"])
         phase_walk_steps(calls, launches)
         supervised = start_supervised()  # phase e, beside v1
+        fleet = start_fleet()  # phase f's replicas start beside v1 too
         try:
             phase_convergence(calls, launches)
         except BaseException:
             stop_supervised(supervised)
+            stop_fleet(fleet)
             raise
-        tools_s += finish_supervised(supervised)
+        try:
+            tools_s += finish_supervised(supervised)
+        except BaseException:
+            stop_fleet(fleet)
+            raise
+        fleet_s = finish_fleet(fleet)
+        log(f"[f] phase f in {fleet_s:.1f} s after phase e (its replicas started beside v1)")
         phase_checkpoint(launches)
+    if only and runs("fleet"):
+        fleet_s = finish_fleet(start_fleet(), drills=True)
+        log(f"[f] phase f (f1-f3) in {fleet_s:.1f} s")
     k4_timing = None
     if runs("spatial"):
         if "amoebanet" in first_loss:  # the single-device reference at the SP depth

@@ -25,7 +25,14 @@ serial baseline, with an SLO verdict) and ``tiled_gigapixel``
 (:func:`measure_tiled_gigapixel`: the largest square image one device
 serves through the tile stream, and the latency at a fixed large size).
 ``BENCH_SERVING=0`` and ``BENCH_TILED=0`` turn them off. Neither carries an
-``attribution`` or ``lint_ok`` key yet (ROADMAP queue 1 item 10).
+``attribution`` or ``lint_ok`` key yet (ROADMAP queue 1 item 10). Then the
+fleet extras, with the JAX extras' result keys: ``fleet_2replica``
+(:func:`measure_fleet`), ``incident`` (:func:`measure_incident`),
+``multitenant`` (:func:`measure_multitenant`) and ``numerics``
+(:func:`measure_numerics`), turned off by ``BENCH_FLEET=0``,
+``BENCH_INCIDENT=0``, ``BENCH_MULTITENANT=0`` and ``BENCH_NUMERICS=0``; the
+fleets' workers run on the bench's device. ``coldstart`` waits for the
+analyzers (ROADMAP queue 1 item 10).
 
 Protocol (``bench.py``'s): one complete JSON line is printed and flushed
 when the headline lands and again after each extra; the last line is the
@@ -482,6 +489,343 @@ def measure_tiled_gigapixel(device) -> dict:
     return entry
 
 
+# -- the fleet extras (``bench.py:568``, ``:705``, ``:989``, ``:1090``) -----------
+
+
+def _fleet_env(device, **extra) -> dict:
+    """The environment of a bench fleet's processes: this checkout on the
+    path, one CPU thread a worker."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""),
+                OMP_NUM_THREADS="1", **extra)
+
+
+def _bench_supervisor(device, env, events=None):
+    """2 replicas + 1 warm-pool standby of the 16 px ResNet-v2 behind 2
+    router processes (the JAX extras' fleet), the workers on ``device``."""
+    from mpi4dl_tpu_torch.fleet.supervisor import FleetSupervisor
+
+    return FleetSupervisor(
+        ["--image-size", "16", "--max-batch", "2", "--device", device.type],
+        router=None, replicas=2, max_replicas=2, warm_pool=1, routers=2,
+        router_args=["--image-size", "16", "--max-attempts", "4",
+                     "--inflight-per-replica", "4", "--health-interval", "0.1"],
+        env=env, events=events, reconcile_interval_s=0.1, backoff_base_s=0.1,
+        backoff_max_s=0.5, spawn_timeout_s=420.0,
+    )
+
+
+def _wait_for(cond, timeout_s: float, poll_s: float = 0.05) -> bool:
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if cond():
+            return True
+        time.sleep(poll_s)
+    return cond()
+
+
+def _drill_load(client, n_requests: int, kill) -> dict:
+    """A closed loop of ``n_requests`` through ``client``; ``kill()`` once a
+    tenth of them went in."""
+    import threading
+
+    from mpi4dl_tpu_torch.serve.loadgen import run_closed_loop
+
+    rep: dict = {}
+    t = threading.Thread(target=lambda: rep.update(run_closed_loop(
+        client, n_requests, concurrency=12, deadline_s=120.0)), name="fleet-drill-load")
+    t.start()
+    _wait_for(lambda: client.stats()["submitted"] >= n_requests // 10, 120.0, 0.01)
+    kill()
+    t.join(timeout=300)
+    return rep
+
+
+def measure_fleet(device) -> dict:
+    """Fleet recovery extra (``bench.py:568``): one fleet of
+    :func:`_bench_supervisor` through both kill drills under closed-loop
+    load — a serving replica's ``kill -9`` (recovery is a warm-pool
+    promotion, then the pool backfills) and a router process's (the client
+    fails over, the respawned slot replays its journal)."""
+    import signal as _signal
+
+    from mpi4dl_tpu_torch.fleet.__main__ import _journal_replays
+    from mpi4dl_tpu_torch.fleet.frontdoor import RouterSetClient
+
+    n_requests = 600
+    sup = _bench_supervisor(device, _fleet_env(device))
+    client = None
+    try:
+        t0 = time.monotonic()
+        sup.start()
+        sup.wait_ready(timeout_s=420)
+        startup_s = time.monotonic() - t0
+        client = RouterSetClient(sup.router_submit_urls(), example_shape=(16, 16, 3),
+                                 default_deadline_s=120.0)
+        rep_a = _drill_load(client, n_requests,
+                            lambda: os.kill(sup.slot_by_index(1).pid, _signal.SIGKILL))
+        recovery_replica = sup.last_recovery_s
+        backfilled = _wait_for(lambda: sup.running_count() == 2 and sup.standby_count() == 1,
+                               300.0, 0.2)
+        rep_b = _drill_load(client, n_requests,
+                            lambda: os.kill(sup.router_slot_by_index(1).pid, _signal.SIGKILL))
+        _wait_for(lambda: sup.running_router_count() == 2, 300.0, 0.2)
+        recovery_router = sup.last_router_recovery_s
+        return {
+            "value": round(rep_a["throughput_rps"], 1),
+            "unit": "requests/sec through a kill -9 replica drill "
+                    "(HTTP front door, warm pool on)",
+            "served": rep_a["served"] + rep_b["served"],
+            "offered": 2 * n_requests,
+            "errors": rep_a["errors"] + rep_b["errors"],
+            "router_kill_rps": round(rep_b["throughput_rps"], 1),
+            "router_failovers": rep_b.get("router_failovers", 0),
+            "journal_replays": _journal_replays(sup),
+            "promotions": sup.promotions,
+            "pool_backfilled": backfilled,
+            "restarts": sup.restarts,
+            "recovery_s": {
+                "replica": round(recovery_replica, 2) if recovery_replica is not None else None,
+                "router": round(recovery_router, 2) if recovery_router is not None else None,
+            },
+            "startup_s": round(startup_s, 2),
+            "latency_ms": {k: round(v * 1e3, 2) for k, v in rep_a["latency_s"].items()
+                           if v is not None},
+        }
+    finally:
+        sup.close()
+        if client is not None:
+            client.close()
+
+
+def measure_incident(device) -> dict:
+    """Incident-engine drill extra (``bench.py:705``): the replica kill
+    drill scored by the incident engine — a standalone
+    :class:`~mpi4dl_tpu_torch.telemetry.FederatedAggregator` (0.1 s scrape
+    tick) watches both serving replicas while ``chaos.inject("kill:1")``
+    lands the fault: ``mttd_s`` (the open incident's MTTA), ``mttr_s``
+    (open to close) and whether the postmortem's first cause names the
+    injected op. A round that never detects or closes omits the field."""
+    import tempfile
+
+    from mpi4dl_tpu_torch import telemetry
+    from mpi4dl_tpu_torch.fleet.chaos import inject, parse_chaos_spec
+    from mpi4dl_tpu_torch.fleet.frontdoor import RouterSetClient
+
+    tele = tempfile.mkdtemp(prefix="mpi4dl-bench-incident-")
+    n_requests = 400
+    events = telemetry.JsonlWriter(tele, filename="fleet-events.jsonl")
+    sup = _bench_supervisor(device, _fleet_env(device, MPI4DL_TPU_TELEMETRY_DIR=tele), events)
+    agg = client = None
+    try:
+        sup.start()
+        sup.wait_ready(timeout_s=420)
+
+        def serving_urls() -> dict:
+            urls = {}
+            for i in range(3):
+                s = sup.slot_by_index(i)
+                if (s is not None and s.state == "running" and s.role == "serving"
+                        and s.ports and s.ports.get("metrics_port")):
+                    urls[s.name] = f"http://127.0.0.1:{s.ports['metrics_port']}"
+            return urls
+
+        # Its own aggregator, so the drill controls the scrape set; it
+        # shares the fleet's event log, so incident events interleave with
+        # chaos.injected and elastic.restart.
+        agg = telemetry.FederatedAggregator(replicas=serving_urls(), events=events,
+                                            interval_s=0.1, timeout_s=0.5)
+        agg.incidents.telemetry_dir = tele
+        agg.start()
+        client = RouterSetClient(sup.router_submit_urls(), example_shape=(16, 16, 3),
+                                 default_deadline_s=120.0)
+        t_kill: dict = {}
+
+        def kill():
+            t_kill["t"] = time.monotonic()
+            inject(parse_chaos_spec("kill:1"), sup)
+
+        rep = _drill_load(client, n_requests, kill)
+        kill_to_open = None
+        if _wait_for(lambda: agg.incidents.opened_total > 0, 60.0, 0.02):
+            kill_to_open = time.monotonic() - t_kill["t"]
+        mttd = None
+        inc = agg.incidents.open_incident
+        if inc is not None and isinstance(inc.get("mtta_s"), (int, float)):
+            mttd = inc["mtta_s"]
+        # Recovery: swap the scrape set to the post-recovery serving slots;
+        # the next clean scrape resolves the page and closes the incident.
+        _wait_for(lambda: sup.running_count() == 2 and serving_urls(), 300.0, 0.1)
+        live = serving_urls()
+        for tgt in list(agg.replicas()):
+            if tgt.name not in live:
+                agg.remove_replica(tgt.name)
+        for name, url in live.items():
+            agg.add_replica(name, url)
+        _wait_for(lambda: agg.incidents.closed_total > 0, 60.0, 0.02)
+        state = agg.incidents.state()
+        pm = (state["closed"] or state["open"] or [None])[-1]
+        mttr = None
+        if state["closed"]:
+            v = pm["incident"].get("mttr_s")
+            if isinstance(v, (int, float)):
+                mttr = v
+            if mttd is None and isinstance(pm["incident"].get("mtta_s"), (int, float)):
+                mttd = pm["incident"]["mtta_s"]
+        cause = (pm or {}).get("first_cause") or {}
+        out = {
+            "value": round(rep.get("throughput_rps", 0.0), 1),
+            "unit": "requests/sec through a chaos kill drill scored by the incident engine",
+            "served": rep.get("served"),
+            "errors": rep.get("errors"),
+            "incidents_opened": agg.incidents.opened_total,
+            "incidents_closed": agg.incidents.closed_total,
+            "blame_correct": bool(
+                cause.get("event") == "chaos.injected"
+                and str((cause.get("attrs") or {}).get("op", "")).startswith("kill")),
+            "first_cause": cause.get("label"),
+        }
+        if mttd is not None:
+            out["mttd_s"] = round(mttd, 3)
+        if kill_to_open is not None:
+            out["kill_to_open_s"] = round(kill_to_open, 3)
+        if mttr is not None:
+            out["mttr_s"] = round(mttr, 3)
+        return out
+    finally:
+        if agg is not None:
+            agg.close()
+        sup.close()
+        if client is not None:
+            client.close()
+
+
+def _small_engine_factory(device):
+    """The JAX extras' engine: ResNet-v2 depth 11 @16, weights from seed 0,
+    calibrated on one batch; ``mk(**kw)`` builds a ServingEngine on it."""
+    from mpi4dl_tpu_torch.evaluate import collect_batch_stats
+    from mpi4dl_tpu_torch.serve import ServingEngine
+
+    size = 16
+    model = init(get_resnet_v2(get_depth(2, 1), 10, pool_kernel=size // 4),
+                 torch.Generator().manual_seed(SEED))
+    fmt = torch.channels_last if device.type == "cuda" else torch.contiguous_format
+    model = model.to(device, memory_format=fmt)
+    rng = np.random.default_rng(0)
+    stats = collect_batch_stats(model, [rng.standard_normal((4, size, size, 3)).astype(np.float32)])
+
+    def mk(**kw):
+        return ServingEngine(model, stats, (size, size, 3), max_batch=8, max_queue=512,
+                             default_deadline_s=60.0, **kw)
+
+    return mk
+
+
+def _closed_off_arm(mk, n: int) -> dict:
+    """The no-feature baseline arm: a warm-up pass, then ``n`` requests."""
+    from mpi4dl_tpu_torch.serve.loadgen import run_closed_loop
+
+    eng = mk()
+    eng.start()
+    try:
+        run_closed_loop(eng, 64, concurrency=32, deadline_s=60.0)
+        return run_closed_loop(eng, n, concurrency=32, deadline_s=60.0)
+    finally:
+        eng.stop()
+
+
+def measure_multitenant(device) -> dict:
+    """Multi-tenant QoS extra (``bench.py:989``): one small engine, three
+    closed-loop rounds — tenancy off (the baseline), the victim tenant
+    alone, and a 10:1 bully:victim flood: the victim's p99 ratio, Jain's
+    fairness index over served/offered, and the tenancy-on tax."""
+    from mpi4dl_tpu_torch.serve.loadgen import run_closed_loop
+
+    mk = _small_engine_factory(device)
+    n = 512
+    off = _closed_off_arm(mk, n)
+    eng = mk(tenants="victim=none,bully=none")
+    eng.start()
+    try:
+        run_closed_loop(eng, 64, concurrency=32, deadline_s=60.0, tenant_mix={"victim": 1.0})
+        solo = run_closed_loop(eng, n, concurrency=32, deadline_s=60.0,
+                               tenant_mix={"victim": 1.0})
+        flood = run_closed_loop(eng, n, concurrency=32, deadline_s=60.0,
+                                tenant_mix={"bully": 10.0, "victim": 1.0})
+    finally:
+        eng.stop()
+    solo_p99 = solo["by_tenant"]["victim"]["latency_s"]["p99"]
+    flood_p99 = flood["by_tenant"]["victim"]["latency_s"]["p99"]
+    served = {t: rec["served"] for t, rec in flood["by_tenant"].items()}
+    offered = {"bully": 10.0, "victim": 1.0}
+    xs = [served[t] / offered[t] for t in served if t in offered]
+    jain = sum(xs) ** 2 / (len(xs) * sum(x * x for x in xs)) if any(xs) else 0.0
+    on_rps, off_rps = solo["throughput_rps"], off["throughput_rps"]
+    return {
+        "value": round(on_rps, 1),
+        "unit": "requests/sec with tenancy on (single tenant)",
+        "off_rps": round(off_rps, 1),
+        "overhead_pct": round((off_rps - on_rps) / off_rps * 100.0, 2),
+        "victim_p99_ratio": round(flood_p99 / max(solo_p99, 1e-9), 3),
+        "victim_p99_ms": {"solo": round(solo_p99 * 1e3, 2), "flood": round(flood_p99 * 1e3, 2)},
+        "fairness_index": round(jain, 4),
+        "served_by_tenant": served,
+        "deadline_misses": flood["deadline_misses"],
+        "rejected_quota": flood["rejected_quota"],
+    }
+
+
+def measure_numerics(device) -> dict:
+    """Numerics sentinel extra (``bench.py:1090``): one small engine, the
+    canary off and on (probing every 0.2 s through the real dispatch path),
+    then a corrupt drill: 3 bits flipped in the live parameters and the time
+    from the flip to the fence's callback."""
+    import threading
+
+    from mpi4dl_tpu_torch.serve.loadgen import run_closed_loop
+
+    mk = _small_engine_factory(device)
+    n = 512
+    off = _closed_off_arm(mk, n)
+    interval = 0.2
+    eng = mk(canary_interval_s=interval)
+    fence_at: dict = {}
+    fenced = threading.Event()
+
+    def _on_failure(attrs):
+        fence_at.setdefault("t", time.perf_counter())
+        fence_at.setdefault("check", attrs.get("check"))
+        fenced.set()
+
+    eng.canary.on_failure(_on_failure)
+    eng.start()
+    try:
+        run_closed_loop(eng, 64, concurrency=32, deadline_s=60.0)
+        on = run_closed_loop(eng, n, concurrency=32, deadline_s=60.0)
+        t0 = time.perf_counter()
+        forensics = eng.corrupt_params(bits=3)
+        detected = fenced.wait(timeout=max(10.0, 20 * interval))
+        view = eng.canary.view()
+    finally:
+        eng.stop()
+    on_rps, off_rps = on["throughput_rps"], off["throughput_rps"]
+    entry = {
+        "value": round(on_rps, 1),
+        "unit": "requests/sec with canary sentinel on",
+        "off_rps": round(off_rps, 1),
+        "rps_overhead_pct": round((off_rps - on_rps) / off_rps * 100.0, 2),
+        "canary_interval_s": interval,
+        "detected": bool(detected),
+        "detect_check": fence_at.get("check"),
+        "corrupt": {"bits": 3, "leaf": forensics.get("leaf")},
+        "canary_checks": view.get("checks"),
+        "canary_failures": view.get("failures"),
+    }
+    if detected:
+        entry["detect_s"] = round(fence_at["t"] - t0, 3)
+    return entry
+
+
 def main(argv=None):
     signal.signal(signal.SIGTERM, _on_signal)
     signal.signal(signal.SIGINT, _on_signal)
@@ -572,6 +916,15 @@ def main(argv=None):
         run_extra("serving_amoebanet3_32px", lambda: measure_serving(device), est_seconds=180.0)
     if os.environ.get("BENCH_TILED", "1") != "0":
         run_extra("tiled_gigapixel", lambda: measure_tiled_gigapixel(device), est_seconds=240.0)
+    # The fleet extras, in ``bench.py``'s order (``bench.py:1876-1903``).
+    if os.environ.get("BENCH_FLEET", "1") != "0":
+        run_extra("fleet_2replica", lambda: measure_fleet(device), est_seconds=240.0)
+    if os.environ.get("BENCH_INCIDENT", "1") != "0":
+        run_extra("incident", lambda: measure_incident(device), est_seconds=200.0)
+    if os.environ.get("BENCH_MULTITENANT", "1") != "0":
+        run_extra("multitenant", lambda: measure_multitenant(device), est_seconds=150.0)
+    if os.environ.get("BENCH_NUMERICS", "1") != "0":
+        run_extra("numerics", lambda: measure_numerics(device), est_seconds=120.0)
     if which in ("resnet", "all") and not on_cpu:
         def record(entry):
             # Each size lands on a line at once: a later attempt may not end.

@@ -1,7 +1,7 @@
 """Typed replica-RPC failures of the fleet (``mpi4dl_tpu/fleet/replica.py:43``
 and ``:89``, copied). The load generator (:mod:`mpi4dl_tpu_torch.serve.loadgen`)
-catches :class:`FleetUnreachableError`; the fleet's own ``replica.py``, when
-it is ported, imports both from here.
+catches :class:`FleetUnreachableError`; the fleet's ``replica.py`` imports
+both from here.
 """
 
 

@@ -9,11 +9,12 @@ Prometheus exporter and its routes (:mod:`.export`), the numerics sentinel
 (:mod:`.canary`), the slow-request watcher (:mod:`.tail`), capture
 fingerprints and the cache status (:mod:`.coldstart`), memory reads, the
 footprint ledger, the monitor and OOM forensics (:mod:`.memory`), the JSONL
-event log (:mod:`.jsonl`), the liveness flag and watchdog (:mod:`.health`)
-and the flight recorder (:mod:`.flight`). The serving engine
-(:mod:`mpi4dl_tpu_torch.serve`) is built on them.
-
-Not ported yet (ROADMAP queue 1 item 9): federation and incidents.
+event log (:mod:`.jsonl`), the liveness flag and watchdog (:mod:`.health`),
+the flight recorder (:mod:`.flight`), the cross-process federation of N
+replicas' registries (:mod:`.federation`) and the incident engine over the
+alert transitions (:mod:`.incident`). The serving engine
+(:mod:`mpi4dl_tpu_torch.serve`) and the fleet (:mod:`mpi4dl_tpu_torch.fleet`)
+are built on them.
 """
 
 import threading
@@ -49,7 +50,19 @@ from mpi4dl_tpu_torch.telemetry.export import (  # noqa: F401
     unescape_help,
     unescape_label_value,
 )
+from mpi4dl_tpu_torch.telemetry.federation import (  # noqa: F401
+    FederatedAggregator,
+    FederatedRegistry,
+    ReplicaTarget,
+    merge_snapshots,
+)
 from mpi4dl_tpu_torch.telemetry.flight import FlightRecorder  # noqa: F401
+from mpi4dl_tpu_torch.telemetry.incident import (  # noqa: F401
+    IncidentManager,
+    build_postmortem,
+    build_timeline,
+    reconstruct_incidents,
+)
 from mpi4dl_tpu_torch.telemetry.health import (  # noqa: F401
     HealthState,
     Watchdog,

@@ -192,7 +192,11 @@ def flip_bits(arr: np.ndarray, bits: int = 3, seed: int = 0) -> "tuple[np.ndarra
     ``bits`` distinct elements of a float32 array — the HBM-corruption
     model of the ``corrupt:`` chaos drill. Returns the corrupted copy
     and forensics (flat indices, before/after samples)."""
-    a = np.array(arr, np.float32, copy=True)
+    # C order: ``reshape(-1)`` below must be a view of the copy. A
+    # channels_last conv kernel comes off the card with permuted strides,
+    # and a strided copy would flatten into yet another copy, leaving the
+    # returned array unflipped.
+    a = np.array(arr, np.float32, copy=True, order="C")
     flat = a.reshape(-1)
     n = max(1, min(int(bits), flat.size))
     rng = np.random.default_rng(int(seed))

@@ -16,8 +16,8 @@ port, reported back on :attr:`MetricsServer.port`).
 Routes: ``/metrics`` scrapes the registry; ``/snapshotz`` serves the same
 registry state as machine-readable JSON — a schema-valid ``metrics`` event
 (:func:`mpi4dl_tpu_torch.telemetry.jsonl.metrics_event`) plus the emitting
-``pid``, the endpoint the federation aggregator (ROADMAP queue 1 item 9,
-not ported yet) scrapes so child→parent merges
+``pid``, the endpoint the federation aggregator
+(:mod:`mpi4dl_tpu_torch.telemetry.federation`) scrapes so child→parent merges
 never round-trip through text-format parsing; ``/`` returns a small text
 index of the endpoints this server actually has (an operator probing the
 port discovers the surface instead of guessing paths); with providers
@@ -26,8 +26,8 @@ attached, ``/healthz`` answers 200/503 from a
 uptime probe), ``/debugz`` serves the live diagnostic payload (flight
 recorder tail, watchdog state, latest attribution), ``/alertz``
 serves the SLO evaluator's alert/burn/budget state, and ``/incidentz``
-the incident engine's open/recent incidents (the engine is ROADMAP
-queue 1 item 9; nothing passes ``incidents=`` yet) (correlated timelines,
+the incident engine's open/recent incidents
+(:class:`mpi4dl_tpu_torch.telemetry.incident.IncidentManager`; correlated timelines,
 first causes, blast radii). ``HEAD`` mirrors
 ``GET`` status/headers without a body — probes get 200, not 501 — and
 non-GET/HEAD methods get 405.

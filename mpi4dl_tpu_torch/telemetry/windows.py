@@ -29,8 +29,8 @@ Window semantics (documented because alerting math depends on them):
 - A negative delta means the underlying counter restarted; the query
   returns None (no data) rather than a fabricated value.
 - Federation fallback: when an exact label match fails and the series
-  carries the aggregator-injected ``replica`` label (federation, ROADMAP
-  queue 1 item 9, not ported yet), the query falls back to the
+  carries the aggregator-injected ``replica`` label
+  (:mod:`mpi4dl_tpu_torch.telemetry.federation`), the query falls back to the
   ``replica="sum"`` rollup — so an unlabeled ``serve_queue_depth`` lookup
   against a FEDERATED snapshot answers with the fleet total, and the SLO
   evaluator / autoscaler run fleet-wide unchanged.

@@ -1,7 +1,7 @@
 """Multi-tenant QoS (twin of :mod:`mpi4dl_tpu.tenancy`): the tenant model,
 token-bucket quota admission and the deficit-weighted round robin
-(:mod:`.model`). The fleet's dedupe (``dedupe.py``) is ROADMAP queue 1
-item 9."""
+(:mod:`.model`), and the fleet's rendezvous pinning of a trace id to a
+replica (:mod:`.dedupe`)."""
 
 from mpi4dl_tpu_torch.tenancy.model import (  # noqa: F401
     DEFAULT_TENANT,
@@ -14,3 +14,4 @@ from mpi4dl_tpu_torch.tenancy.model import (  # noqa: F401
     normalize_tenants,
     parse_tenants,
 )
+from mpi4dl_tpu_torch.tenancy.dedupe import pin_order, pin_replica  # noqa: F401

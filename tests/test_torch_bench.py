@@ -21,10 +21,12 @@ HEADLINE_KEYS = ENTRY_KEYS | {"metric", "unit"}
 
 def _run(extra_env, args=("--device", "cpu"), timeout=300):
     base = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
-    # The serving extras are held by tests/test_torch_loadgen.py, which calls
-    # them in process; these runs hold the training points alone.
+    # The serving extras are held by tests/test_torch_loadgen.py and the fleet
+    # extras by tests/test_torch_fleet_cli.py, which call them in process;
+    # these runs hold the training points alone.
     env = dict(base, PYTHONPATH=REPO + os.pathsep + base.get("PYTHONPATH", ""),
-               OMP_NUM_THREADS="1", BENCH_SERVING="0", BENCH_TILED="0")
+               OMP_NUM_THREADS="1", BENCH_SERVING="0", BENCH_TILED="0", BENCH_FLEET="0",
+               BENCH_INCIDENT="0", BENCH_MULTITENANT="0", BENCH_NUMERICS="0")
     env.update(extra_env)
     return subprocess.run([sys.executable, "-m", "mpi4dl_tpu_torch.bench", *args],
                           env=env, capture_output=True, text=True, timeout=timeout, cwd=REPO)

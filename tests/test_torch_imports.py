@@ -34,12 +34,16 @@ HALO_TWINS = tuple(f"benchmarks.communication.halo.benchmark_sp_halo_exchange{s}
                    for s in ("", "_with_compute", "_with_compute_val", "_conv"))
 SERVE_MODULES = ("serve", "serve.batching", "serve.scheduler", "serve.engine", "serve.sharded",
                  "serve.loadgen", "serve.tiled", "serve.__main__", "benchmarks.serving",
-                 "benchmarks.serving.loadgen", "fleet", "fleet.errors",
-                 "tenancy", "tenancy.model", "telemetry", "telemetry.registry",
+                 "benchmarks.serving.loadgen", "tenancy", "tenancy.model", "tenancy.dedupe",
+                 "telemetry", "telemetry.registry", "telemetry.incident",
+                 "telemetry.federation",
                  "telemetry.catalog", "telemetry.spans", "telemetry.slo", "telemetry.canary",
                  "telemetry.tail", "telemetry.coldstart", "telemetry.memory",
                  "telemetry.windows", "telemetry.alerts", "telemetry.autoscale",
                  "telemetry.export")
+FLEET_MODULES = ("fleet", "fleet.errors", "fleet.replica", "fleet.journal", "fleet.chaos",
+                 "fleet.worker", "fleet.router", "fleet.supervisor", "fleet.frontdoor",
+                 "fleet.__main__")
 PORT_MODULES = sorted(
     _module_name(p) for p in (REPO / "mpi4dl_tpu_torch").rglob("*.py")
 )
@@ -60,7 +64,7 @@ def test_port_modules_listed():
                  "benchmarks.common", *LP_TWINS, *SP_TWINS, *GEMS_TWINS, *HALO_TWINS,
                  "benchmarks.communication.halo.halo_common", "elastic", "profile_step",
                  "profiling", "telemetry.jsonl", "telemetry.health", "telemetry.flight",
-                 *SERVE_MODULES):
+                 *SERVE_MODULES, *FLEET_MODULES):
         assert f"mpi4dl_tpu_torch.{name}" in PORT_MODULES
 
 
@@ -80,6 +84,40 @@ def test_no_jax_and_no_jax_package_loaded():
     )
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip() == "ok"
+
+
+def test_fleet_worker_help_loads_no_jax():
+    """``python -m mpi4dl_tpu_torch.fleet.worker --help`` (the replica's
+    entry point) runs with no ``jax`` and nothing of ``mpi4dl_tpu`` loaded."""
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['worker', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('mpi4dl_tpu_torch.fleet.worker', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'mpi4dl_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=str(REPO)), capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "--ready-file" in out.stdout and out.stdout.strip().endswith("ok")
+
+
+def test_fleet_worker_without_device_refuses_without_cuda(tmp_path):
+    """A replica runs on the card unless ``--device cpu`` is given: without
+    a card it raises before it builds a model or writes its ready file."""
+    ready = tmp_path / "r0.ready.json"
+    env = dict(os.environ, PYTHONPATH=str(REPO), CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-m", "mpi4dl_tpu_torch.fleet.worker",
+                          "--ready-file", str(ready)], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "CUDA is not available" in out.stderr
+    assert not ready.exists()
 
 
 def test_trainer_without_device_raises_without_cuda(monkeypatch):
