@@ -10,6 +10,7 @@
     python3 chip_smoke.py --tools-only    # only the build and the run tooling (t, e, s9)
     python3 chip_smoke.py --serve-only    # only the build and the serving phase r
     python3 chip_smoke.py --fleet-only    # only the build and the fleet phase f (f1-f3)
+    python3 chip_smoke.py --analysis-only # only the build and the analyzers' phase n (n3-n6)
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -119,7 +120,8 @@ Phases (any failure exits non-zero; nothing is caught):
          (loss equal, gradients within ``REMAT_GRAD_TOL``);
      m3. ``python -m mpi4dl_tpu_torch.bench`` as a subprocess
          (BENCH_MODEL=amoebanet BENCH_STEPS=3 BENCH_TIME_BUDGET=1
-         BENCH_SERVING=0 BENCH_TILED=0, the serving extra is r7's): every
+         BENCH_SERVING=0 BENCH_TILED=0 BENCH_HLO=0 BENCH_ATTRIBUTION=0,
+         the serving extra is r7's, the analyzers' keys phase n's): every
          JSON line parses, the last is ``amoebanetd_1024px_bs2_train_gpu``
          with a value and an MFU, exit 0;
   w. the peak-pixel walk's slice, in this process:
@@ -295,9 +297,9 @@ Phases (any failure exits non-zero; nothing is caught):
   p. the LP/PP pipeline (``parallel.pipeline.PipelineTrainer``), 2 stages
      on 2 rank processes: one rank per card with 2 or more cards (NCCL),
      else both on card 0 over a gloo group with the wires staged through
-     pinned host buffers. AmoebaNet-D 6L/416F (``PIPE_LAYERS``) and
-     ResNet-110 v2 @1024 (phase c's seed), batch 4 in 4 micro-batches, GPipe
-     and interleaved 1F1B (v=2):
+     pinned host buffers. AmoebaNet-D 3L/416F (``PIPE_LAYERS``) and
+     ResNet-38 v2 (``PIPE_RESNET_DEPTH``) @1024 from the seed, batch 4 in 4
+     micro-batches, GPipe and interleaved 1F1B (v=2):
      p2. (first) in the phase's 2 ranks, f32 (TF32 off): each
          schedule's first step, whose loss must be within ``PP_LOSS_RTOL``
          of ``Trainer(grad_accum=4)``'s on the same weights and batch (run
@@ -308,7 +310,7 @@ Phases (any failure exits non-zero; nothing is caught):
          ranks must equal the Trainer step's; every tick is probed: an
          idle tick (no stage work) runs no op on the card and launches no
          K1-K3. The GPipe step records the kernels' call shapes (phases
-         d-g check and time them). Then ResNet-110's checkpoint: a step,
+         d-g check and time them). Then ResNet-38's checkpoint: a step,
          ``save_checkpoint`` (rank 0 writes the JAX pipeline layout), a
          step; a new trainer restores it and its step's loss must be
          bit-equal on every rank;
@@ -317,7 +319,7 @@ Phases (any failure exits non-zero; nothing is caught):
          ``mpi4dl_tpu_torch.benchmarks.layer_parallelism.benchmark_{
          amoebanet,resnet}_lp`` as ``torchrun`` would start it: each run
          joins a process group of its own, so the runs share the ranks'
-         start but not their set-up; bf16, ``--max-steps 3``): its
+         start but not their set-up; bf16, ``--max-steps 2``): its
          Mean/Median/MFU line. For each model and schedule (the ranks'
          ``MPI4DL_TPU_RUN_REPORT`` records): the step (slowest rank) and
          img/s, per-rank K1/K2/K3 launches a step (their sum must equal the
@@ -337,23 +339,23 @@ Phases (any failure exits non-zero; nothing is caught):
          ``Trainer(grad_accum=parts·replicas)``, or LOCAL_DP_LP's grouping,
          the front over each micro-batch and the back over each slice):
          loss and per-leaf gradients, 1e-3;
-     q2. (in the ranks) phase p's models in f32 (TF32 off), ResNet-110 v2 and
-         AmoebaNet-D 6L/416F @1024, vertical 2 tiles x split 3, batch 2 in 2
+     q2. (in the ranks) phase p's models in f32 (TF32 off), ResNet-38 v2 and
+         AmoebaNet-D 3L/416F @1024, vertical 2 tiles x split 3, batch 2 in 2
          micro-batches: the first step's loss within ``PP_LOSS_RTOL`` of
          ``Trainer(grad_accum=2)``'s on the same weights, both the spatial
          one on pipe coordinate 0's tile grid (its 2 ranks) and the one on
          one device (rank 0), the front's and each virtual stage's
          gradients within ``PP_GRAD_TOL`` of the spatial Trainer's
          (relative L2, the pipeline's SGD momentum gathered to rank 0), and
-         of the one-device Trainer's for ResNet-110 (``Q_GRAD_GATED``), K4
+         of the one-device Trainer's for ResNet-38 (``Q_GRAD_GATED``), K4
          launched on every rank, and K1-K3 launched, their launches summed
          over the ranks equal to the tile count times the Trainer's (the
          front runs once a micro-batch on each tile, the back on each tile
          rank); the call shapes are recorded for phases d-g;
      q3. (in the ranks, as p1 runs its twins) each SP twin's ``main``
-         (bf16, ``--max-steps 3``, ``MPI4DL_TPU_RUN_REPORT``): ResNet-110
-         and AmoebaNet-D 6L/416F SP+LP (vertical 2 tiles, split 3, batch 2,
-         parts 2) and ResNet-110 LOCAL_DP_LP (square 4 tiles, split 2,
+         (bf16, ``--max-steps 2``, ``MPI4DL_TPU_RUN_REPORT``): ResNet-38
+         and AmoebaNet-D 3L/416F SP+LP (vertical 2 tiles, split 3, batch 2,
+         parts 2) and ResNet-38 LOCAL_DP_LP (square 4 tiles, split 2,
          batch 4, ``--local-DP 4``), @1024: the Mean/Median/MFU
          line; the step (slowest rank), img/s, per-rank K1-K4 launches a
          step (K4 on every rank) and peak memory, and the transport;
@@ -375,7 +377,7 @@ Phases (any failure exits non-zero; nothing is caught):
          SP+GEMS on 2 chunks of 2 images, its loss and the front's and each
          stage's gradients in relative L2 (``PP_GRAD_TOL``);
      g2. phase p's models in f32 (TF32 off),
-         ResNet-110 v2 and AmoebaNet-D 6L/416F @1024, GEMS ``times`` 1
+         ResNet-38 v2 and AmoebaNet-D 3L/416F @1024, GEMS ``times`` 1
          on split 2, 2 chunks of 2 images in 2 micro-batches (4 images): the
          first step's loss within ``PP_LOSS_RTOL`` of
          ``Trainer(grad_accum=4)``'s on one device (rank 0) and within
@@ -386,8 +388,8 @@ Phases (any failure exits non-zero; nothing is caught):
          over the ranks equal to the Trainer's; the call shapes are
          recorded for phases d-g;
      g3. (as p1 runs its twins) each GEMS twin's ``main`` (bf16,
-         ``--times 1``, ``--max-steps 3``, ``MPI4DL_TPU_RUN_REPORT``): LP
-         GEMS ResNet-110 and AmoebaNet-D 6L/416F (split 2, batch 2, parts 2,
+         ``--times 1``, ``--max-steps 2``, ``MPI4DL_TPU_RUN_REPORT``): LP
+         GEMS ResNet-38 and AmoebaNet-D 3L/416F (split 2, batch 2, parts 2,
          2 ranks) and SP+GEMS (vertical 2 tiles x split 3, batch 2, parts
          2, 4 ranks), @1024: the Mean/Median/MFU line; every kernel of the
          path launched on every rank (K4 on every SP+GEMS rank), K1-K3 a
@@ -415,7 +417,45 @@ Phases (any failure exits non-zero; nothing is caught):
   h. the card's name and power limit from nvidia-smi, the run tooling's
      seconds (t, e and s9), and each path's MFU
      (``mpi4dl_tpu_torch.flops``: 3x the forward's conv and dense FLOPs an
-     image, over the card's bf16 peak).
+     image, over the card's bf16 peak);
+  n. the analyzers (``mpi4dl_tpu_torch.analysis``):
+     n1. (in phase t) phase t's trace through
+         ``analysis.trace.analyze_trace_dir``: 2 attributed steps, each
+         step's compute + collective + transfer + host gap equal to its wall,
+         K2's and K3's kernel events ``compute``, no collective time; and
+         the collective log of profile_step's 4 single-device steps linted
+         as one device's program: no collective, ``single-chip-collectives``
+         silent. The per-step buckets printed;
+     n2. (in phase s's ranks) the last warm-up step of every spatial path
+         under ``collective_log()``, linted against its trainer's deltas:
+         ``resnet_sp`` passes ``halo-permute-count`` against
+         ``Trainer.halo_shift_count``, and its log's permutes are 2 x K4's
+         launches in that step (an axis phase is JAX's two shifts); every
+         path's inventory printed;
+     n3. (``--analysis-only``) ``python -m mpi4dl_tpu_torch.analyze`` as a
+         subprocess on ``N3_RUNS`` at the main paths' widths, @1024 bs2
+         (one device ResNet-v1 depth 110 and AmoebaNet-D 18L/416F, the 2x2
+         spatial ResNet-v1 in 4 ranks, ``--dp 2``): exit 0, the
+         JSON report with the JAX report's keys (``N3_KEYS``), no error;
+     n4. (``--analysis-only``) ``analyze sp-overlap`` with both arms on
+         ResNet-v1 depth 110 @1024 bs2, bf16, 4 ranks: per arm the measured
+         overlap ratio, collective s, step time and K4's kernel events,
+         which equal K4's launches in the traced steps; no lint error;
+     n5. (``--analysis-only``) ``analyze pipeline`` with GPipe and 1F1B on
+         2 ranks, ResNet-v1 depth 110 @1024, 4 micro-batches of 1, bf16:
+         exit 0 (no lint error, the wires at their exact budget, the
+         ticks' idle slots within the crosscheck's tolerance of the
+         analytic bubble: the tick loop runs the schedule); each arm's slot
+         bubble beside the analytic one, and each rank's measured
+         device-idle share of the traced steps (on one card the ranks take
+         turns on it, so that share also holds the other rank's time);
+     n6. (``--analysis-only``) ``analyze serving-sharded`` with both arms,
+         ResNet-v1 depth 110 @1024 f32 (the harness turns TF32 off: with
+         TF32 cuDNN's convs over the decomposed arm's shapes round
+         otherwise), bucket 4,
+         16 requests, 4 ranks: the arms' logits bit-equal, K4's kernels in
+         the trace of the replays, no lint error. Speed is never gated in
+         phase n.
 
 The last lines are the ``{"kernels": [...]}`` line and then
 ``{"ok": true, "device": {...}}``.
@@ -607,7 +647,7 @@ EVAL_STAT_TOL = 1e-3
 # (statistics per leaf normalised, loss relative).
 SP_EVAL_TOL = 1e-3
 # Phase p: the LP/PP pipeline (``PipelineTrainer``), ``PP_RANKS`` stages of
-# AmoebaNet-D ``PIPE_LAYERS``L/416F and ResNet-110 v2 @1024, batch
+# AmoebaNet-D ``PIPE_LAYERS``L/416F and ResNet-v2 ``PIPE_RESNET_DEPTH`` @1024, batch
 # ``PP_BATCH`` in ``PP_PARTS`` micro-batches, each schedule. p2 holds each
 # schedule's f32 first step to Trainer(grad_accum=PP_PARTS)'s on the same
 # weights (loss within ``PP_LOSS_RTOL``, each virtual stage's gradients
@@ -617,7 +657,7 @@ SP_EVAL_TOL = 1e-3
 # each schedule: bf16, one warm-up step and ``PP_STEPS - 1`` timed and counted.
 PP_RANKS = 2
 PP_BATCH, PP_PARTS = 4, 4
-PP_STEPS = 3
+PP_STEPS = 2
 PP_SCHEDULES = ("gpipe", "1f1b")
 PP_LOSS_RTOL = 1e-4
 # p2's steps take the LP twins' learning rate. After a first step SGD's
@@ -641,13 +681,24 @@ STEPS_IN_RUN.update(dict.fromkeys(PP_PATHS, PP_STEPS - 1))
 # 9-23 s of its set-up at 18L on an H100's host. q2's and g2's f32 gates
 # take it too (18L before the serving phases r4-r7 came: the whole script
 # took 1109.2 s of its 1200 on a slow card with them at 18L).
-PIPE_LAYERS = 6
+# 6L before the analyzers came, when the whole script took 1195-1246 s of
+# its 1200 on a slow card.
+PIPE_LAYERS = 3
+# ResNet-v2's depth in phases p, q and g, their f32 gates and their twins
+# (``MPI4DL_TPU_RESNET_N``; 9n+2 layers): 110 (n 12, phase c's) until then.
+# Phases c and s and the serving phases keep ResNet-110, at the same widths.
+PIPE_RESNET_N = 4
+PIPE_RESNET_DEPTH = 9 * PIPE_RESNET_N + 2
 # The AmoebaNet-D depth of a path where it is not ``LAYERS`` (phase h's MFU).
 PATH_LAYERS = {path: PIPE_LAYERS for path in (
     "amoebanet_pp_gpipe", "amoebanet_pp_1f1b", "amoebanet_sp_lp", "amoebanet_gems",
     "amoebanet_gems_sp")}
 PATH_LAYERS.update(dict.fromkeys(("amoebanet_sp", "amoebanet_sp_d2", "amoebanet_sp_dec"),
                                  SP_LAYERS))
+# The ResNet-v2 depth of a path where it is not ``RESNET_DEPTH`` (phase h's).
+PATH_DEPTH = dict.fromkeys(("resnet_pp_gpipe", "resnet_pp_1f1b", "resnet_sp_lp",
+                            "resnet_local_dp", "resnet_gems", "resnet_gems_sp"),
+                           PIPE_RESNET_DEPTH)
 # The path whose slice ported each kernel: a kernels row's ``launches`` is
 # that path's count per step (``launches_per_step`` gives every path's).
 HOME_PATH = {"pool_bwd": "amoebanet", "dot1x1_bwd": "amoebanet", "wgrad": "resnet",
@@ -1350,12 +1401,14 @@ def phase_remat(policies):
 def phase_bench_cli():
     """Phase m3: ``python -m mpi4dl_tpu_torch.bench`` as a subprocess with
     BENCH_MODEL=amoebanet BENCH_STEPS=3 BENCH_TIME_BUDGET=1 BENCH_SERVING=0
-    BENCH_TILED=0 (phase r7 runs the serving extra): every JSON line
-    parses, the last is the headline with a value and an MFU, exit 0."""
+    BENCH_TILED=0 BENCH_HLO=0 BENCH_ATTRIBUTION=0 (phase r7 runs the
+    serving extra; the analyzers' keys are held on the CPU and phase n
+    traces and lints the paths): every JSON line parses, the last is the
+    headline with a value and an MFU, exit 0."""
     here = os.path.dirname(os.path.abspath(__file__))
     env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
     env.update(BENCH_MODEL="amoebanet", BENCH_STEPS="3", BENCH_TIME_BUDGET="1",
-               BENCH_SERVING="0", BENCH_TILED="0",
+               BENCH_SERVING="0", BENCH_TILED="0", BENCH_HLO="0", BENCH_ATTRIBUTION="0",
                PYTHONPATH=here + os.pathsep + env.get("PYTHONPATH", ""))
     t0 = time.time()
     out = subprocess.run([sys.executable, "-m", "mpi4dl_tpu_torch.bench"], cwd=here, env=env,
@@ -1373,7 +1426,8 @@ def phase_bench_cli():
         if not line.startswith("{"):
             log(f"[m3] bench: {line}")
     log(f"[m3] python -m mpi4dl_tpu_torch.bench (BENCH_MODEL=amoebanet BENCH_STEPS=3 "
-        f"BENCH_TIME_BUDGET=1 BENCH_SERVING=0 BENCH_TILED=0): exit 0, {len(records)} JSON line(s) in {time.time() - t0:.1f} s, "
+        f"BENCH_TIME_BUDGET=1 BENCH_SERVING=0 BENCH_TILED=0 BENCH_HLO=0 BENCH_ATTRIBUTION=0): "
+        f"exit 0, {len(records)} JSON line(s) in {time.time() - t0:.1f} s, "
         f"the last: {json.dumps(last)}")
 
 
@@ -2232,8 +2286,11 @@ def _sp_path(rank, grid, device, profile, build):
     import torch
     import torch.distributed as dist
 
+    from mpi4dl_tpu_torch.analysis.expectations import compose
+    from mpi4dl_tpu_torch.analysis.inventory import collective_log
+    from mpi4dl_tpu_torch.analysis.report import analyze_records
     from mpi4dl_tpu_torch.config import ParallelConfig
-    from mpi4dl_tpu_torch.ops import layers
+    from mpi4dl_tpu_torch.ops import halo_kernel, layers
     from mpi4dl_tpu_torch.parallel import halo
     from mpi4dl_tpu_torch.train import Trainer, spatial_exchanges
     from mpi4dl_tpu_torch.weights import meta_built
@@ -2260,10 +2317,22 @@ def _sp_path(rank, grid, device, profile, build):
                 _count_calls(layers._GridMean, "backward", bn_reduces),
                 _check_window_sums(out["window_sums"])]
         t = time.time()
-        loss = float(trainer.train_step(x, y)["loss"])
+        k4 = halo_kernel.launch_count
+        # Phase n2: the last warm-up step under the collective log.
+        with collective_log() if i == SP_WARMUP - 1 else contextlib.nullcontext() as clog:
+            loss = float(trainer.train_step(x, y)["loss"])
         for undo in restore:
             undo()
         out["warm"].append((loss, time.time() - t))
+        if clog is not None:
+            rep = analyze_records(clog.records,
+                                  expected=compose(trainer.collective_deltas(tuple(x.shape))),
+                                  program="train_step")
+            out["lint"] = {"summary": rep.summary_line(), "findings": rep.findings,
+                           "inventory": {k: v for k, v in rep.inventory.items() if v},
+                           "halo_permutes": clog.count("collective-permute", "halo"),
+                           "k4_launches": halo_kernel.launch_count - k4,
+                           "halo_shifts": trainer.halo_shift_count(tuple(x.shape))}
         if i == 0:  # the first step's gradients, against the f32 step's below
             first_grads = {n: p.grad.clone() for n, p in trainer.model.named_parameters()}
     out["slot_bytes"] = grid.rings.slot_bytes if grid.rings else None
@@ -2748,6 +2817,19 @@ def phase_spatial(calls, profile, first_loss):
         log(f"{tag} {path} step time median {ms:.1f} ms (slowest rank per step: "
             f"{[round(t * 1e3, 1) for t in slowest]}), {ips[path]:.3f} img/s, peak memory "
             f"allocated per rank {[round(m['peak'] / 2**30, 2) for m in mains]} GiB")
+        lint = m0["lint"]
+        log(f"[n2] {path} rank 0, its last warm-up step: {lint['summary']}; inventory "
+            f"{lint['inventory']}; halo permutes {lint['halo_permutes']} in the window "
+            f"[{lint['halo_shifts']}, {2 * lint['halo_shifts']}] of halo_shift_count "
+            f"{lint['halo_shifts']}; K4 launches {lint['k4_launches']}; findings "
+            f"{[(f['rule'], f['severity']) for f in lint['findings']]}")
+        if path == "resnet_sp":
+            for r, m in enumerate(mains):
+                ln = m["lint"]
+                if (any(f["rule"] == "halo-permute-count" for f in ln["findings"])
+                        or ln["halo_permutes"] != 2 * ln["k4_launches"]
+                        or not ln["k4_launches"]):
+                    raise AssertionError(f"[n2] {path} rank {r}: {ln}")
         log(f"{tag} {path} launches per rank per step: " + "; ".join(
             ", ".join(f"{k} {v // SP_STEPS}" for k, v in m["launches"].items()) for m in mains)
             + f"; BN all-reduces per step {m0['bn_allreduces']}; exchanges per step "
@@ -2938,19 +3020,18 @@ def pp_batch(device):
     return x, y
 
 
-def full_builders():
-    """model -> builder taking the compute dtype (phase c's models)."""
-    return {path: build for path, _, build in main_models()}
-
-
 def pp_builders():
-    """model -> builder taking the compute dtype of phase p: phase c's
-    ResNet-110 and AmoebaNet-D at ``PIPE_LAYERS``."""
+    """model -> builder taking the compute dtype of phase p: AmoebaNet-D at
+    ``PIPE_LAYERS`` and ResNet-v2 at ``PIPE_RESNET_DEPTH``, phase c's
+    widths."""
     from mpi4dl_tpu_torch.models.amoebanet import amoebanetd
+    from mpi4dl_tpu_torch.models.resnet import get_resnet_v2
 
-    out = full_builders()
-    out["amoebanet"] = lambda dtype: amoebanetd(10, PIPE_LAYERS, FILTERS, dtype=dtype)
-    return out
+    return {
+        "amoebanet": lambda dtype: amoebanetd(10, PIPE_LAYERS, FILTERS, dtype=dtype),
+        "resnet": lambda dtype: get_resnet_v2(PIPE_RESNET_DEPTH, 10, pool_kernel=SIZE // 4,
+                                              dtype=dtype),
+    }
 
 
 def _tick_probe(box, device):
@@ -3236,7 +3317,7 @@ def phase_pipeline_gates(calls, ranks):
                 if r["resume"]["resumed_loss"] != res["loss"] or r["resume"]["step"] != 1:
                     raise AssertionError(f"rank {rank}: resumed step {r['resume']}, want loss "
                                          f"{res['loss']!r} at step 1")
-            log(f"[p2] ResNet-110 gpipe checkpoint {res['bytes']} bytes, save "
+            log(f"[p2] ResNet-{PIPE_RESNET_DEPTH} gpipe checkpoint {res['bytes']} bytes, save "
                 f"{res['save_s']:.2f} s, restore {max(r['resume']['restore_s'] for r in per):.2f} s;"
                 f" resumed step's loss {res['resumed_loss']!r}, bit-equal on every rank")
     return {name: ranks[0][name]["trainer"][1] for name in pp_builders()}
@@ -3264,14 +3345,14 @@ def _free_ports(n: int) -> list:
 def _twin_specs(runs, tmp) -> list:
     """``runs`` ((path, twin module under ``mpi4dl_tpu_torch.benchmarks``,
     ranks, argv, environment)) made ready for :func:`_launched_twins`: each
-    gets a ``MPI4DL_TPU_RUN_REPORT`` folder under ``tmp``, ResNet-110
-    (``MPI4DL_TPU_RESNET_N``) and a free ``MASTER_PORT``. Returns
+    gets a ``MPI4DL_TPU_RUN_REPORT`` folder under ``tmp``, ResNet-v2 at
+    ``PIPE_RESNET_DEPTH`` (``MPI4DL_TPU_RESNET_N``) and a free ``MASTER_PORT``. Returns
     (path, twin, ranks, argv, environment, port, report folder) each."""
     out = []
     for (path, twin, n_ranks, argv, env), port in zip(runs, _free_ports(len(runs))):
         report = os.path.join(tmp, path)
         out.append((path, twin, n_ranks, argv,
-                    dict(env, MPI4DL_TPU_RUN_REPORT=report, MPI4DL_TPU_RESNET_N="12"),
+                    dict(env, MPI4DL_TPU_RUN_REPORT=report, MPI4DL_TPU_RESNET_N=str(PIPE_RESNET_N)),
                     port, report))
     return out
 
@@ -3523,7 +3604,7 @@ Q_SMALL = [
 # in 2 micro-batches; q3's steps (the first not counted).
 Q_CONFIG = dict(batch_size=2, parts=2, split_size=3, spatial_size=1, num_spatial_parts=2,
                 slice_method="vertical")
-Q_STEPS = 3
+Q_STEPS = 2
 # q3: path -> (model, CLI flags beyond the image size); AmoebaNet-D at
 # ``PIPE_LAYERS``.
 Q_CLI = {
@@ -3700,8 +3781,8 @@ def _q_full_model(name, spatial_cells, grid):
     if name == "amoebanet":
         return amoebanetd(10, PIPE_LAYERS, FILTERS, spatial_cells=spatial_cells, grid=grid,
                           dtype=torch.float32)
-    return get_resnet_v2(RESNET_DEPTH, 10, pool_kernel=SIZE // 4, spatial_cells=spatial_cells,
-                         grid=grid, dtype=torch.float32)
+    return get_resnet_v2(PIPE_RESNET_DEPTH, 10, pool_kernel=SIZE // 4,
+                         spatial_cells=spatial_cells, grid=grid, dtype=torch.float32)
 
 
 def _q_back_probe(box, counters):
@@ -3914,7 +3995,7 @@ if (G_RANKS, G_CHUNKS * G_CONFIG["batch_size"], G_CHUNKS * G_CONFIG["parts"]) !=
 # relative (the same micro-batches, BN over each; the sums of the loss and of
 # the mirrored stages' gradients associate otherwise).
 G_PP_LOSS_RTOL = 1e-6
-G_STEPS = 3
+G_STEPS = 2
 # g3: path -> (model, twin module, ranks, CLI flags beyond the image size).
 _G_SP_FLAGS = ["--batch-size", "2", "--parts", "2", "--split-size", "3", "--spatial-size", "1",
                "--num-spatial-parts", "2", "--slice-method", "vertical", "--times", "1"]
@@ -4422,6 +4503,7 @@ def phase_profile_step(launches):
     import io
 
     from mpi4dl_tpu_torch import profile_step
+    from mpi4dl_tpu_torch.analysis.inventory import collective_log
 
     steps = int(T_ARGV[T_ARGV.index("--steps") + 1])
     counters = _counters()
@@ -4430,7 +4512,7 @@ def phase_profile_step(launches):
     with tempfile.TemporaryDirectory(prefix="mpi4dl-t-") as out_dir:
         buf = io.StringIO()
         t0 = time.time()
-        with contextlib.redirect_stdout(buf):
+        with contextlib.redirect_stdout(buf), collective_log() as clog:
             rc = profile_step.main([*T_ARGV, "--out", out_dir,
                                     *([] if DEVICE == "cuda" else ["--device", DEVICE])])
         wall = time.time() - t0
@@ -4450,6 +4532,7 @@ def phase_profile_step(launches):
         s = profile_step.summarize(events)
         size = os.path.getsize(path)
         del events
+        phase_trace_lens(out_dir, steps, s, clog.records)
     in_trace = collections.Counter()
     for name, (_, count) in s["by_name"].items():
         in_trace[profile_step.kernel_of(name)] += count
@@ -4466,6 +4549,43 @@ def phase_profile_step(launches):
         f"{len(caps)} mpi4dl_capture windows each holding one mpi4dl_train_step; kernel events "
         f"in the trace: K2 {in_trace['K2 wgrad']}, K3 {in_trace['K3 dot1x1_bwd']} "
         f"(= {steps} x the launches a step)")
+
+
+def phase_trace_lens(out_dir, steps, tables, records):
+    """Phase n1 (inside phase t): the trace of profile_step's ``steps``
+    captured steps through ``analysis.trace.analyze_trace_dir``, and the
+    lint of the collective log ``records`` of its single-device steps (see
+    the docstring)."""
+    from mpi4dl_tpu_torch import profile_step
+    from mpi4dl_tpu_torch.analysis.expectations import compose, single_chip_delta
+    from mpi4dl_tpu_torch.analysis.report import analyze_records
+    from mpi4dl_tpu_torch.analysis.trace import analyze_trace_dir, categorize
+
+    t0 = time.time()
+    summary = analyze_trace_dir(out_dir, "mpi4dl_capture")
+    if summary["n_steps"] != steps:
+        raise AssertionError(f"[n1] {summary['n_steps']} attributed steps, want {steps}")
+    for st in summary["steps"]:
+        parts = st["compute_s"] + st["collective_s"] + st["transfer_s"] + st["host_gap_s"]
+        if abs(parts - st["wall_s"]) > 1e-9 or st["collective_s"] != 0.0:
+            raise AssertionError(f"[n1] step {st['step']}: buckets {st}")
+    mine = [n for n in tables["by_name"] if profile_step.kernel_of(n) in _T_SYMBOLS.values()]
+    wrong = [n for n in mine if categorize(n, "kernel") != "compute"]
+    if len(mine) < len(_T_SYMBOLS) or wrong:
+        raise AssertionError(f"[n1] K2/K3 kernel names {mine}, not compute: {wrong}")
+    rep = analyze_records(records, expected=compose(single_chip_delta()), program="train_step")
+    if rep.overlap["n_collectives"] or any(f["rule"] == "single-chip-collectives"
+                                           for f in rep.findings):
+        raise AssertionError(f"[n1] a single-device step's collectives: {rep.inventory}, "
+                             f"findings {rep.findings}")
+    for st in summary["steps"]:
+        log(f"[n1] step {st['step']}: wall {st['wall_s'] * 1e3:.3f} ms = compute "
+            f"{st['compute_s'] * 1e3:.3f} + collective {st['collective_s'] * 1e3:.3f} + "
+            f"transfer {st['transfer_s'] * 1e3:.3f} + host gap {st['host_gap_s'] * 1e3:.3f} ms "
+            f"(device busy {st['device_busy_s'] / st['wall_s']:.1%})")
+    log(f"[n1] {summary['n_device_slices']} device slices; K2/K3 kernels {len(mine)} names, "
+        f"all compute; the collective log of profile_step's {T_WARM + steps} steps: "
+        f"{rep.summary_line()}; analyzed in {time.time() - t0:.1f} s")
 
 
 def phase_k1(gen, shapes):
@@ -6074,6 +6194,148 @@ def _f_finish_mesh(mesh):
         f"single-device predict (tolerance {R_CPU_TOL:g})")
 
 
+# Phase n3: the lint CLI's configurations, at the main paths' widths and
+# size: ResNet-v1 depth 110 (the JAX CLI builds v1) and AmoebaNet-D
+# 18L/416F, @1024 bs2 (f32, the CLI's step).
+_N3_RESNET = ["--model", "resnet", "--depth", str(RESNET_DEPTH), "--size", str(SIZE),
+              "--batch", str(BATCH)]
+N3_RUNS = {
+    "resnet one device": [*_N3_RESNET, "--dp", "1", "--spatial-parts", "0"],
+    "amoebanet one device": ["--model", "amoebanet", "--layers", str(LAYERS), "--filters",
+                             str(FILTERS), "--size", str(SIZE), "--batch", str(BATCH),
+                             "--dp", "1"],
+    "resnet 2x2 spatial": _N3_RESNET,
+    "resnet --dp 2": [*_N3_RESNET, "--spatial-parts", "0", "--dp", "2"],
+}
+N3_KEYS = {"module_name", "is_scheduled", "platform", "config", "inventory", "collectives",
+           "overlap", "memory", "findings", "max_severity", "ok"}
+# Phases n4-n6: the A/B harnesses at the main paths' size (ResNet-v1 depth
+# 110 @1024, as the JAX harnesses build v1).
+N_MODEL = ["--size", str(SIZE), "--depth", str(RESNET_DEPTH)]
+N4_ARGV = ["sp-overlap", *N_MODEL, "--batch", str(BATCH), "--steps", "2", "--bf16"]
+N5_ARGV = ["pipeline", *N_MODEL, "--batch", "4", "--parts", "4", "--steps", "2", "--bf16"]
+N6_ARGV = ["serving-sharded", *N_MODEL, "--bucket", "4", "--requests", "16"]
+
+
+def _analyze(argv, timeout=900):
+    """``python -m mpi4dl_tpu_torch.analyze`` with ``argv`` as a subprocess:
+    (exit code, its last JSON line or None, stdout, stderr, wall s)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env.pop("MPI4DL_TPU_CONV_OVERLAP", None)
+    t0 = time.time()
+    out = subprocess.run([sys.executable, "-m", "mpi4dl_tpu_torch.analyze", *argv], cwd=here,
+                         env=env, capture_output=True, text=True, timeout=timeout)
+    last = next((json.loads(ln) for ln in reversed(out.stdout.splitlines())
+                 if ln.startswith("{")), None)
+    return out.returncode, last, out.stdout, out.stderr, time.time() - t0
+
+
+def phase_lint_cli():
+    """Phase n3: the lint CLI on ``N3_RUNS`` (see the docstring)."""
+    for name, flags in N3_RUNS.items():
+        with tempfile.TemporaryDirectory(prefix="mpi4dl-n3-") as tmp:
+            path = os.path.join(tmp, "report.json")
+            rc, _, stdout, stderr, wall = _analyze([*flags, "--json", path])
+            if rc != 0 or not os.path.exists(path):
+                raise AssertionError(f"[n3] analyze {' '.join(flags)} exited {rc}: "
+                                     f"{stdout[-2000:]} {stderr[-2000:]}")
+            with open(path) as f:
+                rep = json.load(f)
+        if not N3_KEYS <= set(rep) or not rep["ok"]:
+            raise AssertionError(f"[n3] analyze {' '.join(flags)}: keys {sorted(rep)}, "
+                                 f"ok {rep.get('ok')}")
+        log(f"[n3] analyze {' '.join(flags)} ({name}): exit 0 in {wall:.1f} s; "
+            f"{stdout.strip().splitlines()[-1] if stdout.strip() else ''}; inventory "
+            f"{ {k: v for k, v in rep['inventory'].items() if v} }; window "
+            f"{rep['config'].get('halo_shifts')}; peak "
+            f"{(rep['memory'] or {}).get('peak_bytes')} B; findings "
+            f"{[(f['rule'], f['severity']) for f in rep['findings']]}")
+
+
+def _n_arms(tag, argv, out, stderr):
+    for line in stderr.splitlines():
+        if line.startswith("# "):
+            log(f"[{tag}] {line[2:]}")
+    if out is None:
+        raise AssertionError(f"[{tag}] analyze {' '.join(argv)} printed no JSON: "
+                             f"{stderr[-3000:]}")
+    for arm, rec in out["arms"].items():
+        if rec["hlolint_errors"]:
+            raise AssertionError(f"[{tag}] {arm}: lint errors {rec['hlolint_errors']}")
+    return out["arms"]
+
+
+def phase_sp_overlap():
+    """Phase n4: ``analyze sp-overlap`` (see the docstring)."""
+    rc, out, _, stderr, wall = _analyze(N4_ARGV)
+    arms = _n_arms("n4", N4_ARGV, out, stderr)
+    for arm, rec in arms.items():
+        if rec["k4_events"] != rec["k4_launches"] or not rec["k4_launches"]:
+            raise AssertionError(f"[n4] {arm}: {rec['k4_events']} K4 kernel events in the "
+                                 f"traces, {rec['k4_launches']} launches in the traced steps")
+        log(f"[n4] {arm}: trace_overlap_ratio {rec['trace_overlap_ratio']}, collective_s "
+            f"{rec['collective_s']}, step_time_s {rec['step_time_s']}, K4 events "
+            f"{rec['k4_events']} = launches {rec['k4_launches']} in {rec['n_steps']} traced "
+            f"steps; permutes {rec['permutes']} (halo_shift_count {rec['halo_shifts']}); "
+            f"crosscheck {[(f['rule'], f['severity']) for f in rec['crosscheck']]}")
+    if rc != 0:
+        raise AssertionError(f"[n4] sp-overlap exited {rc}")
+    log(f"[n4] {' '.join(N4_ARGV)}: exit 0 in {wall:.1f} s ({out['config']['ranks']}); "
+        f"overlap_improved {out.get('overlap_improved')}, step_time_speedup "
+        f"{out.get('step_time_speedup')} (recorded, not gated)")
+
+
+def phase_pipeline_lens():
+    """Phase n5: ``analyze pipeline`` (see the docstring)."""
+    rc, out, _, stderr, wall = _analyze(N5_ARGV)
+    arms = _n_arms("n5", N5_ARGV, out, stderr)
+    if rc != 0:
+        raise AssertionError(f"[n5] pipeline exited {rc}: {json.dumps(out)[-2000:]}")
+    for arm, rec in arms.items():
+        log(f"[n5] {arm}: the ticks' slot bubble {rec['bubble_fraction']} (per rank "
+            f"{rec['idle_slot_share_by_rank']}), analytic {rec['analytic_bubble_fraction']}; "
+            f"measured device-idle share {rec['device_idle_share']} (per rank "
+            f"{rec['device_idle_share_by_rank']}); "
+            f"{rec['img_per_s']} img/s; stage device s {rec['stage_device_seconds']}; wires "
+            f"{rec['permutes']} of budget {rec['permute_budget']}; warm-up loss "
+            f"{rec['warm_loss']}; transport {rec['transport']}")
+    log(f"[n5] {' '.join(N5_ARGV)}: exit 0 in {wall:.1f} s ({out['config']['ranks']}); "
+        f"bubble_improved {out.get('bubble_improved')} (slots), device_idle_improved "
+        f"{out.get('device_idle_improved')}, loss_equal {out.get('loss_equal')}, "
+        f"img/s 1f1b/gpipe {out.get('img_per_s_ratio')} (recorded, not gated)")
+
+
+def phase_serving_overlap():
+    """Phase n6: ``analyze serving-sharded`` (see the docstring)."""
+    rc, out, _, stderr, wall = _analyze(N6_ARGV)
+    arms = _n_arms("n6", N6_ARGV, out, stderr)
+    if not out["bit_identical_arms"]:
+        raise AssertionError(f"[n6] the arms' logits differ by {out['arms_max_rel_diff']:.3e} "
+                             "of max |logit|")
+    for arm, rec in arms.items():
+        if not rec["k4_events"]:
+            raise AssertionError(f"[n6] {arm}: no K4 kernel in the trace of the replays")
+        log(f"[n6] {arm}: trace_overlap_ratio {rec['trace_overlap_ratio']}, latency "
+            f"{rec['latency_ms']} ms, {rec['throughput_rps']} req/s, {rec['n_steps']} batches "
+            f"attributed; K4 kernel events in the replays' trace {rec['k4_events']} (K4 "
+            f"launches in a capture {rec['k4_capture_launches']}); permutes "
+            f"{rec['permutes']} of halo_shift_count {rec['halo_shifts']}")
+    if rc != 0:
+        raise AssertionError(f"[n6] serving-sharded exited {rc}")
+    log(f"[n6] {' '.join(N6_ARGV)}: exit 0 in {wall:.1f} s ({out['config']['ranks']}); the "
+        f"arms' logits bit-equal; overlap_improved {out.get('overlap_improved')} (not gated)")
+
+
+def phase_analysis():
+    """Phases n3-n6 (``--analysis-only``)."""
+    for tag, run in (("n3", phase_lint_cli), ("n4", phase_sp_overlap),
+                     ("n5", phase_pipeline_lens), ("n6", phase_serving_overlap)):
+        t0 = time.time()
+        run()
+        log(f"[{tag}] phase {tag} in {time.time() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -6099,9 +6361,12 @@ def main(argv=None) -> int:
                            "of its own)")
     only.add_argument("--fleet-only", action="store_true",
                       help="run only the build and the fleet phase f, f3's drills included")
+    only.add_argument("--analysis-only", action="store_true",
+                      help="run only the build and the analyzers' phases n3-n6 (the lint CLI "
+                           "and the three A/B harnesses)")
     args = ap.parse_args(argv)
-    picked = [f for f in ("spatial", "pipeline", "sp_lp", "gems", "tools", "serve", "fleet")
-              if getattr(args, f"{f}_only")]
+    picked = [f for f in ("spatial", "pipeline", "sp_lp", "gems", "tools", "serve", "fleet",
+                          "analysis") if getattr(args, f"{f}_only")]
     only = bool(picked)
 
     def runs(phase):
@@ -6190,6 +6455,10 @@ def main(argv=None) -> int:
     if only and runs("fleet"):
         fleet_s = finish_fleet(start_fleet(), drills=True)
         log(f"[f] phase f (f1-f3) in {fleet_s:.1f} s")
+    if only and runs("analysis"):
+        t0 = time.time()
+        phase_analysis()
+        log(f"[n] phases n3-n6 in {time.time() - t0:.1f} s")
     k4_timing = None
     if runs("spatial"):
         if "amoebanet" in first_loss:  # the single-device reference at the SP depth
@@ -6269,13 +6538,15 @@ def phase_mfu(ips, cards, smi):
     with torch.device("meta"):
         models = {("amoebanet", n): amoebanetd(10, n, FILTERS)
                   for n in {LAYERS, *PATH_LAYERS.values()}}
-        models["resnet", None] = get_resnet_v2(RESNET_DEPTH, 10, pool_kernel=SIZE // 4)
+        models.update({("resnet", n): get_resnet_v2(n, 10, pool_kernel=SIZE // 4)
+                       for n in {RESNET_DEPTH, *PATH_DEPTH.values()}})
     per_image = {key: flops.train_flops_per_image(m, SIZE) for key, m in models.items()}
     peak = flops.peak_flops()
     parts = []
     for path, v in ips.items():
         name = path.split("_")[0]
-        fpi = per_image[name, PATH_LAYERS.get(path, LAYERS) if name == "amoebanet" else None]
+        fpi = per_image[name, PATH_LAYERS.get(path, LAYERS) if name == "amoebanet"
+                        else PATH_DEPTH.get(path, RESNET_DEPTH)]
         mfu = flops.mfu(v, fpi, cards[path])
         parts.append(f"{path} {'%.2f%%' % (100 * mfu) if mfu is not None else 'n/a'} "
                      f"({fpi / 1e12:.3f} TFLOP an image, {v:.3f} img/s, {cards[path]} card(s))")

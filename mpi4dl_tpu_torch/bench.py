@@ -25,14 +25,29 @@ serial baseline, with an SLO verdict) and ``tiled_gigapixel``
 (:func:`measure_tiled_gigapixel`: the largest square image one device
 serves through the tile stream, and the latency at a fixed large size).
 ``BENCH_SERVING=0`` and ``BENCH_TILED=0`` turn them off. Neither carries an
-``attribution`` or ``lint_ok`` key yet (ROADMAP queue 1 item 10). Then the
+``attribution`` or ``lint_ok`` key (the JAX extras' serving-side
+attribution). Then the
 fleet extras, with the JAX extras' result keys: ``fleet_2replica``
 (:func:`measure_fleet`), ``incident`` (:func:`measure_incident`),
 ``multitenant`` (:func:`measure_multitenant`) and ``numerics``
 (:func:`measure_numerics`), turned off by ``BENCH_FLEET=0``,
 ``BENCH_INCIDENT=0``, ``BENCH_MULTITENANT=0`` and ``BENCH_NUMERICS=0``; the
 fleets' workers run on the bench's device. ``coldstart`` waits for the
-analyzers (ROADMAP queue 1 item 10).
+analyzers' second part (ROADMAP queue 1 item 10, part 2).
+
+The analyzers (``bench.py:1187-1310``, ``:1445-1600``): after the headline
+the result line gains ``hlo`` (the lint of one more step of the headline's
+trainer under the collective log: inventory, bytes, peak memory, findings;
+``BENCH_HLO=0`` turns it off; the JAX entry's ``costmodel`` is part 2) and
+``attribution`` (a 2-step ``torch.profiler`` capture of it: per-step
+compute / collective / transfer / host-gap and the measured overlap,
+cross-checked with ``hlo``; ``BENCH_ATTRIBUTION=0``). Then three A/B
+extras, each ``python -m mpi4dl_tpu_torch.analyze`` as a subprocess on the
+bench's device: ``sp2x2_overlap`` (``sp-overlap``, 64 px, 4 steps, 3
+trials; ``BENCH_SP_OVERLAP=0``), ``serving_sharded`` (``serving-sharded``,
+64 requests, 2 trials; ``BENCH_SERVING_SHARDED=0``) and ``pipeline``
+(``pipeline --require-improvement``; ``BENCH_PIPELINE=0``), with the JAX
+extras' keys and the subprocess's ``rc``.
 
 Protocol (``bench.py``'s): one complete JSON line is printed and flushed
 when the headline lands and again after each extra; the last line is the
@@ -98,6 +113,8 @@ SEED = 0
 
 _T0 = time.monotonic()
 _RESULT: dict = {}  # the latest complete line
+# The last measured point's trainer and batch: the analyzers' step.
+_LAST_RUN: dict = {}
 
 
 def _emit():
@@ -185,6 +202,7 @@ def train_throughput(build, image_size, batch, steps, device, remats, grad_accum
             with timer.step():
                 float(trainer.train_step(x, y)["loss"])
     summary = timer.summary()
+    _LAST_RUN.update(trainer=trainer, x=x, y=y)
     peak = (f"peak memory allocated {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB"
             if on_card else "peak memory not measured on the CPU")
     print(f"# {tag} remat={trainer.remat!r}: {peak}, step median "
@@ -826,6 +844,92 @@ def measure_numerics(device) -> dict:
     return entry
 
 
+def _hlo_overlap_metrics() -> "dict | None":
+    """The lint of one more step of the last measured trainer
+    (``bench.py:1445-1522``): inventory, bytes, peak memory and the
+    findings above info. ``BENCH_HLO=0`` disables; a failure degrades to an
+    error note."""
+    if os.environ.get("BENCH_HLO", "1") == "0" or not _LAST_RUN:
+        return None
+    try:
+        from mpi4dl_tpu_torch.analysis.expectations import compose
+        from mpi4dl_tpu_torch.analysis.report import analyze_step
+
+        tr, x, y = _LAST_RUN["trainer"], _LAST_RUN["x"], _LAST_RUN["y"]
+        rep, _ = analyze_step(lambda: tr.train_step(x, y), tr.device,
+                              expected=compose(tr.collective_deltas(tuple(x.shape))),
+                              remat=tr.remat_report(),
+                              platform="gpu" if tr.device.type == "cuda" else "cpu",
+                              config={"program": "train_step"}, program="train_step")
+        _LAST_RUN["lint_report"] = rep
+        return {
+            "inventory": {k: v for k, v in rep.inventory.items() if v},
+            "total_collective_bytes": rep.overlap["total_bytes"],
+            "bytes_by_op": rep.overlap["bytes_by_op"],
+            "async_pairs": rep.overlap["async_pairs"],
+            "zero_overlap": len(rep.overlap["zero_overlap"]),
+            "min_compute_between": rep.overlap["min_compute_between"],
+            "peak_hbm_bytes": rep.memory.get("peak_bytes") if rep.memory else None,
+            "findings": [f for f in rep.findings if f["severity"] != "info"],
+        }
+    except Exception as e:  # noqa: BLE001 — advisory metrics only
+        return {"error": f"{type(e).__name__}: {str(e)[:160]}"}
+
+
+def _trace_attribution() -> "dict | None":
+    """The measured device-time attribution of the last measured trainer
+    (``bench.py:1525-1600``): a 2-step capture, bucketed compute /
+    collective / transfer / host-gap, the measured overlap, and the
+    crosscheck with the lint. ``BENCH_ATTRIBUTION=0`` disables; a failure
+    degrades to an error note."""
+    if os.environ.get("BENCH_ATTRIBUTION", "1") == "0" or not _LAST_RUN:
+        return None
+    import shutil
+    import tempfile
+
+    logdir = tempfile.mkdtemp(prefix="mpi4dl-bench-train-trace-")
+    try:
+        from mpi4dl_tpu_torch.analysis.trace import crosscheck_overlap
+        from mpi4dl_tpu_torch.ops.layers import conv_overlap_impl
+
+        tr = _LAST_RUN["trainer"]
+        summary = tr.capture_trace_attribution(_LAST_RUN["x"], _LAST_RUN["y"], steps=2,
+                                               logdir=logdir, program="train_step")
+        out = {"n_steps": summary["n_steps"], "per_step_mean": summary["per_step_mean"],
+               "overlap": summary["collective"], "conv_impl": conv_overlap_impl()}
+        if _LAST_RUN.get("lint_report") is not None:
+            out["crosscheck"] = [f.as_dict()
+                                 for f in crosscheck_overlap(_LAST_RUN["lint_report"], summary)]
+        return out
+    except Exception as e:  # noqa: BLE001 — advisory metrics only
+        return {"error": f"{type(e).__name__}: {str(e)[:160]}"}
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+
+
+def _analyze_extra(device, subcommand: str, *flags: str) -> dict:
+    """``python -m mpi4dl_tpu_torch.analyze <subcommand>`` on ``device`` as a
+    subprocess (its own rank processes), its last JSON line plus ``rc``
+    (``bench.py:1187-1305``)."""
+    import subprocess
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    # Each arm pins its own impl; an inherited override would collapse the A/B.
+    env.pop("MPI4DL_TPU_CONV_OVERLAP", None)
+    proc = subprocess.run(
+        [sys.executable, "-m", "mpi4dl_tpu_torch.analyze", subcommand, "--device",
+         device.type, *flags, "--json", "-"],
+        env=env, capture_output=True, text=True, timeout=900, cwd=repo)
+    line = next((ln for ln in reversed(proc.stdout.splitlines()) if ln.startswith("{")), None)
+    if line is None:
+        raise RuntimeError(f"analyze {subcommand} emitted no JSON (rc={proc.returncode}): "
+                           f"{proc.stderr[-300:]}")
+    out = json.loads(line)
+    out["rc"] = proc.returncode
+    return out
+
+
 def main(argv=None):
     signal.signal(signal.SIGTERM, _on_signal)
     signal.signal(signal.SIGINT, _on_signal)
@@ -866,10 +970,19 @@ def main(argv=None):
             _RESULT.update(metric=f"resnet110_{image_size}px_bs{batch}_train_{platform}",
                            unit="images/sec", **entry)
         _emit()
+        hlo = _hlo_overlap_metrics()
+        if hlo is not None:
+            _RESULT["hlo"] = hlo
+            _emit()
+        attribution = _trace_attribution()
+        if attribution is not None:
+            _RESULT["attribution"] = attribution
+            _emit()
     except Exception as e:  # noqa: BLE001 — the extras may still succeed
         headline_error = f"{type(e).__name__}: {str(e)[:200]}"
         _RESULT["headline_error"] = headline_error
         print(f"# headline failed: {headline_error}", flush=True)
+    _LAST_RUN.clear()  # no point's trainer outlives its analyzers
 
     def run_extra(tag, fn, est_seconds=300.0):
         """Run one extra under the budget and re-emit either way; without a
@@ -884,6 +997,7 @@ def main(argv=None):
                 extras[tag] = fn()
             except Exception as e:  # noqa: BLE001 — extras never kill the line
                 extras[tag] = {"error": f"{type(e).__name__}: {str(e)[:200]}"}
+            _LAST_RUN.clear()
         if _RESULT.get("metric") is None and extras[tag].get("value") is not None:
             _RESULT.update(metric=f"{tag}_train_{platform}", unit="images/sec", **extras[tag])
             _RESULT.setdefault("vs_baseline", None)
@@ -910,6 +1024,19 @@ def main(argv=None):
             run_extra(f"amoebanetd_{size}px_bs{b}",
                       functools.partial(measure_amoeba, size, b, no_accum=no_accum, **point),
                       est_seconds=300.0)
+    # The analyzers' A/B extras (``bench.py:1899-1919``), each a subprocess.
+    if os.environ.get("BENCH_SP_OVERLAP", "1") != "0":
+        run_extra("sp2x2_overlap", lambda: _analyze_extra(
+            device, "sp-overlap", "--size", "64", "--steps", "4", "--trials", "3"),
+            est_seconds=240.0)
+    if os.environ.get("BENCH_SERVING_SHARDED", "1") != "0":
+        run_extra("serving_sharded", lambda: _analyze_extra(
+            device, "serving-sharded", "--size", "32", "--requests", "64", "--trials", "2"),
+            est_seconds=300.0)
+    if os.environ.get("BENCH_PIPELINE", "1") != "0":
+        run_extra("pipeline", lambda: _analyze_extra(
+            device, "pipeline", "--steps", "3", "--trials", "1", "--require-improvement"),
+            est_seconds=180.0)
     # The serving extras run on any device, before the peak-pixel walk
     # (which is expected to end in a failure and may eat the budget).
     if os.environ.get("BENCH_SERVING", "1") != "0":

@@ -57,6 +57,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from mpi4dl_tpu_torch.analysis import inventory
 from mpi4dl_tpu_torch.ops.layers import bn_modules, bn_stats_mode
 from mpi4dl_tpu_torch.parallel.halo import split_tiles
 from mpi4dl_tpu_torch.train import Trainer, _flat_all_reduce, correct_count, cross_entropy_sum
@@ -264,7 +265,8 @@ def spatial_collect_batch_stats(trainer, batches) -> list:
     for s in stats:
         gather(s)
     n = len(trainer.ranks)  # every replica's tiles
-    _flat_all_reduce(leaves, lambda t: (dist.all_reduce(t, group=trainer.group), t.div_(n)))
+    _flat_all_reduce(leaves, lambda t: (dist.all_reduce(t, group=trainer.group), t.div_(n)),
+                     ("all-reduce", n, "bn", "spatial_collect_batch_stats"))
     return [_finalize(s) for s in stats]
 
 
@@ -284,6 +286,8 @@ def make_spatial_eval_step(trainer):
         m = torch.stack([cross_entropy_sum(logits, y) / replicas,
                          correct_count(logits, y).float() / replicas])
         dist.all_reduce(m, group=trainer.group)
+        inventory.record("all-reduce", inventory.nbytes(m), len(trainer.ranks), "metric",
+                         "spatial_eval_step")
         return m[0], m[1]
 
     return step
@@ -339,13 +343,14 @@ class CapturedPredict:
     on the CPU), :attr:`memory` the measured ``{"peak_bytes",
     "pool_bytes"}`` of its warm-up and capture (None on the CPU),
     :attr:`pool` the graph memory pool, :attr:`halo_launches` K4's phase
-    launches recorded in the capture and :attr:`static` the graph's input
-    buffer (None on the CPU): a caller that writes a batch into it in place
-    saves the copy a call makes (``copy_`` of a tensor onto itself is
-    free)."""
+    launches recorded in the capture, :attr:`collectives` the collective
+    log's records of the captures (what a replay issues inside its graphs;
+    empty on the CPU) and :attr:`static` the graph's input buffer (None on
+    the CPU): a caller that writes a batch into it in place saves the copy
+    a call makes (``copy_`` of a tensor onto itself is free)."""
 
     def __init__(self, bucket, example_shape, dtype, device, run, graphs=(), pool=None,
-                 memory=None, keep=(), halo_launches=0, static=None):
+                 memory=None, keep=(), halo_launches=0, static=None, collectives=()):
         self.bucket = int(bucket)
         self.example_shape = tuple(int(d) for d in example_shape)
         self.shape = (self.bucket, *self.example_shape)
@@ -358,6 +363,7 @@ class CapturedPredict:
         self.keep = keep
         self.halo_launches = int(halo_launches)
         self.static = static
+        self.collectives = list(collectives)
 
     def check(self, x) -> torch.Tensor:
         """``x`` as a tensor, refused unless of this bucket's shape and of
@@ -378,7 +384,8 @@ def _capture(device, fn, pool):
     """``fn()`` once eagerly on a side stream (what ``torch.cuda.graph``
     asks of a warm-up), then captured into a ``CUDAGraph`` in ``pool``:
     ``(graph, static output, warm-up s, capture s, K4 phase launches
-    recorded in the capture)``."""
+    recorded in the capture, the collective log's records of the capture:
+    the graph's collectives)``."""
     from mpi4dl_tpu_torch.ops import halo_kernel
 
     t0 = time.perf_counter()
@@ -391,10 +398,11 @@ def _capture(device, fn, pool):
     t1 = time.perf_counter()
     graph = torch.cuda.CUDAGraph()
     k4 = halo_kernel.launch_count
-    with torch.cuda.graph(graph, pool=pool):
+    with inventory.collective_log() as log, torch.cuda.graph(graph, pool=pool):
         out = fn()
     torch.cuda.synchronize(device)
-    return graph, out, t1 - t0, time.perf_counter() - t1, halo_kernel.launch_count - k4
+    return (graph, out, t1 - t0, time.perf_counter() - t1, halo_kernel.launch_count - k4,
+            log.records)
 
 
 def aot_compile_predict(runner, batch_stats, example_shape, buckets, dtype=torch.float32,
@@ -446,7 +454,7 @@ def _captured_forward(model, forward, to_device, stats, example_shape, b, dtype,
                 return forward(to_device(static))
 
         torch.cuda.reset_peak_memory_stats(device)
-        graph, logits, warm_s, capture_s, _ = _capture(device, fwd, pool)
+        graph, logits, warm_s, capture_s, _, records = _capture(device, fwd, pool)
         memory = {"peak_bytes": int(torch.cuda.max_memory_allocated(device)),
                   "pool_bytes": _pool_bytes(pool)}
 
@@ -457,7 +465,7 @@ def _captured_forward(model, forward, to_device, stats, example_shape, b, dtype,
 
         out = CapturedPredict(b, example_shape, dtype, device, run, graphs=(graph,),
                               pool=pool, memory=memory, keep=(stats, static, logits),
-                              static=static)
+                              static=static, collectives=records)
     return out, {"trace_s": round(warm_s, 6), "compile_s": round(capture_s, 6),
                  "fingerprint": fingerprint_of(model, shape, dtype)}
 
@@ -575,7 +583,7 @@ def aot_compile_spatial_predict(trainer, batch_stats, example_shape, buckets,
                     return front(trainer.input_to_device(static))
 
             dist.barrier(group=trainer.group)
-            g1, h, warm1, cap1, k4 = _capture(device, fwd_front, pool)
+            g1, h, warm1, cap1, k4, records = _capture(device, fwd_front, pool)
             joined = tuple(t.clone() for t in _states(trainer._gather(h)))
             torch.cuda.synchronize(device)
             tuple_state = isinstance(h, tuple)
@@ -584,7 +592,7 @@ def aot_compile_spatial_predict(trainer, batch_stats, example_shape, buckets,
                 with _running(model, stats):
                     return head(joined if tuple_state else joined[0])
 
-            g2, logits, warm2, cap2, _ = _capture(device, fwd_head, pool)
+            g2, logits, warm2, cap2, _, head_records = _capture(device, fwd_head, pool)
             warm_s, capture_s = warm1 + warm2, cap1 + cap2
             _check_rings(trainer)
             memory = {"peak_bytes": int(torch.cuda.max_memory_allocated(device)),
@@ -602,7 +610,8 @@ def aot_compile_spatial_predict(trainer, batch_stats, example_shape, buckets,
 
             out[b] = CapturedPredict(b, example_shape, dtype, device, run, graphs=(g1, g2),
                                      pool=pool, memory=memory,
-                                     keep=(stats, static, h, joined, logits), halo_launches=k4)
+                                     keep=(stats, static, h, joined, logits), halo_launches=k4,
+                                     collectives=records + head_records)
         if timings is not None:
             timings[b] = {"trace_s": round(warm_s, 6), "compile_s": round(capture_s, 6),
                           "fingerprint": fingerprint_of(model, shape, dtype,

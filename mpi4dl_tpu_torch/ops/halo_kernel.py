@@ -37,6 +37,7 @@ import functools
 import torch
 import torch.distributed as dist
 
+from mpi4dl_tpu_torch.analysis import inventory
 from mpi4dl_tpu_torch.ops import _build
 from mpi4dl_tpu_torch.parallel.multihost import TILE_AXES, TileGrid
 
@@ -126,7 +127,15 @@ def swap_dist_reference(a, b, grid: TileGrid, axis: str, group=None):
     ]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
+    _record_swap(a, b, grid.axis_size(axis), "swap_dist_reference")
     return ra, rb
+
+
+def _record_swap(a, b, ring: int, site: str) -> None:
+    """The collective log's two permutes of one ring swap (strips ``a`` and
+    ``b``; JAX's two ``_shift``s of an exchange phase)."""
+    for t in (a, b):
+        inventory.record("collective-permute", inventory.nbytes(t), ring, "halo", site)
 
 
 def _view(t) -> _View:
@@ -304,6 +313,8 @@ class HaloRings:
         _build.check(err, "halo_phase")
         global launch_count
         launch_count += 1
+        if ring is not None:
+            _record_swap(a, b, self.grid.axis_size(axis), "halo_phase")
 
     def round_trip_ms(self, axis: str, iters: int = 200) -> float | None:
         """Collective over ``axis``'s ring, which must have two ranks: the

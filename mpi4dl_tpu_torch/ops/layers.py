@@ -37,6 +37,7 @@ import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
+from mpi4dl_tpu_torch.analysis import inventory
 from mpi4dl_tpu_torch.ops.fastconv import FastConv, lecun_normal_
 from mpi4dl_tpu_torch.ops.pool_kernel import MaxPool
 from mpi4dl_tpu_torch.parallel import halo  # a module: parallel.halo imports ops
@@ -332,12 +333,16 @@ class _GridMean(torch.autograd.Function):
         t = t.clone()
         if not (t.is_meta and halo.in_shape_walk()):  # a shape walk exchanges nothing
             dist.all_reduce(t, group=grid.group)
+            inventory.record("all-reduce", inventory.nbytes(t), grid.world_size, "bn",
+                             "grid_mean")
         return t / grid.world_size
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone()
         dist.all_reduce(g, group=ctx.grid.group)
+        inventory.record("all-reduce", inventory.nbytes(g), ctx.grid.world_size, "bn",
+                         "grid_mean")
         return g / ctx.grid.world_size, None
 
 

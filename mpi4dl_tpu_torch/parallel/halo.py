@@ -32,6 +32,7 @@ import threading
 import torch
 import torch.distributed as dist
 
+from mpi4dl_tpu_torch.analysis import inventory
 from mpi4dl_tpu_torch.ops.halo_kernel import SLOT_BYTES, swap_dist_reference, swap_reference
 from mpi4dl_tpu_torch.parallel.multihost import AXIS_TILE_H, AXIS_TILE_W, TileGrid
 
@@ -387,6 +388,8 @@ class _GatherTiles(torch.autograd.Function):
         xh = _nhwc(x).contiguous()  # a view for channels_last tiles
         parts = [torch.empty_like(xh) for _ in range(grid.world_size)]
         dist.all_gather(parts, xh, group=grid.group)
+        inventory.record("all-gather", inventory.nbytes(*parts), grid.world_size, "join",
+                         "gather_tiles")
         rows = [torch.cat(parts[i * tw:(i + 1) * tw], 2) for i in range(th)]
         return _nchw(torch.cat(rows, 1)).contiguous(memory_format=ctx.fmt)
 
@@ -395,6 +398,8 @@ class _GatherTiles(torch.autograd.Function):
         grid = ctx.grid
         gh = _nhwc(g).clone(memory_format=torch.contiguous_format)
         dist.all_reduce(gh, group=grid.group)
+        inventory.record("all-reduce", inventory.nbytes(gh), grid.world_size, "join",
+                         "gather_tiles")
         h, w = gh.shape[1] // grid.shape[0], gh.shape[2] // grid.shape[1]
         i, j = grid.coords
         tile = gh[:, i * h:(i + 1) * h, j * w:(j + 1) * w, :]

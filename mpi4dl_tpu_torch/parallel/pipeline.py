@@ -117,6 +117,8 @@ import torch
 import torch.distributed as dist
 import torch.nn as nn
 
+from mpi4dl_tpu_torch.analysis import inventory
+from mpi4dl_tpu_torch.analysis.trace import pipe_idle_label, pipe_work_label
 from mpi4dl_tpu_torch.config import ParallelConfig
 from mpi4dl_tpu_torch.ops.halo_kernel import close_rings, open_rings
 from mpi4dl_tpu_torch.parallel.halo import gather_tiles, slot_bytes_for, split_tiles
@@ -135,6 +137,7 @@ from mpi4dl_tpu_torch.train import (
     cell_state,
     correct_count,
     cross_entropy_sum,
+    halo_shifts_of,
     load_cell_state,
     make_optimizer,
     spatial_exchanges,
@@ -145,7 +148,6 @@ from mpi4dl_tpu_torch.weights import flatten_cells, pipeline_layout, unflatten_c
 SCHEDULES = ("gpipe", "1f1b")
 # How long a rank waits for one tick's transfers (gloo) before it raises.
 WIRE_TIMEOUT_S = 600.0
-_ANALYZERS = "the analyzers' slice (ROADMAP queue 1 item 10)"
 
 
 def stages_of_device(d: int, S: int, v: int = 1, mirror: bool = False) -> list[int]:
@@ -421,8 +423,8 @@ class PipelineTrainer:
         th, tw = self.config.tile_shape
         b = int(x_shape[0]) // self.parts // self.dp
         shape = (b, int(x_shape[3]), int(x_shape[1]) // th, int(x_shape[2]) // tw)
-        return sum(2 * (hh > 0 and th > 1) + 2 * (hw > 0 and tw > 1)
-                   for _, hh, hw in spatial_exchanges(self.model, self.n_spatial_cells, shape))
+        return halo_shifts_of(spatial_exchanges(self.model, self.n_spatial_cells, shape),
+                              (th, tw))
 
     def num_ticks(self) -> int:
         return self.parts + self.n_virtual - 1
@@ -433,12 +435,84 @@ class PipelineTrainer:
         hosted = self.hosted if hosted is None else hosted
         return [(k, t - k) for k in hosted if 0 <= t - k < self.parts]
 
-    # -- not in this slice ---------------------------------------------------
-    def collective_deltas(self, *args, **kwargs):
-        raise NotImplementedError(f"collective_deltas come with {_ANALYZERS}")
+    # -- the analyzers (mpi4dl_tpu_torch.analysis) ---------------------------
+    def front_transfer_count(self) -> int:
+        """The front's shipments of one step over the pipe group: each
+        micro-batch whose front runs off the coordinate of stage 0 is sent
+        there and its gradient comes back (``_ship_front``,
+        ``_front_backward``)."""
+        if not self.n_spatial_cells:
+            return 0
+        return 2 * sum(1 for c in range(self.chunks) for m in range(self.parts)
+                       if self.front_owner(m) != self.dev_of(0, self.chunk_mirror(c)))
 
-    def capture_trace_attribution(self, *args, **kwargs):
-        raise NotImplementedError(f"capture_trace_attribution comes with {_ANALYZERS}")
+    def exact_transfer_count(self) -> int:
+        """Every point-to-point transfer of one step over the pipe group that
+        is not halo traffic: :meth:`stage_permute_count` and
+        :meth:`front_transfer_count` (GEMS adds its mirror exchanges)."""
+        return self.stage_permute_count() + self.front_transfer_count()
+
+    def collective_deltas(self, x_shape, dtype=torch.float32):
+        """This trainer's layer deltas for the expectations algebra
+        (``pipeline.py:743-770``), for the log of one step merged over the
+        pipe group (:func:`~mpi4dl_tpu_torch.analysis.report.analyze_step`
+        with ``merge=True, merge_group=layout.pipe_group``): the front's halo window over
+        every micro-batch of the step (:meth:`halo_shift_count` a micro-batch
+        times ``chunks·parts``) and its join gathers (one a micro-batch and
+        state tensor: the port's join backward is an all-reduce), stacked
+        with the exact budget of :meth:`exact_transfer_count`."""
+        from mpi4dl_tpu_torch.analysis.expectations import (
+            pipeline_delta,
+            spatial_delta,
+            spatial_join_delta,
+        )
+
+        deltas = []
+        if self.n_spatial_cells:
+            mbs = self.chunks * self.parts
+            deltas.append(spatial_delta(self.config.tile_shape,
+                                        mbs * self.halo_shift_count(x_shape, dtype)))
+            deltas.append(spatial_join_delta(mbs * len(self.front_wire[1])))
+        deltas.append(pipeline_delta(self.exact_transfer_count()))
+        return tuple(deltas)
+
+    def capture_trace_attribution(self, x, y, steps: int = 3, logdir: "str | None" = None,
+                                  registry=None, program: "str | None" = None):
+        """Trace ``steps`` live train steps (:func:`profiling.capture`) and
+        attribute this rank's device time (``pipeline.py:772-831``): the
+        compute / collective / transfer / host-gap report, plus the pipeline
+        lens in ``summary["pipeline"]``: this rank's tick slots, idle
+        slots, its stages' device seconds, the schedule's slot
+        ``bubble_fraction`` beside :meth:`analytic_bubble_fraction`, the
+        measured ``device_idle_share`` of each captured step, and img/s of
+        the captured steps. Collective over the world (every rank traces its own steps
+        into ``logdir``); merge the ranks' lenses with
+        :func:`~mpi4dl_tpu_torch.analysis.trace.merge_pipeline_attributions`.
+        With a ``registry``, publishes the ``trace_*`` and ``pipeline_*``
+        gauges under ``program`` (default ``pipeline_<schedule>``).
+        Returns ``summary``; the trainer advances by ``steps`` updates."""
+        from mpi4dl_tpu_torch import profiling
+        from mpi4dl_tpu_torch.analysis.trace import (
+            pipeline_attribution,
+            publish_pipeline_attribution,
+            read_trace_events,
+        )
+
+        program = program or f"pipeline_{self.schedule}"
+        cap = profiling.capture(lambda i: self.train_step(x, y)["loss"], steps=steps,
+                                logdir=logdir)
+        summary = cap.attribution(registry=registry, program=program)
+        pipe = pipeline_attribution(
+            read_trace_events(cap.trace_dir, dist.get_rank()), self.S,
+            step_name=cap.step_name, analytic_bubble=self.analytic_bubble_fraction(),
+            schedule=self.schedule)
+        mean_wall = sum(cap.step_times_s) / max(1, len(cap.step_times_s))
+        pipe["img_per_s"] = (self.chunks * self.config.batch_size / mean_wall
+                             if mean_wall > 0 else 0.0)
+        summary["pipeline"] = pipe
+        if registry is not None:
+            publish_pipeline_attribution(pipe, registry, program=program)
+        return summary
 
     # -- transport ------------------------------------------------------------
     def _wire_view(self, t: torch.Tensor) -> torch.Tensor:
@@ -588,6 +662,8 @@ class PipelineTrainer:
         if self.pipe != first:
             sends = [(self._to_wire(t.detach()), first) for m in self.front_mbs
                      for t in _flat(front_out[m])]
+            for m in self.front_mbs:
+                self._record_wire(_flat(front_out[m]), "front", count=False)
         else:
             for m in range(self.parts):
                 if m in front_out:
@@ -611,6 +687,7 @@ class PipelineTrainer:
                 grads[m] = g
             else:
                 sends += [(self._to_wire(t), self.front_owner(m)) for t in g]
+                self._record_wire(g, "front", count=False)
         if self.pipe != first:
             for m in self.front_mbs:
                 grads[m] = self._buffers(self.front_wire[1])
@@ -638,10 +715,30 @@ class PipelineTrainer:
             return _checkpoint(self._stage_fn(k), h)
         return self._stage_fn(k)(h)
 
+    @contextlib.contextmanager
     def _tick(self, direction: str, t: int, work):
-        if self.on_tick is None:
-            return contextlib.nullcontext()
-        return self.on_tick(direction, t, list(work))
+        """Around one tick's stage work: :attr:`on_tick`'s context, and a
+        host range naming the tick idle when it has no work (the pipeline
+        lens's slots, :func:`~mpi4dl_tpu_torch.analysis.trace.pipeline_attribution`)."""
+        hook = (contextlib.nullcontext() if self.on_tick is None
+                else self.on_tick(direction, t, list(work)))
+        mark = (contextlib.nullcontext() if work
+                else torch.profiler.record_function(pipe_idle_label(direction, t)))
+        with hook, mark:
+            yield
+
+    def _work(self, direction: str, t: int, k: int, m: int):
+        """A host range around one work item of a tick (the lens's active
+        slot and its stage's device time)."""
+        return torch.profiler.record_function(pipe_work_label(direction, t, k, m))
+
+    def _record_wire(self, tensors, tag: str, count: bool = True) -> None:
+        """One stage-boundary transfer (a wire of ``tensors``) into the
+        collective log; ``count``: a stage wire of :attr:`transfers`."""
+        if count:
+            self.transfers += 1
+        inventory.record("collective-permute", inventory.nbytes(*tensors), self.S, tag,
+                         "PipelineTrainer")
 
     def _check_wire(self, k: int, out) -> None:
         is_tuple, specs = self.wires[k]
@@ -669,7 +766,8 @@ class PipelineTrainer:
                     p.grad = torch.zeros_like(p)
             if params and size > 1:
                 _flat_all_reduce([p.grad for p in params],
-                                 lambda t, g=group: dist.all_reduce(t, group=g))
+                                 lambda t, g=group: dist.all_reduce(t, group=g),
+                                 ("all-reduce", size, "grad", "PipelineTrainer"))
 
     def train_step(self, x, y) -> dict:
         b, s = self.chunks * self.config.batch_size, self.config.image_size
@@ -699,6 +797,8 @@ class PipelineTrainer:
         self.step += 1
         metrics = torch.stack([ce_sum / n, cc_sum / n])
         dist.all_reduce(metrics)  # over the world; the other ranks contribute zeros
+        inventory.record("all-reduce", inventory.nbytes(metrics), dist.get_world_size(),
+                         "metric", "PipelineTrainer")
         if self.grid is not None and self.grid.rings is not None:
             # A K4 wait that ran out raises here, at the step's sync.
             torch.cuda.current_stream(self.device).synchronize()
@@ -740,26 +840,27 @@ class PipelineTrainer:
             sends = []
             with self._tick("fwd", t, work):
                 for k, m in work:
-                    if k == 0:
-                        h = _unflat(leaves[m], self.front_wire[0])
-                    else:
-                        h = _unflat([u.requires_grad_(u.is_floating_point())
-                                     for u in inbox.pop((k - 1, m))], self.wires[k - 1][0])
-                    stage_in[(k, m)] = h
-                    out = self._run_stage(k, h)
-                    if k == nv - 1:
-                        yc = ys[self._back_rows(m, c)]
-                        ce = cross_entropy_sum(out, yc)
-                        terms[(k, m)] = ce / n
-                        ce_sum = ce_sum + ce.detach()
-                        cc_sum = cc_sum + correct_count(out.detach(), yc)
-                    else:
-                        self._check_wire(k, out)
-                        out = _unflat([self._to_wire(u) for u in _flat(out)],
-                                      isinstance(out, tuple))
-                        stage_out[(k, m)] = out
-                        sends += [(u.detach(), dev(k + 1)) for u in _flat(out)]
-                        self.transfers += 1
+                    with self._work("fwd", t, k, m):
+                        if k == 0:
+                            h = _unflat(leaves[m], self.front_wire[0])
+                        else:
+                            h = _unflat([u.requires_grad_(u.is_floating_point())
+                                         for u in inbox.pop((k - 1, m))], self.wires[k - 1][0])
+                        stage_in[(k, m)] = h
+                        out = self._run_stage(k, h)
+                        if k == nv - 1:
+                            yc = ys[self._back_rows(m, c)]
+                            ce = cross_entropy_sum(out, yc)
+                            terms[(k, m)] = ce / n
+                            ce_sum = ce_sum + ce.detach()
+                            cc_sum = cc_sum + correct_count(out.detach(), yc)
+                        else:
+                            self._check_wire(k, out)
+                            out = _unflat([self._to_wire(u) for u in _flat(out)],
+                                          isinstance(out, tuple))
+                            stage_out[(k, m)] = out
+                            sends += [(u.detach(), dev(k + 1)) for u in _flat(out)]
+                            self._record_wire(_flat(out), "wire")
             # Wires k' that pipe coordinate dev(k') sends this tick to this one.
             recvs, keys = [], []
             for k2 in range(nv - 1):
@@ -779,21 +880,22 @@ class PipelineTrainer:
             sends = []
             with self._tick("bwd", t, work):
                 for k, m in work:
-                    if k == nv - 1:
-                        terms.pop((k, m)).backward()
-                    else:
-                        outs = _flat(stage_out.pop((k, m)))
-                        grads = grad_inbox.pop((k, m))
-                        pairs = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
-                        if pairs:
-                            torch.autograd.backward([o for o, _ in pairs],
-                                                    [g for _, g in pairs])
-                    h = stage_in.pop((k, m))
-                    if k > 0:
-                        gin = [u.grad if u.grad is not None else torch.zeros_like(u)
-                               for u in _flat(h)]
-                        sends += [(self._to_wire(g), dev(k - 1)) for g in gin]
-                        self.transfers += 1
+                    with self._work("bwd", t, k, m):
+                        if k == nv - 1:
+                            terms.pop((k, m)).backward()
+                        else:
+                            outs = _flat(stage_out.pop((k, m)))
+                            grads = grad_inbox.pop((k, m))
+                            pairs = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
+                            if pairs:
+                                torch.autograd.backward([o for o, _ in pairs],
+                                                        [g for _, g in pairs])
+                        h = stage_in.pop((k, m))
+                        if k > 0:
+                            gin = [u.grad if u.grad is not None else torch.zeros_like(u)
+                                   for u in _flat(h)]
+                            sends += [(self._to_wire(g), dev(k - 1)) for g in gin]
+                            self._record_wire(gin, "wire")
             # Gradients of wire k' (stage k' on this rank) that stage k' + 1
             # sends back this reverse tick.
             recvs, keys = [], []
@@ -965,6 +1067,9 @@ class GemsMasterTrainer(PipelineTrainer):
         its copy's gradients."""
         return 4 * (self.S // 2)
 
+    def exact_transfer_count(self) -> int:
+        return super().exact_transfer_count() + self.mirror_exchange_count()
+
     def _own_params(self) -> list:
         return [p for k in self.hosted for i in self.stages[k]
                 for p in self.model[i].parameters()]
@@ -979,7 +1084,7 @@ class GemsMasterTrainer(PipelineTrainer):
                           device=self.device)
         flat = _pack(tensors)
         self._exchange([(flat, self.partner)], [(buf, self.partner)])
-        self.transfers += 1
+        self._record_wire([flat], "mirror")
         self.mirror_bytes += flat.numel() * flat.element_size()
         return buf
 

@@ -131,11 +131,17 @@ def trace_file(logdir: str) -> str:
     return os.path.join(logdir, f"trace-{rank}{os.getpid()}.json")
 
 
-def _decode_step_labels(path: str) -> None:
+def _decode_step_labels(path: str, on_card: bool = False) -> None:
     """Rewrite the :func:`annotate_step` labels of the Chrome trace at
-    ``path`` into a name and ``args.step_num``."""
+    ``path`` into a name and ``args.step_num``; ``on_card``: mark the file
+    as one whose profiler traced the card
+    (:data:`mpi4dl_tpu_torch.analysis.trace.DEVICE_TRACE_KEY`)."""
+    from mpi4dl_tpu_torch.analysis.trace import DEVICE_TRACE_KEY
+
     with open(path) as f:
         doc = json.load(f)
+    if on_card:
+        doc[DEVICE_TRACE_KEY] = True
     for e in doc.get("traceEvents", []):
         m = _STEP_LABEL.match(str(e.get("name", "")))
         if m:
@@ -146,11 +152,14 @@ def _decode_step_labels(path: str) -> None:
 
 
 @contextlib.contextmanager
-def trace(logdir: str | None = None):
+def trace(logdir: str | None = None, all_threads: bool = False):
     """``torch.profiler`` over the block, written as a Chrome trace JSON to
     :func:`trace_file` of ``logdir`` (or ``MPI4DL_TPU_TRACE_DIR``) when the
     block ends, also by an exception. Neither set: a no-op. Yields the
-    directory (or None)."""
+    directory (or None). The host side records the thread that starts the
+    trace (the card's work is recorded whatever thread launched it);
+    ``all_threads`` records every thread's host ranges, as a serving
+    engine's trace needs (its batcher thread annotates each batch)."""
     logdir = logdir or os.environ.get(TRACE_DIR_ENV)
     if not logdir:
         yield None
@@ -158,10 +167,16 @@ def trace(logdir: str | None = None):
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
-    if _uses_card():
+    on_card = _uses_card()
+    if on_card:
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    prof = profile(activities=activities)
+    config = None
+    if all_threads:
+        from torch._C._profiler import _ExperimentalConfig
+
+        config = _ExperimentalConfig(profile_all_threads=True)
+    prof = profile(activities=activities, experimental_config=config)
     prof.start()
     try:
         yield logdir
@@ -169,7 +184,7 @@ def trace(logdir: str | None = None):
         prof.stop()
         path = trace_file(logdir)
         prof.export_chrome_trace(path)
-        _decode_step_labels(path)
+        _decode_step_labels(path, on_card)
 
 
 @contextlib.contextmanager
@@ -204,12 +219,18 @@ class Capture:
     step_times_s: list
 
     def attribution(self, registry=None, program: str = "capture") -> dict:
-        """The per-step compute/collective/transfer/host-gap report of the
-        JAX package reads the trace through ``mpi4dl_tpu/analysis/trace.py``,
-        which the port has not yet (ROADMAP queue 1 item 10)."""
-        raise NotImplementedError(
-            "Capture.attribution reads the trace through analysis/trace.py, "
-            "which comes with ROADMAP queue 1 item 10")
+        """Parse the trace into the per-step compute/collective/transfer/
+        host-gap report (:func:`mpi4dl_tpu_torch.analysis.trace.analyze_trace_dir`,
+        this rank's file in a process group); with a ``registry``, also
+        publish the cataloged ``trace_*`` gauges under ``program``."""
+        from mpi4dl_tpu_torch.analysis.trace import analyze_trace_dir, publish_attribution
+
+        rank = dist.get_rank() if dist.is_initialized() else None
+        summary = analyze_trace_dir(self.trace_dir, step_name=self.step_name, rank=rank)
+        summary["host_step_times_s"] = list(self.step_times_s)
+        if registry is not None:
+            publish_attribution(summary, registry, program=program)
+        return summary
 
 
 def capture(step_fn, steps: int = 3, logdir: "str | None" = None,

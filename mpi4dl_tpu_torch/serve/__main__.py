@@ -24,9 +24,13 @@ there are enough, else every rank on card 0 over a gloo group): the grid's
 first rank runs the engine and the load and returns the report, which this
 process prints; the other ranks follow its broadcasts and print nothing.
 
-Not ported yet (ROADMAP queue 1 item 10, the analyzers): ``--lint``,
-``--trace-dir`` and ``--attribution-every`` exit with an argparse error
-before any model is built.
+``--lint`` gates the served program through the lint
+(:meth:`ServingEngine.lint_report`: zero collectives on one card, the halo
+window on a mesh) and exits 2 on an error finding; ``--trace-dir`` traces
+the load run (``torch.profiler``) and attributes device time per serve
+batch (report key ``attribution``); ``--attribution-every N`` samples one
+batch in N under the profiler (report key ``attribution_sampled``). The
+profiler is process-wide, so the last two exclude each other.
 """
 
 from __future__ import annotations
@@ -35,8 +39,6 @@ import argparse
 import importlib
 import json
 import sys
-
-from mpi4dl_tpu_torch.serve.engine import ITEM_ANALYSIS
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -148,7 +150,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--serial", type=int, default=16,
                    help="batch-size-1 serial baseline requests (0 skips)")
     p.add_argument("--lint", action="store_true",
-                   help=f"not ported yet: {ITEM_ANALYSIS}")
+                   help="lint the served program; exit 2 on error findings")
     p.add_argument("--metrics-port", type=int, default=None,
                    help="serve a Prometheus /metrics endpoint on this "
                         "port for the run (0 = ephemeral; the bound port "
@@ -194,9 +196,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--slo-interval", type=float, default=1.0,
                    help="SLO evaluator tick, seconds")
     p.add_argument("--trace-dir", default=None,
-                   help=f"not ported yet: {ITEM_ANALYSIS}")
+                   help="trace the load run (torch.profiler) here and "
+                        "attribute device time per serve batch (report "
+                        "key 'attribution', /debugz, trace_* gauges)")
     p.add_argument("--attribution-every", type=int, default=0,
-                   help=f"not ported yet (0 only): {ITEM_ANALYSIS}")
+                   help="sampled continuous attribution: every N "
+                        "dispatches, capture+attribute one batch and "
+                        "publish live trace_* gauges under "
+                        "program=serve_sampled (0 disables; mutually "
+                        "exclusive with --trace-dir, whose profile owns "
+                        "the profiler)")
     p.add_argument("--attribution-min-interval", type=float, default=30.0,
                    help="floor between attribution samples, seconds "
                         "(a knob of --attribution-every)")
@@ -239,6 +248,8 @@ def _engine_kw(args) -> dict:
         max_batch=args.max_batch, max_wait_s=args.max_wait_ms / 1e3,
         max_queue=args.max_queue, default_deadline_s=args.deadline_ms / 1e3,
         metrics_port=args.metrics_port, telemetry_dir=args.telemetry_dir,
+        attribution_every=args.attribution_every,
+        attribution_min_interval_s=args.attribution_min_interval,
         **_liveness_kw(args),
     )
 
@@ -371,7 +382,10 @@ def _engine(args, device, grid=None):
 def serve(args, device, grid=None) -> "dict | None":
     """Build the engine, run the serial baseline and the load, and return
     the report (None on a ``--mesh`` follower rank)."""
+    from contextlib import nullcontext
+
     from mpi4dl_tpu_torch import elastic
+    from mpi4dl_tpu_torch.profiling import trace as profiler_trace
     from mpi4dl_tpu_torch.serve.loadgen import (
         ClassMix,
         TenantMix,
@@ -419,6 +433,8 @@ def serve(args, device, grid=None) -> "dict | None":
             report["serial"] = serial_throughput(engine, args.serial)
         engine.start()
         try:
+            tracing = (profiler_trace(args.trace_dir, all_threads=True) if args.trace_dir
+                       else nullcontext())
             load_kw = {
                 "queue_full_retries": args.queue_full_retries,
                 "retry_backoff_s": (
@@ -430,22 +446,28 @@ def serve(args, device, grid=None) -> "dict | None":
                 load_kw["class_mix"] = ClassMix.parse(args.class_mix)
             if args.tenant_mix:
                 load_kw["tenant_mix"] = TenantMix.parse(args.tenant_mix)
-            if args.mode == "closed":
-                report["loadgen"] = run_closed_loop(
-                    engine, args.requests, concurrency=args.concurrency,
-                    deadline_s=args.deadline_ms / 1e3, events=engine.events, **load_kw,
-                )
-            else:
-                report["loadgen"] = run_open_loop(
-                    engine, rate_rps=args.rate, duration_s=args.duration,
-                    deadline_s=args.deadline_ms / 1e3, events=engine.events, **load_kw,
-                )
+            with tracing:
+                if args.mode == "closed":
+                    report["loadgen"] = run_closed_loop(
+                        engine, args.requests, concurrency=args.concurrency,
+                        deadline_s=args.deadline_ms / 1e3, events=engine.events, **load_kw,
+                    )
+                else:
+                    report["loadgen"] = run_open_loop(
+                        engine, rate_rps=args.rate, duration_s=args.duration,
+                        deadline_s=args.deadline_ms / 1e3, events=engine.events, **load_kw,
+                    )
         finally:
             engine.stop()
     finally:
         if heartbeat is not None:
             heartbeat.close()
         engine.flight.uninstall_signal_handlers()
+    if args.trace_dir:
+        _attribute_trace(args.trace_dir, engine, report)
+    if args.attribution_every and engine.last_attribution is not None:
+        # The most recent sampled capture (the live gauges' source).
+        report["attribution_sampled"] = engine.last_attribution
     if args.tiled:
         # Per-request tile counts + stitch/stream latency percentiles.
         report["tiled"] = engine.stats().get("tiled")
@@ -455,7 +477,31 @@ def serve(args, device, grid=None) -> "dict | None":
         report["speedup_vs_serial"] = (
             report["loadgen"]["throughput_rps"] / report["serial"]["throughput_rps"]
         )
+    if args.lint:
+        rep = engine.lint_report()
+        report["lint"] = {"ok": rep.ok, "summary": rep.summary_line(),
+                          "findings": rep.findings}
     return report
+
+
+def _attribute_trace(trace_dir: str, engine, report: dict) -> None:
+    """The ``--trace-dir`` load run's attribution per serve batch into the
+    report (``attribution``), the engine's ``/debugz`` and its ``trace_*``
+    gauges; a broken trace leaves an error there, never fails the run."""
+    import torch.distributed as dist
+
+    from mpi4dl_tpu_torch.analysis.trace import analyze_trace_dir, publish_attribution
+
+    try:
+        rank = dist.get_rank() if dist.is_initialized() else None
+        summary = analyze_trace_dir(trace_dir, step_name="mpi4dl_serve_batch", rank=rank)
+        publish_attribution(summary, engine.registry, program="serve_batch")
+        engine.set_attribution(summary)
+        report["attribution"] = {k: summary[k]
+                                 for k in ("n_steps", "per_step_mean", "range", "collective")}
+    except Exception as e:  # noqa: BLE001 — attribution is advisory; the
+        # load report must survive a broken trace
+        report["attribution"] = {"error": f"{type(e).__name__}: {str(e)[:160]}"}
 
 
 def _mesh_rank(rank, world, mesh_shape, argv):
@@ -479,10 +525,9 @@ def _mesh_rank(rank, world, mesh_shape, argv):
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    for flag, used in (("--lint", args.lint), ("--trace-dir", args.trace_dir),
-                       ("--attribution-every", args.attribution_every)):
-        if used:
-            parser.error(f"{flag} is not ported yet: {ITEM_ANALYSIS}")
+    if args.trace_dir and args.attribution_every:
+        parser.error("--trace-dir and --attribution-every exclude each other: the "
+                     "profiler is process-wide and --trace-dir's profile owns it")
     if args.tiled and args.mesh:
         raise SystemExit(
             "--tiled and --mesh are mutually exclusive: tiled streaming "
@@ -515,7 +560,7 @@ def main(argv=None) -> int:
     if args.json_out:
         with open(args.json_out, "w") as f:
             f.write(line + "\n")
-    return 0
+    return 2 if report.get("lint", {}).get("ok") is False else 0
 
 
 if __name__ == "__main__":

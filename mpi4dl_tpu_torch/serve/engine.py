@@ -33,16 +33,20 @@ scheduler); ``metrics_port=`` serves ``/metrics``, ``/snapshotz``,
 ``/healthz``, ``/debugz`` and ``/alertz``
 (:class:`~mpi4dl_tpu_torch.telemetry.MetricsServer`).
 
-Not ported yet, and refused with ``NotImplementedError`` naming ROADMAP
-queue 1 item 10 (the analyzers) when asked for: ``attribution_every``,
-:meth:`ServingEngine.lint_report` and the predictors' ``expectations`` /
-``collective_deltas``.
+The analyzers (:mod:`mpi4dl_tpu_torch.analysis`): :meth:`ServingEngine.lint_report`
+lints a bucket's program, the collectives one forward of it issues (those
+logged while its graphs were captured, and those of its eager parts in its
+warm-up run), against the predictor's ``expectations()``;
+``attribution_every`` samples a batch under ``torch.profiler`` and
+publishes its device-time attribution.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import shutil
+import tempfile
 import threading
 import time
 from concurrent.futures import Future
@@ -52,6 +56,7 @@ import numpy as np
 import torch
 
 from mpi4dl_tpu_torch import telemetry
+from mpi4dl_tpu_torch.analysis.inventory import collective_log
 from mpi4dl_tpu_torch.profiling import annotate_step, percentiles
 from mpi4dl_tpu_torch.telemetry import coldstart
 from mpi4dl_tpu_torch.serve.batching import bucket_for, pad_batch, power_of_two_buckets
@@ -177,14 +182,6 @@ class _Join:
         self.future.set_exception(exc)
 
 
-#: The ROADMAP item that holds what the port leaves out of serving.
-ITEM_ANALYSIS = "ROADMAP queue 1 item 10 (the analyzers)"
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet: {item}")
-
-
 def torch_dtype(dtype) -> torch.dtype:
     """A torch dtype from a torch dtype, a numpy dtype or a name
     (``"bfloat16"``, the name a checkpoint stores); None is float32."""
@@ -279,10 +276,18 @@ class SingleChipPredictor:
         return compiled(staged)
 
     def expectations(self):
-        raise _not_ported("the hlolint expectations of a serving program", ITEM_ANALYSIS)
+        """The lint's expectations: the single-chip zero-collective delta
+        composes to a gate where ANY collective in a bucket's forward is a
+        regression."""
+        from mpi4dl_tpu_torch.analysis.expectations import compose
+
+        return compose(self.collective_deltas())
 
     def collective_deltas(self):
-        raise _not_ported("the collective deltas of a serving program", ITEM_ANALYSIS)
+        """One device -> one zero-collective layer delta."""
+        from mpi4dl_tpu_torch.analysis.expectations import single_chip_delta
+
+        return (single_chip_delta(),)
 
     def platform(self) -> str:
         return "gpu" if self.device.type == "cuda" else self.device.type
@@ -359,8 +364,22 @@ class ServingEngine:
         autoscaler, and serves it all on ``/alertz`` (:attr:`slo`). None
         (default) runs no evaluator, unless an SLO class declares a
         latency objective.
-    attribution_every: not ported yet (raises ``NotImplementedError``
-        naming ROADMAP queue 1 item 10 when set).
+    attribution_every: sampled continuous attribution — every N
+        dispatches, run ONE batch synchronously under a private
+        ``torch.profiler`` capture and publish its device-time attribution
+        (:mod:`mpi4dl_tpu_torch.analysis.trace`) as the live ``trace_*``
+        gauges (``program="serve_sampled"``) and :attr:`last_attribution`.
+        The sampled batch loses its double-buffering overlap. The
+        constructor takes one throwaway capture (the profiler's first
+        start is slow) and, on the card, raises
+        :class:`~mpi4dl_tpu_torch.analysis.trace.TraceError` when the
+        trace holds none of the replay's kernels: a sample must never read
+        as zero device time. The profiler is process-wide: one capture at
+        a time (``--trace-dir`` excludes it). None/0 disables.
+    attribution_min_interval_s: floor between samples (the profiler's
+        start, stop and the parse cost each sample a fixed time whatever
+        the batch, so the cadence alone would let a high-rps load spend
+        arbitrary time sampling).
     memory_monitor: sample the card's memory into the
         ``device_hbm_*`` gauges at the SLO-evaluator cadence
         (:class:`telemetry.MemoryMonitor`; docs/OBSERVABILITY.md
@@ -451,6 +470,7 @@ class ServingEngine:
         flight_dir: "str | None" = None,
         slo=None,
         attribution_every: "int | None" = None,
+        attribution_min_interval_s: float = 30.0,
         memory_monitor: bool = True,
         memory_guard: bool = False,
         memory_limit_bytes: "int | None" = None,
@@ -467,8 +487,6 @@ class ServingEngine:
     ):
         from mpi4dl_tpu_torch.telemetry import memory as memobs
 
-        if attribution_every:
-            raise _not_ported("attribution_every (sampled trace attribution)", ITEM_ANALYSIS)
         dtype = torch_dtype(dtype)
         self._np_dtype = host_dtype(dtype)
         self.example_shape = tuple(int(d) for d in example_shape)
@@ -621,11 +639,16 @@ class ServingEngine:
         # the warm-up zeros runs as served traffic.
         if hasattr(self._predictor, "warming"):
             self._predictor.warming = True
+        # Each bucket's program for the lint: the collectives logged while
+        # its graphs were captured, and those of its eager parts in this run.
+        self._programs: dict[int, list] = {}
         for b in self._buckets:
             z = np.zeros((b, *self.example_shape), self._np_dtype)
             t0 = time.perf_counter()
-            to_host(self._predictor.run(self._compiled[b], z))
+            with collective_log() as log:
+                to_host(self._predictor.run(self._compiled[b], z))
             self.warm_latency_s[b] = time.perf_counter() - t0
+            self._programs[b] = list(getattr(self._compiled[b], "collectives", ())) + log.records
             # First-execute setup is the third cold-start phase: merge it
             # into the bucket's ledger entry next to trace_s/compile_s.
             self.memory_ledger.annotate(
@@ -776,6 +799,17 @@ class ServingEngine:
             else None
         )
         self.last_attribution: "dict | None" = None
+        self._attr_every = int(attribution_every or 0)
+        self._attr_min_interval_s = float(attribution_min_interval_s)
+        self._attr_last_t = float("-inf")
+        if self._attr_every > 0:
+            # The profiler's first start is slow: pay it here, on a
+            # throwaway smallest-bucket capture that also checks the
+            # replay's kernels reach the trace (raises if not).
+            b = min(self._buckets)
+            self._dispatch_sampled(np.zeros((b, *self.example_shape), self._np_dtype), b, -1,
+                                   publish=False)
+            self._attr_last_t = time.monotonic()
         self.watchdog: "telemetry.Watchdog | None" = None
         if watchdog_factor:
             self.watchdog = telemetry.Watchdog(
@@ -1324,9 +1358,8 @@ class ServingEngine:
         self.flight.dump(reason="watchdog")
 
     def set_attribution(self, summary: dict) -> None:
-        """Attach the latest trace-attribution summary so ``/debugz``
-        serves it (the analyzer that makes one is ROADMAP queue 1 item
-        10)."""
+        """Attach the latest trace-attribution summary
+        (:mod:`mpi4dl_tpu_torch.analysis.trace`) so ``/debugz`` serves it."""
         self.last_attribution = summary
 
     def _debugz(self) -> dict:
@@ -1361,8 +1394,32 @@ class ServingEngine:
         return self.flight.dump(path=path, reason=reason)
 
     def lint_report(self, bucket: int | None = None):
-        """The hlolint gate over a serving program: not ported yet."""
-        raise _not_ported("lint_report (the hlolint gate)", ITEM_ANALYSIS)
+        """The lint gate over a bucket's program (``engine.py:1402``): the
+        collectives one forward of the bucket issues (see the module
+        docstring) against expectations DERIVED FROM THE MESH: a
+        single-chip or tiled engine keeps the zero-collectives gate (rule
+        ``single-chip-collectives``), a sharded one the partition-math
+        halo-permute window (rule ``halo-permute-count``), plus the
+        standing rules. The bucket's measured peak (on the card) rides
+        along. Publishes the ``hlolint_*`` gauges; returns the
+        :class:`~mpi4dl_tpu_torch.analysis.report.Report`."""
+        from mpi4dl_tpu_torch.analysis.metrics import publish_report
+        from mpi4dl_tpu_torch.analysis.report import analyze_records
+
+        b = bucket if bucket is not None else max(self._buckets)
+        peak = (getattr(self._compiled[b], "memory", None) or {}).get("peak_bytes")
+        rep = analyze_records(
+            self._programs[b],
+            expected=self._predictor.expectations(),
+            memory=None if peak is None else {"peak_bytes": int(peak)},
+            platform=self._predictor.platform(),
+            config={"program": self._predictor.program, "bucket": b,
+                    "example_shape": list(self.example_shape),
+                    "mesh_shape": list(self.mesh_shape)},
+            program=self._predictor.program,
+        )
+        publish_report(rep, self.registry)  # verdict scrapes with the rest
+        return rep
 
     # -- batcher loop --------------------------------------------------------
 
@@ -1471,9 +1528,14 @@ class ServingEngine:
         batch = pad_batch([r.x for r in reqs], bucket, self._np_dtype)
         seq = self._batch_seq
         self._batch_seq += 1
-        with annotate_step("mpi4dl_serve_batch", seq):
-            staged = self._predictor.stage(batch)
-            out = self._predictor.run(self._compiled[bucket], staged)
+        out = None
+        if (self._attr_every > 0 and seq > 0 and seq % self._attr_every == 0
+                and time.monotonic() - self._attr_last_t >= self._attr_min_interval_s):
+            out = self._dispatch_sampled(batch, bucket, seq)
+        if out is None:
+            with annotate_step("mpi4dl_serve_batch", seq):
+                staged = self._predictor.stage(batch)
+                out = self._predictor.run(self._compiled[bucket], staged)
         staged_t = time.monotonic()
         # Tiled predictors record per-run facts (tile count, stitch/
         # stream seconds) — attach them so this batch's requests carry
@@ -1494,6 +1556,65 @@ class ServingEngine:
         self._m_occupancy.observe(len(reqs) / bucket, bucket=bucket)
         self._m_pad_waste.set(waste)
         return out
+
+    def _dispatch_sampled(self, batch, bucket: int, seq: int, publish: bool = True):
+        """Sampled continuous attribution (``engine.py:1569-1628``): run
+        this one batch to its end inside a private ``torch.profiler``
+        capture, parse it, publish the ``trace_*`` gauges
+        (``program="serve_sampled"``) and refresh :attr:`last_attribution`.
+        Returns the logits, or None to send the batch down the normal path
+        (capture refused: a ``--trace-dir`` profile owns the profiler).
+        ``publish=False`` is the constructor's warm-up, which raises
+        :class:`~mpi4dl_tpu_torch.analysis.trace.TraceError` when a trace
+        taken on the card holds no kernel of the replay."""
+        from mpi4dl_tpu_torch.analysis.trace import (
+            TraceError,
+            analyze_trace_dir,
+            kernel_events,
+            publish_attribution,
+        )
+        from mpi4dl_tpu_torch.profiling import trace as profiler_trace
+
+        self._attr_last_t = time.monotonic()
+        tmp = tempfile.mkdtemp(prefix="mpi4dl-serve-sample-")
+        out = None
+        try:
+            try:
+                with profiler_trace(tmp, all_threads=True):
+                    with annotate_step("mpi4dl_serve_batch", seq):
+                        staged = self._predictor.stage(batch)
+                        out = self._predictor.run(self._compiled[bucket], staged)
+                        to_host(out)
+            except Exception as e:  # noqa: BLE001 — sampling must never
+                # fail a live batch; the normal dispatch path takes over
+                if not publish:
+                    raise
+                self._record_marker("serve.sample_skipped", error=repr(e), batch_seq=seq)
+                return out  # None unless the forward itself completed
+            if not publish:
+                on_card = getattr(self._predictor.limit_device(), "type", "cpu") == "cuda"
+                if on_card and not kernel_events(tmp):
+                    raise TraceError(
+                        "attribution_every: the trace of a replayed bucket holds no kernel "
+                        "of it; the sampled attribution would read zero device time")
+                return out
+            try:
+                summary = analyze_trace_dir(tmp, step_name="mpi4dl_serve_batch")
+                publish_attribution(summary, self.registry, program="serve_sampled")
+                self.last_attribution = {
+                    "program": "serve_sampled",
+                    "batch_seq": seq,
+                    "n_steps": summary["n_steps"],
+                    "per_step_mean": summary["per_step_mean"],
+                    "range": summary["range"],
+                    "collective": summary["collective"],
+                }
+            except Exception as e:  # noqa: BLE001 — a broken trace drops
+                # the sample, never the batch
+                self._record_marker("serve.sample_error", error=repr(e), batch_seq=seq)
+            return out
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
 
     def _complete(self, reqs: "list[_Request]", out) -> None:
         logits = to_host(out)  # waits for the device batch

@@ -37,10 +37,8 @@ import torch
 import torch.distributed as dist
 
 from mpi4dl_tpu_torch.serve.engine import (
-    ITEM_ANALYSIS,
     ServingEngine,
     _copy_params,
-    _not_ported,
     torch_dtype,
 )
 
@@ -241,11 +239,27 @@ class ShardedPredictor:
             staged = self.stage(staged)
         return self._run(compiled, staged.batch)
 
+    def halo_shift_count(self) -> int:
+        """Forward halo shifts of one bucket's forward, from the meta walk
+        (:meth:`~mpi4dl_tpu_torch.train.Trainer.halo_shift_count`; JAX's
+        ``halo_shifts()``): the floor of the lint's permute window. Not
+        :meth:`halo_shifts`, which counts K4 launches (one per axis phase;
+        a shift count is two per phase)."""
+        h, w, c = self.example_shape
+        return self.trainer.halo_shift_count((1, h, w, c))
+
     def expectations(self):
-        raise _not_ported("the hlolint expectations of a serving program", ITEM_ANALYSIS)
+        """The spatial layer delta (the partition-math halo window of the
+        counted forward shifts) composes to the permute-window gate."""
+        from mpi4dl_tpu_torch.analysis.expectations import compose
+
+        return compose(self.collective_deltas())
 
     def collective_deltas(self):
-        raise _not_ported("the collective deltas of a serving program", ITEM_ANALYSIS)
+        """One spatial layer delta over this predictor's tile grid."""
+        from mpi4dl_tpu_torch.analysis.expectations import spatial_delta
+
+        return (spatial_delta(self.mesh_shape, self.halo_shift_count()),)
 
     def platform(self) -> str:
         return "gpu" if self.device.type == "cuda" else self.device.type

@@ -57,10 +57,8 @@ import torch
 
 from mpi4dl_tpu_torch.serve.batching import bucket_for, power_of_two_buckets
 from mpi4dl_tpu_torch.serve.engine import (
-    ITEM_ANALYSIS,
     ServingEngine,
     _copy_params,
-    _not_ported,
     host_dtype,
     to_host,
     torch_dtype,
@@ -436,10 +434,17 @@ class TiledPredictor:
         return np.stack([self._run_one(compiled, staged[i]) for i in range(staged.shape[0])])
 
     def expectations(self):
-        raise _not_ported("the hlolint expectations of a serving program", ITEM_ANALYSIS)
+        """The tiled zero-collective delta composes to the single-chip
+        gate: any collective in a tile's program is a regression."""
+        from mpi4dl_tpu_torch.analysis.expectations import compose
+
+        return compose(self.collective_deltas())
 
     def collective_deltas(self):
-        raise _not_ported("the collective deltas of a serving program", ITEM_ANALYSIS)
+        """One tiled zero-collective section delta."""
+        from mpi4dl_tpu_torch.analysis.expectations import tiled_delta
+
+        return (tiled_delta(),)
 
     def platform(self) -> str:
         return "gpu" if self.device.type == "cuda" else self.device.type

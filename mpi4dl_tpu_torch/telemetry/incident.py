@@ -33,7 +33,7 @@ builders (:func:`build_timeline`, :func:`first_cause`,
 :func:`blast_radius`, :func:`build_postmortem`,
 :func:`reconstruct_incidents`) the offline analyzer
 (the JAX package's ``analyze incident``; the port's is ROADMAP queue 1
-item 10) uses — the live
+item 10, part 2) uses — the live
 ``/incidentz`` timeline and the from-logs reconstruction are the same
 code over the same files, so they match event for event.
 

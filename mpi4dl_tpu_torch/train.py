@@ -51,6 +51,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from mpi4dl_tpu_torch.analysis import inventory
 from mpi4dl_tpu_torch.config import ParallelConfig
 from mpi4dl_tpu_torch.ops import fastconv
 from mpi4dl_tpu_torch.ops.layers import bn_stats_mode
@@ -83,12 +84,17 @@ def correct_count(logits, labels) -> torch.Tensor:
     return (logits.argmax(dim=-1) == labels).sum()
 
 
-def _flat_all_reduce(tensors, op) -> None:
+def _flat_all_reduce(tensors, op, record=None) -> None:
     """``op`` (a collective on one tensor) over every tensor of ``tensors``
-    as one flat f32 bucket (float64 if a tensor is), written back in place."""
+    as one flat f32 bucket (float64 if a tensor is), written back in place.
+    ``record``: ``(class, group size, tag, site)`` of the collective log's
+    record of ``op``."""
     acc = functools.reduce(torch.promote_types, (t.dtype for t in tensors), torch.float32)
     flat = torch.cat([t.reshape(-1).to(acc) for t in tensors])
     op(flat)
+    if record is not None:
+        opcode, size, tag, site = record
+        inventory.record(opcode, inventory.nbytes(flat), size, tag, site)
     offset = 0
     for t in tensors:
         t.copy_(flat[offset:offset + t.numel()].view(t.shape))
@@ -278,6 +284,15 @@ def spatial_exchanges(model: nn.Module, n_spatial: int, tile_shape) -> list:
         for i in range(n_spatial):
             h = meta_cell(model[i], h)
     return box
+
+
+def halo_shifts_of(exchanges, tile_shape) -> int:
+    """The JAX package's halo shift count (``parallel/halo.py:100-107``) of
+    ``exchanges`` (:func:`spatial_exchanges`' records) on a ``tile_shape``
+    ``(th, tw)`` grid: two shifts along each tile axis longer than 1 that
+    an exchange has a halo on (one K4 phase, or one plain swap)."""
+    th, tw = tile_shape
+    return sum(2 * (hh > 0 and th > 1) + 2 * (hw > 0 and tw > 1) for _, hh, hw in exchanges)
 
 
 def cell_state(cells, opt) -> tuple[list, list]:
@@ -516,7 +531,9 @@ class Trainer:
         if self.distributed:
             with torch.no_grad():  # over the group: every replica and tile
                 _flat_all_reduce(list(self.model.parameters()),
-                                 lambda t: dist.broadcast(t, src=self.ranks[0], group=self.group))
+                                 lambda t: dist.broadcast(t, src=self.ranks[0], group=self.group),
+                                 ("collective-broadcast", len(self.ranks), "broadcast",
+                                  "Trainer"))
         self._slot_needs = {}  # tile shape -> K4 slot bytes its forward needs
 
     def _size_rings(self, x) -> None:
@@ -817,6 +834,70 @@ class Trainer:
             h = _checkpoint(functools.partial(self._run_group, idx), h, **kwargs)
         return h
 
+    # -- the analyzers (mpi4dl_tpu_torch.analysis) ---------------------------
+    def halo_shift_count(self, x_shape, dtype=torch.float32) -> int:
+        """Forward halo shifts of one pass over the spatial cells
+        (``mpi4dl_tpu/train.py:983-1009``), from the meta walk of
+        :func:`spatial_exchanges` on this rank's tile of a chunk of the
+        global NHWC ``x_shape`` (:func:`halo_shifts_of`): the partition-math
+        floor of the lint's permute window. A step's backward re-runs every
+        exchange, so a ``remat=False`` step issues ``2n`` a chunk (a policy
+        that recomputes spatial cells repeats their exchanges). 0 without
+        spatial cells."""
+        del dtype  # the count depends on shapes only
+        if not self.n_spatial:
+            return 0
+        th, tw = self.config.tile_shape
+        b = int(x_shape[0]) // self.grad_accum // self.data_parallel
+        shape = (b, int(x_shape[3]), int(x_shape[1]) // th, int(x_shape[2]) // tw)
+        return halo_shifts_of(spatial_exchanges(self.model, self.n_spatial, shape), (th, tw))
+
+    def collective_deltas(self, x_shape, dtype=torch.float32):
+        """This trainer's layer deltas for the expectations algebra
+        (``mpi4dl_tpu/train.py:1011-1029``): the spatial halo window over
+        every chunk's forward (``grad_accum`` times :meth:`halo_shift_count`)
+        when cells are spatial, the pure-DP entitlement with replicas, and
+        the zero-collective section on one device. Gate a step with
+        ``compose(*trainer.collective_deltas(x_shape))``."""
+        from mpi4dl_tpu_torch.analysis.expectations import (
+            data_parallel_delta,
+            single_chip_delta,
+            spatial_delta,
+        )
+
+        if self.n_spatial:
+            return (spatial_delta(self.config.tile_shape,
+                                  self.grad_accum * self.halo_shift_count(x_shape, dtype)),)
+        if self.distributed:
+            return (data_parallel_delta(),)
+        return (single_chip_delta(),)
+
+    def remat_report(self) -> dict:
+        """Remat/store-budget metadata for the lint's effectiveness rule
+        (``mpi4dl_tpu/train.py:1091-1103``): the policy, the scanq store
+        budget, and the bytes granted at the last decision."""
+        grants = dict(self.scanq_grant_bytes)
+        return {
+            "policy": self.remat if isinstance(self.remat, str) else str(self.remat),
+            "store_budget_mb": float(os.environ.get("MPI4DL_TPU_SCANQ_STORE_MB", "0")),
+            "granted_bytes": sum(grants.values()),
+            "grants": grants,
+        }
+
+    def capture_trace_attribution(self, x, y, steps: int = 3, logdir: "str | None" = None,
+                                  registry=None, program: str = "train_step") -> dict:
+        """Trace ``steps`` live train steps (:func:`profiling.capture`) and
+        attribute this rank's device time (``mpi4dl_tpu/train.py:1058-1089``):
+        per-step compute / collective / transfer / host-gap buckets and the
+        measured collective overlap. With a ``registry``, publishes the
+        cataloged ``trace_*`` gauges under ``program``. Returns the summary;
+        the trainer advances by ``steps`` real updates."""
+        from mpi4dl_tpu_torch import profiling
+
+        cap = profiling.capture(lambda i: self.train_step(x, y)["loss"], steps=steps,
+                                logdir=logdir)
+        return cap.attribution(registry=registry, program=program)
+
     def state_tensors(self):
         """``(params, momentum, step)``: per cell, ``{name: tensor}`` of its
         parameters and of their SGD momentum buffers, and :attr:`step`
@@ -885,7 +966,8 @@ class Trainer:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
             _flat_all_reduce([p.grad for p in params],
-                             lambda t: dist.all_reduce(t, group=self.group))
+                             lambda t: dist.all_reduce(t, group=self.group),
+                             ("all-reduce", len(self.ranks), "grad", "train_step"))
         if k > 1:
             loss_sum, acc_sum = loss_sum / k, acc_sum / k
             for p in params:
@@ -897,6 +979,8 @@ class Trainer:
             return {"loss": loss_sum, "accuracy": acc_sum}
         metrics = torch.stack([loss_sum, acc_sum])
         dist.all_reduce(metrics, group=self.group)
+        inventory.record("all-reduce", inventory.nbytes(metrics), len(self.ranks), "metric",
+                         "train_step")
         if self.grid is not None and self.grid.rings is not None:
             # A K4 wait that ran out raises here, at the step's sync.
             torch.cuda.current_stream(self.device).synchronize()

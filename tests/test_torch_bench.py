@@ -14,19 +14,24 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # The keys of a training entry (``bench.py:1687-1693``, ``:1741-1759``), less
-# the ones of modules not ported yet (``telemetry``, ``hlo``, ``attribution``).
+# ``telemetry`` (not ported yet) and the analyzers' ``hlo`` and
+# ``attribution``, which these runs turn off (tests/test_torch_analysis_cli.py
+# holds them).
 ENTRY_KEYS = {"value", "remat", "mfu", "step_time_s", "vs_baseline"}
 HEADLINE_KEYS = ENTRY_KEYS | {"metric", "unit"}
 
 
 def _run(extra_env, args=("--device", "cpu"), timeout=300):
     base = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
-    # The serving extras are held by tests/test_torch_loadgen.py and the fleet
-    # extras by tests/test_torch_fleet_cli.py, which call them in process;
-    # these runs hold the training points alone.
+    # The serving extras are held by tests/test_torch_loadgen.py, the fleet
+    # extras by tests/test_torch_fleet_cli.py, which call them in process, and
+    # the analyzers' keys and extras by tests/test_torch_analysis_cli.py and
+    # test_torch_analysis_harness.py; these runs hold the training points alone.
     env = dict(base, PYTHONPATH=REPO + os.pathsep + base.get("PYTHONPATH", ""),
                OMP_NUM_THREADS="1", BENCH_SERVING="0", BENCH_TILED="0", BENCH_FLEET="0",
-               BENCH_INCIDENT="0", BENCH_MULTITENANT="0", BENCH_NUMERICS="0")
+               BENCH_INCIDENT="0", BENCH_MULTITENANT="0", BENCH_NUMERICS="0",
+               BENCH_HLO="0", BENCH_ATTRIBUTION="0", BENCH_SP_OVERLAP="0",
+               BENCH_SERVING_SHARDED="0", BENCH_PIPELINE="0")
     env.update(extra_env)
     return subprocess.run([sys.executable, "-m", "mpi4dl_tpu_torch.bench", *args],
                           env=env, capture_output=True, text=True, timeout=timeout, cwd=REPO)

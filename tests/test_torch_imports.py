@@ -44,6 +44,11 @@ SERVE_MODULES = ("serve", "serve.batching", "serve.scheduler", "serve.engine", "
 FLEET_MODULES = ("fleet", "fleet.errors", "fleet.replica", "fleet.journal", "fleet.chaos",
                  "fleet.worker", "fleet.router", "fleet.supervisor", "fleet.frontdoor",
                  "fleet.__main__")
+ANALYSIS_MODULES = ("analyze", "analysis", "analysis.trace", "analysis.inventory",
+                    "analysis.rules", "analysis.expectations", "analysis.memory",
+                    "analysis.report", "analysis.metrics", "analysis.cli",
+                    "analysis.overlap_bench", "analysis.pipeline_bench",
+                    "analysis.serving_overlap")
 PORT_MODULES = sorted(
     _module_name(p) for p in (REPO / "mpi4dl_tpu_torch").rglob("*.py")
 )
@@ -64,7 +69,7 @@ def test_port_modules_listed():
                  "benchmarks.common", *LP_TWINS, *SP_TWINS, *GEMS_TWINS, *HALO_TWINS,
                  "benchmarks.communication.halo.halo_common", "elastic", "profile_step",
                  "profiling", "telemetry.jsonl", "telemetry.health", "telemetry.flight",
-                 *SERVE_MODULES, *FLEET_MODULES):
+                 *SERVE_MODULES, *FLEET_MODULES, *ANALYSIS_MODULES):
         assert f"mpi4dl_tpu_torch.{name}" in PORT_MODULES
 
 
@@ -105,6 +110,19 @@ def test_fleet_worker_help_loads_no_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "--ready-file" in out.stdout and out.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("argv", [[], ["pipeline"]], ids=["lint", "pipeline"])
+def test_analyze_without_device_refuses_without_cuda(argv):
+    """``python -m mpi4dl_tpu_torch.analyze`` (the lint and a harness) runs
+    on the card unless ``--device cpu`` is given: without a card it raises
+    before it starts a rank or builds a model."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-m", "mpi4dl_tpu_torch.analyze", *argv], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "CUDA is not available" in out.stderr
+    assert "ranks" not in out.stderr and "hlolint" not in out.stdout
 
 
 def test_fleet_worker_without_device_refuses_without_cuda(tmp_path):

@@ -10,7 +10,8 @@
   ``MPI4DL_TPU_TRACE_DIR``, and is a no-op with neither; ``annotate_step``'s
   ids come out as the JAX trace's ``args.step_num``; ``capture`` returns its
   steps and their host times, each step inside its ``mpi4dl_capture``
-  window; ``Capture.attribution`` raises (ROADMAP queue 1 item 10);
+  window; ``Capture.attribution`` attributes those windows (the buckets sum
+  to each window's wall);
 - ``Trainer.train_step`` marks its steps ``mpi4dl_train_step`` 0, 1, 2, as
   ``mpi4dl_tpu/train.py:1105-1118`` does.
 """
@@ -144,8 +145,14 @@ def test_capture_returns_its_steps_and_windows(tmp_path):
     assert len(cap.step_times_s) == 3 and all(t >= 0.01 for t in cap.step_times_s)
     windows = _annotations(_events(tmp_path), "mpi4dl_capture")
     assert [w[2] for w in windows] == [0, 1, 2]
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        cap.attribution()
+    # The attribution reads the capture's trace (analysis/trace.py): one
+    # record a window, its buckets summing to the window's wall.
+    summary = cap.attribution()
+    assert summary["n_steps"] == 3
+    assert summary["host_step_times_s"] == cap.step_times_s
+    for st in summary["steps"]:
+        parts = st["compute_s"] + st["collective_s"] + st["transfer_s"] + st["host_gap_s"]
+        assert parts == pytest.approx(st["wall_s"], abs=1e-12)
 
 
 def test_trainer_marks_its_steps(tmp_path):

@@ -19,9 +19,10 @@ would add the known f32 BN drift, ROADMAP queue 3). Checked:
 - every bucket warmed, a missing bucket refused, a bucket's predictor
   refusing other shapes and dtypes;
 - ``from_checkpoint`` from a path alone;
-- the options of ROADMAP queue 1 item 10 raise ``NotImplementedError``
-  naming it; those of item 9 (ported since) build the engine with the
-  surface they ask for.
+- the options of ROADMAP queue 1 items 9 and 10 (ported since) build the
+  engine with the surface they ask for: the exporter, the SLO evaluator,
+  sampled attribution (``attribution_every``), and the lint
+  (``lint_report``: a single-chip program, no collective).
 
 Every ``future.result`` has a timeout and every engine stops in a
 ``finally``.
@@ -300,18 +301,27 @@ def test_from_checkpoint_from_a_path_alone(models, tmp_path):
     ({"metrics_port": 0}, "item 9"),
     ({"slo": SLOConfig(availability=0.99)}, "item 9"),
     ({"slo_classes": "tight=50ms,bulk=2s"}, "item 9"),
-    ({"attribution_every": 4}, "item 10"),
+    ({"attribution_every": 2, "attribution_min_interval_s": 0.0}, "item 10"),
 ])
 def test_options_not_ported_raise(models, option, item):
-    if item == "item 10":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
-            _engine(models, **option)
-        return
-    # Item 9's options are ported: the exporter and the SLO evaluator run.
+    """Every option builds the engine now (the name is the test's from the
+    slices that refused them)."""
     eng = _engine(models, **option)
     try:
         if "metrics_port" in option:
             assert isinstance(eng.metrics_port, int) and eng.metrics_port > 0
+        elif "attribution_every" in option:
+            # Sampled attribution: every 2nd dispatch runs under the profiler
+            # and publishes its device-time attribution.
+            _, _, _, model, size = models["resnet_v2"]
+            xs = np.random.default_rng(3).standard_normal((3, size, size, 3)).astype(np.float32)
+            eng.start()
+            for x in xs:
+                eng.submit(x).result(timeout=TIMEOUT)
+            att = eng.last_attribution
+            assert att is not None and att["program"] == "serve_sampled"
+            assert att["n_steps"] == 1 and att["collective"]["verdict"] == "no-collectives"
+            assert eng.registry.get("trace_step_wall_seconds").value(program="serve_sampled") > 0
         else:
             assert eng.slo is not None and eng.slo.alerts
     finally:
@@ -319,13 +329,21 @@ def test_options_not_ported_raise(models, option, item):
 
 
 def test_lint_and_expectations_not_ported(models):
+    """The lint runs now (the name is the test's from the slices that refused
+    it): one device's program has no collective, and the gate is the
+    single-chip one, as the JAX engine's."""
+    from mpi4dl_tpu.analysis.expectations import compose as jax_compose
+    from mpi4dl_tpu.analysis.expectations import single_chip_delta as jax_single
+
     eng = _engine(models, slo_classes="a=none,b=none")
     try:
         assert [c.name for c in eng.slo_classes] == ["a", "b"]
-        with pytest.raises(NotImplementedError, match="item 10"):
-            eng.lint_report()
-        with pytest.raises(NotImplementedError, match="item 10"):
-            eng._predictor.expectations()
+        rep = eng.lint_report()
+        assert rep.ok and rep.findings == [] and rep.overlap["n_collectives"] == 0
+        assert rep.config["program"] == "serve_predict"
+        assert eng.registry.get("hlolint_ok").value(program="serve_predict") == 1.0
+        exp = eng._predictor.expectations()
+        assert vars(exp) == vars(jax_compose(jax_single()))
     finally:
         eng.stop()
 

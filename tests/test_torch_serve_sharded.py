@@ -18,7 +18,8 @@ follow. Checked:
 - ``parse_mesh`` and ``serving_mesh_config`` validation, messages equal to
   JAX's;
 - the follower loop ends on the stop the engine's ``stop`` sends, on every
-  rank, also when the leader's engine fails to construct.
+  rank, also for an engine with sampled attribution, whose bucket program
+  passes the lint's halo window.
 """
 
 import numpy as np
@@ -100,13 +101,21 @@ def _rank(rank, world, shape, params, stats, xs):
                         "stats": eng.stats()}
         finally:
             eng.stop()
-    # The leader's engine fails before any capture: the followers are released.
-    try:
-        res = sharded.sharded_engine(_spatial(params, grid), N_SP, stats, (SIZE, SIZE, 3),
-                                     grid, device="cpu", attribution_every=4)
-        out["failed"] = "followed" if res is None else "built"
-    except NotImplementedError as e:
-        out["failed"] = str(e)
+    # An engine with sampled attribution builds (its throwaway capture runs
+    # a replay on every rank); the leader lints its bucket's program.
+    res = sharded.sharded_engine(_spatial(params, grid), N_SP, stats, (SIZE, SIZE, 3),
+                                 grid, device="cpu", attribution_every=4)
+    if res is None:
+        out["failed"] = "followed"
+    else:
+        try:
+            rep = res.lint_report()
+            out["failed"] = "built"
+            out["lint"] = {"ok": rep.ok, "inventory": rep.inventory,
+                           "findings": rep.findings,
+                           "window": res._predictor.expectations().halo_shifts}
+        finally:
+            res.stop()
     return out
 
 
@@ -144,7 +153,13 @@ def test_followers_stop_cleanly(world):
     for r, out in enumerate(ranks[1:], start=1):
         assert [out["monolithic"], out["decomposed"]] == ["followed"] * 2, r
         assert out["failed"] == "followed", r
-    assert "ROADMAP queue 1 item 10" in ranks[0]["failed"]
+    assert ranks[0]["failed"] == "built"
+    # The bucket's forward issues its halo window's floor of permutes (a
+    # forward has no backward) and one join gather; the lint passes.
+    lint = ranks[0]["lint"]
+    assert lint["ok"] and lint["findings"] == []
+    assert lint["inventory"]["collective-permute"] == lint["window"] > 0
+    assert lint["inventory"]["all-gather"] == 1
 
 
 @pytest.mark.parametrize("spec", ["2x2", "1x4", "4X1", "four", "2x", "0x2", "2x-1", "1x1x1"])

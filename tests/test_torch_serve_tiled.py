@@ -20,7 +20,8 @@ JAX-calibrated statistics carried across. Checked:
   layers under the recorder;
 - the tiled engine: its own ``tiled`` SLO class and latency objective, the
   tiled_* series, the ledger entries, the per-request facts on the span
-  events, the stats block; its ``expectations`` raise naming item 10;
+  events, the stats block; its ``expectations`` are JAX's tiled gate (zero
+  collectives) and its lint passes;
 - bounded memory, the CPU half: the captured tile section's input is the
   window at every image size, the head's input grows with the image.
 """
@@ -295,8 +296,10 @@ def test_tiled_engine_serves_with_own_slo_class(model):
         assert tile_e["window"] == [40, 40]
         ev = [e for e in eng.flight.tail(100) if e.get("name") == "serve.request"]
         assert ev and ev[-1]["attrs"]["tiled"]["tiles"] == 16
-        with pytest.raises(NotImplementedError, match="item 10"):
-            eng._predictor.expectations()
+        exp = eng._predictor.expectations()
+        assert exp.single_chip and eng._predictor.collective_deltas()[0].layer == "tiled"
+        rep = eng.lint_report()
+        assert rep.ok and rep.overlap["n_collectives"] == 0
     finally:
         eng.stop()
 
