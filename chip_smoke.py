@@ -10,7 +10,7 @@
     python3 chip_smoke.py --tools-only    # only the build and the run tooling (t, e, s9)
     python3 chip_smoke.py --serve-only    # only the build and the serving phase r
     python3 chip_smoke.py --fleet-only    # only the build and the fleet phase f (f1-f3)
-    python3 chip_smoke.py --analysis-only # only the build and the analyzers' phase n (n3-n6)
+    python3 chip_smoke.py --analysis-only # only the build and the analyzers' phase n (n3-n10)
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -99,10 +99,10 @@ Phases (any failure exits non-zero; nothing is caught):
      step 2 of the fresh run (``MPI4DL_TPU_CRASH_AT_STEP=2``) and
      ``--trace-dir``: exit 0, "restarting (1/1)" and "resumed from step 2"
      printed, the newest checkpoint at step 4, one Chrome trace a rank, each
-     with CUDA kernel events. It times nothing, and in the full run it goes
-     on beside phase v1 (whose printed seconds then include its company).
-     Its lines read ``[e] supervised`` and ``[e]`` and the twin's output;
-     phase e of d-g below, K2's checks, is another;
+     with CUDA kernel events. It times nothing and runs with
+     ``--tools-only`` only (the full run left it out to keep inside its
+     time limit). Its lines read ``[e] supervised`` and ``[e]`` and the
+     twin's output; phase e of d-g below, K2's checks, is another;
   m. the bench's slice, in this process:
      m1. ``python -m mpi4dl_tpu_torch.bench``'s 2048 px training points
          through the functions it calls (``bench.measure_amoeba``,
@@ -113,7 +113,8 @@ Phases (any failure exits non-zero; nothing is caught):
          of the point must launch in its timed steps, chunks times as often
          a step as on phase c's path; img/s, step p50/p90/p99, MFU and peak
          memory printed;
-     m2. every ported remat policy on both main paths @1024 bs2: the first
+     m2. every ported remat policy on both main paths @1024 bs2 (AmoebaNet-D
+         at ``M2_LAYERS`` layers, its width kept, to save time): the first
          step's loss bit-equal to remat=False's and the same K1-K3 launches
          a step; peak memory and a step's time printed. Then phase b's
          small f32 models under each policy on the card against remat=False
@@ -123,7 +124,8 @@ Phases (any failure exits non-zero; nothing is caught):
          BENCH_SERVING=0 BENCH_TILED=0 BENCH_HLO=0 BENCH_ATTRIBUTION=0,
          the serving extra is r7's, the analyzers' keys phase n's): every
          JSON line parses, the last is ``amoebanetd_1024px_bs2_train_gpu``
-         with a value and an MFU, exit 0;
+         with a value, an MFU and a ``telemetry`` snapshot, exit 0 (phase
+         n7 reads that line);
   w. the peak-pixel walk's slice, in this process:
      w1. ResNet-110 v2 @1024 bs2 under ``scan2``, ``scan2`` with
          ``MPI4DL_TPU_SCAN2_OFFLOAD=1``, ``scanlog``, ``scanq``, ``scanq``
@@ -179,7 +181,7 @@ Phases (any failure exits non-zero; nothing is caught):
      ``ServingEngine`` of ResNet-110 v2 @1024 f32, TF32 off, weights from
      seed 0, a captured graph for buckets 1 and 2) on the card, one router
      process with its journal, federation on; in the full run they start
-     beside phase v1 and f1-f2 run after phase e ends:
+     beside phase v1 and f1-f2 run after it:
      f1. ``F1_REQUESTS`` requests, ``F_CONCURRENCY`` at a time, of
          ``F_IMAGES`` seeded images through ``RouterSetClient``: every
          answer within ``R_EAGER_TOL`` of max |logit| of this process's own
@@ -223,8 +225,8 @@ Phases (any failure exits non-zero; nothing is caught):
          on the CPU with the same weights and batch (loss and per-leaf
          gradients, 1e-3);
      s2. the spatial main paths: ResNet-110 v2 (``resnet_sp``) and then
-         AmoebaNet-D ``SP_LAYERS``L/416F (``amoebanet_sp``; 6L, 18L before
-         phase r came) @1024 bs2, every cell but
+         AmoebaNet-D ``SP_LAYERS``L/416F (``amoebanet_sp``; 3L, 18L before
+         phase r came, 6L before n7) @1024 bs2, every cell but
          the head on the tiles, bf16 compute / f32 params, SGD momentum
          0.9, random weights from the seed of phase c, remat=False,
          ``SP_WARMUP`` warm-up and ``SP_STEPS`` timed steps each. The first
@@ -415,9 +417,10 @@ Phases (any failure exits non-zero; nothing is caught):
      path's launch-weighted sum per step, and the layout copies that
      ``MaxPool.backward`` makes in front of K1 on the main path;
   h. the card's name and power limit from nvidia-smi, the run tooling's
-     seconds (t, e and s9), and each path's MFU
-     (``mpi4dl_tpu_torch.flops``: 3x the forward's conv and dense FLOPs an
-     image, over the card's bf16 peak);
+     seconds (t, e and s9), each path's MFU (``mpi4dl_tpu_torch.flops``: 3x
+     the forward's conv and dense FLOPs an image, over the card's bf16
+     peak), and where the script's seconds went: each phase tag's seconds,
+     from its first line to the next tag's first line;
   n. the analyzers (``mpi4dl_tpu_torch.analysis``):
      n1. (in phase t) phase t's trace through
          ``analysis.trace.analyze_trace_dir``: 2 attributed steps, each
@@ -454,8 +457,37 @@ Phases (any failure exits non-zero; nothing is caught):
          TF32 cuDNN's convs over the decomposed arm's shapes round
          otherwise), bucket 4,
          16 requests, 4 ranks: the arms' logits bit-equal, K4's kernels in
-         the trace of the replays, no lint error. Speed is never gated in
-         phase n.
+         the trace of the replays, no lint error;
+     n7. (in the full run, after phase f) the pure-JSON subcommands of
+         ``python -m mpi4dl_tpu_torch.analyze`` on what the run wrote:
+         ``tail`` and ``incident`` over phase f's fleet telemetry (the kill
+         incident's first cause ``chaos.injected``), ``trace-export`` over
+         the same logs, ``coldstart`` over the fleet workers' ledger dumps
+         (its manifest lists phase f's buckets), ``bench-history`` over
+         m3's result line against itself (no regression), and
+         ``memory-plan --ledger`` over the ledger phase c's steps record
+         through ``Trainer.record_memory_footprint`` (every peak fits the
+         card): each exits 0;
+     n8. (``--analysis-only``) ``analyze numerics`` live: ResNet-v1 depth
+         110 @1024 f32 (TF32 off) through the single-chip, the sharded
+         (``--mesh 2x2``, 4 ranks, K4 in its captures) and the tiled
+         predictor: the parameter checksums agree, every pair within the
+         JAX ``pair_atol``; each pair's max-abs and max-ulp printed;
+     n9. (``--analysis-only``) ``analyze memory-plan`` in plan mode: the
+         train probes of ResNet-110 v2 @2048 bs1 and AmoebaNet-D 18L/416F
+         @1024 bs2, each within ``N9_PEAK_RTOL`` of the peak that the bench's
+         ``train_throughput`` (m1's and phase c's code) measures for the
+         same point in a process of its own; ``--bisect px`` over
+         1024,2048,4096 with the limit between the 2048 probe's peak and the
+         card answers 2048; ``--program serve --bisect bucket`` on
+         AmoebaNet-D @1024 with the limit between buckets 2's and 4's
+         capture peaks answers 2;
+     n10. (``--analysis-only``) ``analyze costmodel`` live on the 2x2
+         spatial ResNet-v1 110 @1024 bf16 step, ``--interconnect nvlink``:
+         exit 0, the prediction's collective count equal to n3's lint of
+         the same step, no ``cost-model-crosscheck`` error; the predicted
+         comms seconds printed beside the trace's measured collective
+         seconds. Speed is never gated in phase n.
 
 The last lines are the ``{"kernels": [...]}`` line and then
 ``{"ok": true, "device": {...}}``.
@@ -468,6 +500,7 @@ import collections
 import contextlib
 import copy
 import gc
+import glob
 import json
 import math
 import os
@@ -537,16 +570,21 @@ SP_SPECS = {
     "amoebanet_sp_dec": ("amoebanet", DEC_ENV),
 }
 SP_PATHS = tuple(SP_SPECS)
-# Warm-up and timed steps of a spatial path (2 and 3 before phase p came;
-# cut to keep the whole script inside its time limit: the checks made at
-# every step, such as ResNet's bf16 losses against the D1 twin, now see 3
-# steps, not 5, and a path's median step is the larger of its 2).
-SP_WARMUP, SP_STEPS = 1, 2
+# Warm-up and timed steps of a spatial path (2 and 3 before phase p came, 1
+# and 2 before phase n7 came; cut to keep the whole script inside its time
+# limit: the checks made at every step, such as ResNet's bf16 losses against
+# the D1 twin, now see 2 steps, and a path's step time is its one timed
+# step's).
+SP_WARMUP, SP_STEPS = 1, 1
 # AmoebaNet-D's depth on the spatial paths (amoebanet_sp, _d2, _dec; 18L
-# before phase r came, cut to keep the whole script inside its time limit).
+# before phase r came, 6L before phase n7 came, cut to keep the whole script
+# inside its time limit; the width is kept).
 # Their f32 first step is held to a single-device f32 first step of the
 # same depth, weights and batch, run before phase s.
-SP_LAYERS = 6
+SP_LAYERS = 3
+# Phase m2's AmoebaNet-D depth (its width kept): the policies' bit-equality
+# and launch gates at 18L cost about a minute the script needs elsewhere.
+M2_LAYERS = 3
 D2_FUSED = 2  # the D2 ResNet's fused_layers
 # s8: the decomposed arm's f32 first-step loss against the monolithic arm's,
 # relative (the same math; cuDNN may pick other algorithms for the interior
@@ -573,7 +611,7 @@ BF16_FIRST_LOSS_RTOL = {"resnet": 2e-3, "amoebanet": 2e-2}
 # AmoebaNet-D D1 1.379, D2 1.384, decomposed 1.393).
 BF16_LOSS_RTOL = {"resnet": 2e-3}
 GRAD_DIST_RATIO = 1.25
-K4_TIMING_ITERS = 20
+K4_TIMING_ITERS = 5  # timed calls an exchange shape (one takes about 18 ms on one card)
 K4_TIMEOUT_S = 0.5  # phase s5's wait limit
 K4_ROUND_TRIPS = {"nccl": 1000, "gloo": 20}  # flag round trips timed in one launch
 # K4's timed exchange: the tile of the 128 px stage, whose W-phase strips
@@ -719,8 +757,34 @@ K2_TIMED = ((2, 1024, 1024, 64), 16, 3, 3, 1, 1)
 K3_TIMED = ((2, 512, 512, 104), 208)
 
 
+# Where the script's seconds went: [tag, seconds] in order, a tag's time
+# running from its first line to the next tag's first line.
+_PHASE_SECONDS: list = []
+_PHASE_AT = [None]
+
+
 def log(*args):
+    text = " ".join(str(a) for a in args)
+    if text.startswith("[") and "]" in text:
+        tag, now = text[1:text.index("]")], time.time()
+        if _PHASE_AT[0] is not None:
+            _PHASE_SECONDS[-1][1] += now - _PHASE_AT[0]
+        if not _PHASE_SECONDS or _PHASE_SECONDS[-1][0] != tag:
+            _PHASE_SECONDS.append([tag, 0.0])
+        _PHASE_AT[0] = now
     print(*args, flush=True)
+
+
+def phase_seconds() -> str:
+    """Each phase tag's seconds, in the order the tags first ran (a tag
+    that ran in several stretches sums them)."""
+    if _PHASE_AT[0] is not None and _PHASE_SECONDS:
+        _PHASE_SECONDS[-1][1] += time.time() - _PHASE_AT[0]
+        _PHASE_AT[0] = time.time()
+    total: dict = {}
+    for tag, sec in _PHASE_SECONDS:
+        total[tag] = total.get(tag, 0.0) + sec
+    return ", ".join(f"{tag} {sec:.1f}" for tag, sec in total.items())
 
 
 def cuda_ms(fn, iters=10, warmup=2):
@@ -1048,12 +1112,14 @@ def f32_first_loss(model, device, config=None, grads=False, **trainer_kwargs):
     return (loss, got) if grads else loss
 
 
-def phase_main(path, desc, build, shapes, profile=False):
+def phase_main(path, desc, build, shapes, profile=False, ledger=None):
     """Train one main path; returns its launches in the timed steps, its
     first step's loss in bf16 and f32 (:func:`f32_first_loss`), the layout
     copies in front of K1 in its first step (see :func:`_record_k1_layout`)
     and its img/s, and counts the kernels' call shapes of its first step
-    into ``shapes`` (from :func:`_new_calls`)."""
+    into ``shapes`` (from :func:`_new_calls`). With a ``ledger``, one more
+    step records its peak there (``Trainer.record_memory_footprint``, as
+    ``<path>_train_step``) for phase n7."""
     import torch
 
     from mpi4dl_tpu_torch.config import ParallelConfig
@@ -1108,6 +1174,11 @@ def phase_main(path, desc, build, shapes, profile=False):
             raise AssertionError(f"{desc}: kernel {name} launched {n} times in {STEPS} steps")
     if profile:
         profile_step(trainer, x, y)
+    if ledger is not None:
+        entry = trainer.record_memory_footprint(x, y, ledger=ledger,
+                                                program=f"{path}_train_step")
+        log(f"[c] Trainer.record_memory_footprint: {entry['program']} peak "
+            f"{entry['peak_bytes'] / 2**30:.2f} GiB (one more step, measure_peak)")
     ms = sorted(times)[len(times) // 2] * 1e3
     log(f"[c] losses {['%.4f' % v for v in losses]}")
     log(f"[c] step time median {ms:.1f} ms (all: {[round(t * 1e3, 1) for t in times]}), "
@@ -1363,15 +1434,22 @@ def _remat_step(build, policy, path):
 
 def phase_remat(policies):
     """Phase m2: every ported remat policy at full width on the two main
-    paths @1024 bs2 (the first step's loss bit-equal to remat=False's, the
+    paths @1024 bs2, AmoebaNet-D at ``M2_LAYERS`` (the first step's loss
+    bit-equal to remat=False's, the
     same K1-K3 launches a step; peak memory and a step's time printed), then
     phase b's small f32 models under each policy against remat=False on
     the card (loss equal, gradients within REMAT_GRAD_TOL). Returns each
     path's remat=False first-step loss and launches."""
     import torch
 
+    from mpi4dl_tpu_torch.models.amoebanet import amoebanetd
+
     bases = {}
-    for path, desc, build in main_models():
+    models = [(path, desc, build) if path != "amoebanet" else (
+        path, f"AmoebaNet-D {M2_LAYERS}L/{FILTERS}F @{SIZE} bs{BATCH}",
+        lambda dtype: amoebanetd(10, M2_LAYERS, FILTERS, dtype=dtype))
+        for path, desc, build in main_models()]
+    for path, desc, build in models:
         base = None
         for policy in (False,) + tuple(policies):
             first, ms, launches, peak, _ = _remat_step(build, policy, path)
@@ -1422,13 +1500,18 @@ def phase_bench_cli():
     if not (last.get("metric") == "amoebanetd_1024px_bs2_train_gpu"
             and (last.get("value") or 0) > 0 and last.get("mfu")):
         raise AssertionError(f"bench's last line: {last}")
+    if not (last.get("telemetry") or {}).get("metrics"):
+        raise AssertionError(f"bench's last line has no telemetry snapshot: {sorted(last)}")
     for line in lines:
         if not line.startswith("{"):
             log(f"[m3] bench: {line}")
+    shown = {k: v for k, v in last.items() if k != "telemetry"}
     log(f"[m3] python -m mpi4dl_tpu_torch.bench (BENCH_MODEL=amoebanet BENCH_STEPS=3 "
         f"BENCH_TIME_BUDGET=1 BENCH_SERVING=0 BENCH_TILED=0 BENCH_HLO=0 BENCH_ATTRIBUTION=0): "
         f"exit 0, {len(records)} JSON line(s) in {time.time() - t0:.1f} s, "
-        f"the last: {json.dumps(last)}")
+        f"the last: {json.dumps(shown)} (and a telemetry snapshot of "
+        f"{len(last['telemetry']['metrics'])} metrics)")
+    return last
 
 
 def _env(values):
@@ -5868,10 +5951,13 @@ def _f_served_twice(tele):
     return {t: n for t, n in served.items() if n > 1}, len(served)
 
 
-def finish_fleet(started, drills=False):
+def finish_fleet(started, drills=False, keep=None):
     """Phase f's f1-f2 (and f3 with ``drills``) on the fleet
-    :func:`start_fleet` started; the fleet is closed in every case.
-    Returns the seconds spent here."""
+    :func:`start_fleet` started; the fleet is closed in every case. With
+    ``keep`` (a directory), the fleet's telemetry and the serving
+    replicas' ledger dumps are copied there (``tele/``, ``ledgers/``) for
+    phase n7 before the fleet's folder goes. Returns the seconds spent
+    here."""
     import numpy as np
     import torch
 
@@ -6008,7 +6094,15 @@ def finish_fleet(started, drills=False):
         client = None
         agg.close()
         agg = None
+        if keep is not None:  # the dumps sit in the run folder close() removes
+            os.makedirs(os.path.join(keep, "ledgers"), exist_ok=True)
+            for i in range(F_REPLICAS):
+                dump = (sup.slot_by_index(i).ports or {}).get("ledger")
+                if dump and os.path.exists(dump):
+                    shutil.copy(dump, os.path.join(keep, "ledgers", f"r{i}.ledger.json"))
         sup.close()  # every replica's span log flushed
+        if keep is not None:
+            shutil.copytree(tele, os.path.join(keep, "tele"))
         twice, n_spans = _f_served_twice(tele)
         twice = {t: n for t, n in twice.items() if t.startswith(("f-f1-", "f-f2-"))}
         if twice:
@@ -6215,6 +6309,28 @@ N_MODEL = ["--size", str(SIZE), "--depth", str(RESNET_DEPTH)]
 N4_ARGV = ["sp-overlap", *N_MODEL, "--batch", str(BATCH), "--steps", "2", "--bf16"]
 N5_ARGV = ["pipeline", *N_MODEL, "--batch", "4", "--parts", "4", "--steps", "2", "--bf16"]
 N6_ARGV = ["serving-sharded", *N_MODEL, "--bucket", "4", "--requests", "16"]
+# Phase n8: the cross-predictor audit at the main paths' size, f32.
+N8_ARGV = ["numerics", *N_MODEL, "--mesh", "2x2"]
+# Phase n9: the train probes beside the bench's own measurement of the same
+# point (``peak_pixels --one``: ``bench.train_throughput``, remat=False
+# first), then the two bisections.
+N9_PEAK_RTOL = 0.02
+N9_TRAIN = [
+    ("resnet_2048", ["--model", "resnet", "--resnet-version", "2", "--depth",
+                     str(RESNET_DEPTH), "--size", "2048", "--batch", "1", "--dtype", "bfloat16"],
+     ["--one", "2048", "--model", "resnet", "--batch", "1"]),
+    ("amoebanet_1024", ["--model", "amoebanet", "--layers", str(LAYERS), "--filters",
+                        str(FILTERS), "--size", str(SIZE), "--batch", str(BATCH), "--dtype",
+                        "bfloat16"],
+     ["--one", str(SIZE), "--model", "amoebanet", "--batch", str(BATCH)]),
+]
+N9_BISECT_PX = ["--program", "train", *N9_TRAIN[0][1], "--bisect", "px",
+                "--px-candidates", "1024,2048,4096"]
+N9_SERVE = ["--program", "serve", "--model", "amoebanet", "--layers", str(LAYERS),
+            "--filters", str(FILTERS), "--size", str(SIZE), "--dtype", "bfloat16"]
+# Phase n10: the cost model of n3's 2x2 spatial step, in bf16.
+N10_ARGV = ["costmodel", "--interconnect", "nvlink", "--size", str(SIZE), "--batch",
+            str(BATCH), "--depth", str(RESNET_DEPTH), "--bf16", "--steps", "2"]
 
 
 def _analyze(argv, timeout=900):
@@ -6232,7 +6348,9 @@ def _analyze(argv, timeout=900):
 
 
 def phase_lint_cli():
-    """Phase n3: the lint CLI on ``N3_RUNS`` (see the docstring)."""
+    """Phase n3: the lint CLI on ``N3_RUNS`` (see the docstring); returns
+    each run's report."""
+    reports = {}
     for name, flags in N3_RUNS.items():
         with tempfile.TemporaryDirectory(prefix="mpi4dl-n3-") as tmp:
             path = os.path.join(tmp, "report.json")
@@ -6251,6 +6369,8 @@ def phase_lint_cli():
             f"{rep['config'].get('halo_shifts')}; peak "
             f"{(rep['memory'] or {}).get('peak_bytes')} B; findings "
             f"{[(f['rule'], f['severity']) for f in rep['findings']]}")
+        reports[name] = rep
+    return reports
 
 
 def _n_arms(tag, argv, out, stderr):
@@ -6327,10 +6447,197 @@ def phase_serving_overlap():
         f"arms' logits bit-equal; overlap_improved {out.get('overlap_improved')} (not gated)")
 
 
+def _n_run(tag, argv, timeout=900):
+    """``analyze`` with ``argv``, which must exit 0: (stdout, wall s)."""
+    rc, _, stdout, stderr, wall = _analyze(argv, timeout=timeout)
+    if rc != 0:
+        raise AssertionError(f"[{tag}] analyze {' '.join(argv)} exited {rc}: "
+                             f"{stdout[-2000:]} {stderr[-2000:]}")
+    return stdout, wall
+
+
+def phase_json_analyzers(keep, m3_line):
+    """Phase n7: the pure-JSON subcommands on what the full run wrote
+    (``keep``: phase f's ``tele/`` and ``ledgers/``, phase c's
+    ``c.ledger.json``; ``m3_line``: m3's last result line)."""
+    tele = os.path.join(keep, "tele")
+    out, wall = _n_run("n7", ["tail", tele, "--top", "3"], timeout=120)
+    rows = [ln for ln in out.splitlines() if ln.strip()]
+    log(f"[n7] analyze tail <phase f's telemetry> --top 3: exit 0 in {wall:.1f} s; "
+        f"{len(rows)} lines, the first {rows[0] if rows else None!r}")
+
+    out, wall = _n_run("n7", ["incident", tele, "--json"], timeout=120)
+    pms = json.loads(out)
+    kills = [pm for pm in pms if (pm.get("first_cause") or {}).get("event") == "chaos.injected"
+             and str(pm["first_cause"].get("attrs", {}).get("op", "")).startswith("kill:r1")]
+    if not kills:
+        raise AssertionError(f"[n7] incident: no incident blames the kill: "
+                             f"{[(pm.get('first_cause') or {}).get('event') for pm in pms]}")
+    inc = kills[0]["incident"]
+    log(f"[n7] analyze incident <phase f's telemetry> --json: exit 0 in {wall:.1f} s; "
+        f"{len(pms)} incident(s), {inc['id']} first cause chaos.injected "
+        f"{kills[0]['first_cause']['attrs']['op']}, MTTR {inc.get('mttr_s')} s, "
+        f"{len(kills[0].get('timeline') or [])} timeline events")
+
+    chrome = os.path.join(keep, "chrome.json")
+    _, wall = _n_run("n7", ["trace-export", tele, "-o", chrome], timeout=120)
+    with open(chrome) as f:
+        spans = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    if not spans:
+        raise AssertionError("[n7] trace-export wrote no span")
+    log(f"[n7] analyze trace-export <phase f's telemetry>: exit 0 in {wall:.1f} s; "
+        f"{len(spans)} spans across {len({e['pid'] for e in spans})} processes")
+
+    ledgers = sorted(glob.glob(os.path.join(keep, "ledgers", "*.json")))
+    manifest = os.path.join(keep, "manifest.json")
+    _, wall = _n_run("n7", ["coldstart", *ledgers, "--artifact", manifest], timeout=120)
+    with open(manifest) as f:
+        names = {g["executable"] for g in json.load(f)["executables"]}
+    want = {f"serve_predict[{b}]" for b in (1, F_MAX_BATCH)}
+    if not want <= names:
+        raise AssertionError(f"[n7] coldstart: the manifest lists {sorted(names)}, not "
+                             f"phase f's buckets {sorted(want)}")
+    log(f"[n7] analyze coldstart <{len(ledgers)} replicas' ledger dumps>: exit 0 in "
+        f"{wall:.1f} s; executables {sorted(names)}")
+
+    rounds = []
+    for n in (1, 2):
+        rounds.append(os.path.join(keep, f"BENCH_r0{n}.json"))
+        with open(rounds[-1], "w") as f:
+            json.dump({"n": n, "rc": 0, "parsed": m3_line}, f)
+    out, wall = _n_run("n7", ["bench-history", *rounds], timeout=120)
+    if "0 regression(s)" not in out:
+        raise AssertionError(f"[n7] bench-history: {out[-1000:]}")
+    log(f"[n7] analyze bench-history <m3's line as rounds 1 and 2>: exit 0 in {wall:.1f} s; "
+        f"{out.strip().splitlines()[-1]}")
+
+    limit = _card_bytes()
+    out, wall = _n_run("n7", ["memory-plan", "--ledger", os.path.join(keep, "c.ledger.json"),
+                              "--limit-bytes", str(limit)], timeout=120)
+    log(f"[n7] analyze memory-plan --ledger <phase c's ledger> --limit-bytes {limit}: exit 0 "
+        f"in {wall:.1f} s; " + "; ".join(ln.strip() for ln in out.splitlines()[1:]))
+
+
+def phase_numerics():
+    """Phase n8: ``analyze numerics`` live (see the docstring)."""
+    with tempfile.TemporaryDirectory(prefix="mpi4dl-n8-") as tmp:
+        path = os.path.join(tmp, "numerics.json")
+        rc, _, stdout, stderr, wall = _analyze([*N8_ARGV, "--json", path])
+        rep = None
+        if os.path.exists(path):
+            with open(path) as f:
+                rep = json.load(f)
+    if rep is None:
+        raise AssertionError(f"[n8] numerics exited {rc} with no report: {stderr[-3000:]}")
+    for p in rep["pairs"]:
+        log(f"[n8] {p['a']} | {p['b']}: max_abs {p['max_abs']:.3e}, max_ulp {p['max_ulp']}, "
+            f"atol {p['atol']:g}: {'ok' if p['ok'] else 'BREACH'}")
+    sharded = rep["predictors"]["sharded"]
+    log(f"[n8] analyze {' '.join(N8_ARGV)}: exit {rc} in {wall:.1f} s ({rep['config']['ranks']}, "
+        f"TF32 off); checksums {sorted({v['params_checksum'] for v in rep['predictors'].values()})}"
+        f"; K4 launches in the sharded predictor's capture {sharded['halo_launches']}")
+    if rc != 0 or not rep["ok"] or not rep["checksums_agree"]:
+        raise AssertionError(f"[n8] numerics: exit {rc}, ok {rep['ok']}, checksums agree "
+                             f"{rep['checksums_agree']}")
+    if not sharded["halo_launches"]:
+        raise AssertionError("[n8] no K4 launch in the sharded predictor's capture")
+
+
+def _n9_plan(argv):
+    """``analyze memory-plan`` in plan mode: (exit code, plan)."""
+    with tempfile.TemporaryDirectory(prefix="mpi4dl-n9-") as tmp:
+        path = os.path.join(tmp, "plan.json")
+        rc, _, stdout, stderr, wall = _analyze(["memory-plan", *argv, "--json", path])
+        if not os.path.exists(path):
+            raise AssertionError(f"[n9] memory-plan {' '.join(argv)} exited {rc} with no plan: "
+                                 f"{stdout[-1500:]} {stderr[-1500:]}")
+        with open(path) as f:
+            plan = json.load(f)
+    log(f"[n9] analyze memory-plan {' '.join(argv)}: exit {rc} in {wall:.1f} s; "
+        + "; ".join(f"{e['key']} peak {e['peak_bytes']} B fits {e['fits']}"
+                    for e in plan["entries"]))
+    return rc, plan
+
+
+def phase_memory_plan():
+    """Phase n9: ``analyze memory-plan`` in plan mode (see the docstring)."""
+    from mpi4dl_tpu_torch.peak_pixels import child_result
+
+    peaks = {}
+    for name, flags, ref_argv in N9_TRAIN:
+        rc, plan = _n9_plan(["--program", "train", *flags])
+        predicted = plan["predicted"]["peak_bytes"]
+        ref, code = child_result("mpi4dl_tpu_torch.peak_pixels", ref_argv, 900)
+        if rc != 0 or ref is None or not ref["ok"] or ref["remat"] is not False:
+            raise AssertionError(f"[n9] {name}: plan exit {rc}, the reference {ref} ({code})")
+        measured = ref["peak_gib"] * 2**30
+        err = abs(predicted - measured) / measured
+        log(f"[n9] {name}: predicted peak {predicted / 2**30:.3f} GiB, the bench's "
+            f"train_throughput in a process of its own {measured / 2**30:.3f} GiB "
+            f"({err:.2%}, tolerance {N9_PEAK_RTOL:.0%})")
+        if err > N9_PEAK_RTOL:
+            raise AssertionError(f"[n9] {name}: predicted {predicted} B, measured {measured} B")
+        peaks[name] = predicted
+    total = _card_bytes()
+    limit = (peaks["resnet_2048"] + total) // 2
+    rc, plan = _n9_plan([*N9_BISECT_PX, "--limit-bytes", str(limit)])
+    if rc != 0 or plan["bisect"]["max_feasible"] != 2048:
+        raise AssertionError(f"[n9] --bisect px: exit {rc}, {plan['bisect']}")
+    serve = {}
+    for b in (2, 4):
+        rc, plan = _n9_plan([*N9_SERVE, "--bucket", str(b), "--limit-bytes", str(total)])
+        if rc != 0:
+            raise AssertionError(f"[n9] serve bucket {b}: exit {rc}")
+        serve[b] = plan["predicted"]["peak_bytes"]
+    if not serve[2] < serve[4]:
+        raise AssertionError(f"[n9] serve capture peaks {serve}: bucket 4 not above bucket 2")
+    rc, plan = _n9_plan([*N9_SERVE, "--bisect", "bucket", "--max-bucket", "4",
+                         "--limit-bytes", str((serve[2] + serve[4]) // 2)])
+    if rc != 0 or plan["bisect"]["max_feasible"] != 2:
+        raise AssertionError(f"[n9] --bisect bucket: exit {rc}, {plan['bisect']}")
+    log(f"[n9] --bisect px answered 2048 under {limit / 2**30:.2f} GiB; --bisect bucket "
+        f"answered 2 under {(serve[2] + serve[4]) / 2 / 2**31:.3f} GiB (capture peaks: bucket 2 "
+        f"{serve[2] / 2**30:.3f}, bucket 4 {serve[4] / 2**30:.3f} GiB)")
+
+
+def _card_bytes() -> int:
+    import torch
+
+    return int(torch.cuda.get_device_properties(0).total_memory)
+
+
+def phase_costmodel(lint_reports):
+    """Phase n10: ``analyze costmodel`` live (see the docstring)."""
+    with tempfile.TemporaryDirectory(prefix="mpi4dl-n10-") as tmp:
+        path = os.path.join(tmp, "costmodel.json")
+        rc, _, stdout, stderr, wall = _analyze([*N10_ARGV, "--json", path])
+        if rc != 0 or not os.path.exists(path):
+            raise AssertionError(f"[n10] costmodel exited {rc}: {stdout[-2000:]} "
+                                 f"{stderr[-2000:]}")
+        with open(path) as f:
+            out = json.load(f)
+    pred = out["prediction"]
+    want = lint_reports["resnet 2x2 spatial"]["overlap"]["n_collectives"]
+    errors = [f for f in out["crosscheck"] if f["severity"] == "error"]
+    measured = out["measured"]["collective_s"]
+    log(f"[n10] analyze {' '.join(N10_ARGV)}: exit 0 in {wall:.1f} s; {pred['n_collectives']} "
+        f"collectives priced (n3's lint of the step: {want}; {pred['per_op']}); predicted "
+        f"comms {pred['comms_s'] * 1e3:.4f} ms a step against the trace's measured collective "
+        f"{'%.4f ms' % (measured * 1e3) if measured is not None else 'n/a'}; overlap claim "
+        f"{pred['overlap_claim']}; crosscheck {[(f['rule'], f['severity']) for f in out['crosscheck']]}")
+    if pred["n_collectives"] != want or errors:
+        raise AssertionError(f"[n10] {pred['n_collectives']} collectives against the lint's "
+                             f"{want}; crosscheck errors {errors}")
+
+
 def phase_analysis():
-    """Phases n3-n6 (``--analysis-only``)."""
-    for tag, run in (("n3", phase_lint_cli), ("n4", phase_sp_overlap),
-                     ("n5", phase_pipeline_lens), ("n6", phase_serving_overlap)):
+    """Phases n3-n6 and n8-n10 (``--analysis-only``)."""
+    t0 = time.time()
+    reports = phase_lint_cli()
+    log(f"[n3] phase n3 in {time.time() - t0:.1f} s")
+    for tag, run in (("n4", phase_sp_overlap), ("n5", phase_pipeline_lens),
+                     ("n6", phase_serving_overlap), ("n8", phase_numerics),
+                     ("n9", phase_memory_plan), ("n10", lambda: phase_costmodel(reports))):
         t0 = time.time()
         run()
         log(f"[{tag}] phase {tag} in {time.time() - t0:.1f} s")
@@ -6389,13 +6696,18 @@ def main(argv=None) -> int:
     calls = {}  # path -> kernel -> Counter of call shape -> calls in one step
     launches, rows, first_loss, k1_copies, ips = {}, [], {}, {}, {}
     cards = dict.fromkeys(("amoebanet", "resnet"), 1)
+    n7_dir = tempfile.TemporaryDirectory(prefix="mpi4dl-n7-")
     if not only:
+        from mpi4dl_tpu_torch.telemetry.memory import FootprintLedger
+
         for name, build, size in small_models():
             phase_small_reference(name, build, size)
+        c_ledger = FootprintLedger()
         for path, desc, build in main_models():
             calls[path] = _new_calls()
             launches[path], first_loss[path], k1_copies[path], ips[path] = phase_main(
-                path, desc, build, calls[path], args.profile)
+                path, desc, build, calls[path], args.profile, ledger=c_ledger)
+        c_ledger.dump(os.path.join(n7_dir.name, "c.ledger.json"))
     if runs("serve"):
         t0 = time.time()
         r1_exact = phase_serve_small()
@@ -6433,24 +6745,20 @@ def main(argv=None) -> int:
         phase_bench_points(calls, launches)
         bases = phase_remat([p for p in REMAT_POLICIES
                              if p is not False and p not in PEAK_PIXEL_POLICIES])
-        phase_bench_cli()
+        m3_line = phase_bench_cli()
         phase_walk_policies(bases["resnet"])
         phase_walk_steps(calls, launches)
-        supervised = start_supervised()  # phase e, beside v1
-        fleet = start_fleet()  # phase f's replicas start beside v1 too
+        fleet = start_fleet()  # phase f's replicas start beside v1
         try:
             phase_convergence(calls, launches)
         except BaseException:
-            stop_supervised(supervised)
             stop_fleet(fleet)
             raise
-        try:
-            tools_s += finish_supervised(supervised)
-        except BaseException:
-            stop_fleet(fleet)
-            raise
-        fleet_s = finish_fleet(fleet)
-        log(f"[f] phase f in {fleet_s:.1f} s after phase e (its replicas started beside v1)")
+        fleet_s = finish_fleet(fleet, keep=n7_dir.name)
+        log(f"[f] phase f in {fleet_s:.1f} s after phase v1 (its replicas started beside v1)")
+        t0 = time.time()
+        phase_json_analyzers(n7_dir.name, m3_line)
+        log(f"[n7] phase n7 in {time.time() - t0:.1f} s")
         phase_checkpoint(launches)
     if only and runs("fleet"):
         fleet_s = finish_fleet(start_fleet(), drills=True)
@@ -6458,7 +6766,7 @@ def main(argv=None) -> int:
     if only and runs("analysis"):
         t0 = time.time()
         phase_analysis()
-        log(f"[n] phases n3-n6 in {time.time() - t0:.1f} s")
+        log(f"[n] phases n3-n6 and n8-n10 in {time.time() - t0:.1f} s")
     k4_timing = None
     if runs("spatial"):
         if "amoebanet" in first_loss:  # the single-device reference at the SP depth
@@ -6512,9 +6820,10 @@ def main(argv=None) -> int:
         rows.append(halo_row(k4_timing, launches))
     smi = card()
     if runs("tools"):
-        log(f"[h] the run tooling (phases t, e and s9) added {tools_s:.1f} s (e: the part "
-            "not spent beside phase v1)")
-    log(f"[h] {time.time() - t_start:.1f} s in all")
+        log(f"[h] the run tooling added {tools_s:.1f} s (phases t and s9"
+            + (", and e" if only else "; e runs with --tools-only") + ")")
+    log(f"[h] {time.time() - t_start:.1f} s in all; seconds by phase tag: {phase_seconds()}")
+    n7_dir.cleanup()
     log(smi)
     log(phase_mfu(ips, cards, smi))
     print(json.dumps({"kernels": rows}), flush=True)

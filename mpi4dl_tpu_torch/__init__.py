@@ -18,5 +18,14 @@ This package imports ``torch`` and never ``jax``, and nothing of
 
 __version__ = "0.1.0"
 
-from mpi4dl_tpu_torch import utils  # noqa: F401
-from mpi4dl_tpu_torch.config import ParallelConfig  # noqa: F401
+
+
+def __getattr__(name):
+    # Lazy, so that the analyzers' pure-JSON subcommands import no torch.
+    import importlib
+
+    if name == "utils":
+        return importlib.import_module("mpi4dl_tpu_torch.utils")
+    if name == "ParallelConfig":
+        return importlib.import_module("mpi4dl_tpu_torch.config").ParallelConfig
+    raise AttributeError(f"module 'mpi4dl_tpu_torch' has no attribute {name!r}")

@@ -1,5 +1,4 @@
-"""The analyzers, runtime half (twin of ``mpi4dl_tpu/analysis/``'s trace
-lens, collective lint, expectations algebra and memory gate).
+"""The analyzers (twin of ``mpi4dl_tpu/analysis/``).
 
 - :mod:`~mpi4dl_tpu_torch.analysis.trace`: ``torch.profiler`` Chrome
   traces into per-step compute / collective / transfer / host-gap device
@@ -18,51 +17,75 @@ lens, collective lint, expectations algebra and memory gate).
   mpi4dl_tpu_torch.analyze``) and the three A/B harnesses
   (:mod:`~mpi4dl_tpu_torch.analysis.overlap_bench`,
   :mod:`~mpi4dl_tpu_torch.analysis.pipeline_bench`,
-  :mod:`~mpi4dl_tpu_torch.analysis.serving_overlap`).
-
-The pure-JSON analyzers (``tail``, ``incident``, ``coldstart``,
-``bench_history``, ``numerics``, ``memory_plan``, ``costmodel``) are the
-second half (ROADMAP queue 1 item 10, part 2).
+  :mod:`~mpi4dl_tpu_torch.analysis.serving_overlap`);
+- the second half: the pure-JSON analyzers over logs, ledgers and
+  reports (:mod:`~mpi4dl_tpu_torch.analysis.bench_history`,
+  :mod:`~mpi4dl_tpu_torch.analysis.coldstart`,
+  :mod:`~mpi4dl_tpu_torch.analysis.tail`,
+  :mod:`~mpi4dl_tpu_torch.analysis.incident`), the cross-predictor audit
+  (:mod:`~mpi4dl_tpu_torch.analysis.numerics`), the memory planner
+  (:mod:`~mpi4dl_tpu_torch.analysis.memory_plan`) and the communication
+  cost model (:mod:`~mpi4dl_tpu_torch.analysis.costmodel`).
 """
 
-from mpi4dl_tpu_torch.analysis.expectations import (  # noqa: F401
-    CollectiveDelta,
-    compose,
-    data_parallel_delta,
-    pipeline_delta,
-    single_chip_delta,
-    spatial_delta,
-    spatial_join_delta,
-    tiled_delta,
-)
-from mpi4dl_tpu_torch.analysis.inventory import (  # noqa: F401
-    COLLECTIVE_OPS,
-    CollectiveLog,
-    CollectiveRecord,
-    collective_inventory,
-    collective_log,
-    collective_records,
-    overlap_summary,
-)
-from mpi4dl_tpu_torch.analysis.memory import memory_summary  # noqa: F401
-from mpi4dl_tpu_torch.analysis.metrics import publish_report  # noqa: F401
-from mpi4dl_tpu_torch.analysis.report import (  # noqa: F401
-    Report,
-    analyze_records,
-    analyze_step,
-)
-from mpi4dl_tpu_torch.analysis.rules import (  # noqa: F401
-    DEFAULT_RULES,
-    Expectations,
-    Finding,
-    LintContext,
-    max_severity,
-    run_rules,
-)
-from mpi4dl_tpu_torch.analysis.trace import (  # noqa: F401
-    TraceError,
-    analyze_trace_dir,
-    crosscheck_overlap,
-    publish_attribution,
-    static_overlap_verdict,
-)
+# The exports are imported on first use, so that the analyzers' pure-JSON
+# subcommands import no torch.
+_EXPORTS = {
+    "INTERCONNECTS": "costmodel",
+    "Interconnect": "costmodel",
+    "collective_seconds": "costmodel",
+    "crosscheck_cost_model": "costmodel",
+    "predict_from_report": "costmodel",
+    "predict_program": "costmodel",
+    "publish_prediction": "costmodel",
+    "CollectiveDelta": "expectations",
+    "compose": "expectations",
+    "data_parallel_delta": "expectations",
+    "pipeline_delta": "expectations",
+    "single_chip_delta": "expectations",
+    "spatial_delta": "expectations",
+    "spatial_join_delta": "expectations",
+    "tiled_delta": "expectations",
+    "COLLECTIVE_OPS": "inventory",
+    "CollectiveLog": "inventory",
+    "CollectiveRecord": "inventory",
+    "collective_inventory": "inventory",
+    "collective_log": "inventory",
+    "collective_records": "inventory",
+    "overlap_summary": "inventory",
+    "Report": "report",
+    "analyze_records": "report",
+    "analyze_step": "report",
+    "DEFAULT_RULES": "rules",
+    "Expectations": "rules",
+    "Finding": "rules",
+    "LintContext": "rules",
+    "max_severity": "rules",
+    "run_rules": "rules",
+    "TraceError": "trace",
+    "analyze_trace_dir": "trace",
+    "crosscheck_overlap": "trace",
+    "publish_attribution": "trace",
+    "static_overlap_verdict": "trace",
+    "memory_summary": "memory",
+    "publish_report": "metrics",
+}
+
+
+def __getattr__(name):
+    import importlib
+
+    if name in _EXPORTS:
+        value = getattr(importlib.import_module(f"{__name__}.{_EXPORTS[name]}"), name)
+        globals()[name] = value  # looked up once
+        return value
+    try:
+        return importlib.import_module(f"{__name__}.{name}")
+    except ModuleNotFoundError as e:
+        if e.name != f"{__name__}.{name}":
+            raise
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}") from None
+
+
+def __dir__():
+    return sorted([*globals(), *_EXPORTS])

@@ -27,13 +27,23 @@ Examples::
     python -m mpi4dl_tpu_torch.analyze --model amoebanet --size 64 --dp 2
     python -m mpi4dl_tpu_torch.analyze --model resnet --dp 1 --spatial-parts 0
 
-Subcommands: ``sp-overlap`` (:mod:`~mpi4dl_tpu_torch.analysis.overlap_bench`),
-``pipeline`` (:mod:`~mpi4dl_tpu_torch.analysis.pipeline_bench`) and
-``serving-sharded`` (:mod:`~mpi4dl_tpu_torch.analysis.serving_overlap`), the
-three A/B harnesses. The JAX CLI's pure-JSON subcommands (``bench-history``,
-``trace-export``, ``tail``, ``incident``, ``costmodel``, ``coldstart``,
-``numerics``, ``memory-plan``) are not ported yet (ROADMAP queue 1 item 10,
-part 2) and exit with an argparse error.
+Subcommands, the JAX CLI's (``mpi4dl_tpu/analysis/cli.py:191-259``):
+
+- pure JSON, dispatched before anything imports torch: ``bench-history``
+  (:mod:`~mpi4dl_tpu_torch.analysis.bench_history`), ``trace-export``
+  (:func:`mpi4dl_tpu_torch.telemetry.federation.trace_export_main`),
+  ``tail`` (:mod:`~mpi4dl_tpu_torch.analysis.tail`), ``incident``
+  (:mod:`~mpi4dl_tpu_torch.analysis.incident`), ``coldstart``
+  (:mod:`~mpi4dl_tpu_torch.analysis.coldstart`), and the artifact modes of
+  ``costmodel --artifact``, ``numerics --artifact`` and ``memory-plan``
+  without ``--program``;
+- live: ``costmodel`` (:mod:`~mpi4dl_tpu_torch.analysis.costmodel`),
+  ``numerics`` (:mod:`~mpi4dl_tpu_torch.analysis.numerics`),
+  ``memory-plan --program`` (:mod:`~mpi4dl_tpu_torch.analysis.memory_plan`)
+  and the three A/B harnesses ``sp-overlap``
+  (:mod:`~mpi4dl_tpu_torch.analysis.overlap_bench`), ``pipeline``
+  (:mod:`~mpi4dl_tpu_torch.analysis.pipeline_bench`) and
+  ``serving-sharded`` (:mod:`~mpi4dl_tpu_torch.analysis.serving_overlap`).
 """
 
 from __future__ import annotations
@@ -45,13 +55,22 @@ import sys
 
 from mpi4dl_tpu_torch.analysis.rules import SEVERITY_ORDER
 
-HARNESSES = {
-    "sp-overlap": "mpi4dl_tpu_torch.analysis.overlap_bench",
-    "pipeline": "mpi4dl_tpu_torch.analysis.pipeline_bench",
-    "serving-sharded": "mpi4dl_tpu_torch.analysis.serving_overlap",
+# Each subcommand's module and entry. The pure-JSON ones (and the artifact
+# modes of costmodel, numerics and memory-plan) import no torch: the
+# modules import it inside their live paths only.
+SUBCOMMANDS = {
+    "bench-history": ("mpi4dl_tpu_torch.analysis.bench_history", "main"),
+    "trace-export": ("mpi4dl_tpu_torch.telemetry.federation", "trace_export_main"),
+    "tail": ("mpi4dl_tpu_torch.analysis.tail", "main"),
+    "incident": ("mpi4dl_tpu_torch.analysis.incident", "main"),
+    "coldstart": ("mpi4dl_tpu_torch.analysis.coldstart", "main"),
+    "costmodel": ("mpi4dl_tpu_torch.analysis.costmodel", "main"),
+    "numerics": ("mpi4dl_tpu_torch.analysis.numerics", "main"),
+    "memory-plan": ("mpi4dl_tpu_torch.analysis.memory_plan", "main"),
+    "sp-overlap": ("mpi4dl_tpu_torch.analysis.overlap_bench", "main"),
+    "pipeline": ("mpi4dl_tpu_torch.analysis.pipeline_bench", "main"),
+    "serving-sharded": ("mpi4dl_tpu_torch.analysis.serving_overlap", "main"),
 }
-PART_2 = ("bench-history", "trace-export", "tail", "incident", "costmodel", "coldstart",
-          "numerics", "memory-plan")
 REMATS = ("none", "cell", "sqrt", "scan", "scan2", "scanlog", "scanq", "scan_save",
           "cell_save", "group_save")
 
@@ -225,12 +244,10 @@ def _lint_rank(rank, world, argv):
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:]) if argv is None else list(argv)
-    if argv and argv[0] in HARNESSES:
-        return importlib.import_module(HARNESSES[argv[0]]).main(argv[1:])
-    parser = build_parser()
-    if argv and argv[0] in PART_2:
-        parser.error(f"{argv[0]} is not ported yet: ROADMAP queue 1 item 10, part 2")
-    args = parser.parse_args(argv)
+    if argv and argv[0] in SUBCOMMANDS:
+        module, entry = SUBCOMMANDS[argv[0]]
+        return getattr(importlib.import_module(module), entry)(argv[1:])
+    args = build_parser().parse_args(argv)
 
     from mpi4dl_tpu_torch.utils import resolve_device
 

@@ -28,20 +28,24 @@ serves through the tile stream, and the latency at a fixed large size).
 ``attribution`` or ``lint_ok`` key (the JAX extras' serving-side
 attribution). Then the
 fleet extras, with the JAX extras' result keys: ``fleet_2replica``
-(:func:`measure_fleet`), ``incident`` (:func:`measure_incident`),
-``multitenant`` (:func:`measure_multitenant`) and ``numerics``
-(:func:`measure_numerics`), turned off by ``BENCH_FLEET=0``,
+(:func:`measure_fleet`), ``coldstart`` (:func:`measure_coldstart`: a cold
+respawn against a warm-pool promotion, with the cold-start manifest),
+``incident`` (:func:`measure_incident`), ``multitenant``
+(:func:`measure_multitenant`) and ``numerics`` (:func:`measure_numerics`),
+turned off by ``BENCH_FLEET=0``, ``BENCH_COLDSTART=0``,
 ``BENCH_INCIDENT=0``, ``BENCH_MULTITENANT=0`` and ``BENCH_NUMERICS=0``; the
-fleets' workers run on the bench's device. ``coldstart`` waits for the
-analyzers' second part (ROADMAP queue 1 item 10, part 2).
+fleets' workers run on the bench's device.
 
 The analyzers (``bench.py:1187-1310``, ``:1445-1600``): after the headline
 the result line gains ``hlo`` (the lint of one more step of the headline's
-trainer under the collective log: inventory, bytes, peak memory, findings;
-``BENCH_HLO=0`` turns it off; the JAX entry's ``costmodel`` is part 2) and
-``attribution`` (a 2-step ``torch.profiler`` capture of it: per-step
-compute / collective / transfer / host-gap and the measured overlap,
-cross-checked with ``hlo``; ``BENCH_ATTRIBUTION=0``). Then three A/B
+trainer under the collective log: inventory, bytes, peak memory, findings,
+and ``costmodel``, its log priced under the ``cpu`` and ``nvlink`` priors;
+``BENCH_HLO=0`` turns it off) and ``attribution`` (a 2-step
+``torch.profiler`` capture of it: per-step compute / collective / transfer
+/ host-gap and the measured overlap, cross-checked with ``hlo`` and, under
+``costmodel``, with the cost model of the device it ran on;
+``BENCH_ATTRIBUTION=0``). Every line carries ``telemetry``, a snapshot of
+the bench's metrics registry in the JSONL metrics-event schema. Then three A/B
 extras, each ``python -m mpi4dl_tpu_torch.analyze`` as a subprocess on the
 bench's device: ``sp2x2_overlap`` (``sp-overlap``, 64 px, 4 steps, 3
 trials; ``BENCH_SP_OVERLAP=0``), ``serving_sharded`` (``serving-sharded``,
@@ -115,12 +119,25 @@ _T0 = time.monotonic()
 _RESULT: dict = {}  # the latest complete line
 # The last measured point's trainer and batch: the analyzers' step.
 _LAST_RUN: dict = {}
+_REGISTRY = None  # telemetry.MetricsRegistry, created in main()
+_TELEMETRY_LOG = None  # telemetry.JsonlWriter (MPI4DL_TPU_TELEMETRY_DIR)
 
 
 def _emit():
-    """Print the current result as one flushed JSON line."""
-    if _RESULT:
-        print(json.dumps(_RESULT), flush=True)
+    """Print the current result as one flushed JSON line. Each line carries
+    a ``telemetry`` snapshot in the JSONL metrics-event schema
+    (``bench.py:208-219``), so result lines and the
+    ``MPI4DL_TPU_TELEMETRY_DIR`` event log stay one schema."""
+    if not _RESULT:
+        return
+    if _REGISTRY is not None and _REGISTRY.names():
+        from mpi4dl_tpu_torch import telemetry
+
+        ev = telemetry.metrics_event(_REGISTRY)
+        _RESULT["telemetry"] = ev
+        if _TELEMETRY_LOG is not None:
+            _TELEMETRY_LOG.write(ev)
+    print(json.dumps(_RESULT), flush=True)
 
 
 def _on_signal(signum, frame):  # noqa: ARG001
@@ -181,6 +198,8 @@ def train_throughput(build, image_size, batch, steps, device, remats, grad_accum
         try:
             trainer = Trainer(init(build(), torch.Generator().manual_seed(SEED)), cfg,
                               remat=remat, grad_accum=grad_accum, device=device)
+            if _REGISTRY is not None:
+                trainer.publish_telemetry(_REGISTRY)
             for i in range(warmup):
                 with first_step() if i == 0 else contextlib.nullcontext():
                     float(trainer.train_step(x, y)["loss"])
@@ -616,6 +635,79 @@ def measure_fleet(device) -> dict:
             client.close()
 
 
+def measure_coldstart(device) -> dict:
+    """Cold-start decomposition extra (``bench.py:881``): two one-replica
+    fleets of the 16 px ResNet-v2 on ``device``, one ``kill -9`` each — arm
+    ``cold`` (no warm pool: recovery is a respawn, its seconds attributed
+    over ``spawn/import/construct/compile/warm/ready`` by the worker's
+    ready handshake) and arm ``promote`` (a warm pool of 1: recovery is a
+    standby's promotion, all ``ready``, ``compile`` 0). The replicas'
+    footprint-ledger dumps, read before teardown, feed
+    :func:`~mpi4dl_tpu_torch.analysis.coldstart.build_manifest`: the top
+    captures by capture seconds land in ``top_executables``."""
+    import signal as _signal
+
+    from mpi4dl_tpu_torch.analysis.coldstart import build_manifest
+    from mpi4dl_tpu_torch.fleet.supervisor import FleetSupervisor
+
+    env = _fleet_env(device)
+
+    def drill(warm_pool: int) -> dict:
+        # --max-batch 4: three buckets (1, 2, 4) for the manifest to rank.
+        sup = FleetSupervisor(
+            ["--image-size", "16", "--max-batch", "4", "--device", device.type],
+            router=None, registry=_REGISTRY, replicas=1, max_replicas=1,
+            warm_pool=warm_pool, env=env, reconcile_interval_s=0.1, backoff_base_s=0.1,
+            backoff_max_s=0.5, spawn_timeout_s=420.0,
+        )
+        try:
+            sup.start()
+            sup.wait_ready(timeout_s=420)
+            os.kill(sup.slot_by_index(0).pid, _signal.SIGKILL)
+            _wait_for(lambda: sup.last_recovery_s is not None and sup.running_count() >= 1,
+                      300.0)
+            # The replacement's ledger dump sits beside its ready file: read
+            # it BEFORE close() tears the run directory down.
+            ledgers = []
+            for i in range(2):
+                slot = sup.slot_by_index(i)
+                path = (slot.ports or {}).get("ledger") if slot else None
+                if path and os.path.exists(path):
+                    ledgers.append(path)
+            return {
+                "recovery_s": sup.last_recovery_s,
+                "phases": dict(sup.last_recovery_phases or {}),
+                "promotions": sup.promotions,
+                "manifest": build_manifest(ledgers, top=3) if ledgers else None,
+            }
+        finally:
+            sup.close()
+
+    cold = drill(0)
+    promote = drill(1)
+    manifest = promote["manifest"] or cold["manifest"]
+    speedup = None
+    if cold["recovery_s"] and promote["recovery_s"]:
+        speedup = round(cold["recovery_s"] / promote["recovery_s"], 1)
+    return {
+        "value": speedup,
+        "unit": "x promotion speedup (cold respawn s / warm-pool "
+                "promote s, kill -9 to routable)",
+        "recovery_s": {
+            arm: round(rec["recovery_s"], 2) if rec["recovery_s"] is not None else None
+            for arm, rec in (("cold", cold), ("promote", promote))
+        },
+        "phases": {arm: {k: round(v, 3) for k, v in rec["phases"].items()}
+                   for arm, rec in (("cold", cold), ("promote", promote))},
+        "promotions": promote["promotions"],
+        "top_executables": [
+            {"executable": g["executable"], "fingerprint": g["fingerprint"],
+             "compile_s": g["compile_s"]}
+            for g in (manifest or {}).get("executables", [])
+        ],
+    }
+
+
 def measure_incident(device) -> dict:
     """Incident-engine drill extra (``bench.py:705``): the replica kill
     drill scored by the incident engine — a standalone
@@ -852,6 +944,7 @@ def _hlo_overlap_metrics() -> "dict | None":
     if os.environ.get("BENCH_HLO", "1") == "0" or not _LAST_RUN:
         return None
     try:
+        from mpi4dl_tpu_torch.analysis.costmodel import predict_from_report, publish_prediction
         from mpi4dl_tpu_torch.analysis.expectations import compose
         from mpi4dl_tpu_torch.analysis.report import analyze_step
 
@@ -861,8 +954,36 @@ def _hlo_overlap_metrics() -> "dict | None":
                               remat=tr.remat_report(),
                               platform="gpu" if tr.device.type == "cuda" else "cpu",
                               config={"program": "train_step"}, program="train_step")
+        if _REGISTRY is not None:
+            import types
+
+            from mpi4dl_tpu_torch.analysis.metrics import publish_report
+            from mpi4dl_tpu_torch.telemetry.memory import FootprintLedger
+
+            publish_report(rep, _REGISTRY)
+            # The linted step's measured peak (None on the CPU), as
+            # record_compiled reads a captured program's.
+            FootprintLedger(registry=_REGISTRY).record_compiled(
+                "train_step", types.SimpleNamespace(memory=rep.memory))
         _LAST_RUN["lint_report"] = rep
+        # The cost model (``bench.py:1486-1507``): the same log priced under
+        # the CPU prior and NVLink's; the crosscheck reads the prior of the
+        # device the step ran on.
+        costmodel = {}
+        for ic in ("cpu", "nvlink"):
+            pred = predict_from_report(rep, interconnect=ic)
+            costmodel[ic] = {
+                "comms_s": pred["comms_s"],
+                "exposed_s": pred["exposed_s"],
+                "predicted_overlap_ratio": pred["overlap_ratio"],
+                "overlap_claim": pred["overlap_claim"],
+            }
+            if _REGISTRY is not None:
+                publish_prediction(pred, _REGISTRY, program="train_step")
+            if ic == ("nvlink" if tr.device.type == "cuda" else "cpu"):
+                _LAST_RUN["costmodel_pred"] = pred
         return {
+            "costmodel": costmodel,
             "inventory": {k: v for k, v in rep.inventory.items() if v},
             "total_collective_bytes": rep.overlap["total_bytes"],
             "bytes_by_op": rep.overlap["bytes_by_op"],
@@ -894,12 +1015,29 @@ def _trace_attribution() -> "dict | None":
 
         tr = _LAST_RUN["trainer"]
         summary = tr.capture_trace_attribution(_LAST_RUN["x"], _LAST_RUN["y"], steps=2,
-                                               logdir=logdir, program="train_step")
+                                               logdir=logdir, registry=_REGISTRY,
+                                               program="train_step")
         out = {"n_steps": summary["n_steps"], "per_step_mean": summary["per_step_mean"],
                "overlap": summary["collective"], "conv_impl": conv_overlap_impl()}
         if _LAST_RUN.get("lint_report") is not None:
             out["crosscheck"] = [f.as_dict()
                                  for f in crosscheck_overlap(_LAST_RUN["lint_report"], summary)]
+        pred = _LAST_RUN.get("costmodel_pred")
+        if pred is not None:
+            from mpi4dl_tpu_torch.analysis.costmodel import crosscheck_cost_model
+
+            measured = summary["collective"].get("overlap_ratio")
+            out["costmodel"] = {
+                "interconnect": pred["interconnect"],
+                "predicted_overlap_ratio": pred["overlap_ratio"],
+                "overlap_claim": pred["overlap_claim"],
+                # Drift means something only with an overlap claim; the
+                # port's log is synchronous, so it stays null.
+                "overlap_drift": (abs(float(measured) - float(pred["overlap_ratio"]))
+                                  if pred["overlap_claim"] and measured is not None else None),
+                "crosscheck": [f.as_dict()
+                               for f in crosscheck_cost_model(pred, measured_overlap=measured)],
+            }
         return out
     except Exception as e:  # noqa: BLE001 — advisory metrics only
         return {"error": f"{type(e).__name__}: {str(e)[:160]}"}
@@ -934,6 +1072,11 @@ def main(argv=None):
     signal.signal(signal.SIGTERM, _on_signal)
     signal.signal(signal.SIGINT, _on_signal)
     _budget()  # a malformed BENCH_TIME_BUDGET fails before any training
+    global _REGISTRY, _TELEMETRY_LOG
+    from mpi4dl_tpu_torch import telemetry
+
+    _REGISTRY = telemetry.MetricsRegistry()
+    _TELEMETRY_LOG = telemetry.JsonlWriter()  # MPI4DL_TPU_TELEMETRY_DIR-gated
     ap = argparse.ArgumentParser(description="Training benchmark of mpi4dl_tpu_torch.")
     ap.add_argument("--device", default=None,
                     help="cuda (the default; raises without a GPU) or cpu")
@@ -1046,6 +1189,8 @@ def main(argv=None):
     # The fleet extras, in ``bench.py``'s order (``bench.py:1876-1903``).
     if os.environ.get("BENCH_FLEET", "1") != "0":
         run_extra("fleet_2replica", lambda: measure_fleet(device), est_seconds=240.0)
+    if os.environ.get("BENCH_COLDSTART", "1") != "0":
+        run_extra("coldstart", lambda: measure_coldstart(device), est_seconds=180.0)
     if os.environ.get("BENCH_INCIDENT", "1") != "0":
         run_extra("incident", lambda: measure_incident(device), est_seconds=200.0)
     if os.environ.get("BENCH_MULTITENANT", "1") != "0":

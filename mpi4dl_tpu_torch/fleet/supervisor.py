@@ -628,7 +628,6 @@ class FleetSupervisor:
             slot.state = "standby"
             slot.death_t = None  # a pool backfill is not a recovery
             return
-        slot.state = "running"
         self._register_replica(slot)
         if slot.death_t is not None:
             # Death-to-replacement-serving: the fleet's recovery latency
@@ -641,6 +640,10 @@ class FleetSupervisor:
                 self.last_recovery_s, ports.get("phases")
             )
             slot.death_t = None
+        # Running last, under the lock the counts read: whoever sees the
+        # replacement running also sees it routed and its recovery recorded.
+        with self._lock:
+            slot.state = "running"
 
     def _on_death(self, slot: _Slot, reason: str, kind: str) -> None:
         """A confirmed-dead incarnation: requeue its work, count it,

@@ -94,6 +94,22 @@ def try_size(model: str, size: int, batch: int, remats, device) -> dict:
     return {"ok": True, "img_per_sec": round(ips, 4), "remat": remat, "peak_gib": peak}
 
 
+def child_result(module: str, argv, timeout_s: float) -> "tuple[dict | None, object]":
+    """Run ``python -m module *argv`` in a process of its own (an OOM there
+    leaves this process's allocator clean) and return ``(result, code)``:
+    the JSON of its last ``RESULT`` line (None without one) and its exit
+    code, or a note when it ran past ``timeout_s``."""
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    try:
+        proc = subprocess.run([sys.executable, "-m", module, *argv], capture_output=True,
+                              text=True, timeout=timeout_s, env=env, cwd=ROOT)
+        out, code = proc.stdout, proc.returncode
+    except subprocess.TimeoutExpired:
+        out, code = "", f"timeout after {timeout_s:g} s"
+    lines = [line for line in out.splitlines() if line.startswith("RESULT ")]
+    return (json.loads(lines[-1][len("RESULT "):]) if lines else None), code
+
+
 def _one(args) -> int:
     """``--one SIZE``: try one size and print its result as a ``RESULT``
     JSON line."""
@@ -118,20 +134,11 @@ def main(argv=None) -> int:
         return _one(args)
     peak, peak_ips, stopped_by, sizes = None, None, None, {}
     size = args.start
-    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     while size <= args.max:
-        cmd = [sys.executable, "-m", "mpi4dl_tpu_torch.peak_pixels", "--one", str(size),
-               "--model", args.model, "--batch", str(args.batch)]
+        argv = ["--one", str(size), "--model", args.model, "--batch", str(args.batch)]
         if args.device:
-            cmd += ["--device", args.device]
-        try:
-            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=TIMEOUT_S,
-                                  env=env, cwd=ROOT)
-            out, code = proc.stdout, proc.returncode
-        except subprocess.TimeoutExpired:
-            out, code = "", f"timeout after {TIMEOUT_S} s"
-        lines = [line for line in out.splitlines() if line.startswith("RESULT ")]
-        result = json.loads(lines[-1][len("RESULT "):]) if lines else None
+            argv += ["--device", args.device]
+        result, code = child_result("mpi4dl_tpu_torch.peak_pixels", argv, TIMEOUT_S)
         sizes[size] = result
         if result is None:
             stopped_by = f"{size}: CRASH ({code})"

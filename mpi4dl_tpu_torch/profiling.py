@@ -32,8 +32,6 @@ import tempfile
 import time
 from typing import Any
 
-import torch
-import torch.distributed as dist
 
 TRACE_DIR_ENV = "MPI4DL_TPU_TRACE_DIR"
 _STEP_LABEL = re.compile(r"^(.*)#step_num=(\d+)#$")
@@ -57,6 +55,8 @@ def percentiles(values, pcts=(50, 90, 99)) -> dict:
 def _read(obj) -> None:
     """Copy every tensor in ``obj`` (nested dicts, lists, tuples) to the
     host: the read waits for the work that made it."""
+    import torch
+
     if isinstance(obj, torch.Tensor):
         obj.cpu()
     elif isinstance(obj, dict):
@@ -121,12 +121,16 @@ class StepTimer:
 
 
 def _uses_card() -> bool:
+    import torch
+
     return torch.cuda.is_available() and torch.cuda.is_initialized()
 
 
 def trace_file(logdir: str) -> str:
     """Where :func:`trace` writes in ``logdir``: ``trace-rank<r>-<pid>.json``
     in a rank of an initialized process group, else ``trace-<pid>.json``."""
+    import torch.distributed as dist
+
     rank = f"rank{dist.get_rank()}-" if dist.is_initialized() else ""
     return os.path.join(logdir, f"trace-{rank}{os.getpid()}.json")
 
@@ -196,6 +200,8 @@ def annotate_step(name: str, step: "int | None" = None):
     refused."""
     if step is not None and not isinstance(step, numbers.Integral):
         raise TypeError(f"annotate_step: step must be a host integer, got {type(step).__name__}")
+    import torch
+
     label = name if step is None else f"{name}#step_num={int(step)}#"
     with torch.profiler.record_function(label):
         yield
@@ -223,6 +229,8 @@ class Capture:
         host-gap report (:func:`mpi4dl_tpu_torch.analysis.trace.analyze_trace_dir`,
         this rank's file in a process group); with a ``registry``, also
         publish the cataloged ``trace_*`` gauges under ``program``."""
+        import torch.distributed as dist
+
         from mpi4dl_tpu_torch.analysis.trace import analyze_trace_dir, publish_attribution
 
         rank = dist.get_rank() if dist.is_initialized() else None
@@ -242,6 +250,8 @@ def capture(step_fn, steps: int = 3, logdir: "str | None" = None,
     result), so every step's device work falls within its window.
     ``logdir=None`` captures into a fresh temporary directory (reported on
     :attr:`Capture.trace_dir`)."""
+    import torch
+
     if logdir is None:
         logdir = tempfile.mkdtemp(prefix="mpi4dl-capture-")
     times: list[float] = []

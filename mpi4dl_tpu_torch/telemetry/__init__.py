@@ -19,101 +19,100 @@ are built on them.
 
 import threading
 
-from mpi4dl_tpu_torch.telemetry.alerts import (  # noqa: F401
-    AlertState,
-    SLOEvaluator,
-    phase_attribution,
-)
-from mpi4dl_tpu_torch.telemetry.autoscale import (  # noqa: F401
-    AutoscaleConfig,
-    Autoscaler,
-)
-from mpi4dl_tpu_torch.telemetry.canary import (  # noqa: F401
-    CANARY_ATOL,
-    CanarySentinel,
-    CanaryState,
-    canary_example,
-    corrupt_params,
-    exact_digest,
-    params_checksum,
-    quantized_digest,
-    ulp_diff,
-)
-from mpi4dl_tpu_torch.telemetry.catalog import (  # noqa: F401
-    CATALOG,
-    MetricSpec,
-    declare,
-)
-from mpi4dl_tpu_torch.telemetry.export import (  # noqa: F401
-    MetricsServer,
-    render_prometheus,
-    unescape_help,
-    unescape_label_value,
-)
-from mpi4dl_tpu_torch.telemetry.federation import (  # noqa: F401
-    FederatedAggregator,
-    FederatedRegistry,
-    ReplicaTarget,
-    merge_snapshots,
-)
-from mpi4dl_tpu_torch.telemetry.flight import FlightRecorder  # noqa: F401
-from mpi4dl_tpu_torch.telemetry.incident import (  # noqa: F401
-    IncidentManager,
-    build_postmortem,
-    build_timeline,
-    reconstruct_incidents,
-)
-from mpi4dl_tpu_torch.telemetry.health import (  # noqa: F401
-    HealthState,
-    Watchdog,
-)
-from mpi4dl_tpu_torch.telemetry.jsonl import (  # noqa: F401
-    ENV_DIR,
-    JsonlWriter,
-    metrics_event,
-    read_events,
-    validate_event,
-)
-from mpi4dl_tpu_torch.telemetry.memory import (  # noqa: F401
-    FootprintLedger,
-    MemoryMonitor,
-    device_memory_limit,
-    device_memory_stats,
-    emit_oom_report,
-    is_oom_error,
-)
-from mpi4dl_tpu_torch.telemetry.registry import (  # noqa: F401
-    Counter,
-    Gauge,
-    Histogram,
-    MetricsRegistry,
-    Reservoir,
-)
-from mpi4dl_tpu_torch.telemetry.slo import (  # noqa: F401
-    BurnWindow,
-    Objective,
-    SLOConfig,
-    availability_objective,
-    latency_objective,
-)
-from mpi4dl_tpu_torch.telemetry.tail import TailWatcher  # noqa: F401
-from mpi4dl_tpu_torch.telemetry.windows import SnapshotWindow  # noqa: F401
-from mpi4dl_tpu_torch.telemetry.spans import (  # noqa: F401
-    chrome_trace,
-    group_spans_by_trace,
-    new_trace_id,
-    record_spans,
-    span_event,
-    spans_from_marks,
-)
+# The exports are imported on first use, so that the analyzers' pure-JSON
+# subcommands import no torch.
+_EXPORTS = {
+    "AlertState": "alerts",
+    "SLOEvaluator": "alerts",
+    "phase_attribution": "alerts",
+    "AutoscaleConfig": "autoscale",
+    "Autoscaler": "autoscale",
+    "CANARY_ATOL": "canary",
+    "CanarySentinel": "canary",
+    "CanaryState": "canary",
+    "canary_example": "canary",
+    "corrupt_params": "canary",
+    "exact_digest": "canary",
+    "params_checksum": "canary",
+    "quantized_digest": "canary",
+    "ulp_diff": "canary",
+    "CATALOG": "catalog",
+    "MetricSpec": "catalog",
+    "declare": "catalog",
+    "MetricsServer": "export",
+    "render_prometheus": "export",
+    "unescape_help": "export",
+    "unescape_label_value": "export",
+    "FederatedAggregator": "federation",
+    "FederatedRegistry": "federation",
+    "ReplicaTarget": "federation",
+    "merge_snapshots": "federation",
+    "IncidentManager": "incident",
+    "build_postmortem": "incident",
+    "build_timeline": "incident",
+    "reconstruct_incidents": "incident",
+    "HealthState": "health",
+    "Watchdog": "health",
+    "ENV_DIR": "jsonl",
+    "JsonlWriter": "jsonl",
+    "metrics_event": "jsonl",
+    "read_events": "jsonl",
+    "validate_event": "jsonl",
+    "FootprintLedger": "memory",
+    "MemoryMonitor": "memory",
+    "device_memory_limit": "memory",
+    "device_memory_stats": "memory",
+    "emit_oom_report": "memory",
+    "is_oom_error": "memory",
+    "Counter": "registry",
+    "Gauge": "registry",
+    "Histogram": "registry",
+    "MetricsRegistry": "registry",
+    "Reservoir": "registry",
+    "BurnWindow": "slo",
+    "Objective": "slo",
+    "SLOConfig": "slo",
+    "availability_objective": "slo",
+    "latency_objective": "slo",
+    "chrome_trace": "spans",
+    "group_spans_by_trace": "spans",
+    "new_trace_id": "spans",
+    "record_spans": "spans",
+    "span_event": "spans",
+    "spans_from_marks": "spans",
+    "FlightRecorder": "flight",
+    "TailWatcher": "tail",
+    "SnapshotWindow": "windows",
+}
+
+
+def __getattr__(name):
+    import importlib
+
+    if name in _EXPORTS:
+        value = getattr(importlib.import_module(f"{__name__}.{_EXPORTS[name]}"), name)
+        globals()[name] = value  # looked up once
+        return value
+    try:
+        return importlib.import_module(f"{__name__}.{name}")
+    except ModuleNotFoundError as e:
+        if e.name != f"{__name__}.{name}":
+            raise
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}") from None
+
+
+def __dir__():
+    return sorted([*globals(), *_EXPORTS])
 
 _default_registry: "MetricsRegistry | None" = None
 _default_lock = threading.Lock()
 
 
-def default_registry() -> MetricsRegistry:
+def default_registry() -> "MetricsRegistry":
     """The lazily-created process-wide registry, for publishers not handed
     an explicit one."""
+    from mpi4dl_tpu_torch.telemetry.registry import MetricsRegistry
+
     global _default_registry
     with _default_lock:
         if _default_registry is None:

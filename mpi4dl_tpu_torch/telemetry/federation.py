@@ -35,8 +35,8 @@ re-exports the whole fleet as one scrape — federation nests.
 
 Span segments from the replicas' JSONL logs join by ``trace_id``
 (:func:`mpi4dl_tpu_torch.telemetry.spans.group_spans_by_trace`) and export as a
-Chrome trace via :func:`trace_export_main` (the port's ``analyze
-trace-export`` entry is ROADMAP queue 1 item 10, part 2).
+Chrome trace via :func:`trace_export_main` (``python -m
+mpi4dl_tpu_torch.analyze trace-export``).
 
 Runnable standalone (the zero-to-fleet-dashboard path)::
 
@@ -1041,10 +1041,10 @@ def _collect_events(paths) -> "list[dict]":
 
 
 def trace_export_main(argv=None) -> int:
-    """``trace-export LOG... [--trace-id ID] [-o OUT]`` (the body of the JAX
-    ``analyze trace-export``; the port's ``analyze trace-export`` entry is
-    ROADMAP queue 1 item 10, part 2) — join span segments from N processes' JSONL logs by
-    trace id and write one Chrome trace (chrome://tracing / Perfetto).
+    """``analyze trace-export LOG... [--trace-id ID] [-o OUT]`` (the body of
+    the JAX ``analyze trace-export``) — join span segments from N processes'
+    JSONL logs by trace id and write one Chrome trace (chrome://tracing /
+    Perfetto).
     Pure JSON: no devices — safe before any backend setup."""
     import argparse
     import sys

@@ -32,8 +32,7 @@ Everything the live manager computes goes through the same pure
 builders (:func:`build_timeline`, :func:`first_cause`,
 :func:`blast_radius`, :func:`build_postmortem`,
 :func:`reconstruct_incidents`) the offline analyzer
-(the JAX package's ``analyze incident``; the port's is ROADMAP queue 1
-item 10, part 2) uses — the live
+(``python -m mpi4dl_tpu_torch.analyze incident``) uses — the live
 ``/incidentz`` timeline and the from-logs reconstruction are the same
 code over the same files, so they match event for event.
 

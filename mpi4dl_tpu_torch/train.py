@@ -898,6 +898,46 @@ class Trainer:
                                 logdir=logdir)
         return cap.attribution(registry=registry, program=program)
 
+    def publish_telemetry(self, registry=None, x_shape=None, dtype=torch.float32):
+        """Publish the trainer's static facts as cataloged gauges
+        (``mpi4dl_tpu/train.py:1031``): the remat store budget and granted
+        bytes (:meth:`remat_report`) and, given ``x_shape``, the forward
+        halo-shift count (:meth:`halo_shift_count`, a meta-device walk with
+        no device work). ``registry=None`` uses the process-wide default.
+        Returns the registry."""
+        from mpi4dl_tpu_torch import telemetry
+
+        reg = registry if registry is not None else telemetry.default_registry()
+        rep = self.remat_report()
+        telemetry.declare(reg, "train_remat_store_budget_mb").set(rep["store_budget_mb"])
+        telemetry.declare(reg, "train_remat_granted_bytes").set(rep["granted_bytes"])
+        if x_shape is not None:
+            telemetry.declare(reg, "train_halo_shifts").set(
+                self.halo_shift_count(x_shape, dtype=dtype))
+        return reg
+
+    def record_memory_footprint(self, x, y, ledger=None, registry=None,
+                                program: str = "train_step") -> dict:
+        """Record one measured step's peak (``mpi4dl_tpu/train.py:1169``)
+        into a :class:`~mpi4dl_tpu_torch.telemetry.memory.FootprintLedger`
+        (a fresh one when none is given) as ``program``: the step runs
+        under :func:`~mpi4dl_tpu_torch.analysis.memory.measure_peak` (a
+        real update; an eager step has no program to read before it runs),
+        so ``program_peak_hbm_bytes{program=}`` carries what the allocator
+        saw. On the CPU the entry's ``peak_bytes`` is None. Returns the
+        entry."""
+        import types
+
+        from mpi4dl_tpu_torch.analysis.memory import measure_peak
+        from mpi4dl_tpu_torch.telemetry.memory import FootprintLedger
+
+        if ledger is None:
+            ledger = FootprintLedger(registry=registry)
+        with measure_peak(self.device) as box:
+            float(self.train_step(x, y)["loss"])
+        memory = ({"peak_bytes": box["peak_bytes"], "pool_bytes": None} if box else None)
+        return ledger.record_compiled(program, types.SimpleNamespace(memory=memory))
+
     def state_tensors(self):
         """``(params, momentum, step)``: per cell, ``{name: tensor}`` of its
         parameters and of their SGD momentum buffers, and :attr:`step`

@@ -66,12 +66,22 @@ def test_lint_cli_one_device_in_process(tmp_path, capsys):
     assert "0 collectives" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("sub", cli.PART_2)
+# The JAX CLI's subcommands that the analyzers' second part ported.
+PART_2 = ("bench-history", "trace-export", "tail", "incident", "costmodel", "coldstart",
+          "numerics", "memory-plan")
+
+
+@pytest.mark.parametrize("sub", PART_2)
 def test_part_2_subcommands_exit_naming_the_item(sub, capsys):
+    """Each subcommand reaches its own module: ``--help`` exits 0 with the
+    subcommand's usage, and nothing says it is not ported."""
+    assert "PART_2" not in vars(cli)
     with pytest.raises(SystemExit) as exc:
-        cli.main([sub])
-    assert exc.value.code == 2
-    assert "ROADMAP queue 1 item 10, part 2" in capsys.readouterr().err
+        cli.main([sub, "--help"])
+    assert exc.value.code == 0
+    out = capsys.readouterr()
+    assert "not ported" not in out.out + out.err
+    assert f"usage: python -m mpi4dl_tpu_torch.analyze {sub}" in out.out
 
 
 def test_serve_cli_lint_and_trace_dir(tmp_path, capsys):
@@ -94,7 +104,7 @@ def test_serve_cli_lint_and_trace_dir(tmp_path, capsys):
 def test_bench_result_line_has_hlo_and_attribution():
     off = {k: "0" for k in ("BENCH_SERVING", "BENCH_TILED", "BENCH_FLEET", "BENCH_INCIDENT",
                             "BENCH_MULTITENANT", "BENCH_NUMERICS", "BENCH_SP_OVERLAP",
-                            "BENCH_SERVING_SHARDED", "BENCH_PIPELINE")}
+                            "BENCH_SERVING_SHARDED", "BENCH_PIPELINE", "BENCH_COLDSTART")}
     out = subprocess.run([sys.executable, "-m", "mpi4dl_tpu_torch.bench", "--device", "cpu"],
                          env=_env(BENCH_MODEL="resnet", BENCH_IMAGE_SIZE="32", BENCH_STEPS="1",
                                   **off),
@@ -103,10 +113,12 @@ def test_bench_result_line_has_hlo_and_attribution():
     records = [json.loads(ln) for ln in out.stdout.splitlines() if ln.startswith("{")]
     assert len(records) == 3  # the headline, + hlo, + attribution
     last = records[-1]
-    assert set(last["hlo"]) == {"inventory", "total_collective_bytes", "bytes_by_op",
-                                "async_pairs", "zero_overlap", "min_compute_between",
-                                "peak_hbm_bytes", "findings"}
+    assert set(last["hlo"]) == {"costmodel", "inventory", "total_collective_bytes",
+                                "bytes_by_op", "async_pairs", "zero_overlap",
+                                "min_compute_between", "peak_hbm_bytes", "findings"}
     assert last["hlo"]["inventory"] == {} and last["hlo"]["findings"] == []
+    assert set(last["hlo"]["costmodel"]) == {"cpu", "nvlink"}
     assert set(last["attribution"]) == {"n_steps", "per_step_mean", "overlap", "conv_impl",
-                                        "crosscheck"}
+                                        "crosscheck", "costmodel"}
+    assert all(r["telemetry"]["kind"] == "metrics" for r in records)
     assert last["attribution"]["n_steps"] == 2 and last["attribution"]["crosscheck"] == []

@@ -14,21 +14,23 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # The keys of a training entry (``bench.py:1687-1693``, ``:1741-1759``), less
-# ``telemetry`` (not ported yet) and the analyzers' ``hlo`` and
-# ``attribution``, which these runs turn off (tests/test_torch_analysis_cli.py
-# holds them).
+# the analyzers' ``hlo`` and ``attribution``, which these runs turn off
+# (tests/test_torch_analysis_cli.py holds them); every line carries the
+# registry's ``telemetry`` snapshot (``bench.py:208-219``).
 ENTRY_KEYS = {"value", "remat", "mfu", "step_time_s", "vs_baseline"}
-HEADLINE_KEYS = ENTRY_KEYS | {"metric", "unit"}
+HEADLINE_KEYS = ENTRY_KEYS | {"metric", "unit", "telemetry"}
 
 
 def _run(extra_env, args=("--device", "cpu"), timeout=300):
     base = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
     # The serving extras are held by tests/test_torch_loadgen.py, the fleet
-    # extras by tests/test_torch_fleet_cli.py, which call them in process, and
-    # the analyzers' keys and extras by tests/test_torch_analysis_cli.py and
+    # extras by tests/test_torch_fleet_cli.py and the coldstart extra by
+    # tests/test_torch_analysis_live.py, which call them in process, and the
+    # analyzers' keys and extras by tests/test_torch_analysis_cli.py and
     # test_torch_analysis_harness.py; these runs hold the training points alone.
     env = dict(base, PYTHONPATH=REPO + os.pathsep + base.get("PYTHONPATH", ""),
                OMP_NUM_THREADS="1", BENCH_SERVING="0", BENCH_TILED="0", BENCH_FLEET="0",
+               BENCH_COLDSTART="0",
                BENCH_INCIDENT="0", BENCH_MULTITENANT="0", BENCH_NUMERICS="0",
                BENCH_HLO="0", BENCH_ATTRIBUTION="0", BENCH_SP_OVERLAP="0",
                BENCH_SERVING_SHARDED="0", BENCH_PIPELINE="0")
@@ -52,6 +54,8 @@ def test_amoebanet_headline_line_shape():
     assert r["metric"] == "amoebanetd_64px_bs2_train_cpu"
     assert r["unit"] == "images/sec"
     assert isinstance(r["value"], float) and r["value"] > 0
+    assert r["telemetry"]["kind"] == "metrics"
+    assert "train_remat_store_budget_mb" in r["telemetry"]["metrics"]
     assert r["remat"] is False
     assert r["mfu"] is None  # no peak rate for the CPU
     assert r["vs_baseline"] is None  # the reference published no 64 px point

@@ -48,7 +48,9 @@ ANALYSIS_MODULES = ("analyze", "analysis", "analysis.trace", "analysis.inventory
                     "analysis.rules", "analysis.expectations", "analysis.memory",
                     "analysis.report", "analysis.metrics", "analysis.cli",
                     "analysis.overlap_bench", "analysis.pipeline_bench",
-                    "analysis.serving_overlap")
+                    "analysis.serving_overlap", "analysis.bench_history",
+                    "analysis.coldstart", "analysis.tail", "analysis.incident",
+                    "analysis.numerics", "analysis.memory_plan", "analysis.costmodel")
 PORT_MODULES = sorted(
     _module_name(p) for p in (REPO / "mpi4dl_tpu_torch").rglob("*.py")
 )
@@ -112,7 +114,9 @@ def test_fleet_worker_help_loads_no_jax():
     assert "--ready-file" in out.stdout and out.stdout.strip().endswith("ok")
 
 
-@pytest.mark.parametrize("argv", [[], ["pipeline"]], ids=["lint", "pipeline"])
+@pytest.mark.parametrize("argv", [[], ["pipeline"], ["costmodel"], ["numerics"],
+                                  ["memory-plan", "--program", "train"]],
+                         ids=["lint", "pipeline", "costmodel", "numerics", "memory-plan"])
 def test_analyze_without_device_refuses_without_cuda(argv):
     """``python -m mpi4dl_tpu_torch.analyze`` (the lint and a harness) runs
     on the card unless ``--device cpu`` is given: without a card it raises
