@@ -4,9 +4,8 @@
     python3 chip_smoke.py                 # the full run, a few minutes on one H100
     python3 chip_smoke.py --profile       # + a torch.profiler breakdown of one step of each path
     python3 chip_smoke.py --spatial-only  # only the build and phase s (for a 4-card host)
-    python3 chip_smoke.py --pipeline-only # only the build and phase p
-    python3 chip_smoke.py --sp-lp-only    # only the build and phase q
-    python3 chip_smoke.py --gems-only     # only the build and phase g (for a 4-card host)
+    python3 chip_smoke.py --pipeline-only # only the build and phase p (with g's 2-rank part)
+    python3 chip_smoke.py --gems-only     # only the build and phases p, q and g (for a 4-card host)
     python3 chip_smoke.py --tools-only    # only the build and the run tooling (t, e, s9)
     python3 chip_smoke.py --serve-only    # only the build and the serving phase r
     python3 chip_smoke.py --fleet-only    # only the build and the fleet phase f (f1-f3)
@@ -78,14 +77,22 @@ Phases (any failure exits non-zero; nothing is caught):
          with the default tile behind a ``tiled_engine``, ``R5_REQUESTS``
          requests and one monolithic forward: the tiled request's peak
          (``max_memory_allocated`` plus the graph pool) under half of the
-         monolithic forward's; tiles, stitch and stream s, latency and the
-         bf16 difference printed;
+         monolithic forward's, and the engine's ``lint_report()`` clean
+         (the single-chip zero-collectives rule); tiles, stitch and stream
+         s, latency and the bf16 difference printed;
      r6. (beside r5) ``python -m mpi4dl_tpu_torch.serve --mesh 2x2
          --requests 8 --serial 0`` as a subprocess (4 rank processes, K4
          inside each bucket's graphs): exit 0, one report line, mesh [2, 2];
      r7. the bench's ``serving_amoebanet3_32px`` extra
-         (``bench.measure_serving``) in this process: throughput above 0 and
-         an SLO verdict;
+         (``bench.measure_serving``) in this process: throughput above 0, an
+         SLO verdict, ``lint_ok`` true and no ``lint_findings``,
+         ``attribution`` with attributed batches and no error (its device
+         share printed), and ``sched_ab`` with both arms' tight-class p99
+         and rps and no deadline miss (EDF's and FIFO's tight p99, their
+         ratio and rps printed, not gated); then the trace's cost on the
+         extra's throughput, read on one engine of its own (its closed loop
+         alternately untraced and traced, ``R7_TRACE_PAIRS`` pairs; printed,
+         not gated);
   t. ``mpi4dl_tpu_torch.profile_step.main`` on ResNet-110 v2 @1024 bs2 (its
      default ``cell_save``, 2 warm-up and 2 traced steps) in this process,
      K1-K4's counts set to 0 just before and read after: its two
@@ -99,10 +106,15 @@ Phases (any failure exits non-zero; nothing is caught):
      step 2 of the fresh run (``MPI4DL_TPU_CRASH_AT_STEP=2``) and
      ``--trace-dir``: exit 0, "restarting (1/1)" and "resumed from step 2"
      printed, the newest checkpoint at step 4, one Chrome trace a rank, each
-     with CUDA kernel events. It times nothing and runs with
-     ``--tools-only`` only (the full run left it out to keep inside its
-     time limit). Its lines read ``[e] supervised`` and ``[e]`` and the
-     twin's output; phase e of d-g below, K2's checks, is another;
+     with CUDA kernel events. Then the same supervision of the ResNet SP
+     twin (ResNet-11 v2 @64, its front on a 2x2 grid of 32 px tiles,
+     split 2, 4 ranks, ``E_SP_ARGV``) with ``MPI4DL_TPU_RUN_REPORT``: the
+     same gates, and K4 launched on every rank in the restarted run's
+     steps after its first (its world opens fresh K4 rings); its wall time
+     printed. It times nothing and runs with ``--tools-only`` only (the
+     full run left it out to keep inside its time limit). Its lines read
+     ``[e] supervised`` and ``[e]`` and the twins' output; phase e of d-g
+     below, K2's checks, is another;
   m. the bench's slice, in this process:
      m1. ``python -m mpi4dl_tpu_torch.bench``'s 2048 px training points
          through the functions it calls (``bench.measure_amoeba``,
@@ -119,7 +131,8 @@ Phases (any failure exits non-zero; nothing is caught):
          a step; peak memory and a step's time printed. Then phase b's
          small f32 models under each policy on the card against remat=False
          (loss equal, gradients within ``REMAT_GRAD_TOL``);
-     m3. ``python -m mpi4dl_tpu_torch.bench`` as a subprocess
+     m3. (beside m2 and w1, whose printed step times then include it)
+         ``python -m mpi4dl_tpu_torch.bench`` as a subprocess
          (BENCH_MODEL=amoebanet BENCH_STEPS=3 BENCH_TIME_BUDGET=1
          BENCH_SERVING=0 BENCH_TILED=0 BENCH_HLO=0 BENCH_ATTRIBUTION=0,
          the serving extra is r7's, the analyzers' keys phase n's): every
@@ -138,11 +151,11 @@ Phases (any failure exits non-zero; nothing is caught):
          remat=False (loss equal, gradients within ``REMAT_GRAD_TOL``);
      w2. the walk's steps past what remat=False fits, ResNet-110 v2 bs1:
          @3072 under ``scanlog`` and @4096 under ``scanq`` with the bench's
-         3000 MB store budget, 2 steps each. The first records the
-         kernels' call shapes (phases d-g gate and time them: x up to
-         [1,4096,4096,64], 2^31 bytes); every count is set to 0 before the
-         second and read after it: K2 and K3 launch as often as on phase
-         c's ResNet-110 path; peak memory and step times printed;
+         3000 MB store budget, one step each. It records the kernels'
+         call shapes (phases d-g gate and time them: x up to
+         [1,4096,4096,64], 2^31 bytes); every count is set to 0 before it
+         and read after it: K2 and K3 launch as often as on phase c's
+         ResNet-110 path; peak memory and the step's time printed;
      w3. (after phase g) K1 at AmoebaNet-D 18L/416F @4096 bs1's shapes
          (phase m1's @2048 bs1 shapes, H and W doubled) and K2/K3 at
          ResNet-110's stage-0 shapes @8192 bs1 (x[1,8192,8192,64], 2^32
@@ -363,11 +376,11 @@ Phases (any failure exits non-zero; nothing is caught):
          step (K4 on every rank) and peak memory, and the transport;
   g1-g3. GEMS-MASTER (``parallel.pipeline.GemsMasterTrainer``: the
      pipeline in both directions over the same ranks, ``2·times`` chunks of
-     the batch a step, the odd ones on the mirror placement), in worlds of
-     its own: 2 rank processes laid out as phase p's (g1's LP layouts, g2,
-     g3's LP twins) and 4 laid out as phase q's (g1's SP layouts, g3's
-     SP+GEMS twins). Its sub-phases are g1-g3; the kernel timings below
-     keep the name g:
+     the batch a step, the odd ones on the mirror placement), in phase p's
+     and phase q's worlds: p's 2 rank processes run g2 (after p2's steps of
+     each model), g1's LP layouts and g3's LP twins (after p1's), q's 4 run
+     g1's SP layouts (after q2) and g3's SP+GEMS twins (after q3's). Its
+     sub-phases are g1-g3; the kernel timings below keep the name g:
      g1. small f32 references (TF32 off), ResNet-v2
          depth 20 @32 from the seed: LP GEMS split 2 with ``times`` 1 (2
          chunks of 2 images) and 2 (4 chunks of 1 image), the mirror
@@ -384,12 +397,12 @@ Phases (any failure exits non-zero; nothing is caught):
          first step's loss within ``PP_LOSS_RTOL`` of
          ``Trainer(grad_accum=4)``'s on one device (rank 0) and within
          ``G_PP_LOSS_RTOL`` of ``PipelineTrainer(parts=4)``'s gpipe step on
-         the same weights and batch, each stage's gradients (the first
-         step's SGD momentum, gathered) within ``PP_GRAD_TOL`` of the
-         Trainer's (relative L2), K1-K3 launched on every rank and their sum
-         over the ranks equal to the Trainer's; the call shapes are
+         the same weights and batch (p2's steps), each stage's gradients
+         (the first step's SGD momentum, gathered) within ``PP_GRAD_TOL`` of
+         the Trainer's (relative L2), K1-K3 launched on every rank and their
+         sum over the ranks equal to the Trainer's; the call shapes are
          recorded for phases d-g;
-     g3. (as p1 runs its twins) each GEMS twin's ``main`` (bf16,
+     g3. (as p1 and q3 run their twins) each GEMS twin's ``main`` (bf16,
          ``--times 1``, ``--max-steps 2``, ``MPI4DL_TPU_RUN_REPORT``): LP
          GEMS ResNet-38 and AmoebaNet-D 3L/416F (split 2, batch 2, parts 2,
          2 ranks) and SP+GEMS (vertical 2 tiles x split 3, batch 2, parts
@@ -1476,26 +1489,43 @@ def phase_remat(policies):
     return bases
 
 
-def phase_bench_cli():
-    """Phase m3: ``python -m mpi4dl_tpu_torch.bench`` as a subprocess with
-    BENCH_MODEL=amoebanet BENCH_STEPS=3 BENCH_TIME_BUDGET=1 BENCH_SERVING=0
-    BENCH_TILED=0 BENCH_HLO=0 BENCH_ATTRIBUTION=0 (phase r7 runs the
-    serving extra; the analyzers' keys are held on the CPU and phase n
-    traces and lints the paths): every JSON line parses, the last is the
-    headline with a value and an MFU, exit 0."""
+def start_bench_cli():
+    """Phase m3, started: ``python -m mpi4dl_tpu_torch.bench`` as a
+    subprocess in a session of its own with BENCH_MODEL=amoebanet
+    BENCH_STEPS=3 BENCH_TIME_BUDGET=1 BENCH_SERVING=0 BENCH_TILED=0
+    BENCH_HLO=0 BENCH_ATTRIBUTION=0 (phase r7 runs the serving extra; the
+    analyzers' keys are held on the CPU and phase n traces and lints the
+    paths). It runs beside m2 and w1: their gates are exact, and the
+    printed step times of all three include the company."""
     here = os.path.dirname(os.path.abspath(__file__))
     env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
     env.update(BENCH_MODEL="amoebanet", BENCH_STEPS="3", BENCH_TIME_BUDGET="1",
                BENCH_SERVING="0", BENCH_TILED="0", BENCH_HLO="0", BENCH_ATTRIBUTION="0",
                PYTHONPATH=here + os.pathsep + env.get("PYTHONPATH", ""))
-    t0 = time.time()
-    out = subprocess.run([sys.executable, "-m", "mpi4dl_tpu_torch.bench"], cwd=here, env=env,
-                         capture_output=True, text=True, timeout=600)
-    lines = out.stdout.splitlines()
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, "-m", "mpi4dl_tpu_torch.bench"], cwd=here, env=env,
+                            stdout=out, stderr=err, text=True, start_new_session=True)
+    return proc, out, err, time.time()
+
+
+def finish_bench_cli(started):
+    """Phase m3's gates: every JSON line parses, the last is the headline
+    with a value, an MFU and a telemetry snapshot, exit 0. Returns that
+    line."""
+    proc, out, err, t0 = started
+    try:
+        rc = proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        stop_session(started)
+        raise
+    out.seek(0)
+    err.seek(0)
+    stdout, stderr = out.read(), err.read()
+    lines = stdout.splitlines()
     records = [json.loads(line) for line in lines if line.startswith("{")]
-    if out.returncode != 0 or not records:
-        raise AssertionError(f"bench exited {out.returncode} with {len(records)} JSON lines: "
-                             f"{out.stdout[-2000:]} {out.stderr[-2000:]}")
+    if rc != 0 or not records:
+        raise AssertionError(f"bench exited {rc} with {len(records)} JSON lines: "
+                             f"{stdout[-2000:]} {stderr[-2000:]}")
     last = records[-1]
     if not (last.get("metric") == "amoebanetd_1024px_bs2_train_gpu"
             and (last.get("value") or 0) > 0 and last.get("mfu")):
@@ -1508,7 +1538,7 @@ def phase_bench_cli():
     shown = {k: v for k, v in last.items() if k != "telemetry"}
     log(f"[m3] python -m mpi4dl_tpu_torch.bench (BENCH_MODEL=amoebanet BENCH_STEPS=3 "
         f"BENCH_TIME_BUDGET=1 BENCH_SERVING=0 BENCH_TILED=0 BENCH_HLO=0 BENCH_ATTRIBUTION=0): "
-        f"exit 0, {len(records)} JSON line(s) in {time.time() - t0:.1f} s, "
+        f"exit 0, {len(records)} JSON line(s) in {time.time() - t0:.1f} s (beside m2 and w1), "
         f"the last: {json.dumps(shown)} (and a telemetry snapshot of "
         f"{len(last['telemetry']['metrics'])} metrics)")
     return last
@@ -1585,11 +1615,10 @@ def phase_walk_policies(base):
 def phase_walk_steps(calls, launches):
     """Phase w2: the walk's steps past what remat=False fits, ResNet-110 v2
     bs1 bf16: @3072 under scanlog and @4096 under scanq (with the bench's
-    store budget). The first step records the kernels' call shapes into
-    ``calls[path]``; every count is set to 0 just before the second step
+    store budget), one step each. The step records the kernels' call
+    shapes into ``calls[path]``; every count is set to 0 just before it
     and read just after it, and K2 and K3 must launch as often as on phase
-    c's ResNet-110 path a step; peak memory and both steps' times
-    printed."""
+    c's ResNet-110 path a step; peak memory and the step's time printed."""
     import torch
 
     from mpi4dl_tpu_torch.config import ParallelConfig
@@ -1608,32 +1637,29 @@ def phase_walk_steps(calls, launches):
             gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
             x = torch.randn((1, size, size, 3), generator=gen, device=DEVICE).to(torch.bfloat16)
             y = torch.randint(0, 10, (1,), generator=gen, device=DEVICE)
-            restore = _record_shapes(calls[path])
-            t = time.perf_counter()
-            try:
-                first = float(trainer.train_step(x, y)["loss"])
-            finally:
-                for undo in restore:
-                    undo()
-            first_s = time.perf_counter() - t
             counters = _counters()
+            restore = _record_shapes(calls[path])
             for mod in counters.values():
                 mod.launch_count = 0
             t = time.perf_counter()
-            loss = float(trainer.train_step(x, y)["loss"])
+            try:
+                loss = float(trainer.train_step(x, y)["loss"])
+            finally:
+                for undo in restore:
+                    undo()
             step_s = time.perf_counter() - t
             launches[path] = {name: mod.launch_count for name, mod in counters.items()}
         peak = torch.cuda.max_memory_allocated()
-        if not (math.isfinite(first) and math.isfinite(loss)):
-            raise AssertionError(f"{path}: losses {first}, {loss}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"{path}: loss {loss}")
         for name in PATH_KERNELS[path]:
             want = launches["resnet"][name] // STEPS
             if launches[path][name] != want:
                 raise AssertionError(f"{path}: {name} launched {launches[path][name]} times in "
                                      f"a step, want {want} (phase c's ResNet-110 a step)")
         log(f"[w2] {path}: ResNet-{RESNET_DEPTH} v2 @{size} bs1, bf16 compute, f32 params, "
-            f"{_variant(policy, env)}: losses {first:.4f}, {loss:.4f}; steps {first_s:.2f} s "
-            f"(the first) and {step_s:.2f} s, {1 / step_s:.4f} img/s; peak memory allocated "
+            f"{_variant(policy, env)}: loss {loss:.4f}; the first step {step_s:.2f} s (its "
+            f"set-up included: a cold step, not a throughput); peak memory allocated "
             f"{peak / 2**30:.2f} GiB; scanq store grants {trainer.scanq_grant_bytes}; launches "
             f"a step {launches[path]}")
         del trainer, model, x, y
@@ -3253,13 +3279,16 @@ def _pp_resume(model, config, device, x, y, ckpt_dir):
 
 
 def _pp_worker(rank, world, ckpt_dir, twins):
-    """Phase p in one rank of its 2-rank world. p2: per model, one f32 step
-    of each schedule from the seed's weights (the first with the kernels'
-    call shapes recorded and every tick probed), then rank 0 takes
+    """Phase p in one rank of its 2-rank world, with phase g's 2-rank part.
+    p2: per model, one f32 step of each schedule from the seed's weights
+    (the first with the kernels' call shapes recorded and every tick
+    probed), then g2's GEMS step (:func:`_g_gems_step`), then rank 0 takes
     ``Trainer(grad_accum=PP_PARTS)``'s step on the same weights while the
-    other ranks wait and holds each schedule's gradients to its
-    (:func:`_stage_errors`); on ResNet-110, the checkpoint and resume. Then
-    p1: the LP twins ``twins`` (:func:`_launched_twins`)."""
+    other ranks wait and holds each schedule's and the GEMS step's gradients
+    to its (:func:`_stage_errors`); on ResNet-110, the checkpoint and
+    resume. Then g1's LP layouts (:func:`_g_small`), and last the twins
+    ``twins``, p1's and g3's LP ones (:func:`_launched_twins`). g's records
+    go under ``"g"``: per model g2's, and ``g_small``."""
     import copy
 
     import torch
@@ -3276,7 +3305,7 @@ def _pp_worker(rank, world, ckpt_dir, twins):
                          image_size=SIZE)
     x, y = pp_batch(device)
     x = x.float()
-    out = {}
+    out, gems = {}, {}
     for name, build in pp_builders().items():
         t0 = time.time()
         model = _seeded(meta_built(build, torch.float32))
@@ -3294,6 +3323,9 @@ def _pp_worker(rank, world, ckpt_dir, twins):
             grads[schedule] = (g, stages)
             del g
             res[f"{schedule}_ticks"] = probe
+        g_res, g_grads = _g_gems_step(model, start, device, x, y)
+        g_res.update(setup_s=res["setup_s"], gpipe=res["gpipe"])
+        gems[name] = g_res
         dist.barrier()
         if rank == 0:
             model.load_state_dict(start)
@@ -3304,7 +3336,10 @@ def _pp_worker(rank, world, ckpt_dir, twins):
             res["trainer"] = (loss, launches)
             for schedule, (g, stages) in grads.items():
                 res[f"{schedule}_grad_err"] = _stage_errors(g, want, stages)
+            g_res.update(trainer=res["trainer"],
+                         gems_grad_err=_stage_errors(g_grads[0], want, g_grads[1]))
             del want, g
+        del g_grads
         dist.barrier()
         if name == "resnet":
             model.load_state_dict(start)
@@ -3313,13 +3348,21 @@ def _pp_worker(rank, world, ckpt_dir, twins):
         gc.collect()  # trainers hold reference cycles
         torch.cuda.empty_cache()
         out[name] = res
+    t0 = time.time()
+    gems["g_small"] = _g_small(rank, device, G_SMALL_LP)
+    gems["g_small_s"] = time.time() - t0
+    out["g"] = gems
     out["twins"] = _launched_twins(rank, world, twins)
     return out
 
 
 def phase_pipeline(calls, launches, ips, cards):
-    """Phase p: spawn its 2-rank world (:func:`_pp_worker`), then check p2
-    (:func:`phase_pipeline_gates`) and p1 (:func:`phase_pipeline_cli`)."""
+    """Phase p with phase g's 2-rank part: spawn the 2-rank world
+    (:func:`_pp_worker`), then check p2 (:func:`phase_pipeline_gates`), p1
+    (:func:`phase_pipeline_cli`), g1's LP layouts
+    (:func:`phase_gems_small`), g2 (:func:`phase_gems_gates`) and g3's LP
+    twins (:func:`phase_gems_cli`). Returns g2's ``Trainer(grad_accum=4)``
+    launches per model, to which phase q holds g3's SP+GEMS twins."""
     import torch
 
     from mpi4dl_tpu_torch.benchmarks.common import rank_layout
@@ -3330,14 +3373,22 @@ def phase_pipeline(calls, launches, ips, cards):
     torch.cuda.empty_cache()
     t0 = time.time()
     with tempfile.TemporaryDirectory(prefix="mpi4dl-pp-") as tmp:
-        twins = _twin_specs(_p1_runs(), tmp)
+        n_p1 = len(_p1_runs())
+        twins = _twin_specs(_p1_runs() + _g3_runs(G_RANKS), tmp)
         ranks = multihost.spawn(_pp_worker, PP_RANKS,
                                 args=(os.path.join(tmp, "ckpt"), _worker_twins(twins)),
                                 backend=backend, timeout=900, env=env)
-        log(f"[p] {desc}: p2's f32 steps of both schedules, Trainer(grad_accum={PP_PARTS}) and "
-            f"the checkpoint, then p1's {len(twins)} twin runs, in {time.time() - t0:.1f} s")
+        outs = ranks[0]["twins"]
+        log(f"[p] {desc}: p2's f32 steps of both schedules, g2's GEMS steps, Trainer(grad_accum="
+            f"{PP_PARTS}) and the checkpoint, g1's LP layouts "
+            f"({ranks[0]['g']['g_small_s']:.1f} s), then p1's {n_p1} and g3's "
+            f"{len(twins) - n_p1} twin runs, in {time.time() - t0:.1f} s")
         want = phase_pipeline_gates(calls, ranks)
-        phase_pipeline_cli(launches, ips, cards, want, twins, ranks[0]["twins"], desc)
+        phase_pipeline_cli(launches, ips, cards, want, twins[:n_p1], outs[:n_p1], desc)
+        phase_gems_small(ranks[0]["g"]["g_small"])
+        g_want = phase_gems_gates(calls, [r["g"] for r in ranks])
+        phase_gems_cli(launches, ips, cards, g_want, twins[n_p1:], outs[n_p1:], desc)
+    return g_want
 
 
 def phase_pipeline_gates(calls, ranks):
@@ -3885,8 +3936,9 @@ def _q_back_probe(box, counters):
 
 
 def _q_worker(rank, world, twins):
-    """Phases q1 and q2 in one rank of the 4-rank world, then q3's twin runs
-    ``twins`` (:func:`_launched_twins`)."""
+    """Phases q1 and q2 in one rank of the 4-rank world, then g1's SP
+    layouts (:func:`_g_small`), then the twin runs ``twins``, q3's and g3's
+    SP+GEMS ones (:func:`_launched_twins`)."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3898,13 +3950,19 @@ def _q_worker(rank, world, twins):
     small_s = time.time() - t0
     shapes = {name: _new_calls() for name in pp_builders()}
     full = _q_full(rank, device, shapes)
+    t0 = time.time()
+    g_small = _g_small(rank, device, G_SMALL_SP)
     return {"small": small, "small_s": small_s, "full": full, "shapes": shapes,
+            "g_small": g_small, "g_small_s": time.time() - t0,
             "twins": _launched_twins(rank, world, twins)}
 
 
-def phase_sp_lp(calls, launches, ips, cards):
-    """Phase q: spawn its 4-rank world (:func:`_q_worker`), then check q1
-    and q2 (:func:`phase_sp_lp_gates`) and q3 (:func:`phase_sp_lp_cli`)."""
+def phase_sp_lp(calls, launches, ips, cards, g_want):
+    """Phase q with phase g's 4-rank part: spawn the 4-rank world
+    (:func:`_q_worker`), then check q1 and q2 (:func:`phase_sp_lp_gates`),
+    q3 (:func:`phase_sp_lp_cli`), g1's SP layouts
+    (:func:`phase_gems_small`) and g3's SP+GEMS twins
+    (:func:`phase_gems_cli`, held to ``g_want``: phase p's g2 launches)."""
     import torch
 
     from mpi4dl_tpu_torch.benchmarks.common import rank_layout
@@ -3915,16 +3973,21 @@ def phase_sp_lp(calls, launches, ips, cards):
     torch.cuda.empty_cache()
     t0 = time.time()
     with tempfile.TemporaryDirectory(prefix="mpi4dl-q-") as tmp:
+        n_q3 = len(Q_CLI)
         twins = _twin_specs(
             [(path, f"spatial_parallelism.benchmark_{name}_sp", Q_RANKS,
-              _twin_argv(flags, name, Q_STEPS), {}) for path, (name, flags) in Q_CLI.items()],
-            tmp)
+              _twin_argv(flags, name, Q_STEPS), {}) for path, (name, flags) in Q_CLI.items()]
+            + _g3_runs(Q_RANKS), tmp)
         ranks = multihost.spawn(_q_worker, Q_RANKS, args=(_worker_twins(twins),),
                                 backend=backend, timeout=900, env=env)
-        log(f"[q] {desc}: q1, q2 and q3's {len(twins)} twin runs in {time.time() - t0:.1f} s "
-            f"(q1 {ranks[0]['small_s']:.1f} s)")
+        outs = ranks[0]["twins"]
+        log(f"[q] {desc}: q1, q2, g1's SP layouts, q3's {n_q3} and g3's {len(twins) - n_q3} twin "
+            f"runs in {time.time() - t0:.1f} s (q1 {ranks[0]['small_s']:.1f} s, g1 "
+            f"{ranks[0]['g_small_s']:.1f} s)")
         phase_sp_lp_gates(calls, ranks)
-        phase_sp_lp_cli(launches, ips, cards, twins, ranks[0]["twins"], desc)
+        phase_sp_lp_cli(launches, ips, cards, twins[:n_q3], outs[:n_q3], desc)
+        phase_gems_small(ranks[0]["g_small"])
+        phase_gems_cli(launches, ips, cards, g_want, twins[n_q3:], outs[n_q3:], desc)
 
 
 def phase_sp_lp_gates(calls, ranks):
@@ -4150,123 +4213,36 @@ def _g_small(rank, device, cases):
     return out
 
 
-def _g_lp_worker(rank, world, twins):
-    """Phase g's 2-rank world in one rank. g1: the LP layouts
-    (:func:`_g_small`). g2: per model (phase c's, f32), the GEMS step
-    (``G_CONFIG``: 2 chunks of 2 of phase p's 4 images) from the seed's
-    weights with its call shapes recorded, and ``PipelineTrainer(parts=4)``'s
-    gpipe step on the same weights and batch; rank 0 then takes
-    ``Trainer(grad_accum=4)``'s step on them while the other ranks wait and
-    holds the GEMS step's stage gradients to it; last, rank 0 counts the
-    K1-K3 launches of such a Trainer step of AmoebaNet-D at ``PIPE_LAYERS``
-    (g3's LP twin is held to them). Then g3's LP twin runs ``twins``
-    (:func:`_launched_twins`)."""
-    import copy
-
-    import torch
+def _g_gems_step(model, start, device, x, y):
+    """g2's GEMS step (``G_CONFIG``: 2 chunks of 2 of phase p's 4 images)
+    from the weights ``start``, its call shapes recorded: ``({"g_shapes",
+    "gems": (loss, K1-K3 launches, seconds)}, (gradients, stages))``."""
     import torch.distributed as dist
 
     from mpi4dl_tpu_torch.config import ParallelConfig
-    from mpi4dl_tpu_torch.weights import meta_built
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    device = (torch.device("cuda", torch.cuda.current_device()) if DEVICE == "cuda"
-              else torch.device(DEVICE))
+    res = {"g_shapes": _new_calls()}
+    model.load_state_dict(start)
+    dist.barrier()
     t0 = time.time()
-    out = {"g_small": _g_small(rank, device, G_SMALL_LP)}
-    out["g_small_s"] = time.time() - t0
-    pp_cfg = ParallelConfig(batch_size=PP_BATCH, parts=PP_PARTS, split_size=PP_RANKS,
-                            image_size=SIZE)
-    g_cfg = ParallelConfig(image_size=SIZE, **G_CONFIG)
-    one = ParallelConfig(batch_size=PP_BATCH, image_size=SIZE)
-    x, y = pp_batch(device)
-    x = x.float()
-    for name, build in pp_builders().items():
-        t0 = time.time()
-        model = _seeded(meta_built(build, torch.float32))
-        start = copy.deepcopy(model.state_dict())
-        res = {"setup_s": time.time() - t0, "g_shapes": _new_calls()}
-        dist.barrier()
-        t0 = time.time()
-        loss, launches, g, stages = _pp_step(model, g_cfg, device, x, y, gems=True,
-                                             shapes=res["g_shapes"])
-        res["gems"] = (loss, launches, time.time() - t0)
-        model.load_state_dict(start)
-        dist.barrier()
-        res["gpipe"] = _pp_step(model, pp_cfg, device, x, y, schedule="gpipe")[:2]
-        dist.barrier()
-        if rank == 0:
-            model.load_state_dict(start)
-            with whole_card(device):
-                t_loss, t_launches, want, _ = _pp_step(model, one, device, x, y,
-                                                       accum=PP_PARTS)
-            res["trainer"] = (t_loss, t_launches)
-            res["gems_grad_err"] = _stage_errors(g, want, stages)
-            del want
-        del g
-        dist.barrier()
-        del model, start
-        gc.collect()  # trainers hold reference cycles
-        torch.cuda.empty_cache()
-        out[name] = res
-    out["twins"] = _launched_twins(rank, world, twins)
-    return out
+    loss, launches, g, stages = _pp_step(model, ParallelConfig(image_size=SIZE, **G_CONFIG),
+                                         device, x, y, gems=True, shapes=res["g_shapes"])
+    res["gems"] = (loss, launches, time.time() - t0)
+    return res, (g, stages)
 
 
-def _g_sp_worker(rank, world, twins):
-    """Phase g's 4-rank world in one rank: g1's SP layouts
-    (:func:`_g_small`), then g3's SP+GEMS twin runs ``twins``
-    (:func:`_launched_twins`)."""
-    import torch
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    device = (torch.device("cuda", torch.cuda.current_device()) if DEVICE == "cuda"
-              else torch.device(DEVICE))
-    t0 = time.time()
-    out = {"g_small": _g_small(rank, device, G_SMALL_SP)}
-    out["g_small_s"] = time.time() - t0
-    out["twins"] = _launched_twins(rank, world, twins)
-    return out
+def _g3_runs(n_ranks) -> list:
+    """Phase g3's twin runs on ``n_ranks`` ranks (``G_CLI``), for
+    :func:`_twin_specs`: the LP ones in phase p's world, the SP+GEMS ones in
+    phase q's."""
+    return [(path, twin, n, _twin_argv(flags, name, G_STEPS), {})
+            for path, (name, twin, n, flags) in G_CLI.items() if n == n_ranks]
 
 
-def phase_gems(calls, launches, ips, cards):
-    """Phase g: spawn its 2-rank world (:func:`_g_lp_worker`) and its
-    4-rank world (:func:`_g_sp_worker`), then check g1 and g2
-    (:func:`phase_gems_gates`) and g3 (:func:`phase_gems_cli`)."""
-    import torch
-
-    from mpi4dl_tpu_torch.benchmarks.common import rank_layout
-    from mpi4dl_tpu_torch.parallel import multihost
-
-    with tempfile.TemporaryDirectory(prefix="mpi4dl-g-") as tmp:
-        twins = _twin_specs([(path, twin, n_ranks, _twin_argv(flags, name, G_STEPS), {})
-                             for path, (name, twin, n_ranks, flags) in G_CLI.items()], tmp)
-        worlds, outs, descs = {}, {}, {}
-        for n_ranks, worker, what in ((G_RANKS, _g_lp_worker, "g1's LP layouts, g2"),
-                                      (Q_RANKS, _g_sp_worker, "g1's SP layouts")):
-            backend, descs[n_ranks], env = rank_layout(n_ranks, DEVICE)
-            mine = [t for t in twins if t[2] == n_ranks]
-            gc.collect()
-            torch.cuda.empty_cache()
-            t0 = time.time()
-            worlds[n_ranks] = multihost.spawn(worker, n_ranks, args=(_worker_twins(mine),),
-                                              backend=backend, timeout=900, env=env)
-            outs.update(zip([t[0] for t in mine], worlds[n_ranks][0]["twins"]))
-            log(f"[g] {descs[n_ranks]}: {what} and g3's {len(mine)} twin runs in "
-                f"{time.time() - t0:.1f} s (g1 {worlds[n_ranks][0]['g_small_s']:.1f} s)")
-        want = phase_gems_gates(calls, worlds[G_RANKS], worlds[Q_RANKS])
-        phase_gems_cli(launches, ips, cards, want, twins, outs, descs)
-
-
-def phase_gems_gates(calls, lp_ranks, sp_ranks):
-    """Phases g1 and g2: hold each layout to its reference from the records
-    of phase g's worlds (:func:`_g_lp_worker`, :func:`_g_sp_worker`), and
-    count g2's call shapes (summed over the ranks) into
-    ``calls[G_F32_PATHS[model]]``. Returns, per model, the K1-K3 launches of
-    ``Trainer(grad_accum=4)``'s step at g3's depth (g2's)."""
-    for name, kind, stages, got, want in lp_ranks[0]["g_small"] + sp_ranks[0]["g_small"]:
+def phase_gems_small(small):
+    """Phase g1: hold each small layout of ``small`` (rank 0's records,
+    :func:`_g_small`) to its CPU reference."""
+    for name, kind, stages, got, want in small:
         if kind == "gems_stages":
             if not abs(got[0] - want[0]) <= 1e-4 * abs(want[0]):
                 raise AssertionError(f"g1 {name} loss: {got[0]} vs reference {want[0]}")
@@ -4282,6 +4258,14 @@ def phase_gems_gates(calls, lp_ranks, sp_ranks):
             gate = f"gradients normalised max|err| {worst:.2e} (tolerance {SMALL_GRAD_TOL:g})"
         log(f"[g1] {name}, ResNet-v2 depth 20 @32 f32: loss card {got[0]:.6f} CPU "
             f"{want[0]:.6f}; {gate}; against the CPU Trainer(grad_accum=chunks x parts)")
+
+
+def phase_gems_gates(calls, lp_ranks):
+    """Phase g2: hold each model's GEMS step in the records ``lp_ranks``
+    (phase p's ranks', :func:`_pp_worker`) to its references, and count its
+    call shapes (summed over the ranks) into ``calls[G_F32_PATHS[model]]``.
+    Returns, per model, the K1-K3 launches of ``Trainer(grad_accum=4)``'s
+    step at g3's depth (g2's)."""
     trainer = {}
     for name in pp_builders():
         per = [r[name] for r in lp_ranks]
@@ -4328,11 +4312,11 @@ def phase_gems_gates(calls, lp_ranks, sp_ranks):
     return trainer
 
 
-def phase_gems_cli(launches, ips, cards, want, twins, outs, descs):
-    """Phase g3: each GEMS twin run (bf16, ``--times 1``, ``--max-steps
-    G_STEPS``, ``MPI4DL_TPU_RUN_REPORT``) through its entry point in phase
-    g's world of its rank count (:func:`_launched_twins`; rank 0's
-    ``outs[path]``): its Mean/Median/MFU line; every kernel of the path
+def phase_gems_cli(launches, ips, cards, want, twins, outs, desc):
+    """Phase g3: each GEMS twin run of ``twins`` (bf16, ``--times 1``,
+    ``--max-steps G_STEPS``, ``MPI4DL_TPU_RUN_REPORT``) through its entry
+    point in phase p's or q's world (:func:`_launched_twins`; rank 0's
+    ``outs``, in order): its Mean/Median/MFU line; every kernel of the path
     launched on every rank; K1-K3 a step summed over the ranks equal to the
     tile count (1 for an LP twin) times ``want[model]``, the launches of
     ``Trainer(grad_accum=4)`` of the twin's model and depth (the front runs
@@ -4341,9 +4325,8 @@ def phase_gems_cli(launches, ips, cards, want, twins, outs, descs):
     and mirror exchange bytes, and the transport."""
     import torch
 
-    for path, twin, n_ranks, argv, _, _, report in twins:
+    for (path, twin, n_ranks, argv, _, _, report), (stdout, wall, _) in zip(twins, outs):
         name = G_CLI[path][0]
-        stdout, wall, _ = outs[path]
         reports = _twin_reports("g3", path, twin, n_ranks, report, stdout)
         steps = reports[0]["counted_steps"]
         losses = reports[0]["losses"]
@@ -4381,7 +4364,7 @@ def phase_gems_cli(launches, ips, cards, want, twins, outs, descs):
             f", K4 {r['launches']['halo_kernel'] // steps} a step, peak "
             f"{(r['peak_bytes'] or 0) / 2**30:.2f} GiB, mirror exchange {r['mirror_bytes']} bytes"
             for r in reports)
-        log(f"[g3] {path} ({descs[n_ranks]}, transport {reports[0]['transport']}): step "
+        log(f"[g3] {path} ({desc}, transport {reports[0]['transport']}): step "
             f"{ms:.1f} ms (slowest rank; all {[round(t * 1e3, 1) for t in step_s]}; warm-up "
             f"{max(r['step_s'][0] for r in reports) * 1e3:.1f} ms, after "
             f"{max(r['setup_s'] for r in reports):.1f} s of rank set-up), {ips[path]:.3f} img/s "
@@ -4472,22 +4455,31 @@ E_ARGV = ["--batch-size", "4", "--parts", "2", "--split-size", "2", "--image-siz
           "--max-steps", "4", "--checkpoint-every", "1", "--max-restarts", "1", "--verbose"]
 E_ENV = {"MPI4DL_TPU_RESNET_N": "1", "MPI4DL_TPU_CRASH_AT_STEP": "2"}
 E_RANKS = 2
+# Phase e's spatial twin: ResNet-11 v2 @64 with its front on a 2x2 grid of
+# 32 px tiles (split 2, spatial 1: 4 ranks, the back stage on the tile
+# ranks), the same supervision, crash and checkpoints as the LP twin's.
+SP_RESNET = "mpi4dl_tpu_torch.benchmarks.spatial_parallelism.benchmark_resnet_sp"
+E_SP_ARGV = ["--batch-size", "2", "--parts", "2", "--split-size", "2", "--spatial-size", "1",
+             "--num-spatial-parts", "4", "--slice-method", "square", "--image-size", "64",
+             "--max-steps", "4", "--checkpoint-every", "1", "--max-restarts", "1", "--verbose"]
+E_SP_RANKS = 4
 
 
-def start_supervised():
-    """Phase e, started: the ResNet LP twin (ResNet-11 v2 @64, 2 ranks)
-    supervised on the card as a user starts it, a subprocess:
-    ``--max-restarts 1``, every rank exiting at step 2 of the fresh run
-    (``MPI4DL_TPU_CRASH_AT_STEP``), a checkpoint every step, ``--trace-dir``.
-    Returns what :func:`finish_supervised` reads. Its processes start and
-    end in 60-80 s on an H100 80GB HBM3 at 700 W and time nothing: in the
-    full run it goes on beside phase v1, another subprocess whose gates time
-    nothing (v1's printed seconds then include the company)."""
+def start_supervised(module=LP_RESNET, argv=E_ARGV):
+    """Phase e, started: a ResNet twin (``module``: by default the LP one,
+    ResNet-11 v2 @64, 2 ranks) supervised on the card as a user starts it,
+    a subprocess: ``--max-restarts 1``, every rank exiting at step 2 of the
+    fresh run (``MPI4DL_TPU_CRASH_AT_STEP``), a checkpoint every step,
+    ``--trace-dir`` and ``MPI4DL_TPU_RUN_REPORT`` (only the run that ends
+    writes one). Returns what :func:`finish_supervised` reads. Each twin's
+    processes start and end in 54-71 s on an H100 80GB HBM3 at 700 W and
+    time nothing."""
     here = os.path.dirname(os.path.abspath(__file__))
     tmp = tempfile.TemporaryDirectory(prefix="mpi4dl-e-")
     ckpt, traces = os.path.join(tmp.name, "ckpt"), os.path.join(tmp.name, "trace")
-    env = dict(os.environ, **E_ENV, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    cmd = [sys.executable, "-m", LP_RESNET, *E_ARGV, "--checkpoint-dir", ckpt,
+    env = dict(os.environ, **E_ENV, MPI4DL_TPU_RUN_REPORT=os.path.join(tmp.name, "report"),
+               PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", module, *argv, "--checkpoint-dir", ckpt,
            "--trace-dir", traces, *([] if DEVICE == "cuda" else ["--device", DEVICE])]
     proc = subprocess.Popen(cmd, cwd=here, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
@@ -4517,11 +4509,14 @@ def stop_supervised(started) -> None:
     tmp.cleanup()
 
 
-def finish_supervised(started):
+def finish_supervised(started, ranks=E_RANKS, desc="ResNet-11 v2 LP twin @64 (2 ranks",
+                      k4=False):
     """Phase e, waited for and checked: exit 0; "restarting (1/1)" and
     "resumed from step 2" printed; the newest checkpoint at step 4; one
     Chrome trace a rank (the crashed run's ranks wrote none), each with
-    CUDA kernel events. Returns the seconds it waited."""
+    CUDA kernel events. With ``k4`` (the spatial twin): every rank's run
+    report, written by the restarted run, counts K4 launches in its steps
+    after the first. Returns the seconds it waited."""
     from mpi4dl_tpu_torch.checkpoint import all_checkpoints
     from mpi4dl_tpu_torch.profile_step import kernel_of, summarize, trace_events
 
@@ -4545,8 +4540,7 @@ def finish_supervised(started):
         if not steps or steps[-1] != 4:
             raise AssertionError(f"phase e: checkpoints at steps {steps}, the newest not 4")
         files = sorted(os.listdir(traces))
-        ranks = sorted(f.split("-")[1] for f in files)
-        if ranks != [f"rank{r}" for r in range(E_RANKS)]:
+        if sorted(f.split("-")[1] for f in files) != sorted(f"rank{r}" for r in range(ranks)):
             raise AssertionError(f"phase e: traces {files}, not one a rank")
         parts = []
         for f in files:
@@ -4561,12 +4555,38 @@ def finish_supervised(started):
                 mine[kernel_of(name)] += count
             parts.append(f"{f.split('-')[1]} {os.path.getsize(path) / 2**20:.1f} MiB, "
                          f"{kernels} kernel events, {s['total_ms']:.1f} ms device self time, "
-                         f"K2 {mine['K2 wgrad']} / K3 {mine['K3 dot1x1_bwd']} launches")
+                         f"K2 {mine['K2 wgrad']} / K3 {mine['K3 dot1x1_bwd']}"
+                         + (f" / K4 {mine['K4 halo_swap']}" if k4 else "") + " launches")
+        after = ""
+        if k4:
+            reports = []
+            for r in range(ranks):
+                with open(os.path.join(tmp.name, "report", f"rank{r}.json")) as fh:
+                    reports.append(json.load(fh))
+            k4_runs = [rep["launches"]["halo_kernel"] for rep in reports]
+            counted = [rep["counted_steps"] for rep in reports]
+            if DEVICE == "cuda" and not (all(k4_runs) and all(c >= 1 for c in counted)):
+                raise AssertionError(f"phase e: K4 launches after the restart {k4_runs} in "
+                                     f"{counted} counted steps a rank")
+            after = (f"; K4 launched after the restart, in the restarted run's steps after "
+                     f"its first: {k4_runs} a rank over {counted} step(s)")
     waited = time.time() - t_wait
-    log(f"[e] supervised ResNet-11 v2 LP twin @64 (2 ranks, crash at step 2, --max-restarts 1): "
-        f"exit 0 in {wall:.1f} s ({waited:.1f} s of it waited for), restarted once, resumed "
-        f"from step 2, checkpoints at steps {steps}; traces: {'; '.join(parts)}")
+    log(f"[e] supervised {desc}, crash at step 2, --max-restarts 1): exit 0 in {wall:.1f} s "
+        f"({waited:.1f} s of it waited for), restarted once, resumed from step 2, checkpoints "
+        f"at steps {steps}{after}; traces: {'; '.join(parts)}")
     return waited
+
+
+def phase_supervised():
+    """Phase e (``--tools-only``): the supervised LP twin, then the
+    supervised spatial twin (``E_SP_ARGV``, 4 ranks on a 2x2 tile grid,
+    whose restarted world opens fresh K4 rings). Returns the seconds."""
+    t0 = time.time()
+    finish_supervised(start_supervised())
+    finish_supervised(start_supervised(SP_RESNET, E_SP_ARGV), ranks=E_SP_RANKS,
+                      desc="ResNet-11 v2 SP twin @64 (2x2 tiles of 32 px, split 2, 4 ranks",
+                      k4=True)
+    return time.time() - t0
 
 
 T_ARGV = ["--model", "resnet", "--image-size", str(SIZE), "--batch", str(BATCH), "--steps", "2"]
@@ -5417,6 +5437,9 @@ def phase_serve_tiled():
     tiled_alloc = int(torch.cuda.max_memory_allocated())
     # Replays allocate nothing: the captures' intermediates live in the pool.
     tiled_peak = tiled_alloc + pool
+    lint = eng.lint_report()
+    if not lint.ok:
+        raise AssertionError(f"r5b: the tiled engine's lint: {lint.findings}")
     st = eng.stats()
     t = st["tiled"]
     lat = st["latency_s"]
@@ -5445,6 +5468,7 @@ def phase_serve_tiled():
         f"{head_e['peak_bytes'] / 2**30:.2f} GiB, graph pool {pool} bytes); {R5_REQUESTS} "
         f"requests in {serve_s:.1f} s, latency p50 {lat['p50']:.2f} s, stitch p50 "
         f"{t['stitch_s']['p50']:.3f} s, tile stream p50 {t['tile_stream_s']['p50']:.3f} s; "
+        f"lint ok ({sum(lint.inventory.values())} collectives, rule single-chip-collectives); "
         f"{card()}")
     log(f"[r5b] peak memory: tiled {tiled_peak / 2**30:.2f} GiB (max_memory_allocated "
         f"{tiled_alloc / 2**30:.2f} GiB + the graph pool) against the monolithic forward's "
@@ -5469,8 +5493,9 @@ def start_serve_mesh_cli():
     return proc, out, err, time.time()
 
 
-def stop_serve_mesh_cli(started):
-    """Kill r6's session (its ranks too) after a failure elsewhere."""
+def stop_session(started):
+    """Kill a started subprocess's session (r6's ranks too, or m3's bench)
+    after a failure elsewhere."""
     proc = started[0]
     if proc.poll() is None:
         os.killpg(proc.pid, 9)
@@ -5483,7 +5508,7 @@ def finish_serve_mesh_cli(started):
     try:
         rc = proc.wait(timeout=600)
     except subprocess.TimeoutExpired:
-        stop_serve_mesh_cli(started)
+        stop_session(started)
         raise
     out.seek(0)
     err.seek(0)
@@ -5503,7 +5528,12 @@ def finish_serve_mesh_cli(started):
 
 def phase_serve_bench():
     """Phase r7: the bench's ``serving_amoebanet3_32px`` extra in this
-    process: throughput above 0 and an SLO verdict."""
+    process: throughput above 0 and an SLO verdict; the engine's lint clean
+    (``lint_ok``, no ``lint_findings``); ``attribution`` with attributed
+    batches and no error (its device share printed); ``sched_ab`` with both
+    arms' tight-class p99 and rps and no deadline miss (the arms' tight p99,
+    their ratio and rps printed; whether EDF wins is not gated, as the JAX
+    bench does not gate it)."""
     import torch
 
     from mpi4dl_tpu_torch import bench
@@ -5512,10 +5542,79 @@ def phase_serve_bench():
     out = bench.measure_serving(torch.device(DEVICE))
     if not ((out.get("value") or 0) > 0 and "ok" in (out.get("slo") or {})):
         raise AssertionError(f"r7: serving extra {out}")
+    if out.get("lint_ok") is not True or "lint_findings" in out:
+        raise AssertionError(f"r7: lint_ok {out.get('lint_ok')}, findings "
+                             f"{out.get('lint_findings')}")
+    attr = out.get("attribution") or {}
+    if "error" in attr or not (attr.get("n_steps") or 0) > 0:
+        raise AssertionError(f"r7: attribution {attr}")
+    ab = out.get("sched_ab") or {}
+    arms = ab.get("arms") or {}
+    if set(arms) != {"edf", "fifo"} or any(
+            a.get("tight_p99_ms") is None or a.get("rps") is None or a.get("deadline_misses")
+            for a in arms.values()):
+        raise AssertionError(f"r7: sched_ab {ab}")
+    step = attr["per_step_mean"] or {}
+    share = step["device_busy_s"] / step["wall_s"] if step.get("wall_s") else None
     log(f"[r7] bench.measure_serving (serving_amoebanet3_32px): {out['value']} req/s against "
         f"serial bs1 {out['serial_bs1_rps']} req/s ({out['speedup_vs_serial']}x), latency ms "
         f"{out['latency_ms']}, mean batch {out['mean_batch_size']}, slo ok "
-        f"{out['slo']['ok']}, in {time.time() - t0:.1f} s; {card()}")
+        f"{out['slo']['ok']}, lint ok, in {time.time() - t0:.1f} s; {card()}")
+    log(f"[r7] attribution: {attr['n_steps']} mpi4dl_serve_batch steps, a step's mean "
+        + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in step.items())
+        + (f"; device busy {share:.4f} of a step" if share is not None else "")
+        + f"; overlap verdict {attr['overlap']['verdict']}, crosscheck {attr['crosscheck']}")
+    log(f"[r7] sched_ab ({ab['classes']}, mix {ab['mix']}, {ab['trials']} trials of "
+        f"{ab['requests_per_trial']} requests, medians): tight p99 EDF "
+        f"{arms['edf']['tight_p99_ms']} ms against FIFO {arms['fifo']['tight_p99_ms']} ms "
+        f"(ratio {ab.get('tight_p99_ratio')}, EDF better: {ab.get('tight_p99_improved')}); "
+        f"bulk p99 {arms['edf']['bulk_p99_ms']} / {arms['fifo']['bulk_p99_ms']} ms; rps "
+        f"{arms['edf']['rps']} / {arms['fifo']['rps']} ({ab.get('rps_delta_pct')}%); no "
+        "deadline miss")
+    _r7_trace_cost()
+
+
+R7_TRACE_PAIRS = 3  # r7's trace-cost A/B: untraced/traced pairs of closed loops
+
+
+def _r7_trace_cost():
+    """r7's trace cost: the serving extra's closed loop (384 requests at
+    concurrency 96) on one engine built as ``bench.measure_serving`` builds
+    it, ``2·R7_TRACE_PAIRS`` times after a warm-up loop, alternately
+    untraced and under ``profiling.trace(all_threads=True)`` (untraced,
+    traced, traced, untraced, ...): each arm's median req/s and p99 and the
+    trace's cost printed, not gated (the extra's ``value`` is read under
+    the trace, as the JAX bench reads it)."""
+    import statistics
+
+    import torch
+
+    from mpi4dl_tpu_torch import bench
+    from mpi4dl_tpu_torch.profiling import trace
+    from mpi4dl_tpu_torch.serve.loadgen import run_closed_loop
+
+    t0 = time.time()
+    engine = bench._serving_engine(*bench._serving_model(torch.device(DEVICE)))
+    arms = {False: [], True: []}
+    engine.start()
+    try:
+        run_closed_loop(engine, 384, concurrency=96, deadline_s=30.0)
+        for i in range(2 * R7_TRACE_PAIRS):
+            traced = i % 4 in (1, 2)
+            with tempfile.TemporaryDirectory(prefix="mpi4dl-r7-") as tmp:
+                with trace(tmp, all_threads=True) if traced else contextlib.nullcontext():
+                    rep = run_closed_loop(engine, 384, concurrency=96, deadline_s=30.0)
+            arms[traced].append((rep["throughput_rps"], rep["latency_s"]["p99"] * 1e3))
+    finally:
+        engine.stop()
+    rps = {arm: statistics.median(r for r, _ in runs) for arm, runs in arms.items()}
+    p99 = {arm: statistics.median(p for _, p in runs) for arm, runs in arms.items()}
+    log(f"[r7] the trace's cost ({R7_TRACE_PAIRS} pairs of 384-request closed loops on one "
+        f"engine, alternating): untraced {rps[False]:.1f} req/s (p99 {p99[False]:.2f} ms; all "
+        f"{[round(r, 1) for r, _ in arms[False]]}), under profiling.trace(all_threads=True) "
+        f"{rps[True]:.1f} req/s (p99 {p99[True]:.2f} ms; all "
+        f"{[round(r, 1) for r, _ in arms[True]]}): traced / untraced req/s "
+        f"{rps[True] / rps[False]:.4f}, in {time.time() - t0:.1f} s; {card()}")
 
 
 def _sp_serve(rank, grid, device, sp_stats):
@@ -6652,14 +6751,13 @@ def main(argv=None) -> int:
     only.add_argument("--spatial-only", action="store_true",
                       help="run only the build and the spatial phase s (for a 4-card host)")
     only.add_argument("--pipeline-only", action="store_true",
-                      help="run only the build and the pipeline phase p (one rank per card on "
-                           "a host with a card for each)")
-    only.add_argument("--sp-lp-only", action="store_true",
-                      help="run only the build and phase q, the spatial front ahead of the "
-                           "pipeline (one rank per card on a host with 4 cards)")
+                      help="run only the build and the pipeline phase p, with phase g's 2-rank "
+                           "part (one rank per card on a host with a card for each)")
     only.add_argument("--gems-only", action="store_true",
-                      help="run only the build and phase g, GEMS-MASTER (one rank per card "
-                           "on a host with 4 cards)")
+                      help="run only the build and phases p and q (the spatial front ahead of "
+                           "the pipeline) with phase g, GEMS-MASTER, in their worlds (q's "
+                           "SP+GEMS twins are held to p's GEMS steps; one rank per card on a "
+                           "host with 4 cards)")
     only.add_argument("--tools-only", action="store_true",
                       help="run only the build and the run tooling: phases t, e and s9 (the "
                            "halo twins in a 4-rank world of their own)")
@@ -6672,8 +6770,10 @@ def main(argv=None) -> int:
                       help="run only the build and the analyzers' phases n3-n6 (the lint CLI "
                            "and the three A/B harnesses)")
     args = ap.parse_args(argv)
-    picked = [f for f in ("spatial", "pipeline", "sp_lp", "gems", "tools", "serve", "fleet",
-                          "analysis") if getattr(args, f"{f}_only")]
+    picked = [f for f in ("spatial", "pipeline", "gems", "tools", "serve", "fleet", "analysis")
+              if getattr(args, f"{f}_only")]
+    if "gems" in picked:  # phase g runs in phase p's and q's worlds
+        picked += ["pipeline", "sp_lp"]
     only = bool(picked)
 
     def runs(phase):
@@ -6725,7 +6825,7 @@ def main(argv=None) -> int:
         try:
             phase_serve_tiled()
         except BaseException:
-            stop_serve_mesh_cli(mesh)
+            stop_session(mesh)
             raise
         t2 = time.time()
         finish_serve_mesh_cli(mesh)
@@ -6740,13 +6840,18 @@ def main(argv=None) -> int:
         tools_s += time.time() - t0
         log(f"[t] phase t in {time.time() - t0:.1f} s")
     if only and runs("tools"):
-        tools_s += finish_supervised(start_supervised())
+        tools_s += phase_supervised()
     if not only:
         phase_bench_points(calls, launches)
-        bases = phase_remat([p for p in REMAT_POLICIES
-                             if p is not False and p not in PEAK_PIXEL_POLICIES])
-        m3_line = phase_bench_cli()
-        phase_walk_policies(bases["resnet"])
+        m3 = start_bench_cli()  # phase m3's subprocess runs beside m2 and w1
+        try:
+            bases = phase_remat([p for p in REMAT_POLICIES
+                                 if p is not False and p not in PEAK_PIXEL_POLICIES])
+            phase_walk_policies(bases["resnet"])
+        except BaseException:
+            stop_session(m3)
+            raise
+        m3_line = finish_bench_cli(m3)
         phase_walk_steps(calls, launches)
         fleet = start_fleet()  # phase f's replicas start beside v1
         try:
@@ -6792,12 +6897,16 @@ def main(argv=None) -> int:
         t0 = time.time()
         phase_serve_world()
         log(f"[r3] phase r3 in {time.time() - t0:.1f} s")
-    for phase, tag, run in (("pipeline", "p", phase_pipeline), ("sp_lp", "q", phase_sp_lp),
-                            ("gems", "g", phase_gems)):
-        if runs(phase):
-            t0 = time.time()
-            run(calls, launches, ips, cards)
-            log(f"[{tag}] phase {tag} in {time.time() - t0:.1f} s")
+    # Phase g runs in phase p's and q's worlds; q's SP+GEMS twins are held
+    # to p's g2 launches.
+    if runs("pipeline"):
+        t0 = time.time()
+        g_want = phase_pipeline(calls, launches, ips, cards)
+        log(f"[p] phase p in {time.time() - t0:.1f} s (with phase g's 2-rank part)")
+    if runs("sp_lp"):
+        t0 = time.time()
+        phase_sp_lp(calls, launches, ips, cards, g_want)
+        log(f"[q] phase q in {time.time() - t0:.1f} s (with phase g's 4-rank part)")
     if not only:
         shapes = {name: sorted(set().union(*(c[name] for c in calls.values())))
                   for name in KERNELS}

@@ -24,9 +24,17 @@ Two serving extras run on any device, before the peak-pixel walk, as
 serial baseline, with an SLO verdict) and ``tiled_gigapixel``
 (:func:`measure_tiled_gigapixel`: the largest square image one device
 serves through the tile stream, and the latency at a fixed large size).
-``BENCH_SERVING=0`` and ``BENCH_TILED=0`` turn them off. Neither carries an
-``attribution`` or ``lint_ok`` key (the JAX extras' serving-side
-attribution). Then the
+``BENCH_SERVING=0`` and ``BENCH_TILED=0`` turn them off. Both carry the
+JAX extras' ``lint_ok`` (the engine's lint gate; the serving extra adds
+``lint_findings``, its error-severity findings, when the lint fails). The
+serving extra also carries ``attribution`` (its closed loop traced with
+every thread's host ranges, attributed over the engine's
+``mpi4dl_serve_batch`` ranges and cross-checked with the lint;
+``BENCH_ATTRIBUTION=0`` turns the trace off; as in ``bench.py``, the
+extra's ``value`` and ``latency_ms`` are read from that traced loop) and
+``sched_ab``
+(:func:`_measure_sched_ab`, the interleaved EDF-against-FIFO A/B under a
+tight/bulk class mix; ``BENCH_SCHED_AB=0``). Then the
 fleet extras, with the JAX extras' result keys: ``fleet_2replica``
 (:func:`measure_fleet`), ``coldstart`` (:func:`measure_coldstart`: a cold
 respawn against a warm-pool promotion, with the cold-start manifest),
@@ -64,7 +72,7 @@ Lines starting with ``#`` are comments (the policy tried, its peak memory).
 
 Environment: ``BENCH_IMAGE_SIZE`` (1024), ``BENCH_BATCH`` (2),
 ``BENCH_SERVING`` / ``BENCH_TILED`` (``1``; ``BENCH_TILED_PX``,
-``BENCH_TILED_TILE``, ``BENCH_TILED_WALK``),
+``BENCH_TILED_TILE``, ``BENCH_TILED_WALK``), ``BENCH_SCHED_AB`` (``1``),
 ``BENCH_STEPS`` (10), ``BENCH_MODEL`` (``all|amoebanet|resnet``),
 ``BENCH_REMAT`` (pins one remat policy; ``false`` pins False),
 ``BENCH_NO_ACCUM`` (run AmoebaNet-D @2048 bs2 unchunked) and
@@ -392,16 +400,10 @@ def resnet_peak_pixels(device, prior_ips=None, record=None, remats=None, sizes=W
     return entry
 
 
-def measure_serving(device) -> dict:
-    """Online-serving extra (``bench.py:350``): dynamic micro-batching
-    throughput against the batch-size-1 serial baseline on a small
-    calibrated AmoebaNet-D 3L/16F @32 (many small ops a cell: the
-    launch-bound shape where batching pays), with the tail percentiles and
-    an SLO verdict."""
+def _serving_model(device):
+    """The serving extras' model: AmoebaNet-D 3L/16F @32, weights from the
+    seed, statistics from one seeded batch of 4."""
     from mpi4dl_tpu_torch.evaluate import collect_batch_stats
-    from mpi4dl_tpu_torch.serve import ServingEngine
-    from mpi4dl_tpu_torch.serve.loadgen import run_closed_loop, serial_throughput
-    from mpi4dl_tpu_torch.telemetry import SLOConfig
 
     size = 32
     model = init(amoebanetd(10, 3, 16), torch.Generator().manual_seed(SEED))
@@ -409,8 +411,18 @@ def measure_serving(device) -> dict:
     model = model.to(device, memory_format=fmt)
     rng = np.random.default_rng(0)
     stats = collect_batch_stats(model, [rng.standard_normal((4, size, size, 3)).astype(np.float32)])
-    engine = ServingEngine(
-        model, stats, (size, size, 3), buckets=(1, 32), max_wait_s=0.003, max_queue=512,
+    return model, stats, (size, size, 3)
+
+
+def _serving_engine(model, stats, shape):
+    """The serving extra's engine over ``model``: buckets 1 and 32, a 3 ms
+    batching window, a 512-deep queue, 30 s deadlines and an SLO
+    evaluator."""
+    from mpi4dl_tpu_torch.serve import ServingEngine
+    from mpi4dl_tpu_torch.telemetry import SLOConfig
+
+    return ServingEngine(
+        model, stats, shape, buckets=(1, 32), max_wait_s=0.003, max_queue=512,
         default_deadline_s=30.0,
         # A tight availability objective with a loose latency threshold:
         # the run must flag dropped or rejected requests, not page on a
@@ -418,12 +430,38 @@ def measure_serving(device) -> dict:
         slo=SLOConfig(availability=0.999, latency_threshold_s=2.5, latency_target=0.99,
                       interval_s=0.25),
     )
+
+
+def measure_serving(device) -> dict:
+    """Online-serving extra (``bench.py:350``): dynamic micro-batching
+    throughput against the batch-size-1 serial baseline on a small
+    calibrated AmoebaNet-D 3L/16F @32 (many small ops a cell: the
+    launch-bound shape where batching pays), with the tail percentiles, an
+    SLO verdict, the engine's lint gate (``lint_ok``), the closed loop's
+    measured attribution (``attribution``, :func:`_serving_attribution`;
+    ``BENCH_ATTRIBUTION=0`` skips the trace) and the scheduler A/B
+    (``sched_ab``, :func:`_measure_sched_ab`; ``BENCH_SCHED_AB=0``)."""
+    import tempfile
+
+    from mpi4dl_tpu_torch.profiling import trace as profiler_trace
+    from mpi4dl_tpu_torch.serve.loadgen import run_closed_loop, serial_throughput
+
+    model, stats, shape = _serving_model(device)
+    engine = _serving_engine(model, stats, shape)
     serial = serial_throughput(engine, 32)
+    attribute = os.environ.get("BENCH_ATTRIBUTION", "1") != "0"
+    trace_dir = tempfile.mkdtemp(prefix="mpi4dl-bench-serve-trace-") if attribute else None
     engine.start()
     try:
-        rep = run_closed_loop(engine, 384, concurrency=96, deadline_s=30.0)
+        # Every thread's host ranges: the engine opens its
+        # ``mpi4dl_serve_batch`` ranges on its batcher thread.
+        with (profiler_trace(trace_dir, all_threads=True) if attribute
+              else contextlib.nullcontext()):
+            rep = run_closed_loop(engine, 384, concurrency=96, deadline_s=30.0)
     finally:
         engine.stop()
+    lint = engine.lint_report()
+    attribution = _serving_attribution(trace_dir, lint) if attribute else None
     entry = {
         "value": round(rep["throughput_rps"], 1),
         "serial_bs1_rps": round(serial["throughput_rps"], 1),
@@ -433,6 +471,7 @@ def measure_serving(device) -> dict:
         "mean_batch_size": round(rep["engine"]["mean_batch_size"], 1),
         "deadline_misses": rep["deadline_misses"],
         "rejected": rep["rejected_queue_full"],
+        "lint_ok": lint.ok,
         "slo": engine.slo.verdict(),
         # Each warmed bucket's measured capture peak (None off the card).
         "peak_hbm_bytes_by_bucket": {
@@ -456,7 +495,114 @@ def measure_serving(device) -> dict:
     if shares is not None:
         entry["phase_shares"] = {s["labels"]["phase"]: round(s["value"], 4)
                                  for s in shares.snapshot_series()}
+    if attribution is not None:
+        entry["attribution"] = attribution
+    if not lint.ok:
+        entry["lint_findings"] = [f for f in lint.findings if f["severity"] == "error"]
+    if os.environ.get("BENCH_SCHED_AB", "1") != "0":
+        entry["sched_ab"] = _measure_sched_ab(model, stats, shape)
     return entry
+
+
+# ``bench.py:482-565``'s scheduler A/B: the SLO classes, the 1:3 tight:bulk
+# mix (weight, deadline s) and its label, trials and requests a trial.
+SCHED_AB_CLASSES = "tight=250ms:99@10s,bulk=2.5s:99@60s"
+SCHED_AB_MIX = {"tight": (1.0, 10.0), "bulk": (3.0, 60.0)}
+SCHED_AB_MIX_LABEL = "tight:1:10s,bulk:3:60s"
+SCHED_AB_TRIALS, SCHED_AB_REQUESTS = 3, 256
+
+
+def _measure_sched_ab(model, stats, shape) -> dict:
+    """Interleaved EDF-against-FIFO A/B (``bench.py:482``) on the serving
+    extra's model and engine settings under the fixed 1:3 tight:bulk class
+    mix: tight requests carry a 10 s deadline, bulk 60 s, so EDF lets tight
+    jump the bulk backlog while FIFO serves arrival order. Both engines
+    start before the first trial and take turns trial by trial on the same
+    deterministic mix; each arm's per-trial p99s and rps are reduced by the
+    median across trials."""
+    from mpi4dl_tpu_torch.profiling import percentiles
+    from mpi4dl_tpu_torch.serve import ServingEngine
+    from mpi4dl_tpu_torch.serve.loadgen import run_closed_loop
+
+    engines = {
+        arm: ServingEngine(model, stats, shape, buckets=(1, 32), max_wait_s=0.003,
+                           max_queue=512, default_deadline_s=30.0,
+                           slo_classes=SCHED_AB_CLASSES, scheduler=arm)
+        for arm in ("edf", "fifo")
+    }
+    samples = {arm: {"tight_p99": [], "bulk_p99": [], "rps": [], "misses": 0}
+               for arm in engines}
+    try:
+        for eng in engines.values():
+            eng.start()
+        for _ in range(SCHED_AB_TRIALS):
+            for arm, eng in engines.items():
+                rep = run_closed_loop(eng, SCHED_AB_REQUESTS, concurrency=64, deadline_s=30.0,
+                                      class_mix=dict(SCHED_AB_MIX))
+                by = rep["by_class"] or {}
+                for cls in ("tight", "bulk"):
+                    p99 = (by.get(cls) or {}).get("latency_s", {}).get("p99")
+                    if p99 is not None:
+                        samples[arm][f"{cls}_p99"].append(p99)
+                samples[arm]["rps"].append(rep["throughput_rps"])
+                samples[arm]["misses"] += rep["deadline_misses"]
+    finally:
+        for eng in engines.values():
+            eng.stop()
+
+    def median(vals):
+        return percentiles(vals, (50,))["p50"] if vals else None
+
+    arms = {
+        arm: {
+            "tight_p99_ms": round(median(s["tight_p99"]) * 1e3, 2) if s["tight_p99"] else None,
+            "bulk_p99_ms": round(median(s["bulk_p99"]) * 1e3, 2) if s["bulk_p99"] else None,
+            "rps": round(median(s["rps"]), 1) if s["rps"] else None,
+            "deadline_misses": s["misses"],
+        }
+        for arm, s in samples.items()
+    }
+    out = {"classes": SCHED_AB_CLASSES, "mix": SCHED_AB_MIX_LABEL, "trials": SCHED_AB_TRIALS,
+           "requests_per_trial": SCHED_AB_REQUESTS, "arms": arms}
+    edf, fifo = arms["edf"], arms["fifo"]
+    if edf["tight_p99_ms"] and fifo["tight_p99_ms"]:
+        out["tight_p99_improved"] = edf["tight_p99_ms"] < fifo["tight_p99_ms"]
+        out["tight_p99_ratio"] = round(edf["tight_p99_ms"] / fifo["tight_p99_ms"], 3)
+    if edf["rps"] and fifo["rps"]:
+        out["rps_delta_pct"] = round((edf["rps"] - fifo["rps"]) / fifo["rps"] * 100.0, 2)
+    return out
+
+
+def _serving_attribution(trace_dir, lint) -> dict:
+    """The serving closed loop's measured device-time attribution
+    (``bench.py:1411``): :func:`~mpi4dl_tpu_torch.analysis.trace.analyze_trace_dir`
+    over the engine's ``mpi4dl_serve_batch`` ranges, published into the
+    bench's registry as ``program="serve_batch"`` and cross-checked with the
+    engine's lint. Advisory: a failure degrades to an error note. The trace
+    directory is removed either way."""
+    import shutil
+
+    try:
+        from mpi4dl_tpu_torch.analysis.trace import (
+            analyze_trace_dir,
+            crosscheck_overlap,
+            publish_attribution,
+        )
+
+        summary = analyze_trace_dir(trace_dir, step_name="mpi4dl_serve_batch")
+        if _REGISTRY is not None:
+            publish_attribution(summary, _REGISTRY, program="serve_batch")
+        return {
+            "n_steps": summary["n_steps"],
+            "per_step_mean": summary["per_step_mean"],
+            "range": summary["range"],
+            "overlap": summary["collective"],
+            "crosscheck": [f.as_dict() for f in crosscheck_overlap(lint, summary)],
+        }
+    except Exception as e:  # noqa: BLE001 — advisory metrics only
+        return {"error": f"{type(e).__name__}: {str(e)[:160]}"}
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
 
 
 def measure_tiled_gigapixel(device) -> dict:
@@ -515,6 +661,7 @@ def measure_tiled_gigapixel(device) -> dict:
         rep = run_closed_loop(eng, 6 if on_cpu else 4, concurrency=2, deadline_s=1200.0)
     finally:
         eng.stop()
+    lint = eng.lint_report()
     entry.update(
         image_px=fixed_px,
         latency_ms={k: round(v * 1e3, 1) for k, v in rep["latency_s"].items() if v is not None},
@@ -522,6 +669,7 @@ def measure_tiled_gigapixel(device) -> dict:
         errors=rep["errors"],
         deadline_misses=rep["deadline_misses"],
         tiled=rep["engine"].get("tiled"),
+        lint_ok=lint.ok,
     )
     return entry
 

@@ -207,17 +207,20 @@ def test_loadgen_dynamic_batching_beats_serial(amoeba_engine):
 
 def test_bench_serving_extras_on_the_cpu(monkeypatch):
     """The bench's ``serving_amoebanet3_32px`` and ``tiled_gigapixel``
-    extras, called as ``main`` calls them, with ``bench.py``'s keys less
-    the analyzers' (``lint_ok``, ``attribution``)."""
+    extras, called as ``main`` calls them, with ``bench.py``'s keys (the
+    scheduler A/B off here: ``tests/test_torch_bench_serving.py`` runs it)."""
     from mpi4dl_tpu_torch import bench
 
     cpu = torch.device("cpu")
+    monkeypatch.setenv("BENCH_SCHED_AB", "0")
     out = bench.measure_serving(cpu)
     assert out["value"] > 0 and out["serial_bs1_rps"] > 0
     assert {"ok", "slos", "alerts_fired"} == set(out["slo"])
     assert set(out) >= {"value", "serial_bs1_rps", "speedup_vs_serial", "latency_ms",
                         "mean_batch_size", "deadline_misses", "rejected", "slo",
-                        "peak_hbm_bytes_by_bucket", "tail", "phase_shares"}
+                        "peak_hbm_bytes_by_bucket", "tail", "phase_shares", "lint_ok",
+                        "attribution"}
+    assert out["lint_ok"] is True and out["attribution"]["n_steps"] > 0
     assert out["peak_hbm_bytes_by_bucket"] == {}  # nothing is measured off the card
     monkeypatch.setenv("BENCH_TILED_PX", "64")
     monkeypatch.setenv("BENCH_TILED_TILE", "16")
@@ -226,3 +229,4 @@ def test_bench_serving_extras_on_the_cpu(monkeypatch):
     assert out["peak_px"] == 64 and out["walk"][0]["px"] == 64
     assert out["served"] == 6 and out["errors"] == 0
     assert out["tiled"]["grid"] == [4, 4] and out["tiled"]["requests"] == 6
+    assert out["lint_ok"] is True
